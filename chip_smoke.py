@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     ptxas report (registers, shared memory, spills) and the build time;
  3. kernels: each kernel at the shapes the serving path gives it for
     Llama-3-8B, held against its plain PyTorch version on the same
-    inputs at the stated tolerance, and timed on the card (CUDA-graph
+    inputs at the stated tolerance (bf16 paged attention: its output
+    must be the plain version on the same values in fp32, rounded once
+    to bf16 — within half a bf16 ulp, plus 1e-5 for fp32 summation
+    order), and timed on the card (CUDA-graph
     replay, CUDA events) beside its plain version and its bound: the
     larger of the bytes it must move over 3.35 TB/s and its operations
     over 989 TFLOP/s (bf16) or 67 TFLOP/s (fp32);
@@ -89,6 +92,16 @@ def device_ms(fn, inner: int = 20, reps: int = 5) -> float:
     return start.elapsed_time(end) / (inner * reps)
 
 
+def ulp_excess(a: torch.Tensor, b: torch.Tensor, ulps: float,
+               atol: float) -> float:
+    """How far |a - b| goes past `ulps` bf16 ulps of the larger of the
+    two plus `atol`, at its worst (<= 0: within the tolerance)."""
+    a, b = a.float(), b.float()
+    _, exp = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.ones_like(a), exp - 8)       # 8 significant bits
+    return ((a - b).abs() - ulps * ulp - atol).max().item()
+
+
 def bound(nbytes: float, ops: float, dtype) -> tuple:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -134,25 +147,23 @@ def kernel_phase(seed: int):
     from hetu_tpu_torch.ops.cuda import swiglu as sw
     from hetu_tpu_torch.ops.rotary import build_rope_cache
 
-    def case(label, dtype, tol, run, plain, nbytes, ops):
-        out, ref = run(0), plain(0)
+    def case(label, dtype, tol, run, plain, nbytes, ops, exact=None):
+        """`tol` = (ulps, atol): |kernel - reference| <= ulps bf16 ulps
+        of the larger + atol, elementwise.  The reference is the plain
+        version on the same inputs, or `exact`, the plain version on
+        the same values in fp32, where given."""
+        out, ref = run(0), (exact or plain)(0)
         torch.cuda.synchronize()
         outs = out if isinstance(out, tuple) else (out,)
         refs = ref if isinstance(ref, tuple) else (ref,)
         err = max((a.float() - b.float()).abs().max().item()
                   for a, b in zip(outs, refs))
-        if tol is None:     # one bf16 ulp of the larger value
-            ok = all(bool(((a.float() - b.float()).abs() <= torch.ldexp(
-                torch.ones_like(a, dtype=torch.float32),
-                torch.frexp(torch.maximum(a.float().abs(),
-                                          b.float().abs()))[1] - 8)).all())
-                     for a, b in zip(outs, refs))
-        else:
-            ok = err <= tol
+        excess = max(ulp_excess(a, b, *tol) for a, b in zip(outs, refs))
         check(all(bool(torch.isfinite(a).all()) for a in outs),
               f"{label}: non-finite output")
-        check(ok, f"{label}: kernel disagrees with its plain version "
-                  f"(max abs err {err})")
+        check(excess <= 0, f"{label}: kernel disagrees with its plain "
+                           f"version (max abs err {err}, {excess} past "
+                           f"the tolerance)")
         calls = [0]
 
         def cycled(fn):
@@ -164,16 +175,20 @@ def kernel_phase(seed: int):
         plain_ms = device_ms(cycled(plain))
         b_ms, b_by = bound(nbytes, ops, dtype)
         res = {"case": label, "max_abs_err": err,
-               "tolerance": "1 bf16 ulp" if tol is None else tol,
+               "tolerance": f"{tol[0]} bf16 ulp + {tol[1]}",
+               "excess": excess,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                "bound_by": b_by}
-        print(f"kernel {label}: max_abs_err={err:.3g} ms={ms:.5f} "
+        print(f"kernel {label}: max_abs_err={err:.3g} (excess over "
+              f"tolerance {excess:.3g}) ms={ms:.5f} "
               f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by})")
         return res
 
-    # paged attention: bf16 pools (the path's), fp32 pools (tight check)
+    # paged attention: bf16 pools (the path's) held against the plain
+    # version in fp32 on the same values, fp32 pools at 1e-4
     paged = []
-    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+    for dtype, tol in ((torch.bfloat16, (0.5, 1e-5)),
+                       (torch.float32, (0, 1e-4))):
         q, pools, table, pos, nbytes, ops = paged_case(dtype, seed, 4)
         scale = 128 ** -0.5
         paged.append(case(
@@ -185,7 +200,11 @@ def kernel_phase(seed: int):
             lambda i, q=q, pools=pools, table=table, pos=pos:
                 pa.paged_attention_plain(q, *pools[i % len(pools)], table,
                                          pos, scale),
-            nbytes, ops))
+            nbytes, ops,
+            exact=lambda i, q=q, pools=pools, table=table, pos=pos:
+                pa.paged_attention_plain(
+                    q.float(), *(t.float() for t in pools[i % len(pools)]),
+                    table, pos, scale)))
         del pools
     # rotary: the decode shape and the prefill chunk
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
@@ -202,7 +221,7 @@ def kernel_phase(seed: int):
         ops = 6 * (q.numel() + k.numel()) // 2
         rotary.append(case(
             f"fused_rotary_qk q=[{b},{s},32,128] k=[{b},{s},8,128] bf16",
-            torch.bfloat16, None,
+            torch.bfloat16, (1, 0.0),
             lambda i, q=q, k=k, c=cos_t, s_=sin_t:
                 ro.fused_rotary_qk(q, k, c, s_),
             lambda i, q=q, k=k, c=cos_t, s_=sin_t:
@@ -215,7 +234,8 @@ def kernel_phase(seed: int):
                          device="cuda").bfloat16()
         n = tokens * 14336
         swiglu.append(case(
-            f"fused_swiglu [{tokens},14336] bf16", torch.bfloat16, None,
+            f"fused_swiglu [{tokens},14336] bf16", torch.bfloat16,
+            (1, 0.0),
             lambda i, gu=gu: sw.fused_swiglu(gu[:, 0], gu[:, 1]),
             lambda i, gu=gu: sw.swiglu_plain(gu[:, 0], gu[:, 1]),
             3 * n * 2, 5 * n))
@@ -334,17 +354,21 @@ def slice_phase(seed: int, kernels):
     ttft = sorted(r.stats.ttft_s for r in results)
     e2e = sorted(r.stats.e2e_s for r in results)
     decode = reg.histogram("serve.token_latency_s")
+    tokens_out = sum(len(r.tokens) for r in results)
     decode_tokens = sum(len(r.tokens) - 1 for r in results)
     out = {
         "requests": len(results), "prompt_tokens":
             sum(r.prompt_len for r in reqs),
-        "tokens_out": sum(len(r.tokens) for r in results),
+        "tokens_out": tokens_out,
         "decode_steps": steps, "prefill_chunks": chunks,
         "ttft_s_p50": ttft[len(ttft) // 2], "ttft_s_max": ttft[-1],
         "e2e_s_p50": e2e[len(e2e) // 2], "e2e_s_max": e2e[-1],
         "decode_step_s_p50": decode.percentile(50),
         "decode_step_s_max": decode.vmax,
-        "decode_tokens_per_s": decode_tokens / decode.total,
+        # end to end: every token out over the whole run's wall time
+        "tokens_per_s": tokens_out / wall,
+        # the decode layer alone: decode tokens over decode calls' wall
+        "decode_only_tokens_per_s": decode_tokens / decode.total,
         "run_wall_s": wall, "peak_memory_gib": peak_gb,
         "launches": launches,
     }

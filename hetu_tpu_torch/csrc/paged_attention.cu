@@ -19,9 +19,11 @@
 // block walks only the slot's live keys, positions[s] + 1 of them, in
 // tiles of PA_TILE = 32 keys.  Per tile it first resolves each key's
 // row offset through the page table, then all threads copy the tile's
-// K and V rows into shared memory at once (16-byte loads where the rows
-// allow), so the tile costs one round trip to device memory instead of
-// one dependent page-id + row load per key.  K is kept in fp32 with
+// K and V rows into shared memory at once with 16-byte loads (rows must
+// start on 16-byte boundaries: hd * sizeof(T) % 16 == 0 and aligned
+// pools, which every Llama head dim and torch allocation give), so the
+// tile costs one round trip to device memory instead of one dependent
+// page-id + row load per key.  K is kept in fp32 with
 // rows padded by one word, so the scores step — one thread per (q row,
 // key), a plain dot product over the head dim — reads shared memory
 // without bank conflicts and needs no cross-lane reduction.  The
@@ -60,7 +62,7 @@ static size_t pa_smem_bytes(int G, int hd) {
                           static_cast<size_t>(G) * PA_TILE + 3 * G);
 }
 
-template <typename T, int G, bool VEC>
+template <typename T, int G>
 __global__ void __launch_bounds__(PA_THREADS)
     paged_attention_kernel(const T* __restrict__ q,
                            const T* __restrict__ k_pool,
@@ -109,7 +111,7 @@ __global__ void __launch_bounds__(PA_THREADS)
     const int nt = min(PA_TILE, n_keys - t0);
 
     // 0. stage the tile: row offsets through the page table, then every
-    //    thread copies K and V rows with independent loads
+    //    thread copies K and V rows with independent 16-byte loads
     if (tid < nt) {
       const int kp = t0 + tid;
       const long long page = trow[kp / ps];
@@ -117,27 +119,18 @@ __global__ void __launch_bounds__(PA_THREADS)
                    static_cast<long long>(hd);
     }
     __syncthreads();
-    if (VEC) {
-      constexpr int E = 16 / sizeof(T);  // elements per 16-byte load
-      const int per_row = hd / E;
-      for (int c = tid; c < nt * per_row; c += PA_THREADS) {
-        const int j = c / per_row;
-        const int e = (c - j * per_row) * E;
-        const uint4 kraw =
-            *reinterpret_cast<const uint4*>(k_pool + off_s[j] + e);
-        *reinterpret_cast<uint4*>(v_s + j * hd + e) =
-            *reinterpret_cast<const uint4*>(v_pool + off_s[j] + e);
-        const T* kv = reinterpret_cast<const T*>(&kraw);
+    constexpr int E = 16 / sizeof(T);  // elements per 16-byte load
+    const int per_row = hd / E;
+    for (int c = tid; c < nt * per_row; c += PA_THREADS) {
+      const int j = c / per_row;
+      const int e = (c - j * per_row) * E;
+      const uint4 kraw =
+          *reinterpret_cast<const uint4*>(k_pool + off_s[j] + e);
+      *reinterpret_cast<uint4*>(v_s + j * hd + e) =
+          *reinterpret_cast<const uint4*>(v_pool + off_s[j] + e);
+      const T* kv = reinterpret_cast<const T*>(&kraw);
 #pragma unroll
-        for (int i = 0; i < E; ++i) k_s[j * k_stride + e + i] = to_f32(kv[i]);
-      }
-    } else {
-      for (int c = tid; c < nt * hd; c += PA_THREADS) {
-        const int j = c / hd;
-        const int e = c - j * hd;
-        k_s[j * k_stride + e] = to_f32(k_pool[off_s[j] + e]);
-        v_s[j * hd + e] = v_pool[off_s[j] + e];
-      }
+      for (int i = 0; i < E; ++i) k_s[j * k_stride + e + i] = to_f32(kv[i]);
     }
     __syncthreads();
 
@@ -219,7 +212,7 @@ __global__ void __launch_bounds__(PA_THREADS)
   }
 }
 
-template <typename T, int G, bool VEC>
+template <typename T, int G>
 static int launch_as(const void* q, const void* k_pool, const void* v_pool,
                      const void* table, const void* positions, void* out,
                      int S, int n_kv, int group, int hd, int ps, int mp,
@@ -227,13 +220,13 @@ static int launch_as(const void* q, const void* k_pool, const void* v_pool,
   const size_t smem = pa_smem_bytes<T>(G, hd);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T, G, VEC>,
+        paged_attention_kernel<T, G>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   dim3 grid(S, n_kv);
-  paged_attention_kernel<T, G, VEC><<<grid, PA_THREADS, smem,
-                                      static_cast<cudaStream_t>(stream)>>>(
+  paged_attention_kernel<T, G><<<grid, PA_THREADS, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const int*>(table),
       static_cast<const int*>(positions), static_cast<T*>(out), n_kv, group,
@@ -241,42 +234,28 @@ static int launch_as(const void* q, const void* k_pool, const void* v_pool,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool VEC>
-static int launch_group(const void* q, const void* k_pool,
-                        const void* v_pool, const void* table,
-                        const void* positions, void* out, int S, int n_kv,
-                        int group, int hd, int ps, int mp, float scale,
-                        void* stream) {
-#define PA_LAUNCH(G)                                                      \
-  return launch_as<T, G, VEC>(q, k_pool, v_pool, table, positions, out, S, \
-                              n_kv, group, hd, ps, mp, scale, stream)
+template <typename T>
+static int launch(const void* q, const void* k_pool, const void* v_pool,
+                  const void* table, const void* positions, void* out, int S,
+                  int n_kv, int group, int hd, int ps, int mp, float scale,
+                  void* stream) {
+  // 16-byte loads need every row to start on a 16-byte boundary
+  if (group < 1 || group > PA_MAX_GROUP || hd < 1 ||
+      hd > PA_MAX_D * PA_THREADS || ps < 1 || mp < 1 ||
+      (hd * sizeof(T)) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(k_pool) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(v_pool) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (S == 0) return 0;
+#define PA_LAUNCH(G)                                                     \
+  return launch_as<T, G>(q, k_pool, v_pool, table, positions, out, S, n_kv, \
+                         group, hd, ps, mp, scale, stream)
   if (group <= 1) PA_LAUNCH(1);
   if (group <= 2) PA_LAUNCH(2);
   if (group <= 4) PA_LAUNCH(4);
   if (group <= 8) PA_LAUNCH(8);
   PA_LAUNCH(16);
 #undef PA_LAUNCH
-}
-
-template <typename T>
-static int launch(const void* q, const void* k_pool, const void* v_pool,
-                  const void* table, const void* positions, void* out, int S,
-                  int n_kv, int group, int hd, int ps, int mp, float scale,
-                  void* stream) {
-  if (group < 1 || group > PA_MAX_GROUP || hd < 1 ||
-      hd > PA_MAX_D * PA_THREADS || ps < 1 || mp < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (S == 0) return 0;
-  // 16-byte loads need every row to start on a 16-byte boundary
-  const bool vec = (hd * sizeof(T)) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(k_pool) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(v_pool) % 16 == 0;
-  return vec ? launch_group<T, true>(q, k_pool, v_pool, table, positions,
-                                     out, S, n_kv, group, hd, ps, mp, scale,
-                                     stream)
-             : launch_group<T, false>(q, k_pool, v_pool, table, positions,
-                                      out, S, n_kv, group, hd, ps, mp, scale,
-                                      stream);
 }
 
 HETU_EXPORT int hetu_paged_attention_f32(const void* q, const void* k_pool,

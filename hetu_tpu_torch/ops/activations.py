@@ -1,5 +1,4 @@
-"""Activations, the port of `hetu_tpu/ops/activations.py` (`silu`,
-`swiglu`).
+"""Activations, the port of `hetu_tpu/ops/activations.py` (`swiglu`).
 
 `swiglu` is the dispatcher the MLP calls: one call to
 `ops.cuda.swiglu.fused_swiglu` — the CUDA kernel for CUDA tensors, its
@@ -11,10 +10,6 @@ agree).
 import torch
 
 from hetu_tpu_torch.ops.cuda.swiglu import fused_swiglu
-
-
-def silu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(x)
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

@@ -103,6 +103,12 @@ def paged_attention(q, k_pool, v_pool, table, positions, *,
         raise ValueError(f"the CUDA kernel takes q-head groups <= "
                          f"{MAX_GROUP} and head dims <= {MAX_HEAD_DIM}, got "
                          f"group {group}, hd {hd}")
+    # the kernel stages K/V rows with 16-byte loads
+    if (hd * q.element_size()) % 16 or k_pool.data_ptr() % 16 \
+            or v_pool.data_ptr() % 16:
+        raise ValueError(f"the CUDA kernel needs 16-byte K/V rows on "
+                         f"16-byte-aligned pools, got hd {hd} of "
+                         f"{q.dtype}")
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("table", table), ("positions", positions)):
         if not t.is_contiguous():

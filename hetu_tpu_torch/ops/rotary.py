@@ -1,17 +1,16 @@
 """Rotary position embeddings, the port of `hetu_tpu/ops/rotary.py`.
 
-`apply_rotary_qk` is the dispatcher the model calls: it gathers the
-per-position cos/sin rows (one small gather, kept in Python exactly as
-the reference's dispatcher does) and rotates q and k in one call to
-`ops.cuda.rotary.fused_rotary_qk` — the CUDA kernel for CUDA tensors,
-its plain version for CPU tensors.  `apply_rotary` is the reference's
-plain two-call composition, kept for the parity tests.
+The serving forwards (`models/generation.py`) gather the per-position
+cos/sin rows once per call with `rope_tables` (one small gather, kept
+in Python as the reference's dispatcher does) and rotate q and k in
+every layer with one call to `ops.cuda.rotary.fused_rotary_qk` — the
+CUDA kernel for CUDA tensors, its plain version for CPU tensors.
+`apply_rotary` is the reference's plain two-call composition, kept for
+the parity tests.
 """
 from typing import Optional
 
 import torch
-
-from hetu_tpu_torch.ops.cuda.rotary import fused_rotary_qk
 
 
 def build_rope_cache(max_len: int, head_dim: int, base: float = 10000.0,
@@ -54,12 +53,3 @@ def rope_tables(cos, sin, b: int, s: int,
     return (cos_t.float().expand(b, s, d2).contiguous(),
             sin_t.float().expand(b, s, d2).contiguous())
 
-
-def apply_rotary_qk(q, k, cos, sin,
-                    position_ids: Optional[torch.Tensor] = None):
-    """Rotate q [b, s, nq, hd] AND k [b, s, nk, hd] in one fused pass.
-    Returns (q_rotated, k_rotated)."""
-    cos_t, sin_t = rope_tables(cos, sin, q.shape[0], q.shape[1],
-                               position_ids)
-    return fused_rotary_qk(q.contiguous(), k.contiguous(), cos_t, sin_t,
-                           device=q.device)

@@ -55,6 +55,7 @@ _LATER_FIELDS = {
     "moe_dispatch": ("gspmd", _MULTI_GPU),
     "sampling": (False, _SERVING_2),
     "spec_decode": ("none", _SERVING_2),
+    "spec_k": (4, _SERVING_2),
     "prefix_cache": (False, _SERVING_2),
     "prefix_cache_pages": (0, _SERVING_2),
     "preempt": (False, _SERVING_HOST),
@@ -63,6 +64,9 @@ _LATER_FIELDS = {
     "retry_budget": (0, _SERVING_HOST),
     "deadline": (False, _SERVING_HOST),
     "brownout": (False, _SERVING_HOST),
+    "brownout_page_high": (0.95, _SERVING_HOST),
+    "brownout_queue_min": (1, _SERVING_HOST),
+    "brownout_streak": (4, _SERVING_HOST),
     "kv_repage": (False, _MULTI_GPU),
 }
 
@@ -91,9 +95,7 @@ class ServeConfig:
 
     The reference's other options keep their names and defaults here;
     setting one to anything but its default raises NotImplementedError
-    naming the slice of the port that brings it.  `spec_k` and the
-    `brownout_*` thresholds are read only with their features, so they
-    are accepted as the reference accepts them."""
+    naming the slice of the port that brings it."""
     num_slots: int = 8
     page_size: int = 16
     max_len: int = 256

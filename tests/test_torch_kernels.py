@@ -86,15 +86,19 @@ def test_fused_rotary_matches_pallas_kernel():
 
 
 def test_apply_rotary_qk_matches_reference_composition():
-    """The dispatcher (position-id gather + one fused call) against the
-    reference's plain two-call composition."""
+    """The serving forwards' RoPE (`rope_tables` gathers the rows once,
+    then one fused call) against the reference's dispatcher on its
+    plain two-call composition."""
     q, k, pos, _, _ = _rotary_case(3)
     jc, js = jops.build_rope_cache(64, 128, 10000.0)
     jq, jk = jops.apply_rotary_qk(jnp.asarray(q), jnp.asarray(k), jc, js,
                                   jnp.asarray(pos), use_pallas=False)
     tc, ts = rotary.build_rope_cache(64, 128, 10000.0)
-    tq, tk = rotary.apply_rotary_qk(torch.from_numpy(q), torch.from_numpy(k),
-                                    tc, ts, torch.from_numpy(pos).long())
+    b, s = pos.shape
+    cos_t, sin_t = rotary.rope_tables(tc, ts, b, s,
+                                      torch.from_numpy(pos).long())
+    tq, tk = trotary.fused_rotary_qk(torch.from_numpy(q), torch.from_numpy(k),
+                                     cos_t, sin_t, device="cpu")
     np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=FWD_TOL)
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=FWD_TOL)
     tq1 = rotary.apply_rotary(torch.from_numpy(q), tc, ts,

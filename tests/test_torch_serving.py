@@ -219,7 +219,8 @@ def test_serve_config_refuses_options_of_later_slices(field):
     value = {"quotas": {"acme": None}, "kv_quant": "int8",
              "moe_dispatch": "int8", "spec_decode": "ngram",
              "prefix_cache_pages": 4, "serve_sample": 2,
-             "retry_budget": 1}.get(field, True)
+             "retry_budget": 1, "spec_k": 8, "brownout_page_high": 0.5,
+             "brownout_queue_min": 2, "brownout_streak": 1}.get(field, True)
     with pytest.raises(NotImplementedError, match=field):
         tserving.ServeConfig(**{field: value})
 

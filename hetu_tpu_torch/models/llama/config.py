@@ -1,9 +1,11 @@
 """LLaMA configuration, the port of `hetu_tpu/models/llama/config.py`.
 
-Only the fields the serving path reads are kept; the training knobs
-(scan, remat, dropout, pipeline layout) arrive with the training slice.
-Dtypes are torch dtypes; the policy is the reference's: parameters
-stored in `param_dtype`, activations computed in `compute_dtype`.
+Only the fields the ported paths read are kept.  Dtypes are torch
+dtypes; the policy is the reference's: parameters stored in
+`param_dtype`, activations computed in `compute_dtype`.  The layers are
+always an `nn.ModuleList` (the reference's `use_scan` has no
+counterpart).  Dropout and remat policies other than "nothing" raise
+NotImplementedError naming the slice that brings them.
 """
 from __future__ import annotations
 
@@ -11,6 +13,10 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from hetu_tpu_torch.nn.remat import validate_remat_policy
+
+_TRAINING_3 = "the third training slice (ROADMAP Queue A item 2)"
 
 
 @dataclasses.dataclass
@@ -26,9 +32,14 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     initializer_range: float = 0.02
+    attention_dropout: float = 0.0
+    hidden_dropout: float = 0.0
     num_experts: int = 0
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = True             # recompute each block in the backward
+    remat_policy: str = "nothing"  # what a block saves: nothing
+    use_flash_attention: bool = True
 
     def __post_init__(self):
         if self.num_key_value_heads is None:
@@ -37,6 +48,13 @@ class LlamaConfig:
             raise NotImplementedError(
                 "MoE layers (num_experts > 0) are not in the serving slice; "
                 "they arrive with the multi-GPU slice (ROADMAP Queue A 10)")
+        for name in ("attention_dropout", "hidden_dropout"):
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)} is not in the port yet "
+                    f"(the reference's dropout bits cannot be matched); it "
+                    f"arrives with {_TRAINING_3}")
+        validate_remat_policy(self.remat_policy)
         if self.num_attention_heads % self.num_key_value_heads:
             raise ValueError(
                 f"num_attention_heads {self.num_attention_heads} must divide "
@@ -73,3 +91,9 @@ class LlamaConfig:
         per_layer = h * (h + 2 * kvh + h) + ffn + 2 * h  # attn + ffn + norms
         emb = v * h * (1 if self.tie_word_embeddings else 2)
         return L * per_layer + emb + h
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Approximate training FLOPs per token (forward and backward,
+        6 N plus the attention term), the reference's formula."""
+        attn = 12 * self.num_hidden_layers * self.hidden_size * seq_len
+        return 6.0 * self.num_params() + attn

@@ -1,14 +1,17 @@
 """Weight carry-over from the JAX reference.
 
 `load_jax_params(model, tree)` takes the reference's LLaMA parameter
-pytree with its leaves as numpy arrays (the stacked `use_scan` layout:
-every per-layer leaf under `model.layers.layers` carries a leading
-[num_layers] axis) and copies it into the port's parameters key for key.
-The port keeps the reference's names and fused layouts, so the mapping
-is mechanical:
+pytree with its leaves as numpy arrays and copies it into the port's
+parameters key for key.  Both of the reference's layer layouts load:
+the stacked `use_scan=True` one, where every per-layer leaf under
+`model.layers.layers` carries a leading [num_layers] axis, and the
+per-layer `use_scan=False` one, with a `model.layers.layer_<i>` subtree
+per layer.  The port keeps the reference's names and fused layouts, so
+the mapping is mechanical:
 
-    model.layers.layers.<leaf>[i]  ->  model.layers.<i>.<leaf>
-    anything else                  ->  the same dotted name
+    model.layers.layers.<leaf>[i]   ->  model.layers.<i>.<leaf>
+    model.layers.layer_<i>.<leaf>   ->  model.layers.<i>.<leaf>
+    anything else                   ->  the same dotted name
 
 A key the port lacks, a port parameter the tree lacks, or any shape
 that differs raises ValueError naming it; nothing is filled partially
@@ -24,6 +27,7 @@ import torch
 
 _LAYER = re.compile(r"^model\.layers\.(\d+)\.(.+)$")
 _STACKED = "model.layers.layers."
+_PER_LAYER = "model.layers.layer_{}."
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -39,18 +43,23 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def load_jax_params(model: torch.nn.Module, tree: Mapping) -> None:
     """Fill `model` (a port `LlamaLMHeadModel`) from the reference's
-    param pytree (numpy leaves, stacked layers).  Values are cast to
-    each parameter's dtype (through fp32, which holds the reference's
-    fp32 and bf16 leaves exactly) and copied to its device."""
+    param pytree (numpy leaves, stacked or per-layer).  Values are cast
+    to each parameter's dtype (through fp32, which holds the
+    reference's fp32 and bf16 leaves exactly) and copied to its
+    device."""
     flat = _flatten(tree)
     n_layers = model.config.num_hidden_layers
+    stacked = any(k.startswith(_STACKED) for k in flat)
     plan = []                               # (param, source array)
     used = set()
     missing = []
     for name, param in model.named_parameters():
         m = _LAYER.match(name)
-        key, index = (_STACKED + m.group(2), int(m.group(1))) if m \
-            else (name, None)
+        key, index = name, None
+        if m and stacked:
+            key, index = _STACKED + m.group(2), int(m.group(1))
+        elif m:
+            key = _PER_LAYER.format(m.group(1)) + m.group(2)
         if key not in flat:
             missing.append(f"{name} (reference key {key})")
             continue

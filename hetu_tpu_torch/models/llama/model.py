@@ -10,10 +10,12 @@ key (`from_jax.load_jax_params`):
   * `lm_head` [h, vocab] unless the embeddings are tied.
 
 The reference stacks the layers for `lax.scan`; here they are an
-`nn.ModuleList`.  The serving forwards (chunked prefill and paged
-decode) live in `models/generation.py`, which drives these modules
-layer by layer because the KV cache is written between the projection
-and the attention.
+`nn.ModuleList`.  `LlamaLMHeadModel.forward` is the training forward
+(logits, or the next-token loss given labels), each block recomputed
+in the backward when `config.remat` is on.  The serving forwards
+(chunked prefill and paged decode) live in `models/generation.py`,
+which drives these modules layer by layer because the KV cache is
+written between the projection and the attention.
 """
 from __future__ import annotations
 
@@ -22,8 +24,12 @@ from torch import nn
 
 from hetu_tpu_torch.models.llama.config import LlamaConfig
 from hetu_tpu_torch.nn.layers import Embedding, Linear, RMSNorm
+from hetu_tpu_torch.nn.remat import remat
 from hetu_tpu_torch.ops.activations import swiglu
-from hetu_tpu_torch.ops.rotary import build_rope_cache
+from hetu_tpu_torch.ops.attention import flash_attention
+from hetu_tpu_torch.ops.cuda.rotary import fused_rotary_qk
+from hetu_tpu_torch.ops.losses import softmax_cross_entropy_sparse
+from hetu_tpu_torch.ops.rotary import build_rope_cache, rope_tables
 from hetu_tpu_torch.utils.device import resolve_device
 
 
@@ -35,6 +41,7 @@ class LlamaAttention(nn.Module):
         self.group = self.n_q // self.n_kv   # q heads per kv head
         self.head_dim = c.head_dim
         self.init_std = c.initializer_range
+        self.use_flash = c.use_flash_attention
         self.wqkv = nn.Parameter(torch.empty(
             (c.hidden_size, self.n_kv, self.group + 2, self.head_dim),
             dtype=c.param_dtype, device=device), requires_grad=False)
@@ -52,6 +59,19 @@ class LlamaAttention(nn.Module):
         qkv = torch.einsum("bsh,hkgd->bskgd", x, self.wqkv.to(x.dtype))
         q = qkv[..., : self.group, :].reshape(b, s, self.n_q, self.head_dim)
         return q, qkv[..., self.group, :], qkv[..., self.group + 1, :]
+
+    def forward(self, x: torch.Tensor, cos_t: torch.Tensor,
+                sin_t: torch.Tensor, segment_ids=None) -> torch.Tensor:
+        """Causal self-attention over x [b, s, h]; cos_t/sin_t [b, s,
+        hd/2] are the RoPE rows of the positions (`rope_tables`)."""
+        b, s, _ = x.shape
+        q, k, v = self.project_qkv(x)
+        q, k = fused_rotary_qk(q.contiguous(), k.contiguous(), cos_t, sin_t,
+                               device=x.device)
+        attn = flash_attention(q, k, v, causal=True, segment_ids=segment_ids,
+                               use_pallas=None if self.use_flash else False,
+                               device=x.device)
+        return self.o_proj(attn.reshape(b, s, -1))
 
 
 class LlamaMLP(nn.Module):
@@ -74,7 +94,7 @@ class LlamaMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gu = torch.einsum("bsh,hci->bsci", x, self.w_gate_up.to(x.dtype))
-        return self.down_proj(swiglu(gu[:, :, 0, :], gu[:, :, 1, :]))
+        return self.down_proj(swiglu(gu))
 
 
 class LlamaBlock(nn.Module):
@@ -95,6 +115,12 @@ class LlamaBlock(nn.Module):
         self.attn.reset_parameters(generator)
         self.post_norm.reset_parameters()
         self.mlp.reset_parameters(generator)
+
+    def forward(self, x, cos_t, sin_t, segment_ids=None):
+        h = self.attn(self.input_norm(x), cos_t, sin_t, segment_ids)
+        # the residual add + post-norm pair: one fused kernel
+        normed, x = self.post_norm.residual(x, h)
+        return x + self.mlp(normed)
 
 
 class LlamaModel(nn.Module):
@@ -152,3 +178,38 @@ class LlamaLMHeadModel(nn.Module):
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return hidden @ self.lm_head_weight().to(hidden.dtype)
+
+    def forward(self, input_ids: torch.Tensor, labels=None, *,
+                position_ids=None, segment_ids=None,
+                loss_reduction: str = "mean", labels_shifted: bool = False):
+        """The training forward over input_ids [b, s].  Without labels,
+        the logits [b, s, vocab].  With labels, the next-token loss:
+        logits[t] predicts labels[t + 1] (labels[t] when
+        `labels_shifted`), positions labelled -100 ignored; "mean"
+        returns the mean loss, "sum" returns (loss sum, token count) so
+        that micro-batches weigh by their true token counts."""
+        c = self.config
+        if loss_reduction not in ("mean", "sum"):
+            raise ValueError(f"loss_reduction must be 'mean' or 'sum', got "
+                             f"{loss_reduction!r}")
+        b, s = input_ids.shape
+        x = self.model.embed(input_ids.long()).to(c.compute_dtype)
+        cos_t, sin_t = rope_tables(
+            self.rope_cos, self.rope_sin, b, s,
+            None if position_ids is None else position_ids.long())
+        for layer in self.model.layers:
+            if c.remat:
+                x = remat(layer, x, cos_t, sin_t, segment_ids)
+            else:
+                x = layer(x, cos_t, sin_t, segment_ids)
+        logits = self.logits(self.model.final_norm(x))
+        if labels is None:
+            return logits
+        if labels_shifted:
+            lg, tgt = logits, labels
+        else:
+            lg, tgt = logits[:, :-1, :], labels[:, 1:]
+        if loss_reduction == "sum":
+            loss = softmax_cross_entropy_sparse(lg, tgt, reduction="sum")
+            return loss, (tgt != -100).float().sum()
+        return softmax_cross_entropy_sparse(lg, tgt)

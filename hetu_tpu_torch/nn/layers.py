@@ -1,18 +1,21 @@
 """Single-device layers: the port of `hetu_tpu/nn/layers.py` `Embedding`
-and `hetu_tpu/nn/parallel.py` `ParallelRMSNorm` / `RowParallelLinear`
-(tensor/sequence parallelism arrives with the multi-GPU slice).
+and `hetu_tpu/nn/parallel.py` `ParallelRMSNorm` (with its fused
+`residual` pair) / `RowParallelLinear` (tensor/sequence parallelism
+arrives with the multi-GPU slice).
 
 Weights keep the reference layout — a linear weight is [in, out] and
 y = x @ W — so JAX parameters load key for key.  Parameters are
 created on their device in `param_dtype` and drawn from an explicit
-torch.Generator by `reset_parameters`.
+torch.Generator by `reset_parameters`; they start with
+requires_grad=False (serving needs no graph), and the training
+`Trainer` turns gradients on.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from hetu_tpu_torch.ops.norms import rms_norm
+from hetu_tpu_torch.ops.norms import residual_rms_norm, rms_norm
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -62,3 +65,8 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.weight, self.eps)
+
+    def residual(self, x: torch.Tensor, h: torch.Tensor):
+        """The pre-norm block's fused pair: (norm(x + h), x + h), one
+        pass through the fused residual-norm kernel."""
+        return residual_rms_norm(x, h, self.weight, self.eps)

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_attention", "rotary", "swiglu")
+SOURCES = ("adam", "fused_norm", "paged_attention", "rotary", "swiglu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _BUILD_TIMEOUT_S = 600
@@ -106,6 +106,14 @@ def library(name: str) -> ctypes.CDLL:
                 build([name])
             lib = _libs[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def bind(name: str, symbol: str, argtypes):
+    """`symbol` of `name`'s library (built first if missing), its
+    argtypes declared and its cudaError_t return typed."""
+    fn = getattr(library(name), symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
 
 
 def check_device(kernel: str, device, *tensors) -> torch.device:

@@ -30,6 +30,8 @@ _SYMBOLS = {torch.float32: "hetu_paged_attention_f32",
             torch.bfloat16: "hetu_paged_attention_bf16"}
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                          ctypes.c_void_p]
+#: every exported symbol -> its ctypes argtypes
+_SIGNATURES = dict.fromkeys(_SYMBOLS.values(), _ARGTYPES)
 
 
 def paged_attention_plain(q, k_pool, v_pool, table, positions,
@@ -114,13 +116,12 @@ def paged_attention(q, k_pool, v_pool, table, positions, *,
         if not t.is_contiguous():
             raise ValueError(f"paged_attention needs contiguous {name}")
     out = torch.empty_like(q)
-    fn = getattr(build.library("paged_attention"), _SYMBOLS[q.dtype])
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 table.data_ptr(), positions.data_ptr(), out.data_ptr(),
-                 S, n_kv, group, hd, ps, table.shape[1], scale,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        err = build.bind("paged_attention", _SYMBOLS[q.dtype], _ARGTYPES)(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            table.data_ptr(), positions.data_ptr(), out.data_ptr(), S, n_kv,
+            group, hd, ps, table.shape[1], scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(err, "paged_attention")
     global launches
     launches += 1

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from hetu_tpu_torch.engine import Trainer, TrainingConfig
 from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
 from hetu_tpu_torch.ops.cuda import build
 from hetu_tpu_torch.serving import Request, ServeConfig, ServingEngine
@@ -48,7 +49,11 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
                  "hetu_tpu_torch.models.generation",
                  "hetu_tpu_torch.ops.cuda.paged_attention",
                  "hetu_tpu_torch.ops.cuda.rotary",
-                 "hetu_tpu_torch.ops.cuda.swiglu"):
+                 "hetu_tpu_torch.ops.cuda.swiglu",
+                 "hetu_tpu_torch.engine.trainer",
+                 "hetu_tpu_torch.optim.optimizer",
+                 "hetu_tpu_torch.ops.cuda.fused_norm",
+                 "hetu_tpu_torch.ops.cuda.adam"):
         assert name in probe["modules"]
 
 
@@ -73,6 +78,22 @@ def test_cpu_serving_builds_nothing(monkeypatch):
     eng.warmup()
     eng.run([Request(rid=0, prompt=np.arange(1, 12, dtype=np.int32),
                      max_new_tokens=3)])
+    assert calls == []
+
+
+def test_cpu_training_builds_nothing(monkeypatch):
+    """A Trainer on the CPU runs every kernel's plain version, forward
+    and backward, and never asks for a build or a library."""
+    calls = []
+    monkeypatch.setattr(build, "build", lambda *a, **k: calls.append(a))
+    monkeypatch.setattr(build, "library", lambda *a, **k: calls.append(a))
+    model = LlamaLMHeadModel(LlamaConfig.tiny(), device="cpu")
+    tr = Trainer(model, TrainingConfig(global_batch_size=2,
+                                       micro_batch_size=1, seq_len=8),
+                 device="cpu")
+    ids = np.arange(16, dtype=np.int32).reshape(2, 8)
+    tr.train([{"input_ids": ids, "labels": ids}], num_steps=1)
+    assert tr.global_step == 1
     assert calls == []
 
 

@@ -4,8 +4,11 @@ reference's Pallas kernels and plain compositions.
 On the CPU each kernel wrapper runs its plain PyTorch version; the JAX
 side runs its Pallas kernel in interpret mode, as
 tests/test_pallas_kernels.py does, and its plain composition.  Inputs
-are seeded numpy arrays handed to both.  Float32 forward tolerance
-1e-5 (docs/kernels.md); bf16 comparisons allow one bf16 ulp.
+are seeded numpy arrays handed to both.  Backward kernels are compared
+through the autograd Functions against `jax.vjp` of the Pallas
+kernels' custom VJPs, on the same cotangents.  Float32 tolerance 1e-5
+(docs/kernels.md); bf16 outputs, each rounded once, within one bf16
+ulp; AdamW at the reference's own 1-ulp bound (rtol 3e-7).
 
 The CUDA kernels themselves are held against their plain versions on
 the card in tests/test_torch_cuda.py, which imports no JAX.
@@ -17,17 +20,22 @@ import re
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
 from hetu_tpu import ops as jops
 from hetu_tpu.models import generation as jgen
+from hetu_tpu.ops.pallas import adam as jadam
+from hetu_tpu.ops.pallas import fused_norm as jfused_norm
 from hetu_tpu.ops.pallas import paged_attention as jpaged
 from hetu_tpu.ops.pallas import rotary as jrotary
 from hetu_tpu.ops.pallas import swiglu as jswiglu
 from hetu_tpu_torch.ops import norms, rotary
 from hetu_tpu_torch.ops.activations import swiglu
+from hetu_tpu_torch.ops.cuda import adam as tadam
 from hetu_tpu_torch.ops.cuda import build
+from hetu_tpu_torch.ops.cuda import fused_norm as tfused_norm
 from hetu_tpu_torch.ops.cuda import paged_attention as tpaged
 from hetu_tpu_torch.ops.cuda import rotary as trotary
 from hetu_tpu_torch.ops.cuda import swiglu as tswiglu
@@ -39,10 +47,11 @@ def _rand(shape, seed, dtype=np.float32):
     return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
 
 
-def _bf16_close(a: torch.Tensor, b: torch.Tensor):
+def _bf16_close(a: torch.Tensor, b):
     """Within one bf16 ulp (8 significant bits) of the larger of the
-    two, elementwise."""
-    a, b = a.float(), b.float()
+    two, elementwise (`b` may be a JAX array)."""
+    a = a.float()
+    b = torch.from_numpy(np.asarray(b, np.float32))
     _, exp = torch.frexp(torch.maximum(a.abs(), b.abs()))
     ulp = torch.ldexp(torch.ones_like(a), exp - 8)
     assert bool(((a - b).abs() <= ulp).all()), \
@@ -114,15 +123,15 @@ def test_fused_rotary_bf16_matches_pallas_kernel():
     tq, tk = trotary.fused_rotary_qk(
         torch.from_numpy(q).bfloat16(), torch.from_numpy(k).bfloat16(),
         torch.from_numpy(cos_t), torch.from_numpy(sin_t), device="cpu")
-    _bf16_close(tq, torch.from_numpy(np.asarray(jq, np.float32)))
-    _bf16_close(tk, torch.from_numpy(np.asarray(jk, np.float32)))
+    _bf16_close(tq, jq)
+    _bf16_close(tk, jk)
 
 
 # --------------------------------------------------------------- swiglu
 def test_fused_swiglu_matches_pallas_kernel():
     g, u = _rand((16, 256), 0), _rand((16, 256), 1)
     ref = jswiglu.fused_swiglu(jnp.asarray(g), jnp.asarray(u))
-    out = tswiglu.fused_swiglu(torch.from_numpy(g), torch.from_numpy(u),
+    out = tswiglu.fused_swiglu(torch.from_numpy(np.stack([g, u], -2)),
                                device="cpu")
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=FWD_TOL)
 
@@ -133,8 +142,7 @@ def test_swiglu_matches_reference_composition_on_strided_views():
     gu = _rand((2, 8, 2, 256), 4)
     ref = jops.swiglu(jnp.asarray(gu[:, :, 0]), jnp.asarray(gu[:, :, 1]),
                       use_pallas=False)
-    t = torch.from_numpy(gu)
-    out = swiglu(t[:, :, 0, :], t[:, :, 1, :])
+    out = swiglu(torch.from_numpy(gu))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=FWD_TOL)
 
 
@@ -142,9 +150,196 @@ def test_fused_swiglu_bf16_rounds_once_like_pallas_kernel():
     g, u = _rand((16, 256), 6), _rand((16, 256), 7)
     ref = jswiglu.fused_swiglu(jnp.asarray(g, jnp.bfloat16),
                                jnp.asarray(u, jnp.bfloat16))
-    out = tswiglu.fused_swiglu(torch.from_numpy(g).bfloat16(),
-                               torch.from_numpy(u).bfloat16(), device="cpu")
-    _bf16_close(out, torch.from_numpy(np.asarray(ref, np.float32)))
+    out = tswiglu.fused_swiglu(
+        torch.from_numpy(np.stack([g, u], -2)).bfloat16(), device="cpu")
+    _bf16_close(out, ref)
+
+
+def test_fused_swiglu_backward_matches_pallas_kernel():
+    """dgate and dup, written into one [..., 2, inner] cotangent of the
+    fused projection, against the Pallas kernel's custom VJP."""
+    g, u, dy = _rand((16, 256), 10), _rand((16, 256), 11), _rand((16, 256),
+                                                                   12)
+    _, vjp = jax.vjp(jswiglu.fused_swiglu, jnp.asarray(g), jnp.asarray(u))
+    jdg, jdu = vjp(jnp.asarray(dy))
+    gu = torch.from_numpy(np.stack([g, u], -2)).requires_grad_(True)
+    tswiglu.fused_swiglu(gu, device="cpu").backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(gu.grad[:, 0].numpy(), np.asarray(jdg),
+                               atol=FWD_TOL)
+    np.testing.assert_allclose(gu.grad[:, 1].numpy(), np.asarray(jdu),
+                               atol=FWD_TOL)
+
+
+def test_fused_swiglu_backward_bf16_rounds_once_like_pallas_kernel():
+    g, u, dy = (_rand((16, 256), s) for s in (13, 14, 15))
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
+    _, vjp = jax.vjp(jswiglu.fused_swiglu, bf(g), bf(u))
+    jdg, jdu = vjp(bf(dy))
+    dgu = tswiglu.swiglu_bwd(torch.from_numpy(np.stack([g, u], -2)).bfloat16(),
+                             torch.from_numpy(dy).bfloat16(), device="cpu")
+    _bf16_close(dgu[:, 0], jdg)
+    _bf16_close(dgu[:, 1], jdu)
+
+
+# ------------------------------------------------------ rotary backward
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_fused_rotary_backward_matches_pallas_kernel(dtype):
+    """dq and dk through the autograd Function (the same kernel by
+    -theta) against the Pallas kernel's custom VJP."""
+    q, k, _, cos_t, sin_t = _rotary_case(20)
+    dqo, dko = _rand(q.shape, 22), _rand(k.shape, 23)
+    cs = jnp.asarray(cos_t), jnp.asarray(sin_t)
+    _, vjp = jax.vjp(lambda a, b: jrotary.fused_rotary_qk(a, b, *cs),
+                     jnp.asarray(q, dtype), jnp.asarray(k, dtype))
+    jdq, jdk = vjp((jnp.asarray(dqo, dtype), jnp.asarray(dko, dtype)))
+    tdtype = torch.float32 if dtype == np.float32 else torch.bfloat16
+    tq, tk = (torch.from_numpy(a).to(tdtype).requires_grad_(True)
+              for a in (q, k))
+    oq, ok = trotary.fused_rotary_qk(tq, tk, torch.from_numpy(cos_t),
+                                     torch.from_numpy(sin_t), device="cpu")
+    torch.autograd.backward((oq, ok), (torch.from_numpy(dqo).to(tdtype),
+                                       torch.from_numpy(dko).to(tdtype)))
+    if dtype == np.float32:
+        np.testing.assert_allclose(tq.grad.numpy(), np.asarray(jdq),
+                                   atol=FWD_TOL)
+        np.testing.assert_allclose(tk.grad.numpy(), np.asarray(jdk),
+                                   atol=FWD_TOL)
+    else:
+        _bf16_close(tq.grad, jdq)
+        _bf16_close(tk.grad, jdk)
+
+
+def test_rotary_backward_takes_strided_cotangents():
+    """Autograd may hand the Function strided cotangents; it makes them
+    contiguous before the kernel (which requires contiguous operands)."""
+    q, k, _, cos_t, sin_t = _rotary_case(24)
+    tq, tk = (torch.from_numpy(a).requires_grad_(True) for a in (q, k))
+    oq, ok = trotary.fused_rotary_qk(tq, tk, torch.from_numpy(cos_t),
+                                     torch.from_numpy(sin_t), device="cpu")
+    dqo = torch.from_numpy(_rand(q.shape[:2] + q.shape[3:] + q.shape[2:3],
+                                 25)).transpose(2, 3)
+    assert not dqo.is_contiguous()
+    torch.autograd.backward((oq, ok), (dqo, torch.zeros_like(ok)))
+    ref, _ = trotary.rotary_qk_plain(dqo.contiguous(), torch.zeros_like(ok),
+                                     torch.from_numpy(cos_t),
+                                     -torch.from_numpy(sin_t))
+    np.testing.assert_array_equal(tq.grad.numpy(), ref.numpy())
+
+
+# ------------------------------------------------- fused residual norm
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_fused_residual_rmsnorm_matches_pallas_kernel(dtype):
+    """y and s forward; dx, dh and dw from the Pallas kernel's custom
+    VJP on the same cotangents.  bf16: y, s and dx are each rounded
+    once (one ulp); dw is an fp32 sum over the rows (1e-5, summation
+    order)."""
+    x, h, w = _rand((2, 8, 256), 30), _rand((2, 8, 256), 31), \
+        1.0 + 0.1 * _rand((256,), 32)
+    dy, dr = _rand((2, 8, 256), 33), _rand((2, 8, 256), 34)
+    (jy, js), vjp = jax.vjp(
+        lambda a, b, c: jfused_norm.fused_residual_rmsnorm(a, b, c, 1e-5),
+        jnp.asarray(x, dtype), jnp.asarray(h, dtype), jnp.asarray(w))
+    jdx, jdh, jdw = vjp((jnp.asarray(dy, dtype), jnp.asarray(dr, dtype)))
+    tdtype = torch.float32 if dtype == np.float32 else torch.bfloat16
+    tx, th = (torch.from_numpy(a).to(tdtype).requires_grad_(True)
+              for a in (x, h))
+    tw = torch.from_numpy(w).requires_grad_(True)
+    ty, ts = tfused_norm.fused_residual_rmsnorm(tx, th, tw, 1e-5,
+                                                device="cpu")
+    torch.autograd.backward((ty, ts), (torch.from_numpy(dy).to(tdtype),
+                                       torch.from_numpy(dr).to(tdtype)))
+    assert tw.grad.dtype == torch.float32
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw), rtol=1e-5,
+                               atol=FWD_TOL)
+    pairs = ((ty, jy), (ts, js), (tx.grad, jdx), (th.grad, jdh))
+    for a, b in pairs:
+        if dtype == np.float32:
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                       atol=FWD_TOL)
+        else:
+            _bf16_close(a.detach(), b)
+
+
+def test_fused_residual_rmsnorm_bf16_gap_to_the_reference_fallback():
+    """The port follows the Pallas kernel, which normalizes the
+    UNROUNDED fp32 s = x + h; the reference's XLA fallback
+    (`ops.residual_rms_norm`, use_pallas=False) rounds s to bf16 first.
+    The two y's therefore differ in bf16: by a few ulps, not by one.
+    This test states that gap: nonzero, and within 3 bf16 ulps of |y|
+    (bf16 s carries a relative error up to 2^-9, which y inherits on top
+    of its own rounding); the y's agree to 1 ulp with the kernel's."""
+    x, h = _rand((4, 8, 512), 40), _rand((4, 8, 512), 41)
+    w = 1.0 + 0.1 * _rand((512,), 42)
+    jy, _ = jops.residual_rms_norm(jnp.asarray(x, jnp.bfloat16),
+                                   jnp.asarray(h, jnp.bfloat16),
+                                   jnp.asarray(w), use_pallas=False)
+    ty, _ = norms.residual_rms_norm(torch.from_numpy(x).bfloat16(),
+                                    torch.from_numpy(h).bfloat16(),
+                                    torch.from_numpy(w))
+    a = ty.float()
+    b = torch.from_numpy(np.asarray(jy, np.float32))
+    _, exp = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulps = ((a - b).abs() / torch.ldexp(torch.ones_like(a), exp - 8))
+    assert ulps.max() > 0              # the paths do differ in bf16
+    assert ulps.max() <= 3
+    jk, _ = jfused_norm.fused_residual_rmsnorm(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(h, jnp.bfloat16),
+        jnp.asarray(w))
+    _bf16_close(ty, jk)
+
+
+def test_residual_rms_norm_matches_reference_in_fp32():
+    """In fp32 the kernel's arithmetic and the reference's fallback
+    composition agree."""
+    x, h, w = _rand((3, 5, 64), 43), _rand((3, 5, 64), 44), _rand((64,), 45)
+    jy, js = jops.residual_rms_norm(jnp.asarray(x), jnp.asarray(h),
+                                    jnp.asarray(w), use_pallas=False)
+    ty, ts = norms.residual_rms_norm(torch.from_numpy(x), torch.from_numpy(h),
+                                     torch.from_numpy(w))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=FWD_TOL)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=FWD_TOL)
+
+
+# ------------------------------------------------------------- adamw
+def test_adam_update_matches_pallas_kernel_over_two_steps():
+    """An fp32 leaf and a bf16 leaf, two steps (the bias corrections
+    move), in place, against the Pallas kernel at the reference's own
+    1-ulp bound; lr/c1/c2 in fp32 as the reference's optimizer computes
+    them."""
+    b1, b2, eps, wd, lr = 0.9, 0.95, 1e-8, 0.01, 1e-2
+    leaves = {"w": (_rand((8, 128), 50), np.float32),
+              "e": (_rand((256,), 51), jnp.bfloat16)}
+    for name, (p0, dtype) in leaves.items():
+        g = (_rand(p0.shape, 52) * 0.1).astype(np.float32)
+        jp, jm, jv = (jnp.asarray(p0, dtype), jnp.zeros(p0.shape),
+                      jnp.zeros(p0.shape))
+        tp = torch.from_numpy(np.array(jp, np.float32)).to(
+            torch.float32 if dtype == np.float32 else torch.bfloat16)
+        tm, tv = torch.zeros(p0.shape), torch.zeros(p0.shape)
+        for step in (1, 2):
+            c1 = np.float32(1.0) - np.float32(b1) ** np.float32(step)
+            c2 = np.float32(1.0) - np.float32(b2) ** np.float32(step)
+            jp, jm, jv = jadam.adam_update(
+                jp, jnp.asarray(g), jm, jv, lr, c1, c2, b1=b1, b2=b2,
+                eps=eps, weight_decay=wd)
+            tadam.adam_update(tp, torch.from_numpy(g), tm, tv, lr, c1, c2,
+                              b1=b1, b2=b2, eps=eps, weight_decay=wd,
+                              device="cpu")
+        for a, b in ((tp, jp), (tm, jm), (tv, jv)):
+            np.testing.assert_allclose(a.float().numpy(),
+                                       np.asarray(b, np.float32),
+                                       rtol=3e-7, atol=1e-8, err_msg=name)
+
+
+def test_adam_update_refuses_what_the_kernel_does_not_take():
+    p, m, v = torch.zeros(8), torch.zeros(8), torch.zeros(8)
+    with pytest.raises(ValueError):              # a bf16 gradient
+        tadam.adam_update(p, torch.zeros(8).bfloat16(), m, v, 1e-3, 0.1,
+                          0.05, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
+                          device="cpu")
+    with pytest.raises(ValueError):              # shapes differ
+        tadam.adam_update(p, torch.zeros(9), m, v, 1e-3, 0.1, 0.05, b1=0.9,
+                          b2=0.95, eps=1e-8, weight_decay=0.0, device="cpu")
 
 
 # ------------------------------------------------------ paged attention
@@ -220,38 +415,61 @@ def test_paged_attention_rejects_what_the_kernel_does_not_take():
 
 
 # ---------------------------------------------- the wrappers' contract
-@pytest.mark.parametrize("call", ["paged", "rotary", "swiglu"])
+def _norm_args():
+    x = torch.ones(2, 4, 128)
+    return x, x, torch.ones(128)
+
+
+def _adam_args():
+    return (*(torch.zeros(256) for _ in range(4)), 1e-3, 0.1, 0.05)
+
+
+@pytest.mark.parametrize("call", ["paged", "rotary", "swiglu", "norm",
+                                  "norm_bwd", "swiglu_bwd", "rotary_bwd",
+                                  "adam"])
 def test_wrappers_default_to_the_card(monkeypatch, call):
     """Default device is "cuda": with no card, CPU inputs without
     device="cpu" raise instead of quietly running the plain version,
     and the plain version never counts as a launch."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    mod, args = {
-        "paged": (tpaged, map(torch.from_numpy, _paged_case(2))),
-        "rotary": (trotary, map(torch.from_numpy, _rotary_case(2)[:2]
-                                + _rotary_case(2)[3:])),
-        "swiglu": (tswiglu, (torch.ones(8, 128), torch.ones(8, 128))),
+    rot = list(map(torch.from_numpy, _rotary_case(2)[:2]
+                   + _rotary_case(2)[3:]))
+    gu = torch.ones(8, 2, 128)
+    mod, counter, fn, args, kw = {
+        "paged": (tpaged, "launches", tpaged.paged_attention,
+                  list(map(torch.from_numpy, _paged_case(2))), {}),
+        "rotary": (trotary, "launches", trotary.fused_rotary_qk, rot, {}),
+        "swiglu": (tswiglu, "launches", tswiglu.fused_swiglu, [gu], {}),
+        "norm": (tfused_norm, "launches",
+                 tfused_norm.fused_residual_rmsnorm, _norm_args(), {}),
+        "norm_bwd": (tfused_norm, "bwd_launches",
+                     tfused_norm.residual_rmsnorm_bwd,
+                     (_norm_args()[0], _norm_args()[2], *_norm_args()[:2]),
+                     {}),
+        "swiglu_bwd": (tswiglu, "bwd_launches", tswiglu.swiglu_bwd,
+                       (gu, torch.ones(8, 128)), {}),
+        "rotary_bwd": (trotary, "bwd_launches", trotary.rotary_qk_bwd, rot,
+                       {}),
+        "adam": (tadam, "launches", tadam.adam_update, _adam_args(),
+                 dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0)),
     }[call]
-    args = list(args)
-    fn = {"paged": tpaged.paged_attention,
-          "rotary": trotary.fused_rotary_qk,
-          "swiglu": tswiglu.fused_swiglu}[call]
     with pytest.raises(RuntimeError):
-        fn(*args)
-    before = mod.launches
-    fn(*args, device="cpu")
-    assert mod.launches == before
+        fn(*args, **kw)
+    before = getattr(mod, counter)
+    fn(*args, **kw, device="cpu")
+    assert getattr(mod, counter) == before
 
 
 def test_exported_symbols_match_the_wrappers():
-    """Each wrapper's C symbol is exported by its source, with as many
+    """Each wrapper's C symbols are exported by its source, with as many
     parameters as the wrapper's argtypes declare — checked here, where
     no compiler runs."""
     for mod, src in ((tpaged, "paged_attention"), (trotary, "rotary"),
-                     (tswiglu, "swiglu")):
+                     (tswiglu, "swiglu"), (tfused_norm, "fused_norm"),
+                     (tadam, "adam")):
         text = (build.CSRC / f"{src}.cu").read_text()
-        for sym in mod._SYMBOLS.values():
+        for sym, argtypes in mod._SIGNATURES.items():
             m = re.search(rf"HETU_EXPORT int {sym}\(([^)]*)\)", text)
             assert m, f"{sym} not exported by {src}.cu"
-            assert len(m.group(1).split(",")) == len(mod._ARGTYPES), sym
+            assert len(m.group(1).split(",")) == len(argtypes), sym
     assert set(build.SOURCES) == {p.stem for p in build.CSRC.glob("*.cu")}

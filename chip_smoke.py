@@ -19,16 +19,19 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     the same inputs at the stated tolerance, and timed on the card
     (CUDA-graph replay, CUDA events) beside its plain version, its
     bound — the larger of the bytes it must move over 3.35 TB/s and its
-    operations over the peak rate of their type (all of them fp32 math
-    outside the tensor cores, 67 TFLOP/s) — and, for AdamW, the one
-    PyTorch call that computes the same update (`torch._fused_adamw_`,
-    timed as a yardstick only; the port never calls it).  Tolerances:
+    operations over the peak rate of their type (fp32 math outside the
+    tensor cores, 67 TFLOP/s; the flash kernels' products against the
+    bf16 tensor-core peak, 989 TFLOP/s) — and, where one PyTorch call
+    computes the same function, that call (`torch._fused_adamw_` for
+    AdamW, `scaled_dot_product_attention` for the flash kernels; timed
+    as yardsticks only, the port never calls them).  Tolerances:
     one bf16 ulp where a kernel rounds once to bf16 (paged attention on
     bf16 pools: the plain version on the same values in fp32, rounded
     once — half an ulp, plus 1e-5 for fp32 summation order); fp32
     outputs 1e-5 relative (the norm's dw, a sum over 4096 rows taken in
     another order: 1e-5 of its largest entry); AdamW one fp32 ulp
-    (rtol 3e-7), its bf16 parameter one bf16 ulp;
+    (rtol 3e-7), its bf16 parameter one bf16 ulp; the flash kernels as
+    `flash_kernel_phase` states;
  4. serving reference: Llama-3-8B widths cut to 2 layers, in fp32 — the
     serving engine on the card (the kernels) against the same engine on
     the CPU (the plain versions), same weights and trace: prefill logits
@@ -45,30 +48,37 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     kernels it saw on the card): the card's idle share and its heaviest
     kernels;
  7. training reference: a narrow Llama (hidden 512, 4 q / 2 kv heads of
-    128, SwiGLU 1536, vocab 4096, 2 layers, fp32) takes 3 `Trainer`
-    steps on the card (the kernels) and on the CPU (the plain versions)
+    128, SwiGLU 1536, vocab 4096, 2 layers, fp32, flash attention,
+    recompute policy "dots_attn") takes 3 `Trainer` steps on the card
+    (the kernels; flash's fp32 arm) and on the CPU (the plain versions)
     from the same weights and batches: losses and grad norms within
     1e-5 relative; parameters within 2 x the summed lr everywhere and
     within 1e-5 on all but 0.1% of elements (AdamW divides by sqrt(v),
     so a gradient within rounding of zero moves its element by up to lr
     in one run and not the other);
  8. training: Llama-3-8B at full width cut to 8 layers (fp32 parameters
-    and AdamW state, bf16 compute, per-block recompute, the dense
-    attention) through `Trainer(model, TrainingConfig(global_batch_size=4,
+    and AdamW state, bf16 compute, flash attention, recompute policy
+    "dots_attn": the reference benchmark's training configuration)
+    through `Trainer(model, TrainingConfig(global_batch_size=4,
     micro_batch_size=2, seq_len=2048), device="cuda").train(...)`, 6
     steps on one repeated seeded batch.  Every launch count is set to 0
     just before and read after each step: each training kernel must
-    grow by exactly its count per step (forward kernels 2 x layers x
-    micro-batches under recompute, backward kernels layers x
-    micro-batches, AdamW once per parameter leaf).  The first loss lies
-    within 0.5 of ln(vocab) + sigma^2 / 2 (sigma = 0.02 * sqrt(4096),
-    the logits' spread at init), every loss is finite and the last is
-    below the first.  Prints step time p50, tokens/s, mfu (model FLOPs
-    per token, no recompute, over 989 TFLOP/s), peak memory; then one
-    step under torch.profiler (idle share, heaviest kernels, the time of
-    each ported kernel in the step) and the dense attention and the
-    LM head + loss timed apart at the step's shapes.  Past 70 GiB of
-    peak memory the micro-batch halves (printed as a cut).
+    grow by exactly its count per step (norm, RoPE and SwiGLU forwards
+    2 x layers x micro-batches — every policy recomputes them; the flash
+    forward and every backward kernel layers x micro-batches — the
+    policy keeps o and lse; AdamW once per parameter leaf).  The first
+    loss lies within 0.5 of ln(vocab) + sigma^2 / 2 (sigma = 0.02 *
+    sqrt(4096), the logits' spread at init), every loss is finite and
+    the last is below the first.  Prints step time p50, tokens/s, mfu
+    (model FLOPs per token, no recompute, over 989 TFLOP/s), peak
+    memory; then one step under torch.profiler (idle share, heaviest
+    kernels, the time of each ported kernel in the step, the attention's
+    from its three kernels) and flash attention, the dense attention
+    and the LM head + loss timed apart at the step's shapes.  Past
+    70 GiB of peak memory the micro-batch halves (printed as a cut).
+    Then the first training slice's path — the dense attention, whole
+    blocks recomputed (policy "nothing") — at 2 layers for 2 steps, with
+    its launch counts (every forward kernel twice, no flash kernel).
 
 Prints the `kernels` JSON line, the nvidia-smi line, and last the
 `{"ok": true, "device": ...}` line.
@@ -177,14 +187,10 @@ def bound(nbytes: float, ops: float, op_dtype=torch.float32) -> tuple:
                                  else "operations")
 
 
-def case(label, tols, run, plain, nbytes, ops, *, exact=None, library=None):
-    """Hold run(0) against plain(0) (or `exact`(0), the plain version on
-    the same values in fp32, where given), output by output with `tols`
-    (one tolerance, or one per output); then time the kernel, its plain
-    version and `library` (one PyTorch call computing the same function,
-    a yardstick) on the card.  Each is called with a running count, so a
-    case can cycle through copies of its inputs."""
-    out, ref = run(0), (exact or plain)(0)
+def compare(label, tols, out, ref):
+    """Hold a kernel's outputs against its plain version's, output by
+    output with `tols` (one tolerance, or one per output); returns (max
+    abs err, worst excess over a tolerance, the tolerances' text)."""
     torch.cuda.synchronize()
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
@@ -196,6 +202,29 @@ def case(label, tols, run, plain, nbytes, ops, *, exact=None, library=None):
           f"{label}: non-finite output")
     check(excess <= 0, f"{label}: kernel disagrees with its plain version "
                        f"(max abs err {err}, {excess} past the tolerance)")
+    return err, excess, " / ".join(dict.fromkeys(t.text for t in tols))
+
+
+def checked(label, tols, out, ref):
+    """A correctness-only case: compared, not timed."""
+    err, excess, text = compare(label, tols, out, ref)
+    print(f"kernel {label}: max_abs_err={err:.3g} (excess over tolerance "
+          f"{excess:.3g}), not timed")
+    return {"case": label, "max_abs_err": err, "tolerance": text,
+            "excess": excess, "ms": None, "plain_ms": None,
+            "bound_ms": None, "bound_by": None, "library_ms": None}
+
+
+def case(label, tols, run, plain, nbytes, ops, *, exact=None, library=None,
+         library_ms=None, op_dtype=torch.float32):
+    """Hold run(0) against plain(0) (or `exact`(0), the plain version on
+    the same values in fp32, where given) as `compare` does; then time
+    the kernel, its plain version and `library` (one PyTorch call
+    computing the same function, a yardstick; or its time `library_ms`
+    where the caller measured it) on the card.  Each is called with a
+    running count, so a case can cycle through copies of its inputs.
+    `op_dtype` picks the peak rate the operations are bound by."""
+    err, excess, text = compare(label, tols, run(0), (exact or plain)(0))
     calls = [0]
 
     def cycled(fn):
@@ -205,16 +234,16 @@ def case(label, tols, run, plain, nbytes, ops, *, exact=None, library=None):
         return go
     ms = device_ms(cycled(run))
     plain_ms = device_ms(cycled(plain))
-    library_ms = device_ms(cycled(library)) if library else None
-    b_ms, b_by = bound(nbytes, ops)
-    res = {"case": label, "max_abs_err": err,
-           "tolerance": " / ".join(dict.fromkeys(t.text for t in tols)),
+    if library:
+        library_ms = device_ms(cycled(library))
+    b_ms, b_by = bound(nbytes, ops, op_dtype)
+    res = {"case": label, "max_abs_err": err, "tolerance": text,
            "excess": excess, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
     print(f"kernel {label}: max_abs_err={err:.3g} (excess over tolerance "
           f"{excess:.3g}) ms={ms:.5f} plain_ms={plain_ms:.5f} "
           f"bound_ms={b_ms:.5f} ({b_by})"
-          + ("" if library is None else f" library_ms={library_ms:.5f}"))
+          + ("" if library_ms is None else f" library_ms={library_ms:.5f}"))
     return res
 
 
@@ -432,13 +461,183 @@ def training_kernel_phase(seed: int):
     return {"residual_rmsnorm_fwd": norm_fwd,
             "residual_rmsnorm_bwd": norm_bwd, "fused_swiglu": swiglu,
             "swiglu_bwd": swiglu_bwd, "fused_rotary_qk": rotary,
-            "rotary_qk_bwd": rotary_bwd, "adam_update": adam}
+            "rotary_qk_bwd": rotary_bwd, "adam_update": adam,
+            **flash_kernel_phase(seed)}
+
+
+def _flash_setup(fa, b, sq, sk, hq, hkv, d, dtype, g, *, block=128,
+                 causal=True, segments=False, block_mask=None):
+    """Inputs of one flash case on the card, [b, h, s, d] views of
+    [b, s, h, d] tensors as the model hands them over, and the static
+    arguments every entry takes."""
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    q, do = randn(b, sq, hq, d), randn(b, sq, hq, d)
+    k, v = randn(b, sk, hkv, d), randn(b, sk, hkv, d)
+    q_pos = (torch.arange(sq, dtype=torch.int32, device="cuda")
+             + (sk - sq)).expand(b, sq)
+    k_pos = torch.arange(sk, dtype=torch.int32, device="cuda").expand(b, sk)
+    q_seg = k_seg = None
+    if segments:            # two packed sequences, cut at a third
+        q_seg = (q_pos >= sk // 3).int().contiguous()
+        k_seg = (k_pos >= sk // 3).int().contiguous()
+    bq, bk = fa.fit_block(block, sq), fa.fit_block(block, sk)
+    if block_mask is None:
+        block_mask = (fa.causal_block_mask(sq, sk, bq, bk) if causal
+                      else fa.full_block_mask(sq, sk, bq, bk))
+    kw = dict(scale=d ** -0.5, causal=causal, block_q=bq, block_k=bk)
+    live = torch.tensor(block_mask, dtype=torch.uint8, device="cuda")
+    tensors = tuple(t.transpose(1, 2) for t in (q, k, v, do))
+    return tensors, (q_pos, k_pos, q_seg, k_seg), kw, block_mask, live
+
+
+def flash_kernel_phase(seed: int):
+    """The three flash kernels.  Timed at the training shape, q [2, 2048,
+    32, 128] over k/v [2, 2048, 8, 128], bf16, causal (2,098,176 live
+    elements a head): each kernel beside the plain version, its bound
+    (two, three and four products of 2 x 128 operations a live element,
+    over the bf16 tensor-core peak) and `scaled_dot_product_attention`
+    (forward; for the two backward kernels its whole backward, forward +
+    backward less forward — one call computes dq, dk and dv there).
+    Then correctness only at smaller shapes: fp32, segments, sq != sk, a
+    block mask with a dead row.
+
+    Tolerances, against the plain version on the same values in fp32.
+    The fp32 arm runs every product in fp32: 1e-5 of the largest entry
+    for o and the gradients, lse 1e-5.  The bf16 arm keeps the softmax,
+    lse and every accumulator in fp32 but rounds P and dS to bf16 for
+    the tensor cores, as FlashAttention-2 does: each term of an output's
+    sum then carries a relative error of at most 2^-9.  For o = sum_j
+    p_j v_j / l that is at most 2^-9 max|v| (the p_j / l sum to 1), on
+    top of the half bf16 ulp of o's own rounding.  A gradient's terms
+    (ds_j k_j, ds_i q_i, p_i do_i) have no such normalisation; their
+    errors do not align, and the bound used is 2^-8 of the tensor's
+    largest entry (the measured error is printed beside it)."""
+    import torch.nn.functional as F
+    from hetu_tpu_torch.ops.cuda import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    out = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
+
+    def tolerances(dtype, v):
+        """(o, lse), then one for the gradients."""
+        if dtype == torch.float32:
+            of_max = rel(1e-5, 1e-6, of_max=True)
+            return (of_max, rel(1e-5, 1e-5)), of_max
+        o_tol = ulps(0.5, 1e-5 + 2.0 ** -9 * v.abs().max().item())
+        return (o_tol, rel(1e-5, 1e-5)), rel(2.0 ** -8, 1e-6, of_max=True)
+
+    def run_all(tensors, masks, kw, block_mask, live):
+        """(kernel outputs, plain outputs) of forward, dq and dk/dv; the
+        plain versions on the same values in fp32, the backward from
+        the kernel's own o and lse."""
+        q, k, v, do = tensors
+        o, lse = fa._fwd(q, k, v, *masks, block_mask=block_mask, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, lse, do, delta, *masks)
+        dq = fa.flash_bwd_dq(*args, block_mask=block_mask, **kw)
+        dkv = fa.flash_bwd_dkv(*args, block_mask=block_mask, **kw)
+        f32 = [t.float() for t in (q, k, v)]
+        ref_fwd = fa.flash_fwd_plain(*f32, *masks, live=live, **kw)
+        ref_bwd = fa.flash_bwd_plain(*f32, lse, do.float(), delta, *masks,
+                                     live=live, **kw)
+        return ((o, lse), (dq,), dkv), (ref_fwd, ref_bwd[:1], ref_bwd[1:])
+
+    # ---- the training shape, timed
+    b, s, hq, hkv, d = 2, 2048, 32, 8, 128
+    tensors, masks, kw, block_mask, live = _flash_setup(
+        fa, b, s, s, hq, hkv, d, torch.bfloat16, g)
+    q, k, v, do = tensors
+    o, lse = fa._fwd(q, k, v, *masks, block_mask=block_mask, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, lse, do, delta, *masks)
+    live_elems = s * (s + 1) // 2 * b * hq
+    qo, kv = q.numel() * 2, k.numel() * 2          # bytes, bf16
+    stats = lse.numel() * 4
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():     # no .grad to accumulate into: the call alone
+        torch.autograd.grad(F.scaled_dot_product_attention(
+            *leaves, is_causal=True, enable_gqa=True), leaves, do)
+    with torch.no_grad():
+        lib_f = device_ms(sdpa)
+    # in a CUDA graph, like the kernels: timed through autograd on the
+    # host's clock, a call this short follows the host's load instead
+    lib_fb = device_ms(sdpa_fwd_bwd)
+    del leaves
+    shape = f"q=[{b},{s},{hq},{d}] kv=[{b},{s},{hkv},{d}] bf16 causal"
+    f32 = [t.float() for t in (q, k, v)]
+    fwd_tols, grad_tol = tolerances(torch.bfloat16, v)
+    out["flash_fwd"].append(case(
+        f"flash_fwd {shape}", fwd_tols,
+        lambda i: fa._fwd(q, k, v, *masks, block_mask=block_mask, **kw),
+        lambda i: fa.flash_fwd_plain(q, k, v, *masks, live=live, **kw),
+        2 * qo + 2 * kv + stats, 4 * d * live_elems,
+        exact=lambda i: fa.flash_fwd_plain(*f32, *masks, live=live, **kw),
+        library_ms=lib_f, op_dtype=torch.bfloat16))
+
+    def plain_bwd(i):
+        return fa.flash_bwd_plain(*args, live=live, **kw)
+
+    def exact_bwd():
+        return fa.flash_bwd_plain(*f32, lse, do.float(), delta, *masks,
+                                  live=live, **kw)
+    ref = exact_bwd()
+    out["flash_bwd_dq"].append(case(
+        f"flash_bwd_dq {shape}", grad_tol,
+        lambda i: fa.flash_bwd_dq(*args, block_mask=block_mask, **kw),
+        lambda i: plain_bwd(i)[0], 2 * qo + 2 * kv + 2 * stats + 2 * qo,
+        6 * d * live_elems, exact=lambda i: ref[0],
+        library_ms=lib_fb - lib_f, op_dtype=torch.bfloat16))
+    out["flash_bwd_dkv"].append(case(
+        f"flash_bwd_dkv {shape}", grad_tol,
+        lambda i: fa.flash_bwd_dkv(*args, block_mask=block_mask, **kw),
+        lambda i: plain_bwd(i)[1:], 2 * qo + 2 * kv + 2 * stats + 4 * kv,
+        8 * d * live_elems, exact=lambda i: ref[1:],
+        library_ms=lib_fb - lib_f, op_dtype=torch.bfloat16))
+    print(f"flash library: scaled_dot_product_attention forward "
+          f"{lib_f:.5f} ms, forward + backward {lib_fb:.5f} ms")
+    del tensors, q, k, v, do, o, lse, delta, args, f32, ref
+
+    # ---- correctness only
+    dead_row = ((True, False, True, False), (False, False, False, False))
+    small = (
+        ("fp32 causal GQA d=128", (2, 256, 256, 8, 2, 128, torch.float32),
+         {}),
+        ("fp32 segments d=64", (2, 256, 256, 4, 4, 64, torch.float32),
+         {"segments": True}),
+        ("bf16 sq != sk d=128", (2, 128, 384, 8, 2, 128, torch.bfloat16),
+         {}),
+        ("bf16 dead row of the block mask d=64",
+         (2, 128, 256, 4, 1, 64, torch.bfloat16),
+         {"causal": False, "block": 64, "block_mask": dead_row}),
+    )
+    for label, dims, opts in small:
+        setup = _flash_setup(fa, *dims, g, **opts)
+        got, want = run_all(*setup)
+        fwd_tols, grad_tol = tolerances(dims[-1], setup[0][2])
+        for name, tols, mine, theirs in zip(
+                out, (fwd_tols, grad_tol, grad_tol), got, want):
+            out[name].append(checked(f"{name} {label}", tols, mine, theirs))
+        if "block_mask" in opts:       # the dead row: o = 0, lse = -1e30
+            o, lse = got[0]
+            check(bool((o[:, :, 64:] == 0).all())
+                  and bool((lse[:, :, 64:] == fa.NEG_INF).all())
+                  and bool((got[1][0][:, :, 64:] == 0).all()),
+                  "flash: the block mask's dead row is not o = 0, "
+                  "lse = -1e30, dq = 0")
+    return out
 
 
 def kernel_table():
     """{kernel: (wrapper module, its launch counter, source, the TPU
     kernel it replaces)} for every ported kernel."""
     from hetu_tpu_torch.ops.cuda import adam as ad
+    from hetu_tpu_torch.ops.cuda import flash_attention as fa
     from hetu_tpu_torch.ops.cuda import fused_norm as fn
     from hetu_tpu_torch.ops.cuda import paged_attention as pa
     from hetu_tpu_torch.ops.cuda import rotary as ro
@@ -460,6 +659,12 @@ def kernel_table():
         "rotary_qk_bwd": (ro, "bwd_launches", src + "rotary.cu",
                           tpu + "rotary.py:112"),
         "adam_update": (ad, "launches", src + "adam.cu", tpu + "adam.py:87"),
+        "flash_fwd": (fa, "launches", src + "flash_attention.cu",
+                      tpu + "flash_attention.py:246"),
+        "flash_bwd_dq": (fa, "dq_launches", src + "flash_attention.cu",
+                         tpu + "flash_attention.py:328"),
+        "flash_bwd_dkv": (fa, "dkv_launches", src + "flash_attention.cu",
+                          tpu + "flash_attention.py:368"),
     }
 
 
@@ -674,7 +879,9 @@ def _train_batch(vocab: int, batch: int, seq: int, seed: int):
 
 
 def training_reference_phase(seed: int):
-    """A narrow Llama, 3 Trainer steps on the card and on the CPU."""
+    """A narrow Llama with flash attention, 3 Trainer steps on the card
+    (the flash kernels' fp32 arm) and on the CPU (flash's plain version,
+    forced: the CPU's own route is the dense attention)."""
     from hetu_tpu_torch.engine import Trainer, TrainingConfig
     from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
 
@@ -682,7 +889,8 @@ def training_reference_phase(seed: int):
                            num_key_value_heads=2, intermediate_size=1536,
                            vocab_size=4096, num_hidden_layers=2,
                            compute_dtype=torch.float32,
-                           use_flash_attention=False)
+                           use_flash_attention=True,
+                           remat_policy="dots_attn")
     tc = TrainingConfig(global_batch_size=4, micro_batch_size=2, seq_len=64,
                         warmup_steps=1, total_steps=10, log_every=100)
     batch = _train_batch(cfg.vocab_size, 4, 64, seed)
@@ -691,6 +899,8 @@ def training_reference_phase(seed: int):
     cpu = LlamaLMHeadModel(cfg, device="cpu", seed=seed)
     card = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
     card.load_state_dict(cpu.state_dict())
+    for layer in cpu.model.layers:
+        layer.attn.use_pallas = True
     runs = []
     for model, dev in ((card, "cuda"), (cpu, "cpu")):
         tr = Trainer(model, tc, device=dev)
@@ -710,7 +920,8 @@ def training_reference_phase(seed: int):
     check(p_err <= bound_p and p_frac <= 1e-3,
           f"card vs CPU parameters differ: max {p_err} (bound {bound_p}), "
           f"{p_frac} of elements past 1e-5")
-    print(f"training reference: hidden 512, 2 layers, fp32, 3 steps: card "
+    print(f"training reference: hidden 512, 2 layers, fp32, flash + "
+          f"dots_attn, 3 steps: card "
           f"vs CPU loss/grad_norm/lr worst relative diff {worst} (tol "
           f"1e-5); parameters max abs diff {p_err:.3g} (bound "
           f"{bound_p:.3g}), {p_frac:.3g} of elements past 1e-5 (tol "
@@ -718,13 +929,19 @@ def training_reference_phase(seed: int):
           f"({time.perf_counter() - t0:.1f}s)")
 
 
-def training_phase(seed: int, kernels, card: str, steps: int = 6):
-    """Llama-3-8B widths, 8 layers, through the Trainer on the card."""
+def training_phase(seed: int, kernels, card: str, *, layers: int,
+                   steps: int, use_flash: bool, policy: str,
+                   time_it: bool):
+    """Llama-3-8B widths at `layers` layers through the Trainer on the
+    card, with flash attention or the dense one and the recompute
+    policy `policy`; the launch counts of every step are checked."""
     from hetu_tpu_torch.engine import Trainer, TrainingConfig
     from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
 
-    cfg = LlamaConfig.llama3_8b(num_hidden_layers=8,
-                                use_flash_attention=False)
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=layers,
+                                use_flash_attention=use_flash,
+                                remat_policy=policy)
+    attn = "flash attention" if use_flash else "the dense attention"
     L, seq, gbs = cfg.num_hidden_layers, 2048, 4
     batch = _train_batch(cfg.vocab_size, gbs, seq, seed)
     sigma = cfg.initializer_range * math.sqrt(cfg.hidden_size)
@@ -742,7 +959,8 @@ def training_phase(seed: int, kernels, card: str, steps: int = 6):
         n_params = sum(p.numel() for p in tr.params)
         print(f"training: Llama-3-8B widths, {L} layers, {n_params / 1e9:.3f}B"
               f" params fp32 + fp32 grads and AdamW moments, bf16 compute, "
-              f"remat, micro-batch {mbs} x {seq}; built in "
+              f"{attn}, remat policy {policy!r}, micro-batch {mbs} x {seq}; "
+              f"built in "
               f"{time.perf_counter() - t0:.1f}s")
         n_micro = gbs // mbs
         fwd, bwd = 2 * L * n_micro, L * n_micro
@@ -751,6 +969,10 @@ def training_phase(seed: int, kernels, card: str, steps: int = 6):
                         residual_rmsnorm_fwd=fwd, residual_rmsnorm_bwd=bwd,
                         swiglu_bwd=bwd, rotary_qk_bwd=bwd,
                         adam_update=len(tr.params))
+        if use_flash:   # "dots_attn" keeps o and lse: no second forward
+            per_step.update(
+                flash_fwd=bwd if policy == "dots_attn" else fwd,
+                flash_bwd_dq=bwd, flash_bwd_dkv=bwd)
         torch.cuda.reset_peak_memory_stats()
         zero_counts(kernels)
         losses, step_s, launches = [], [], {name: 0 for name in kernels}
@@ -786,7 +1008,8 @@ def training_phase(seed: int, kernels, card: str, steps: int = 6):
     flops = cfg.flops_per_token(seq) * tokens
     reg = tr.registry
     out = {
-        "layers": L, "micro_batch": mbs, "micro_batches": n_micro,
+        "layers": L, "attention": "flash" if use_flash else "dense",
+        "remat_policy": policy, "micro_batch": mbs, "micro_batches": n_micro,
         "seq_len": seq, "tokens_per_step": tokens, "losses": losses,
         "expected_first_loss": expect_first,
         "step_s": step_s, "step_s_p50": p50, "tokens_per_s": tokens / p50,
@@ -799,23 +1022,27 @@ def training_phase(seed: int, kernels, card: str, steps: int = 6):
         "launches_per_step": per_step, "launches": launches, "card": card,
     }
     print("training " + json.dumps(out))
-    training_time_phase(tr, batch, p50 * 1e3, card)
+    if time_it:
+        training_time_phase(tr, batch, p50 * 1e3, card)
     return launches
 
 
 def training_time_phase(tr, batch, step_ms: float, card: str):
-    """Where a training step's time goes: one step under torch.profiler
-    (device busy, heaviest kernels, each ported kernel's summed time;
-    the idle share against `step_ms`, the unprofiled step's synchronised
-    p50); then the dense attention and the LM head + loss timed apart at
-    the step's shapes and scaled to the step's call counts."""
-    from hetu_tpu_torch.ops.attention import attention
+    """Where a flash training step's time goes: one step under
+    torch.profiler (device busy, heaviest kernels, each ported kernel's
+    summed time — the attention's share is its three kernels'; the idle
+    share against `step_ms`, the unprofiled step's synchronised p50);
+    then flash attention (forward, forward + backward), the dense
+    attention it replaced and the LM head + loss timed apart at the
+    step's shapes."""
+    from hetu_tpu_torch.ops.attention import attention, flash_attention
     from hetu_tpu_torch.ops.losses import softmax_cross_entropy_sparse
 
     busy, wall, by_name, top = _profile(lambda: tr.train_step(batch), 1,
                                         top=10)
     ours = {key: sum(t for n, t in by_name.items() if key in n)
-            for key in ("rmsnorm_fwd", "rmsnorm_bwd", "swiglu_fwd",
+            for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                        "rmsnorm_fwd", "rmsnorm_bwd", "swiglu_fwd",
                         "swiglu_bwd", "rotary_qk", "adam_kernel")}
     cfg, c = tr.model.config, tr.config
     n_micro, L = tr.n_micro, cfg.num_hidden_layers
@@ -831,14 +1058,16 @@ def training_time_phase(tr, batch, step_ms: float, card: str):
     k, v = (leaf(mbs, seq, cfg.num_key_value_heads, cfg.head_dim)
             for _ in range(2))
     do = torch.randn_like(q)
+    apart = {}
+    for name, fn in (("flash", flash_attention), ("dense", attention)):
+        def fwd():
+            with torch.no_grad():
+                fn(q, k, v, causal=True)
 
-    def attn_fwd():
-        with torch.no_grad():
-            attention(q, k, v, causal=True)
-
-    def attn_fwd_bwd():
-        attention(q, k, v, causal=True).backward(do)
-    a_f, a_fb = event_ms(attn_fwd), event_ms(attn_fwd_bwd)
+        def fwd_bwd():
+            fn(q, k, v, causal=True).backward(do)
+        apart[f"{name}_attention_fwd_ms"] = event_ms(fwd)
+        apart[f"{name}_attention_fwd_bwd_ms"] = event_ms(fwd_bwd)
     del q, k, v, do
     hidden = leaf(mbs, seq, cfg.hidden_size)
     labels = torch.randint(0, cfg.vocab_size, (mbs, seq), device="cuda")
@@ -851,18 +1080,22 @@ def training_time_phase(tr, batch, step_ms: float, card: str):
     h_fb = event_ms(head_loss)
     head.grad = None
     del hidden
-    # recompute runs each block's forward twice per micro-batch
-    attention_ms = L * n_micro * (a_f + a_fb)
+    attention_ms = sum(ours[key] for key in ("flash_fwd", "flash_bwd_dq",
+                                             "flash_bwd_dkv"))
     head_ms = n_micro * h_fb
     out = {"step_ms_p50": step_ms, "profiled_wall_ms": wall,
            "device_busy_ms": busy, "device_idle_share": 1.0 - busy / step_ms,
-           "top_kernels_ms": top, "ported_kernels_ms": ours,
-           "dense_attention_fwd_ms": a_f, "dense_attention_fwd_bwd_ms": a_fb,
-           "dense_attention_ms_per_step": attention_ms,
+           "top_kernels_ms": top, "ported_kernels_ms": ours, **apart,
+           "flash_attention_ms_per_step": attention_ms,
+           # what the dense attention would take in this step's place:
+           # a forward and a forward + backward a layer and micro-batch
+           "dense_attention_ms_per_step": L * n_micro * (
+               apart["dense_attention_fwd_ms"]
+               + apart["dense_attention_fwd_bwd_ms"]),
            "lm_head_loss_fwd_bwd_ms": h_fb, "lm_head_loss_ms_per_step": head_ms,
            "adamw_ms_per_step": ours["adam_kernel"],
-           "other_device_ms": busy - attention_ms - head_ms
-           - sum(ours.values()), "card": card}
+           "other_device_ms": busy - head_ms - sum(ours.values()),
+           "card": card}
     print("training time " + json.dumps(out))
 
 
@@ -903,7 +1136,15 @@ def main(argv=None) -> int:
     for name, more in training_kernel_phase(args.seed).items():
         cases.setdefault(name, []).extend(more)
     training_reference_phase(args.seed)
-    by_path["training"] = training_phase(args.seed, kernels, smi)
+    by_path["training"] = training_phase(
+        args.seed, kernels, smi, layers=8, steps=6, use_flash=True,
+        policy="dots_attn", time_it=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the first training slice's path, cut to 2 layers and 2 steps
+    by_path["training_dense"] = training_phase(
+        args.seed, kernels, smi, layers=2, steps=2, use_flash=False,
+        policy="nothing", time_it=False)
 
     line = []
     for name, (mod, attr, source, replaces) in kernels.items():
@@ -912,7 +1153,7 @@ def main(argv=None) -> int:
         line.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": counts["serving"] or counts["training"],
+            "launches": next((n for n in counts.values() if n), 0),
             "launches_by_path": counts,
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": head["ms"], "kernel_ms": head["ms"],

@@ -4,7 +4,9 @@ Only the fields the ported paths read are kept.  Dtypes are torch
 dtypes; the policy is the reference's: parameters stored in
 `param_dtype`, activations computed in `compute_dtype`.  The layers are
 always an `nn.ModuleList` (the reference's `use_scan` has no
-counterpart).  Dropout and remat policies other than "nothing" raise
+counterpart).  `use_flash_attention` routes the attention to the flash
+kernels on the card; `remat_policy` is "nothing", "dots" or "dots_attn"
+(`nn/remat.py`).  Dropout and the "offload" policy raise
 NotImplementedError naming the slice that brings them.
 """
 from __future__ import annotations
@@ -38,7 +40,7 @@ class LlamaConfig:
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     remat: bool = True             # recompute each block in the backward
-    remat_policy: str = "nothing"  # what a block saves: nothing
+    remat_policy: str = "nothing"  # what a block saves (nn/remat.py)
     use_flash_attention: bool = True
 
     def __post_init__(self):
@@ -47,7 +49,7 @@ class LlamaConfig:
         if self.num_experts:
             raise NotImplementedError(
                 "MoE layers (num_experts > 0) are not in the serving slice; "
-                "they arrive with the multi-GPU slice (ROADMAP Queue A 10)")
+                "they arrive with the multi-GPU slice (ROADMAP Queue A item 5)")
         for name in ("attention_dropout", "hidden_dropout"):
             if getattr(self, name):
                 raise NotImplementedError(

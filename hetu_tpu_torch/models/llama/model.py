@@ -11,8 +11,9 @@ key (`from_jax.load_jax_params`):
 
 The reference stacks the layers for `lax.scan`; here they are an
 `nn.ModuleList`.  `LlamaLMHeadModel.forward` is the training forward
-(logits, or the next-token loss given labels), each block recomputed
-in the backward when `config.remat` is on.  The serving forwards
+(logits, or the next-token loss given labels); when `config.remat` is
+on, each block is recomputed in the backward as `config.remat_policy`
+says (`nn/remat.py`).  The serving forwards
 (chunked prefill and paged decode) live in `models/generation.py`,
 which drives these modules layer by layer because the KV cache is
 written between the projection and the attention.
@@ -41,7 +42,10 @@ class LlamaAttention(nn.Module):
         self.group = self.n_q // self.n_kv   # q heads per kv head
         self.head_dim = c.head_dim
         self.init_std = c.initializer_range
-        self.use_flash = c.use_flash_attention
+        # the dispatcher's route: None = by device (flash kernels on the
+        # card, dense attention on the CPU), False = dense everywhere;
+        # a check may set True to run flash's plain version on the CPU
+        self.use_pallas = None if c.use_flash_attention else False
         self.wqkv = nn.Parameter(torch.empty(
             (c.hidden_size, self.n_kv, self.group + 2, self.head_dim),
             dtype=c.param_dtype, device=device), requires_grad=False)
@@ -53,25 +57,41 @@ class LlamaAttention(nn.Module):
         self.wqkv.normal_(0.0, self.init_std, generator=generator)
         self.o_proj.reset_parameters(generator)
 
-    def project_qkv(self, x: torch.Tensor):
-        """x [b, s, h] -> q [b, s, nq, hd], k and v [b, s, n_kv, hd]."""
-        b, s, _ = x.shape
-        qkv = torch.einsum("bsh,hkgd->bskgd", x, self.wqkv.to(x.dtype))
+    def qkv(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused projection: x [b, s, h] -> [b, s, n_kv, group+2, hd]."""
+        return torch.einsum("bsh,hkgd->bskgd", x, self.wqkv.to(x.dtype))
+
+    def split(self, qkv: torch.Tensor):
+        """qkv -> q [b, s, nq, hd], k and v [b, s, n_kv, hd]."""
+        b, s = qkv.shape[:2]
         q = qkv[..., : self.group, :].reshape(b, s, self.n_q, self.head_dim)
         return q, qkv[..., self.group, :], qkv[..., self.group + 1, :]
 
+    def project_qkv(self, x: torch.Tensor):
+        """x [b, s, h] -> q [b, s, nq, hd], k and v [b, s, n_kv, hd]."""
+        return self.split(self.qkv(x))
+
+    def heads(self, qkv: torch.Tensor, cos_t: torch.Tensor,
+              sin_t: torch.Tensor):
+        """qkv -> (q, k, v) with RoPE on q and k; cos_t/sin_t [b, s,
+        hd/2] are the RoPE rows of the positions (`rope_tables`)."""
+        q, k, v = self.split(qkv)
+        q, k = fused_rotary_qk(q.contiguous(), k.contiguous(), cos_t, sin_t,
+                               device=qkv.device)
+        return q, k, v
+
+    def attend(self, q, k, v, segment_ids=None) -> torch.Tensor:
+        """Causal self-attention, heads merged: [b, s, nq * hd]."""
+        attn = flash_attention(q, k, v, causal=True, segment_ids=segment_ids,
+                               use_pallas=self.use_pallas,
+                               device=q.device)
+        return attn.reshape(*q.shape[:2], -1)
+
     def forward(self, x: torch.Tensor, cos_t: torch.Tensor,
                 sin_t: torch.Tensor, segment_ids=None) -> torch.Tensor:
-        """Causal self-attention over x [b, s, h]; cos_t/sin_t [b, s,
-        hd/2] are the RoPE rows of the positions (`rope_tables`)."""
-        b, s, _ = x.shape
-        q, k, v = self.project_qkv(x)
-        q, k = fused_rotary_qk(q.contiguous(), k.contiguous(), cos_t, sin_t,
-                               device=x.device)
-        attn = flash_attention(q, k, v, causal=True, segment_ids=segment_ids,
-                               use_pallas=None if self.use_flash else False,
-                               device=x.device)
-        return self.o_proj(attn.reshape(b, s, -1))
+        """Causal self-attention over x [b, s, h]."""
+        q, k, v = self.heads(self.qkv(x), cos_t, sin_t)
+        return self.o_proj(self.attend(q, k, v, segment_ids))
 
 
 class LlamaMLP(nn.Module):
@@ -92,9 +112,12 @@ class LlamaMLP(nn.Module):
         self.w_gate_up.normal_(0.0, self.init_std, generator=generator)
         self.down_proj.reset_parameters(generator)
 
+    def gate_up(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused projection: x [b, s, h] -> [b, s, 2, inter]."""
+        return torch.einsum("bsh,hci->bsci", x, self.w_gate_up.to(x.dtype))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        gu = torch.einsum("bsh,hci->bsci", x, self.w_gate_up.to(x.dtype))
-        return self.down_proj(swiglu(gu))
+        return self.down_proj(swiglu(self.gate_up(x)))
 
 
 class LlamaBlock(nn.Module):
@@ -121,6 +144,28 @@ class LlamaBlock(nn.Module):
         # the residual add + post-norm pair: one fused kernel
         normed, x = self.post_norm.residual(x, h)
         return x + self.mlp(normed)
+
+    def forward_saving_dots(self, x, cos_t, sin_t, segment_ids=None, *,
+                            save_attn: bool):
+        """`forward` under the recompute policies "dots" (`save_attn`
+        off) and "dots_attn" (on): the four projections run outside any
+        checkpoint, so autograd keeps their outputs, and only the
+        segments between them — input norm; RoPE (and, under "dots",
+        the attention); residual add + post norm; SwiGLU — are
+        recomputed in the backward.  Under "dots_attn" the attention
+        runs outside too, so its output and lse are kept and its
+        forward is not launched again."""
+        a = self.attn
+        qkv = a.qkv(remat(self.input_norm, x))
+        if save_attn:
+            attn = a.attend(*remat(a.heads, qkv, cos_t, sin_t), segment_ids)
+        else:
+            attn = remat(
+                lambda t: a.attend(*a.heads(t, cos_t, sin_t), segment_ids),
+                qkv)
+        normed, x = remat(self.post_norm.residual, x, a.o_proj(attn))
+        hidden = remat(swiglu, self.mlp.gate_up(normed))
+        return x + self.mlp.down_proj(hidden)
 
 
 class LlamaModel(nn.Module):
@@ -198,10 +243,14 @@ class LlamaLMHeadModel(nn.Module):
             self.rope_cos, self.rope_sin, b, s,
             None if position_ids is None else position_ids.long())
         for layer in self.model.layers:
-            if c.remat:
+            if not c.remat:
+                x = layer(x, cos_t, sin_t, segment_ids)
+            elif c.remat_policy == "nothing":
                 x = remat(layer, x, cos_t, sin_t, segment_ids)
             else:
-                x = layer(x, cos_t, sin_t, segment_ids)
+                x = layer.forward_saving_dots(
+                    x, cos_t, sin_t, segment_ids,
+                    save_attn=c.remat_policy == "dots_attn")
         logits = self.logits(self.model.final_norm(x))
         if labels is None:
             return logits

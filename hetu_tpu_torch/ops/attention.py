@@ -6,18 +6,17 @@ causal mask aligned bottom-right (`tril(k=sk-sq)`) and an optional
 segment mask, softmax and the weighted sum in fp32, cast back to q's
 dtype.  `flash_attention` is the dispatcher the model calls.  The
 reference routes it to its Pallas flash kernel on a TPU and to
-`attention` everywhere else; the port's flash kernels (forward and
-backward) arrive with the second training slice, so until then asking
-for flash on the card raises, and the CPU runs `attention`, as the
-reference does off the TPU.
+`attention` everywhere else; the port routes it by device: on the card
+to the flash kernels of `ops/cuda/flash_attention.py` (forward, and dq
+and dk/dv in the backward), on the CPU to `attention`, as the reference
+does off the TPU.
 """
 from typing import Optional
 
 import torch
 
 from hetu_tpu_torch.ops.cuda import build
-
-_FLASH_SLICE = "the second training slice (ROADMAP Queue A item 2)"
+from hetu_tpu_torch.ops.cuda import flash_attention as flash
 
 
 def attention(q, k, v, *, causal: bool = True,
@@ -51,17 +50,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     softmax_scale: Optional[float] = None,
                     use_pallas: Optional[bool] = None, device="cuda"):
     """The model's attention entry point.  `use_pallas=False` runs
-    `attention`; otherwise (the reference's auto or forced flash route)
-    `device` "cuda" raises NotImplementedError until the flash kernels
-    are ported, and "cpu" runs `attention`, as the reference's
-    dispatcher does off the TPU."""
-    dev = torch.device(device)
-    if use_pallas is not False and dev.type == "cuda":
-        raise NotImplementedError(
-            "flash attention on the card is not in the port yet; it "
-            f"arrives with {_FLASH_SLICE}.  Set "
-            "LlamaConfig.use_flash_attention=False for the dense "
-            "attention.")
-    build.check_device("attention", dev, q, k, v)
-    return attention(q, k, v, causal=causal, segment_ids=segment_ids,
-                     softmax_scale=softmax_scale)
+    `attention`.  Otherwise `device` "cuda" launches the flash kernels
+    (the reference's auto and forced routes alike: there is no shape
+    gate that quietly falls back, an unsupported shape raises), and
+    "cpu" runs `attention` on auto (None), as the reference's dispatcher
+    does off the TPU, and the flash kernels' plain version when forced
+    (True)."""
+    dev = build.check_device("attention", device, q, k, v)
+    if use_pallas is False or (use_pallas is None and dev.type == "cpu"):
+        return attention(q, k, v, causal=causal, segment_ids=segment_ids,
+                         softmax_scale=softmax_scale)
+    return flash.flash_attention(q, k, v, causal=causal,
+                                 segment_ids=segment_ids,
+                                 softmax_scale=softmax_scale, device=dev)

@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("adam", "fused_norm", "paged_attention", "rotary", "swiglu")
+SOURCES = ("adam", "flash_attention", "fused_norm", "paged_attention",
+           "rotary", "swiglu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _BUILD_TIMEOUT_S = 600

@@ -17,8 +17,15 @@ in another order), AdamW within one fp32 ulp (rtol 3e-7); paged
 attention within 1e-4 on fp32 pools; on bf16 pools its output, rounded once to
 bf16, lies within half a bf16 ulp (plus 1e-5 for fp32 summation order)
 of the plain version on the same values in fp32, which a wrong
-rounding or a dropped key breaks.  The training step on the card is
-held against the same step on the CPU (the plain versions).
+rounding or a dropped key breaks.  The flash kernels, against the plain
+version on the same values in fp32: the fp32 arm within 1e-5 of each
+output's largest entry (fp32 sums in another order); the bf16 arm rounds
+P and dS to bf16 for the tensor cores (2^-9 relative a term), so o lies
+within half a bf16 ulp + 2^-9 max|v|, the fp32 gradients of `_bwd`
+within 2^-8 of their largest entry, and the Function's bf16 gradients
+within 2^-7 of it (their own rounding, and delta taken from the rounded
+o).  The training step on the card is held against the same step on the
+CPU (the plain versions).
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import numpy as np
 from hetu_tpu_torch.engine import Trainer, TrainingConfig
 from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
 from hetu_tpu_torch.ops.cuda import adam as tadam
+from hetu_tpu_torch.ops.cuda import flash_attention as tflash
 from hetu_tpu_torch.ops.cuda import fused_norm as tfused_norm
 from hetu_tpu_torch.ops.cuda import paged_attention as tpaged
 from hetu_tpu_torch.ops.cuda import rotary as trotary
@@ -280,6 +288,158 @@ def test_adam_matches_plain(dev, dtype):
                                    atol=1e-10)
 
 
+# ------------------------------------------------------------ flash
+_DEAD_ROW = ((True, False, True, False), (False, False, False, False))
+#: name -> (sq, sk, block_q, block_k, what the case turns on)
+_FLASH_CASES = {
+    "causal": (256, 256, 128, 128, {}),
+    "full": (128, 256, 64, 128, {"causal": False}),
+    "sq_ne_sk": (128, 256, 64, 64, {}),                # bottom-right
+    "segments": (256, 256, 128, 64, {"segments": True}),
+    "dead_row": (128, 256, 64, 64, {"block_mask": _DEAD_ROW,
+                                    "causal": False}),
+    "ragged_blocks": (192, 96, 96, 96, {}),            # 64 + 32 row tiles
+    "future_chunk": (128, 128, 64, 64, {"k_offset": 1000}),
+}
+
+
+def _flash_inputs(dev, dtype, sq, sk, hq, hkv, d, opts):
+    b = 2
+    q = _normal((b, sq, hq, d), 20, dev, dtype)
+    k = _normal((b, sk, hkv, d), 21, dev, dtype)
+    v = _normal((b, sk, hkv, d), 22, dev, dtype)
+    kw = {key: opts[key] for key in ("causal", "block_mask") if key in opts}
+    if opts.get("segments"):
+        cut_q, cut_k = sq // 3, sk // 3 + (sk - sq)
+        kw["segment_ids"] = (torch.arange(sq, device=dev) >= cut_q).int()[
+            None].expand(b, sq).contiguous()
+        kw["kv_segment_ids"] = (torch.arange(sk, device=dev) >= cut_k).int()[
+            None].expand(b, sk).contiguous()
+    if "k_offset" in opts:
+        kw["q_positions"] = torch.arange(
+            sq, dtype=torch.int32, device=dev)[None].expand(b, sq)
+        kw["kv_positions"] = (torch.arange(sk, dtype=torch.int32, device=dev)
+                              + opts["k_offset"])[None].expand(b, sk)
+    return q, k, v, kw
+
+
+def _of_max(a, b, rtol=1e-5):
+    scale = max(float(b.abs().max()), 1e-30)
+    err = float((a.float() - b.float()).abs().max())
+    assert err <= rtol * scale + 1e-6, f"max diff {err} of {scale}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,hq,hkv", [(128, 4, 1), (64, 2, 2), (128, 8, 2)])
+@pytest.mark.parametrize("case", sorted(_FLASH_CASES))
+def test_flash_matches_plain(dev, dtype, d, hq, hkv, case):
+    """Forward (o, lse) and backward (dq, dk, dv, fp32) of the three
+    kernels against the plain versions on the same values in fp32; one
+    launch of each; a second backward gives the same bits (the group is
+    summed in registers, no atomics)."""
+    sq, sk, bq, bk, opts = _FLASH_CASES[case]
+    q, k, v, kw = _flash_inputs(dev, dtype, sq, sk, hq, hkv, d, opts)
+    kw.update(block_q=bq, block_k=bk)
+    before = tflash.launches, tflash.dq_launches, tflash.dkv_launches
+    o, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ro, rlse = tflash.flash_attention_with_lse(
+        q.float().cpu(), k.float().cpu(), v.float().cpu(),
+        **{key: t.cpu() if torch.is_tensor(t) else t
+           for key, t in kw.items()}, device="cpu")
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert bool(torch.isfinite(o).all())
+    if case in ("dead_row", "future_chunk"):
+        rows = slice(64, None) if case == "dead_row" else slice(None)
+        assert bool((o[:, rows] == 0).all())
+        assert bool((lse[:, :, rows] == tflash.NEG_INF).all())
+    torch.testing.assert_close(lse.cpu(), rlse, rtol=1e-5, atol=1e-5)
+    if dtype == torch.float32:
+        _of_max(o.cpu(), ro)
+    else:   # + what rounding P to bf16 adds: at most 2^-9 of max|v|
+        _rounded_once_to_bf16(
+            o.cpu(), ro, atol=1e-5 + 2.0 ** -9 * float(v.abs().max()))
+    # backward through the Function: one dq and one dk/dv launch
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = tflash.flash_attention(*leaves, **kw)
+        do = _normal(out.shape, 23, dev, dtype)
+        out.backward(do)
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    assert (tflash.launches, tflash.dq_launches, tflash.dkv_launches) == (
+        before[0] + 3, before[1] + 2, before[2] + 2)
+    for a, b2 in zip(*grads):
+        assert torch.equal(a, b2)
+    ref = [t.float().cpu().requires_grad_(True) for t in (q, k, v)]
+    tflash.flash_attention(
+        *ref, **{key: t.cpu() if torch.is_tensor(t) else t
+                 for key, t in kw.items()}, device="cpu").backward(
+        do.float().cpu())
+    for mine, r in zip(grads[0], ref):
+        assert mine.dtype == dtype
+        if dtype == torch.float32:
+            _of_max(mine.cpu(), r.grad)
+        else:   # rounded once to bf16 by the Function (half an ulp),
+            # and delta was taken from the o the kernel rounded
+            _of_max(mine.cpu(), r.grad, rtol=2.0 ** -7)
+
+
+def test_flash_never_loads_a_dead_tile(dev):
+    """NaN in the keys and values of a k block that is dead for every q
+    block reaches no output and no gradient: the kernels skip a dead
+    tile before they load it."""
+    q, k, v, kw = _flash_inputs(dev, torch.float32, 128, 256, 4, 2, 128,
+                                _FLASH_CASES["dead_row"][4])
+    k[:, 64:128], v[:, 64:128] = float("nan"), float("nan")
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    out = tflash.flash_attention(*leaves, block_q=64, block_k=64, **kw)
+    out.sum().backward()
+    assert bool(torch.isfinite(out).all())
+    for t in leaves:
+        assert bool(torch.isfinite(t.grad).all())
+    assert bool((leaves[1].grad[:, 64:128] == 0).all())
+    assert bool((leaves[0].grad[:, 64:] == 0).all())
+
+
+def test_flash_bwd_returns_fp32_and_takes_delta(dev):
+    """`_fwd`/`_bwd` on [b, h, s, d]: fp32 gradients for bf16 inputs,
+    with delta passed in and left out."""
+    q, k, v, _ = _flash_inputs(dev, torch.bfloat16, 128, 128, 4, 2, 128, {})
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pos = torch.arange(128, dtype=torch.int32, device=dev)[None].expand(2, -1)
+    kw = dict(scale=128 ** -0.5, causal=True, block_q=64, block_k=64,
+              block_mask=tflash.causal_block_mask(128, 128, 64, 64))
+    o, lse = tflash._fwd(qt, kt, vt, pos, pos, None, None, **kw)
+    do = _normal(o.shape, 24, dev, torch.bfloat16)
+    got = tflash._bwd(qt, kt, vt, o, lse, do, pos, pos, None, None, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    again = tflash._bwd(qt, kt, vt, o, lse, do, pos, pos, None, None,
+                        delta=delta, **kw)
+    ref = tflash.flash_bwd_plain(
+        qt, kt, vt, lse, do, delta, pos, pos, None, None, scale=kw["scale"],
+        causal=True, block_q=64, block_k=64,
+        live=tflash._mask_tensor(kw["block_mask"], torch.device(dev)))
+    for a, b2, r in zip(got, again, ref):
+        assert a.dtype == torch.float32 and torch.equal(a, b2)
+        _of_max(a, r, rtol=2.0 ** -8)   # P and dS rounded to bf16
+
+
+@pytest.mark.parametrize("fault", ["head_dim", "dtype", "heads", "blocks"])
+def test_flash_rejects_what_the_kernels_do_not_take(dev, fault):
+    d = 96 if fault == "head_dim" else 128
+    dtype = torch.float16 if fault == "dtype" else torch.bfloat16
+    hkv = 3 if fault == "heads" else 2
+    q = torch.zeros((1, 128, 4, d), dtype=dtype, device=dev)
+    k = torch.zeros((1, 128, hkv, d), dtype=dtype, device=dev)
+    kw = {"block_mask": ((True,),)} if fault == "blocks" else {}
+    before = tflash.launches
+    with pytest.raises(ValueError):
+        tflash.flash_attention(q, k, k, block_q=64, block_k=64, **kw)
+    assert tflash.launches == before
+
+
 def _three_steps(model, device):
     tc = TrainingConfig(global_batch_size=4, micro_batch_size=2, seq_len=32,
                         warmup_steps=1, total_steps=10, log_every=100)
@@ -294,35 +454,54 @@ def _three_steps(model, device):
             [p.detach().cpu() for p in model.parameters()])
 
 
-def test_training_on_the_card_matches_the_cpu(dev):
+@pytest.mark.parametrize("use_flash,remat_policy", [
+    (False, "nothing"), (True, "nothing"), (True, "dots"),
+    (True, "dots_attn")])
+def test_training_on_the_card_matches_the_cpu(dev, use_flash, remat_policy):
     """Three Trainer steps of a narrow Llama (hidden 512, 4 q over 2 kv
     heads of 128, 2 layers) in fp32: the card (the kernels, every
-    training kernel launched) against the CPU (the plain versions), same
-    weights and batches.  Losses and grad norms agree to 1e-5; AdamW
-    normalizes each step, so an element whose gradient is within
-    rounding of zero can move by up to lr in one run and not the other:
-    parameters agree within 2 x the summed lr everywhere and within 1e-5
-    on all but 0.1% of elements."""
+    training kernel launched its count per step) against the CPU (the
+    plain versions; flash's plain version forced, since the CPU's auto
+    route is the dense attention), same weights and batches, with the
+    dense attention and with flash under each recompute policy.  Losses
+    and grad norms agree to 1e-5; AdamW normalizes each step, so an
+    element whose gradient is within rounding of zero can move by up to
+    lr in one run and not the other: parameters agree within 2 x the
+    summed lr everywhere and within 1e-5 on all but 0.1% of elements."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = LlamaConfig.tiny(hidden_size=512, num_attention_heads=4,
                            num_key_value_heads=2, intermediate_size=1536,
                            vocab_size=4096, compute_dtype=torch.float32,
-                           use_flash_attention=False)
+                           use_flash_attention=use_flash,
+                           remat_policy=remat_policy)
     cpu_model = LlamaLMHeadModel(cfg, device="cpu", seed=0)
     gpu_model = LlamaLMHeadModel(cfg, device=dev, seed=0)
     gpu_model.load_state_dict(cpu_model.state_dict())
-    mods = (tfused_norm, tswiglu, trotary, tadam)
-    before = [(m.launches, getattr(m, "bwd_launches", 0)) for m in mods]
+    if use_flash:
+        for layer in cpu_model.model.layers:
+            layer.attn.use_pallas = True
+
+    def counts():
+        return {"norm": (tfused_norm.launches, tfused_norm.bwd_launches),
+                "swiglu": (tswiglu.launches, tswiglu.bwd_launches),
+                "rotary": (trotary.launches, trotary.bwd_launches),
+                "adam": (tadam.launches, 0),
+                "flash": (tflash.launches, tflash.dq_launches),
+                "flash_dkv": (tflash.dkv_launches, 0)}
+    before = counts()
     on_card, card_params = _three_steps(gpu_model, dev)
-    after = [(m.launches, getattr(m, "bwd_launches", 0)) for m in mods]
+    after = counts()
     L, n_micro, steps = cfg.num_hidden_layers, 2, 3
-    per_step = {tfused_norm: (2 * L * n_micro, L * n_micro),
-                tswiglu: (2 * L * n_micro, L * n_micro),
-                trotary: (2 * L * n_micro, L * n_micro),
-                tadam: (len(card_params), 0)}
-    for m, b, a in zip(mods, before, after):
-        assert (a[0] - b[0], a[1] - b[1]) == tuple(
-            steps * n for n in per_step[m]), m.__name__
+    fwd, bwd = 2 * L * n_micro, L * n_micro
+    flash_fwd = 0 if not use_flash else (
+        bwd if remat_policy == "dots_attn" else fwd)
+    per_step = {"norm": (fwd, bwd), "swiglu": (fwd, bwd),
+                "rotary": (fwd, bwd), "adam": (len(card_params), 0),
+                "flash": (flash_fwd, bwd if use_flash else 0),
+                "flash_dkv": (bwd if use_flash else 0, 0)}
+    for name, expect in per_step.items():
+        got = tuple(a - b for a, b in zip(after[name], before[name]))
+        assert got == tuple(steps * n for n in expect), name
     on_cpu, cpu_params = _three_steps(cpu_model, "cpu")
     for c, g in zip(on_cpu, on_card):
         for k in ("loss", "grad_norm", "lr"):

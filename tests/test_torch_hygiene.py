@@ -53,7 +53,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
                  "hetu_tpu_torch.engine.trainer",
                  "hetu_tpu_torch.optim.optimizer",
                  "hetu_tpu_torch.ops.cuda.fused_norm",
-                 "hetu_tpu_torch.ops.cuda.adam"):
+                 "hetu_tpu_torch.ops.cuda.adam",
+                 "hetu_tpu_torch.ops.cuda.flash_attention"):
         assert name in probe["modules"]
 
 
@@ -81,13 +82,34 @@ def test_cpu_serving_builds_nothing(monkeypatch):
     assert calls == []
 
 
-def test_cpu_training_builds_nothing(monkeypatch):
+def test_no_library_attention_in_the_port():
+    """The port's attention is its own kernels: no file of the package
+    names PyTorch's fused attention (chip_smoke.py times it beside the
+    kernels as a yardstick, and only there)."""
+    named = [str(path.relative_to(ROOT))
+             for path in sorted((ROOT / "hetu_tpu_torch").rglob("*"))
+             if path.suffix in (".py", ".cu", ".cuh")
+             and "scaled_dot_product_attention" in path.read_text()]
+    assert named == []
+    assert "scaled_dot_product_attention" in (ROOT / "chip_smoke.py"
+                                              ).read_text()
+
+
+@pytest.mark.parametrize("flash,policy", [(False, "nothing"),
+                                          (True, "dots_attn")])
+def test_cpu_training_builds_nothing(monkeypatch, flash, policy):
     """A Trainer on the CPU runs every kernel's plain version, forward
-    and backward, and never asks for a build or a library."""
+    and backward — with `flash`, the flash kernels' too, under the
+    recompute policy that keeps their output — and never asks for a
+    build or a library."""
     calls = []
     monkeypatch.setattr(build, "build", lambda *a, **k: calls.append(a))
     monkeypatch.setattr(build, "library", lambda *a, **k: calls.append(a))
-    model = LlamaLMHeadModel(LlamaConfig.tiny(), device="cpu")
+    model = LlamaLMHeadModel(LlamaConfig.tiny(remat_policy=policy),
+                             device="cpu")
+    if flash:       # the CPU's own route is the dense attention
+        for layer in model.model.layers:
+            layer.attn.use_pallas = True
     tr = Trainer(model, TrainingConfig(global_batch_size=2,
                                        micro_batch_size=1, seq_len=8),
                  device="cpu")

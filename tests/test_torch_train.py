@@ -10,11 +10,16 @@ What is held against what:
     `LlamaLMHeadModel.forward(ids, labels=...)` against
     `jax.value_and_grad` of the JAX model, params carried across by
     `load_jax_params`, fp32, at 1e-4 (docs/kernels.md: a model's worth
-    of reassociated sums), with per-block recompute on and off;
+    of reassociated sums), with per-block recompute on and off; and with
+    flash attention under each recompute policy ("nothing", "dots",
+    "dots_attn"), the reference forced through its Pallas flash kernel
+    in interpret mode, the port through flash's plain version;
   * the slice as a whole: the port's `Trainer` and the JAX `Trainer`
     (single device, built once per file) for three steps from the same
     params and batches — loss, grad norm, lr, and the parameters and
-    both AdamW moments after the last step.
+    both AdamW moments after the last step; and three more with flash
+    attention and policy "dots_attn", the reference benchmark's training
+    configuration.
 
 On the CPU every kernel wrapper runs its plain version, so these tests
 also pin the plain versions the card's kernels are checked against.
@@ -104,16 +109,26 @@ def test_attention_matches_reference(sq, sk, hq, hk, segments):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL)
 
 
-def test_flash_attention_on_the_card_refuses_until_ported():
-    """Flash on a CUDA device raises (the second training slice brings
-    its kernels); the check is the wrapper's device argument, so no card
-    is needed to see it."""
-    q = torch.zeros(1, 4, 2, 16)
-    with pytest.raises(NotImplementedError, match="second training slice"):
-        tattention.flash_attention(q, q, q, device="cuda")
-    out = tattention.flash_attention(q, q, q, use_pallas=False,
-                                     device="cpu")
-    assert out.shape == q.shape
+def test_flash_attention_on_the_card_refuses_until_ported(monkeypatch):
+    """The dispatcher runs where it was asked to: "cuda" by default,
+    which raises without a card, never the plain version quietly.  On
+    the CPU, auto runs the dense `attention` (as the reference does off
+    the TPU), `use_pallas=True` flash's plain version, and the two
+    agree; `use_pallas=False` is the dense attention on any device."""
+    q, k, v = (torch.from_numpy(_rand((1, 128, 2, 64), 40 + i))
+               for i in range(3))
+    auto = tattention.flash_attention(q, k, v, device="cpu")
+    dense = tattention.flash_attention(q, k, v, use_pallas=False,
+                                       device="cpu")
+    forced = tattention.flash_attention(q, k, v, use_pallas=True,
+                                        device="cpu")
+    assert torch.equal(auto, dense)
+    assert not torch.equal(forced, dense)       # another summation order
+    np.testing.assert_allclose(forced.numpy(), dense.numpy(), atol=TOL)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for route in (None, True, False):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tattention.flash_attention(q, k, v, use_pallas=route)
 
 
 @pytest.mark.parametrize("reduction", ["mean", "sum"])
@@ -213,6 +228,114 @@ def test_loss_and_every_gradient_match_the_reference(pair, remat):
         assert bool(p.grad.abs().sum() > 0), name
         np.testing.assert_allclose(p.grad.numpy(), ref[name].numpy(),
                                    atol=MODEL_TOL, err_msg=name)
+
+
+_FLASH_SEQ = 128     # head dim 128 and seq 128 pass the reference's gate
+
+
+def _force_flash(model: LlamaLMHeadModel):
+    """Route a CPU port model through flash's plain version (the CPU's
+    auto route is the dense attention)."""
+    for layer in model.model.layers:
+        layer.attn.use_pallas = True
+    return model
+
+
+@pytest.fixture
+def pallas_flash(monkeypatch):
+    """The reference's flash kernel forced on the CPU (interpret mode),
+    every other Pallas kernel off; read when a model is traced."""
+    monkeypatch.setenv("HETU_TPU_PALLAS", "1")
+    monkeypatch.setenv("HETU_TPU_PALLAS_KERNELS", "flash")
+
+
+@pytest.fixture(scope="module")
+def flash_grads():
+    """{policy: (loss, {name: grad})} of the port, filled by the policy
+    test's cases and compared across them."""
+    return {}
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots", "dots_attn"])
+def test_flash_loss_and_gradients_match_under_each_policy(
+        pallas_flash, flash_grads, policy):
+    """Flash attention in the model under each recompute policy: loss
+    at 1e-4 and every parameter's gradient at 1e-4 of its largest entry
+    against the reference (same policy, its Pallas flash kernel in
+    interpret mode); the port's gradients are the same under all three
+    policies, to 1e-6 of each one's largest entry (the residual
+    stream's cotangents are added in another order)."""
+    jcfg = JLlamaConfig.tiny(remat=True, remat_policy=policy,
+                             compute_dtype=jnp.float32,
+                             use_flash_attention=True, **HD128)
+    jmodel = JLlamaLMHeadModel(jcfg)
+    jparams = jmodel.init(jax.random.key(6))
+    tmodel = _force_flash(_port(jparams, remat=True, remat_policy=policy))
+    ids, labels = _batch(jcfg.vocab_size, 24, s=_FLASH_SEQ)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jmodel(p, jnp.asarray(ids), labels=jnp.asarray(labels)))(
+        jparams)
+    for p in tmodel.parameters():
+        p.requires_grad_(True)
+    tloss = tmodel(torch.from_numpy(ids), torch.from_numpy(labels))
+    tloss.backward()
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss),
+                               atol=MODEL_TOL)
+    ref = _by_name(jgrads, tmodel)
+    mine = {name: p.grad.clone() for name, p in tmodel.named_parameters()}
+    for name, g in mine.items():
+        scale = float(ref[name].abs().max())
+        assert scale > 0, name
+        np.testing.assert_allclose(g.numpy(), ref[name].numpy(),
+                                   atol=MODEL_TOL * scale, err_msg=name)
+    flash_grads[policy] = (float(tloss.detach()), mine)
+    first_loss, first = next(iter(flash_grads.values()))
+    assert float(tloss.detach()) == first_loss
+    for name, g in mine.items():
+        torch.testing.assert_close(
+            g, first[name], rtol=0, atol=1e-6 * float(g.abs().max()),
+            msg=f"{policy}: {name}")
+
+
+@pytest.mark.parametrize("policy,flash_forwards", [
+    ("nothing", 2), ("dots", 2), ("dots_attn", 1)])
+def test_policies_recompute_what_they_say(monkeypatch, policy,
+                                          flash_forwards):
+    """Per block and micro-batch: the flash forward runs twice under
+    "nothing" and "dots" and once under "dots_attn" (its output and lse
+    are kept); the norm, RoPE and SwiGLU forwards twice under all
+    three; every backward once."""
+    from hetu_tpu_torch.ops.cuda import flash_attention as tflash
+    from hetu_tpu_torch.ops.cuda import fused_norm, rotary, swiglu
+    calls = {}
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        monkeypatch.setattr(mod, name, wrapper)
+    for mod, names in ((tflash, ("_fwd", "_bwd")),
+                       (fused_norm, ("residual_rmsnorm_fwd",
+                                     "residual_rmsnorm_bwd")),
+                       (rotary, ("rotary_qk_fwd", "rotary_qk_bwd")),
+                       (swiglu, ("swiglu_fwd", "swiglu_bwd"))):
+        for name in names:
+            counted(mod, name)
+    model = _force_flash(LlamaLMHeadModel(
+        LlamaConfig.tiny(compute_dtype=torch.float32, remat_policy=policy,
+                         **HD128), device="cpu"))
+    for p in model.parameters():
+        p.requires_grad_(True)
+    ids, labels = _batch(model.config.vocab_size, 25, s=64)
+    model(torch.from_numpy(ids), torch.from_numpy(labels)).backward()
+    L = model.config.num_hidden_layers
+    assert calls == {"_fwd": flash_forwards * L, "_bwd": L,
+                     "residual_rmsnorm_fwd": 2 * L,
+                     "residual_rmsnorm_bwd": L, "rotary_qk_fwd": 2 * L,
+                     "rotary_qk_bwd": L, "swiglu_fwd": 2 * L,
+                     "swiglu_bwd": L}
 
 
 def test_sum_reduction_returns_loss_sum_and_token_count(pair):
@@ -357,6 +480,29 @@ def test_trainer_state_matches_the_reference(three_steps):
                 (key, name)
 
 
+def test_trainer_steps_with_flash_and_dots_attn_match_the_reference(
+        pallas_flash):
+    """The reference benchmark's training configuration — flash
+    attention, recompute policy "dots_attn" — for three Trainer steps
+    of two micro-batches: loss, grad norm and lr at the tolerances of
+    `test_trainer_steps_match_the_reference`."""
+    train = dict(_TRAIN, seq_len=_FLASH_SEQ)
+    jcfg = JLlamaConfig.tiny(compute_dtype=jnp.float32,
+                             use_flash_attention=True,
+                             remat_policy="dots_attn", **HD128)
+    jtr = JTrainer(JLlamaLMHeadModel(jcfg), JTrainingConfig(**train)).build()
+    model = _force_flash(_port(jtr.params, remat_policy="dots_attn"))
+    tr = Trainer(model, TrainingConfig(**train), device="cpu")
+    for seed in range(3):
+        ids, labels = _batch(jcfg.vocab_size, 50 + seed, b=4, s=_FLASH_SEQ)
+        batch = {"input_ids": ids, "labels": labels}
+        jm, tm = jtr.train_step(batch), tr.train_step(batch)
+        for k, tol in (("loss", TOL), ("grad_norm", TOL), ("lr", 1e-6)):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=tol,
+                                       err_msg=f"step {seed + 1} {k}")
+    assert tr.global_step == 3
+
+
 # ------------------------------------------------------------- refusals
 @pytest.mark.parametrize("field,value", [
     ("packing", True), ("ckpt_dir", "/nonexistent"),
@@ -377,12 +523,11 @@ def test_training_config_rejects_bad_values(field, value):
 @pytest.mark.parametrize("field,value,exc", [
     ("attention_dropout", 0.1, NotImplementedError),
     ("hidden_dropout", 0.1, NotImplementedError),
-    ("remat_policy", "dots", NotImplementedError),
-    ("remat_policy", "dots_attn", NotImplementedError),
     ("remat_policy", "offload", NotImplementedError),
     ("remat_policy", "everything", ValueError)])
 def test_llama_config_refuses_options_of_later_slices(field, value, exc):
-    with pytest.raises(exc):
+    with pytest.raises(exc, match="third training slice"
+                       if exc is NotImplementedError else None):
         LlamaConfig.tiny(**{field: value})
 
 

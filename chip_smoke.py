@@ -20,8 +20,9 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     (CUDA-graph replay, CUDA events) beside its plain version, its
     bound — the larger of the bytes it must move over 3.35 TB/s and its
     operations over the peak rate of their type (fp32 math outside the
-    tensor cores, 67 TFLOP/s; the flash kernels' products against the
-    bf16 tensor-core peak, 989 TFLOP/s) — and, where one PyTorch call
+    tensor cores, 67 TFLOP/s; the flash kernels' products, the
+    sampler's LM head and the second serving slice's attention against
+    the bf16 tensor-core peak, 989 TFLOP/s) — and, where one PyTorch call
     computes the same function, that call (`torch._fused_adamw_` for
     AdamW, `scaled_dot_product_attention` for the flash kernels; timed
     as yardsticks only, the port never calls them).  Tolerances:
@@ -31,11 +32,21 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     outputs 1e-5 relative (the norm's dw, a sum over 4096 rows taken in
     another order: 1e-5 of its largest entry); AdamW one fp32 ulp
     (rtol 3e-7), its bf16 parameter one bf16 ulp; the flash kernels as
-    `flash_kernel_phase` states;
+    `flash_kernel_phase` states; the second serving slice's kernels
+    (int8/int4 paged attention, the verify kernel, the blockwise
+    quantize, the sampler) as `serving2_kernel_phase` states;
  4. serving reference: Llama-3-8B widths cut to 2 layers, in fp32 — the
     serving engine on the card (the kernels) against the same engine on
     the CPU (the plain versions), same weights and trace: prefill logits
-    within 1e-3 and identical greedy tokens;
+    within 1e-3 and identical greedy tokens; then, half the requests
+    seeded-sampled, n-gram speculation on exact pages (tokens
+    identical), on int8 pages and sampled decode on int4 pages (tokens
+    identical, or the first divergence at a token whose CPU top-two gap
+    after noise is under 1e-3; the int4 run's launch counts are its
+    path's); the two speculative runs again with a drafter that proposes
+    the CPU's own continuation without speculation (the CPU's tokens
+    equal it, the card's the CPU's as above, and the card accepts
+    drafts);
  5. serving: Llama-3-8B at full width and depth (bf16 weights drawn on
     the card from --seed) behind `ServingEngine(ServeConfig(num_slots=8,
     page_size=16, max_len=2048, prefill_chunk=256))`: warmup, then 8
@@ -46,7 +57,19 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     prefill chunk, each timed on the host (enqueue, and wall to a
     synchronize) and under torch.profiler (the summed time of the
     kernels it saw on the card): the card's idle share and its heaviest
-    kernels;
+    kernels; then the same model and trace with half the requests at
+    SamplingParams(temperature=0.8, top_k=50, top_p=0.95) on int8 pages,
+    (b) without speculation, then (a) with n-gram speculation (spec_k
+    4), then (a) again with (a)'s own continuation as its drafts (its
+    tokens equal (a)'s, and it accepts drafts): every request ends by
+    length with 32 tokens, no page leaks, every launch count exact
+    (verify: paged_verify layers a step, fused_sample once a step, the
+    quantize twice a layer a step and twice a prefill, the draw over
+    existing logits once a sampled request's first token; decode: the
+    int8 arm layers a step and the draw once a step instead); TTFT, the
+    decode gap, tokens/s, acceptance, tokens a verify step and peak
+    memory; a sampled decode step of (b) and a verify step of (a)
+    profiled as phase 6 does, with their device operations a step;
  7. training reference: a narrow Llama (hidden 512, 4 q / 2 kv heads of
     128, SwiGLU 1536, vocab 4096, 2 layers, fp32, flash attention,
     recompute policy "dots_attn") takes 3 `Trainer` steps on the card
@@ -180,6 +203,25 @@ def rel(rtol: float, atol: float = 0.0, of_max: bool = False):
     return excess
 
 
+def same():
+    """Tolerance: equal bit for bit (the count of differing elements)."""
+    def excess(a, b):
+        return float((a != b).sum().item())
+    excess.text = "identical"
+    return excess
+
+
+def fp32_ulps(n: float):
+    """Tolerance: |a - b| <= n fp32 ulps of the larger of the two."""
+    def excess(a, b):
+        a, b = a.float(), b.float()
+        _, exp = torch.frexp(torch.maximum(a.abs(), b.abs()))
+        ulp = torch.ldexp(torch.ones_like(a), exp - 24)
+        return ((a - b).abs() - n * ulp).max().item()
+    excess.text = f"{n} fp32 ulp"
+    return excess
+
+
 def bound(nbytes: float, ops: float, op_dtype=torch.float32) -> tuple:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[op_dtype] * 1e3
@@ -216,14 +258,16 @@ def checked(label, tols, out, ref):
 
 
 def case(label, tols, run, plain, nbytes, ops, *, exact=None, library=None,
-         library_ms=None, op_dtype=torch.float32):
+         library_ms=None, op_dtype=torch.float32, inner=20):
     """Hold run(0) against plain(0) (or `exact`(0), the plain version on
     the same values in fp32, where given) as `compare` does; then time
     the kernel, its plain version and `library` (one PyTorch call
     computing the same function, a yardstick; or its time `library_ms`
     where the caller measured it) on the card.  Each is called with a
     running count, so a case can cycle through copies of its inputs.
-    `op_dtype` picks the peak rate the operations are bound by."""
+    `op_dtype` picks the peak rate the operations are bound by; `inner`
+    the calls a timed CUDA graph holds (fewer where a call allocates
+    hundreds of MB)."""
     err, excess, text = compare(label, tols, run(0), (exact or plain)(0))
     calls = [0]
 
@@ -232,10 +276,10 @@ def case(label, tols, run, plain, nbytes, ops, *, exact=None, library=None,
             calls[0] += 1
             return fn(calls[0])
         return go
-    ms = device_ms(cycled(run))
-    plain_ms = device_ms(cycled(plain))
+    ms = device_ms(cycled(run), inner)
+    plain_ms = device_ms(cycled(plain), inner)
     if library:
-        library_ms = device_ms(cycled(library))
+        library_ms = device_ms(cycled(library), inner)
     b_ms, b_by = bound(nbytes, ops, op_dtype)
     res = {"case": label, "max_abs_err": err, "tolerance": text,
            "excess": excess, "ms": ms, "plain_ms": plain_ms,
@@ -342,6 +386,191 @@ def serving_kernel_phase(seed: int):
             3 * n * 2, 5 * n))
     return {"paged_attention": paged, "fused_rotary_qk": rotary,
             "fused_swiglu": swiglu}
+
+
+# the verify grid's slots: 8 live slots at the depths a serving run of
+# prompts up to 1,024 tokens and 32 new ones reaches
+SPEC_DEPTHS = [1100, 1040, 900, 700, 520, 300, 128, 40]
+
+
+def serving_pages(seed, quant, C, copies, depths=SPEC_DEPTHS):
+    """Pools at Llama-3-8B's attention shape (32 q / 8 kv heads, head
+    dim 128, pages of 16, 128 pages a slot) in a page mode, `copies`
+    of them so timed launches find their pages cold in L2; q [8, C,
+    32, 128] bf16.  Every row no query reads (past positions[s] + C - 1,
+    and the null page) holds NaN (exact pages) or a NaN scale
+    (quantized pages): no kernel may load it.  Returns q, pools (k, v,
+    k_scale, v_scale), table, positions, the bytes a launch must move
+    (q and out, the live payload and scale rows, table, positions) and
+    its operations (4 x head dim a visible (query, key) pair)."""
+    from hetu_tpu_torch.ops.quantization import quantize_heads
+    S, nq, n_kv, hd, ps, mp = len(depths), 32, 8, 128, 16, 128
+    P = S * mp + 1
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    positions = torch.tensor(depths, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(P - 1, generator=g, device="cuda") + 1
+    table = torch.zeros((S, mp), dtype=torch.int32, device="cuda")
+    live = torch.zeros(P * ps, dtype=torch.bool, device="cuda")
+    used = 0
+    for s, d in enumerate(depths):
+        n = (d + C - 1) // ps + 1
+        table[s, :n] = perm[used:used + n]
+        used += n
+        keys = torch.arange(d + C, device="cuda")
+        live[table[s, keys // ps].long() * ps + keys % ps] = True
+    pools = []
+    for _ in range(copies):
+        kv = []
+        for _ in range(2):
+            x = torch.randn((P, ps, n_kv, hd), generator=g, device="cuda")
+            if quant == "none":
+                x = x.bfloat16()
+                x.view(P * ps, n_kv, hd)[~live] = float("nan")
+                kv.append((x, None))
+            else:
+                q, sc = quantize_heads(x, 4 if quant == "int4" else 8)
+                sc.view(P * ps, n_kv)[~live] = float("nan")
+                kv.append((q, sc))
+        pools.append((kv[0][0], kv[1][0], kv[0][1], kv[1][1]))
+    q = torch.randn((S, C, nq, hd), generator=g, device="cuda").bfloat16()
+    rows = sum(d + C for d in depths)
+    row_bytes = {"none": hd * 2, "int8": hd + 4, "int4": hd // 2 + 4}[quant]
+    nbytes = (2 * q.numel() * 2 + 2 * rows * n_kv * row_bytes
+              + table.numel() * 4 + S * 4)
+    pairs = sum(d + 1 + c for d in depths for c in range(C))
+    ops = 4 * pairs * nq * hd
+    return q, pools, table, positions, nbytes, ops
+
+
+def serving2_kernel_phase(seed: int):
+    """The second serving slice's kernels at its path's shapes: paged
+    attention over int8/int4 pages (decode, q [8, 32, 128] bf16), the
+    verify kernel in the three page modes (q [8, 5, 32, 128]), the
+    blockwise quantize (one verify step's K of one layer, [320, 128],
+    and one prefill page write of all 32 layers, [524288, 128], bf16),
+    and the sampler: the fused LM head + draw at hidden [40, 4096] x
+    head [4096, 128256] bf16 (rows greedy, temperature only, top-k,
+    top-p, top-k + top-p) and the draw alone over bf16 logits [8,
+    128256].  Tolerances: the quantize payload bit for bit, scales
+    within one fp32 ulp; attention as the exact pages' (the plain
+    version on the same quantized pool in fp32, half a bf16 ulp +
+    1e-5); the draw alone token for token; the product within 1e-5 of
+    the largest logit; the fused tokens identical on every row whose
+    plain top-two gap after noise exceeds 1e-3 (the others counted)."""
+    from hetu_tpu_torch.ops.cuda import paged_attention as pa
+    from hetu_tpu_torch.ops.cuda import quant as qu
+    from hetu_tpu_torch.ops.cuda import sample as sa
+    from hetu_tpu_torch.serving.sampling import key_words
+
+    out = {"paged_attention_int8": [], "paged_attention_int4": [],
+           "paged_verify": [], "quantize_blockwise": [], "fused_sample": [],
+           "sample_logits": []}
+    scale = 128 ** -0.5
+    for quant, C in (("int8", 1), ("int4", 1), ("none", 5), ("int8", 5),
+                     ("int4", 5)):
+        q, pools, table, pos, nbytes, ops = serving_pages(
+            seed + 10 + C, quant, C, 4)
+        kw = {} if quant == "none" else {"quant": quant}
+        if C == 1:
+            name = f"paged_attention_{quant}"
+            label = (f"paged_attention {quant} pages S=8 nq=32 n_kv=8 "
+                     f"hd=128 ps=16 bf16")
+
+            def run(i, q=q[:, 0], pools=pools, kw=kw):
+                k, v, ks, vs = pools[i % len(pools)]
+                return pa.paged_attention(q, k, v, table, pos,
+                                          softmax_scale=scale, k_scale=ks,
+                                          v_scale=vs, **kw)
+
+            def plain(i, q=q[:, 0], pools=pools, quant=quant, f32=False):
+                k, v, ks, vs = pools[i % len(pools)]
+                return pa.paged_attention_plain(
+                    q.float() if f32 else q, k, v, table, pos, scale, ks,
+                    vs, quant)
+        else:
+            name = "paged_verify"
+            label = (f"paged_verify {quant} pages q=[8,5,32,128] n_kv=8 "
+                     f"ps=16 bf16")
+
+            def run(i, q=q, pools=pools, kw=kw):
+                k, v, ks, vs = pools[i % len(pools)]
+                return pa.paged_verify(q, k, v, table, pos,
+                                       softmax_scale=scale, k_scale=ks,
+                                       v_scale=vs, **kw)
+
+            def plain(i, q=q, pools=pools, quant=quant, f32=False):
+                k, v, ks, vs = pools[i % len(pools)]
+                if f32 and quant == "none":
+                    k, v = k.float(), v.float()
+                return pa.paged_verify_plain(
+                    q.float() if f32 else q, k, v, table, pos, scale, ks,
+                    vs, quant)
+        # the products of bf16 queries with int8 / int4 / bf16 keys could
+        # run on the bf16 tensor cores (the scales applied a key after)
+        out[name].append(case(label, ulps(0.5, 1e-5), run, plain, nbytes,
+                              ops, exact=lambda i, plain=plain:
+                                  plain(i, f32=True),
+                              op_dtype=torch.bfloat16))
+        del pools
+    # blockwise quantize, bf16 in
+    g = torch.Generator(device="cuda").manual_seed(seed + 20)
+    for rows, inner in ((320, 20), (524288, 2)):
+        x = torch.randn((rows, 128), generator=g, device="cuda").bfloat16()
+        n = x.numel()
+        out["quantize_blockwise"].append(case(
+            f"quantize_blockwise [{rows},128] bf16 -> int8", (same(),
+                                                              fp32_ulps(1)),
+            lambda i, x=x: qu.quantize_blockwise(x, 128),
+            lambda i, x=x: qu.quantize_blockwise_plain(x, 128),
+            n * 2 + n + rows * 4, 4 * n, inner=inner))
+        del x
+    # the sampler
+    R, H, V = 40, 4096, 128256
+    temps = torch.tensor([0.0, 1.0, 0.8, 0.9, 0.7] * 8, device="cuda")
+    top_ks = torch.tensor([0, 0, 50, 0, 50] * 8, dtype=torch.int32,
+                          device="cuda")
+    top_ps = torch.tensor([0.0, 0.0, 0.0, 0.95, 0.95] * 8, device="cuda")
+    words = key_words(torch.arange(R) * 7919 + seed,
+                      torch.arange(R) + 1000).cuda()
+    hidden = torch.randn((R, H), generator=g, device="cuda").bfloat16()
+    head = (0.02 * torch.randn((H, V), generator=g, device="cuda")).bfloat16()
+    ref = hidden.float() @ head.float()
+    # the product alone (kernel (a)), timed beside the fp32 product
+    product = case(
+        f"fused_sample product hidden [{R},{H}] x head [{H},{V}] bf16 -> "
+        "fp32 logits", rel(1e-5, of_max=True),
+        lambda i: sa.lm_head_logits(hidden, head),
+        lambda i: hidden.float() @ head.float(),
+        H * V * 2 + R * H * 2 + R * V * 4, 2 * R * H * V,
+        op_dtype=torch.bfloat16, inner=2)
+    noisy = sa.filtered_logits(ref, temps, top_ks, top_ps) + sa.gumbel(
+        words[:, :1], words[:, 1:], torch.arange(V, device="cuda")[None])
+    noisy = torch.where(temps[:, None] > 0, noisy, ref)
+    top2 = noisy.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+    print(f"fused_sample: {int((~clear).sum())} of {R} rows with a plain "
+          f"top-two gap after noise <= 1e-3 (tokens not compared there)")
+    sel = clear.nonzero()[:, 0]     # fixed indices: graph-capturable
+    del ref, noisy
+    args = (words, temps, top_ks, top_ps)
+    out["fused_sample"].append(case(
+        f"fused_sample hidden [{R},{H}] x head [{H},{V}] bf16, greedy / "
+        "temperature / top-k 50 / top-p 0.95 / both", same(),
+        lambda i: sa.fused_sample(hidden, head, *args).index_select(0, sel),
+        lambda i: sa.fused_sample_plain(hidden, head, *args).index_select(
+            0, sel),
+        H * V * 2 + R * H * 2 + R * 4 * 5, 2 * R * H * V,
+        op_dtype=torch.bfloat16, inner=2))
+    out["fused_sample"].append(product)
+    del head, hidden
+    lg = (4.0 * torch.randn((8, V), generator=g, device="cuda")).bfloat16()
+    args8 = tuple(t[:8] for t in args)
+    out["sample_logits"].append(case(
+        f"sample_logits logits [8,{V}] bf16 (the decode step's draw)",
+        same(), lambda i: sa.sample_logits(lg, *args8),
+        lambda i: sa.sample_plain(lg, *args8), 8 * V * 2 + 8 * 4 * 5,
+        8 * V * 4))
+    return out
 
 
 def training_kernel_phase(seed: int):
@@ -640,7 +869,9 @@ def kernel_table():
     from hetu_tpu_torch.ops.cuda import flash_attention as fa
     from hetu_tpu_torch.ops.cuda import fused_norm as fn
     from hetu_tpu_torch.ops.cuda import paged_attention as pa
+    from hetu_tpu_torch.ops.cuda import quant as qu
     from hetu_tpu_torch.ops.cuda import rotary as ro
+    from hetu_tpu_torch.ops.cuda import sample as sa
     from hetu_tpu_torch.ops.cuda import swiglu as sw
     src, tpu = "hetu_tpu_torch/csrc/", "hetu_tpu/ops/pallas/"
     return {
@@ -665,6 +896,20 @@ def kernel_table():
                          tpu + "flash_attention.py:328"),
         "flash_bwd_dkv": (fa, "dkv_launches", src + "flash_attention.cu",
                           tpu + "flash_attention.py:368"),
+        "paged_attention_int8": (pa, "int8_launches",
+                                 src + "paged_attention.cu",
+                                 tpu + "paged_attention.py:137"),
+        "paged_attention_int4": (pa, "int4_launches",
+                                 src + "paged_attention.cu",
+                                 tpu + "paged_attention.py:137"),
+        "paged_verify": (pa, "verify_launches", src + "paged_attention.cu",
+                         tpu + "paged_attention.py:345"),
+        "quantize_blockwise": (qu, "launches", src + "quant.cu",
+                               tpu + "quant.py:78"),
+        "fused_sample": (sa, "launches", src + "sample.cu",
+                         tpu + "sample.py:188"),
+        "sample_logits": (sa, "logits_launches", src + "sample.cu",
+                          tpu + "sample.py:156"),
     }
 
 
@@ -679,9 +924,10 @@ def read_counts(kernels):
 
 
 # ---------------------------------------------------------- reference
-def reference_phase(seed: int):
+def reference_phase(seed: int, kernels):
     """Llama-3-8B widths at 2 layers, fp32: engine on the card vs the
-    same engine on the CPU."""
+    same engine on the CPU, greedy on exact pages, then the second
+    serving slice (`reference_spec_phase`)."""
     from hetu_tpu_torch.models.generation import extend_cache
     from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
     from hetu_tpu_torch.serving import (ServeConfig, ServingEngine,
@@ -720,6 +966,212 @@ def reference_phase(seed: int):
     print(f"reference: Llama-3-8B widths, 2 layers, fp32: card vs CPU "
           f"prefill logits max_abs_err={err:.3g} (tol 1e-3); greedy tokens "
           f"identical {tokens[0]} ({time.perf_counter() - t0:.1f}s)")
+    return reference_spec_phase(seed, card, cpu, kernels)
+
+
+class GapProbe:
+    """On the CPU engine, the gap between the two best entries of what
+    each token's argmax ran over — the raw logits for a greedy token,
+    filtered logits + Gumbel noise for a sampled one — keyed by (request,
+    position): the engine module's samplers are wrapped for the run."""
+
+    def __init__(self, engine_mod):
+        self.mod, self.eng, self.gaps = engine_mod, None, {}
+        self.saved = {n: getattr(engine_mod, n) for n in (
+            "sample_tokens", "sample_hidden_grid", "first_token_from_logits")}
+
+    @staticmethod
+    def _gap(logits, seeds, positions, temps, top_ks, top_ps):
+        from hetu_tpu_torch.ops.cuda import sample as sa
+        from hetu_tpu_torch.serving.sampling import key_words
+        w = key_words(seeds, positions)
+        temps, top_ks, top_ps = (torch.as_tensor(np.asarray(t))
+                                 for t in (temps, top_ks, top_ps))
+        idx = torch.arange(logits.shape[-1])[None]
+        noisy = sa.filtered_logits(logits, temps, top_ks, top_ps) \
+            + sa.gumbel(w[:, :1], w[:, 1:], idx)
+        v = torch.where(temps[:, None] > 0, noisy, logits.float())
+        top = v.topk(2, dim=-1).values
+        return (top[:, 0] - top[:, 1]).tolist()
+
+    def _note(self, slots, positions, gaps):
+        for s, p, g in zip(slots, positions, gaps):
+            st = self.eng.scheduler.slots[s]
+            if st is not None:
+                self.gaps[(st.request.rid, int(p))] = g
+
+    def __enter__(self):
+        saved = self.saved
+
+        def sample_tokens(logits, seeds, positions, *rest, device):
+            if logits.shape[0] == self.eng.config.num_slots:
+                self._note(range(logits.shape[0]), positions,
+                           self._gap(logits, seeds, positions, *rest))
+            return saved["sample_tokens"](logits, seeds, positions, *rest,
+                                          device=device)
+
+        def sample_hidden_grid(hidden, w, seeds, pos_grid, *rest, device):
+            S, C, _ = hidden.shape
+            logits = (hidden.float() @ w.float()).reshape(S * C, -1)
+            rep = [np.repeat(t, C) for t in (seeds, *rest)]
+            gaps = self._gap(logits, rep[0], pos_grid.reshape(-1), *rep[1:])
+            self._note([s for s in range(S) for _ in range(C)],
+                       pos_grid.reshape(-1), gaps)
+            return saved["sample_hidden_grid"](hidden, w, seeds, pos_grid,
+                                               *rest, device=device)
+
+        def first_token_from_logits(req, row, position, *, sampling):
+            sp = req.sampling
+            on = sampling and sp.temperature > 0
+            self.gaps[(req.rid, position)] = self._gap(
+                row[None], [sp.seed & 0xFFFFFFFF], [position],
+                [sp.temperature if on else 0.0], [sp.top_k],
+                [sp.top_p])[0]
+            return saved["first_token_from_logits"](req, row, position,
+                                                    sampling=sampling)
+        for name, fn in (("sample_tokens", sample_tokens),
+                         ("sample_hidden_grid", sample_hidden_grid),
+                         ("first_token_from_logits",
+                          first_token_from_logits)):
+            setattr(self.mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+def oracle_drafter(reqs, results):
+    """A drafter that proposes, for each request (found by its prompt),
+    the continuation a run without speculation emitted: drafts are
+    accepted until the run under test departs from that run, so the
+    verify step emits several tokens a slot, writes drafts' K/V into
+    the lookahead pages and drops surplus drafts at the length limit."""
+    from hetu_tpu_torch.serving.spec_decode import CallableDrafter
+    prompts = {r.rid: r.prompt.tolist() for r in reqs}
+    conts = [(prompts[res.rid], res.tokens) for res in results]
+
+    def propose(tokens, k):
+        tokens = list(tokens)
+        for prompt, cont in conts:
+            if tokens[:len(prompt)] == prompt:
+                done = len(tokens) - len(prompt)
+                out = list(cont[done:done + k])
+                return out + [0] * (k - len(out))
+        raise ValueError("oracle drafter: a prompt no run produced")
+    return CallableDrafter(propose)
+
+
+def reference_spec_phase(seed: int, card, cpu, kernels):
+    """The second serving slice against the CPU on the same 2-layer
+    fp32 models, half the requests seeded-sampled (temperature 0.8,
+    top-k 50, top-p 0.95): (i) n-gram speculation on exact pages, tokens
+    identical; (ii) the same on int8 pages and (iii) int4 pages without
+    speculation, tokens identical or the first divergence at a token
+    whose CPU top-two gap after noise is under 1e-3 (quantization
+    rounds a card/CPU difference of 1e-6 in K/V to a whole step now and
+    then).  (i) and (ii) run again with `oracle_drafter` over the CPU's
+    run of the trace without speculation: the CPU's tokens must equal
+    that run's, the card's the CPU's (as above), and the card must
+    accept drafts.  Returns path (iii)'s launch counts (the int4 arm's
+    path)."""
+    import hetu_tpu_torch.serving.engine as engine_mod
+    from hetu_tpu_torch.serving import (SamplingParams, ServeConfig,
+                                        ServingEngine, poisson_arrivals,
+                                        synthetic_requests)
+    cfg = card.config
+
+    def trace():
+        reqs = synthetic_requests(
+            3, vocab_size=cfg.vocab_size, prompt_lens=(20, 60),
+            max_new=(8, 8), arrivals=poisson_arrivals(3, 100.0, seed=seed),
+            seed=seed + 1)
+        for r in reqs[1::2]:
+            r.sampling = SamplingParams(temperature=0.8, top_k=50,
+                                        top_p=0.95, seed=seed + r.rid)
+        return reqs
+
+    def serve(**opts):
+        return ServeConfig(num_slots=2, page_size=16, max_len=256,
+                           prefill_chunk=64, sampling=True, **opts)
+
+    def run_pair(config, drafter=None):
+        """(card results, CPU results, the CPU run's gaps, card
+        launches)."""
+        runs, launches = [], None
+        for model in (card, cpu):
+            eng = ServingEngine(model, config, device=model.device,
+                                drafter=drafter).warmup()
+            zero_counts(kernels)
+            if model is cpu:
+                with GapProbe(engine_mod) as probe:
+                    probe.eng = eng
+                    res = eng.run(trace())
+            else:
+                res = eng.run(trace())
+                launches = read_counts(kernels)
+            eng.scheduler.check_invariants()
+            runs.append(res)
+        return runs[0], runs[1], probe.gaps, launches
+
+    def compare(label, a_runs, b_runs, gaps, exact):
+        firsts = []
+        for a, b in zip(a_runs, b_runs):
+            check(len(a.tokens) == len(b.tokens) == 8,
+                  f"{label}: request {a.rid} emitted {len(a.tokens)} / "
+                  f"{len(b.tokens)} tokens")
+            t = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                      if x != y), None)
+            if t is None:
+                continue
+            plen = next(r.prompt_len for r in trace() if r.rid == a.rid)
+            gap = gaps.get((a.rid, plen + t), float("inf"))
+            firsts.append((a.rid, t, gap))
+            check(not exact and gap < 1e-3,
+                  f"{label}: request {a.rid} diverges at token {t} where "
+                  f"the CPU top-two gap after noise is {gap}")
+        return firsts
+
+    launches = None
+    for label, opts in (("(i) sampled + ngram spec, exact pages",
+                         dict(spec_decode="ngram", spec_k=4)),
+                        ("(ii) sampled + ngram spec, int8 pages",
+                         dict(spec_decode="ngram", spec_k=4,
+                              kv_quant="int8")),
+                        ("(iii) sampled, int4 pages",
+                         dict(kv_quant="int4"))):
+        t0 = time.perf_counter()
+        passes = [(label, None)]
+        if "spec" in label:
+            # the trace without speculation, on the CPU: the oracle's
+            # continuation and the tokens speculation must reproduce
+            base_opts = {k: v for k, v in opts.items()
+                         if k not in ("spec_decode", "spec_k")}
+            eng = ServingEngine(cpu, serve(**base_opts), device="cpu")
+            base = eng.warmup().run(trace())
+            passes.append((label.replace("ngram", "oracle-drafted"),
+                           oracle_drafter(trace(), base)))
+        for name, drafter in passes:
+            card_res, cpu_res, gaps, counts = run_pair(serve(**opts),
+                                                       drafter)
+            if "int4" in name:
+                launches = counts
+            firsts = compare(name, card_res, cpu_res, gaps,
+                             exact="exact" in name)
+            tokens = [r.tokens for r in card_res]
+            acc = sum(r.stats.spec_accepted for r in card_res)
+            prop = sum(r.stats.spec_proposed for r in card_res)
+            if drafter is not None:
+                compare(name + " (CPU, with and without speculation)",
+                        cpu_res, base, gaps, exact=True)
+                check(acc > 0, f"{name}: the card accepted no draft")
+            print(f"reference {name}: card vs CPU tokens "
+                  + (f"identical {tokens}" if not firsts else
+                     f"{tokens}; first divergences (request, token, CPU "
+                     f"gap) {firsts}")
+                  + f"; spec accepted {acc} of {prop} "
+                  f"({time.perf_counter() - t0:.1f}s)")
+    return launches
 
 
 # ------------------------------------------------------------ serving
@@ -750,6 +1202,7 @@ def serving_phase(seed: int, kernels):
     check(sum(r.prompt_len > serve.prefill_chunk for r in reqs) >= 2,
           "the trace has too few multi-chunk prompts")
     torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 2 ** 30
     zero_counts(kernels)
     t0 = time.perf_counter()
     results = eng.run(reqs)
@@ -798,17 +1251,153 @@ def serving_phase(seed: int, kernels):
         # the decode layer alone: decode tokens over decode calls' wall
         "decode_only_tokens_per_s": decode_tokens / decode.total,
         "run_wall_s": wall, "peak_memory_gib": peak_gb,
+        "memory_at_start_gib": start_gb,
         "launches": launches,
     }
     print("serving " + json.dumps(out))
     serving_time_phase(eng, reqs)
-    return launches
+    del eng
+    return {"serving": launches, **serving2_phase(model, seed, kernels)}
 
 
-def _profile(fn, steps: int, top: int = 5):
+def serving2_phase(model, seed: int, kernels):
+    """The second serving slice on phase 5's model and trace, half the
+    requests at SamplingParams(temperature=0.8, top_k=50, top_p=0.95):
+    (b) int8 pages + seeded sampling (the int8 decode arm), then (a) the
+    same + n-gram speculation (ServeConfig(spec_decode="ngram",
+    spec_k=4)), then (a) again with `oracle_drafter` over (a)'s tokens
+    in the n-gram drafter's place: random weights give prompt lookup
+    nothing to find, so only drafts that can match make the verify step
+    emit several tokens a slot, and its tokens must equal (a)'s (a
+    token's sampling never depends on the drafts).  Every launch count
+    is exact per run; the requests whose tokens equal (b)'s are counted
+    (the bf16 verify and decode steps may part at a near-tie); TTFT,
+    the decode gap, tokens/s, acceptance, tokens a verify step and peak
+    memory are printed, and (b) and (a) profile one step each (a
+    sampled int8 decode step; a verify step with its sampling
+    epilogue)."""
+    from hetu_tpu_torch.serving import (SamplingParams, ServeConfig,
+                                        ServingEngine, poisson_arrivals,
+                                        synthetic_requests)
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    by_path = {}
+
+    def trace():
+        reqs = synthetic_requests(
+            8, vocab_size=cfg.vocab_size, prompt_lens=(64, 1024),
+            max_new=(32, 32), arrivals=poisson_arrivals(8, 10.0, seed=seed),
+            seed=seed)
+        for r in reqs[1::2]:
+            r.sampling = SamplingParams(temperature=0.8, top_k=50,
+                                        top_p=0.95, seed=seed + 100 + r.rid)
+        return reqs
+
+    spec = dict(spec_decode="ngram", spec_k=4)
+    tokens = {}
+    for path, opts, oracle_of in (
+            ("serving_int8", {}, None),
+            ("serving_spec_int8", spec, None),
+            ("serving_spec_int8_oracle", spec, "serving_spec_int8")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve = ServeConfig(num_slots=8, page_size=16, max_len=2048,
+                            prefill_chunk=256, kv_quant="int8",
+                            sampling=True, **opts)
+        drafter = (oracle_drafter(trace(), tokens[oracle_of]) if oracle_of
+                   else None)
+        eng = ServingEngine(model, serve, device="cuda",
+                            drafter=drafter).warmup()
+        reqs = trace()
+        torch.cuda.reset_peak_memory_stats()
+        start_gb = torch.cuda.memory_allocated() / 2 ** 30
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        results = eng.run(reqs)
+        wall = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(len(results) == len(reqs), f"{path}: {len(results)} done")
+        for r in results:
+            check(r.finished_reason == "length" and len(r.tokens) == 32,
+                  f"{path}: request {r.rid}: {r.finished_reason}, "
+                  f"{len(r.tokens)} tokens")
+            check(all(0 <= t < cfg.vocab_size for t in r.tokens),
+                  f"{path}: request {r.rid}: token out of the vocabulary")
+        eng.scheduler.check_invariants()
+        check(eng.pool.free_count == eng.pool.num_pages,
+              f"{path}: pages leaked")
+        reg = eng.registry
+        steps = int(reg.counter_value("serve.decode_steps"))
+        chunks = int(reg.counter_value("serve.prefill_chunks"))
+        sampled = sum(not r.sampling.greedy for r in reqs)
+        # each layer of a step quantizes its K and V; each prefill's
+        # page write its whole K and V scratch
+        expect = {name: 0 for name in kernels}
+        expect.update(fused_rotary_qk=(steps + chunks) * L,
+                      fused_swiglu=(steps + chunks) * L,
+                      quantize_blockwise=2 * L * steps + 2 * len(reqs))
+        if eng.spec:
+            expect.update(paged_verify=steps * L, fused_sample=steps,
+                          sample_logits=sampled)
+        else:
+            expect.update(paged_attention_int8=steps * L,
+                          sample_logits=steps + sampled)
+        check(launches == expect, f"{path}: launches {launches}, "
+                                  f"expected {expect}")
+        ttft = sorted(r.stats.ttft_s for r in results)
+        gap = reg.histogram("serve.token_latency_s")
+        tokens_out = sum(len(r.tokens) for r in results)
+        decode_tokens = tokens_out - len(results)
+        prop = int(reg.counter_value("serve.spec_proposed"))
+        acc = int(reg.counter_value("serve.spec_accepted"))
+        out = {
+            "config": {k: getattr(serve, k) for k in (
+                "num_slots", "page_size", "max_len", "prefill_chunk",
+                "kv_quant", "sampling", "spec_decode", "spec_k")},
+            "requests": len(results), "sampled_requests": sampled,
+            "tokens_out": tokens_out, "decode_steps": steps,
+            "prefill_chunks": chunks,
+            "ttft_s_p50": ttft[len(ttft) // 2], "ttft_s_max": ttft[-1],
+            "decode_step_s_p50": gap.percentile(50),
+            "decode_step_s_max": gap.vmax,
+            "tokens_per_s": tokens_out / wall,
+            "decode_only_tokens_per_s": decode_tokens / gap.total,
+            "decode_tokens_per_step": decode_tokens / steps,
+            "run_wall_s": wall, "peak_memory_gib": peak_gb,
+            "memory_at_start_gib": start_gb,
+            "launches": launches,
+        }
+        tokens[path] = results
+        if eng.spec:
+            emitted = reg.histogram("serve.spec_emitted")
+            out.update(spec_proposed=prop, spec_accepted=acc,
+                       acceptance=acc / prop,
+                       tokens_per_verify_step_per_slot=(
+                           emitted.total / emitted.count),
+                       requests_equal_to_serving_int8=sum(
+                           a.tokens == b.tokens for a, b in
+                           zip(results, tokens["serving_int8"])))
+        if oracle_of:
+            # the verify step's tokens do not depend on the drafts
+            check(acc > 0, f"{path}: no draft accepted")
+            check([r.tokens for r in results]
+                  == [r.tokens for r in tokens[oracle_of]],
+                  f"{path}: tokens differ from {oracle_of}'s")
+        print(f"{path} " + json.dumps(out))
+        if not oracle_of:
+            serving_time_phase(eng, reqs)
+        by_path[path] = launches
+        del eng
+    return by_path
+
+
+def _profile(fn, steps: int, top: int = 5, counts=None):
     """Summed device time (ms) per call of the kernels torch.profiler
     sees while `fn` runs `steps` times, the host wall per call around a
-    synchronize, and the `top` heaviest kernels by name."""
+    synchronize, and the `top` heaviest kernels by name; `counts`, a
+    dict, gets the device operations (kernels, copies, memsets) per call
+    by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -824,33 +1413,74 @@ def _profile(fn, steps: int, top: int = 5):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / steps)
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0) + 1 / steps
     heavy = sorted(by_name.items(), key=lambda kv: -kv[1])
     return sum(by_name.values()), wall_ms, by_name, \
         [(n[:60], t) for n, t in heavy[:top]]
 
 
+#: device operations a step by name, per profiled serving step
+STEP_OPS = {}
+
+
 def serving_time_phase(eng, reqs):
-    """One decode step and one prefill chunk at the serving shapes:
-    host enqueue, wall, device busy time and the card's idle share."""
+    """One decode step and one prefill chunk at the serving shapes —
+    for a speculative engine one verify step with its sampling epilogue
+    instead, for a sampling engine one decode step with its draw: host
+    enqueue, wall, device busy time, the card's idle share, the device
+    operations a step and the heaviest kernels."""
     from hetu_tpu_torch.models.generation import (decode_step_paged,
-                                                  extend_cache)
+                                                  extend_cache,
+                                                  verify_step_paged)
+    from hetu_tpu_torch.serving.sampling import (sample_hidden_grid,
+                                                 sample_tokens)
     model, S = eng.model, eng.config.num_slots
     mp = eng.scheduler.max_pages
+    C = eng.config.spec_k + 1 if eng.spec else 1
     depths = [r.prompt_len + 16 for r in reqs][:S]
     table = torch.zeros((S, mp), dtype=torch.int32, device="cuda")
     for s, d in enumerate(depths):
-        n = d // eng.config.page_size + 1
+        n = (d + C - 1) // eng.config.page_size + 1
         table[s, :n] = torch.arange(1 + s * mp, 1 + s * mp + n)
     pos = torch.tensor(depths, dtype=torch.int32, device="cuda")
-    tok = torch.zeros(S, dtype=torch.int32, device="cuda")
-    scratch = eng._new_scratch()
-    ids = torch.zeros((1, eng.config.prefill_chunk), dtype=torch.long,
-                      device="cuda")
-    calls = {
-        "decode_step": lambda: decode_step_paged(model, tok, eng.pool.k,
-                                                 eng.pool.v, table, pos),
-        "prefill_chunk": lambda: extend_cache(model, ids, scratch, 256),
-    }
+    # the sampled runs' rows: the odd ones at the trace's parameters
+    seeds, temps, top_ks, top_ps = eng._sample_args([])
+    temps[1::2], top_ks[1::2], top_ps[1::2] = 0.8, 50, 0.95
+    if eng.spec:
+        tok = torch.zeros((S, C), dtype=torch.int32, device="cuda")
+        grid = np.asarray(depths)[:, None] + np.arange(1, C + 1)
+
+        def verify():
+            hidden = verify_step_paged(model, tok, eng.pool.k, eng.pool.v,
+                                       table, pos, return_hidden=True,
+                                       **eng._pools())[0]
+            return sample_hidden_grid(hidden, model.lm_head_weight(), seeds,
+                                      grid, temps, top_ks, top_ps)
+        calls = {"verify_step": verify}
+    elif eng.config.sampling:
+        tok = torch.zeros(S, dtype=torch.int32, device="cuda")
+        nxt = np.asarray(depths) + 1
+
+        def forward():
+            return decode_step_paged(model, tok, eng.pool.k, eng.pool.v,
+                                     table, pos, **eng._pools())[0]
+        # the step, and its forward alone: against the greedy engine's
+        # decode step (exact pages) they part the step's host and device
+        # cost into the page mode's and the draw's
+        calls = {"decode_step_sampled": lambda: sample_tokens(
+                     forward(), seeds, nxt, temps, top_ks, top_ps),
+                 "decode_forward": forward}
+    else:
+        tok = torch.zeros(S, dtype=torch.int32, device="cuda")
+        scratch = eng._new_scratch()
+        ids = torch.zeros((1, eng.config.prefill_chunk), dtype=torch.long,
+                          device="cuda")
+        calls = {
+            "decode_step": lambda: decode_step_paged(model, tok, eng.pool.k,
+                                                     eng.pool.v, table, pos),
+            "prefill_chunk": lambda: extend_cache(model, ids, scratch, 256),
+        }
     out = {}
     for name, fn in calls.items():
         for _ in range(2):
@@ -863,12 +1493,25 @@ def serving_time_phase(eng, reqs):
         enqueue = (time.perf_counter() - t0) / reps
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / reps
-        busy, _, _, top = _profile(fn, 3)
+        counts = STEP_OPS[name] = {}
+        busy, _, _, top = _profile(fn, 3, counts=counts)
         out[name] = {"host_enqueue_ms": enqueue * 1e3, "wall_ms": wall * 1e3,
                      "device_busy_ms": busy,
                      "device_idle_share": 1.0 - busy / (wall * 1e3),
-                     "top_kernels_ms": top}
-    print("serving time " + json.dumps(out))
+                     "device_ops_per_step": round(sum(counts.values())),
+                     "top_kernels_ms": top,
+                     "most_launched": sorted(
+                         ((n[:60], round(c)) for n, c in counts.items()),
+                         key=lambda nc: -nc[1])[:8]}
+        greedy = STEP_OPS.get("decode_step")
+        if greedy is not None and name != "decode_step":
+            # what this step runs on the card beyond a greedy decode step
+            more = {n: round(c - greedy.get(n, 0)) for n, c in counts.items()}
+            out[name]["ops_beyond_greedy_decode"] = sorted(
+                ((n[:60], c) for n, c in more.items() if c > 0),
+                key=lambda nc: -nc[1])
+    tag = eng.config.kv_quant + (", spec" if eng.spec else "")
+    print(f"serving time ({tag}) " + json.dumps(out))
 
 
 # ----------------------------------------------------------- training
@@ -1129,8 +1772,16 @@ def main(argv=None) -> int:
     # the training kernels' large buffers and CUDA graphs come after it
     kernels = kernel_table()
     cases = serving_kernel_phase(args.seed)
-    reference_phase(args.seed)
-    by_path = {"serving": serving_phase(args.seed, kernels)}
+    cases.update(serving2_kernel_phase(args.seed))
+    gc.collect()
+    torch.cuda.empty_cache()
+    int4_path = reference_phase(args.seed, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the serving paths first: a kernel's `launches` is its count on the
+    # first path that ran it
+    by_path = serving_phase(args.seed, kernels)
+    by_path["reference_int4"] = int4_path
     gc.collect()
     torch.cuda.empty_cache()
     for name, more in training_kernel_phase(args.seed).items():

@@ -1,32 +1,45 @@
 """The serving forwards, the port of `hetu_tpu/models/generation.py`.
 
-Two programs carry the serving engine's main path:
+Three programs carry the serving engine's main path:
 
   * `extend_cache` — chunked prefill: a [b, C] token block at positions
     start..start+C-1 writes its K/V into a dense per-request cache and
     attends causally over it (`_attend_cached_chunk`, a plain einsum,
     as in the reference).
   * `decode_step_paged` — gather-free decode: one token per slot writes
-    its K/V into the slot's page (`_paged_write`) and attends over the
-    slot's pages through the page table (the `paged_attention` kernel).
+    its K/V into the slot's page and attends over the slot's pages
+    through the page table (the `paged_attention` kernel).
+  * `verify_step_paged` — the speculative verify step: k + 1 tokens per
+    slot write their K/V into the slot's pages and attend causally over
+    them in one launch a layer (the `paged_verify` kernel).
 
-Both drive the model's modules layer by layer, because the KV cache is
+Both paged forwards take exact pools, or int8/int4 pools with their
+per-head-vector fp32 scales: this step's K/V are quantized on the way
+in (`ops/quantization.quantize_heads`: the blockwise kernel for int8)
+and the kernels dequantize pages in registers.  Positions of a token
+block past the slot's table row write into the null page.
+
+They drive the model's modules layer by layer, because the KV cache is
 written between the projection and the attention; what is the same for
-every layer (the RoPE rows of the positions, the page slots the token
-writes) is computed once per call.  Where the reference
-is functional (its caches and pools are returned as new arrays and the
-engine donates the old buffers), the port updates the caches and pools
-IN PLACE and returns the same tensors.
+every layer (the RoPE rows of the positions, the page slots the tokens
+write) is computed once per call.  Where the reference is functional
+(its caches and pools are returned as new arrays and the engine donates
+the old buffers), the port updates the caches and pools IN PLACE and
+returns the same tensors.
 
 The LM head as a [hidden, vocab] matrix (the reference's
-`lm_head_weight`) is `LlamaLMHeadModel.lm_head_weight`.
+`lm_head_weight`, the fused sampler's weight) is
+`LlamaLMHeadModel.lm_head_weight`.
 """
 from __future__ import annotations
 
 import torch
 
-from hetu_tpu_torch.ops.cuda.paged_attention import paged_attention
+from hetu_tpu_torch.ops.cuda.paged_attention import (paged_attention,
+                                                     paged_verify,
+                                                     resolve_quant)
 from hetu_tpu_torch.ops.cuda.rotary import fused_rotary_qk
+from hetu_tpu_torch.ops.quantization import quantize_heads
 from hetu_tpu_torch.ops.rotary import rope_tables
 
 _NEG = -1e30
@@ -104,26 +117,87 @@ def extend_cache(model, tokens: torch.Tensor, cache, start: int):
     return model.logits(hidden), cache
 
 
-def _page_slots(table, positions, ps: int):
-    """Where each slot's token goes: (table[s, pos // ps], pos % ps).
-    Rows that are not decoding point at the null page (id 0) at
-    position 0: their writes land there, and only there, so the
-    duplicate indices among them touch no real page."""
-    pos = positions.long()
-    rows = torch.arange(pos.shape[0], device=pos.device)
-    return table[rows, pos // ps].long(), pos % ps
+def _token_block_pages(table, positions, C: int, ps: int):
+    """Where a C-token block at positions[s] + i writes: (page ids,
+    offsets), each [S, C].  Positions past the slot's table row land in
+    the null page (id 0), and rows that are not decoding point there
+    already (their zeroed table rows, position 0): those writes touch no
+    real page."""
+    S, mp = table.shape
+    pos = positions.long()[:, None] + torch.arange(C, device=table.device)
+    pidx = pos // ps
+    rows = torch.arange(S, device=table.device)[:, None]
+    page = table[rows, pidx.clamp(max=mp - 1)].long()
+    return torch.where(pidx < mp, page, torch.zeros_like(page)), pos % ps
 
 
-def _paged_write(pool, page, offset, t):
-    """Write one token's K (or V) [S, n_kv, hd] into ONE layer's page
-    array [P, ps, n_kv, hd] at the slots `_page_slots` gave, in place."""
+def _paged_write_tokens(pool, page, offset, t):
+    """Write a token block's K (or V) [S, C, n_kv, hd] into ONE layer's
+    page array [P, ps, n_kv, hd] at `_token_block_pages`' slots, in
+    place."""
     pool[page, offset] = t.to(pool.dtype)
+
+
+def _paged_write_tokens_q(pool, scale, page, offset, t, bits: int):
+    """The quantized form: payload and per-head-vector fp32 scale, by
+    the pool's own quantizer, so pool contents agree whichever program
+    wrote them."""
+    q, s = quantize_heads(t, bits)
+    pool[page, offset] = q
+    scale[page, offset] = s
+
+
+def _paged_forward(model, tokens, k_pool, v_pool, table, positions,
+                   k_scale, v_scale, kv_quant, verify: bool):
+    """The layers of a paged step over a token block tokens [S, C]:
+    returns the final-norm hidden states [S, C, hidden]; the pools (and
+    scales) are updated in place.  `verify` attends through
+    `paged_verify`, else (C = 1) through `paged_attention`."""
+    c = model.config
+    kv_quant = resolve_quant(kv_quant, k_scale, v_scale)
+    S, C = tokens.shape
+    table = table.to(torch.int32).contiguous()
+    positions = positions.to(torch.int32).contiguous()
+    x = model.model.embed(tokens.long()).to(c.compute_dtype)
+    qpos = positions.long()[:, None] + torch.arange(C, device=x.device)
+    cos_t, sin_t = rope_tables(model.rope_cos, model.rope_sin, S, C, qpos)
+    page, offset = _token_block_pages(table, positions, C, k_pool.shape[2])
+    scale = c.head_dim ** -0.5
+    for li, layer in enumerate(model.model.layers):
+        q, k, v = layer.attn.project_qkv(layer.input_norm(x))
+        q, k = fused_rotary_qk(q.contiguous(), k.contiguous(), cos_t,
+                               sin_t, device=q.device)
+        kp, vp = k_pool[li], v_pool[li]
+        ksc = vsc = None
+        if kv_quant == "none":
+            _paged_write_tokens(kp, page, offset, k)
+            _paged_write_tokens(vp, page, offset, v)
+        else:
+            ksc, vsc = k_scale[li], v_scale[li]
+            bits = 4 if kv_quant == "int4" else 8
+            _paged_write_tokens_q(kp, ksc, page, offset, k, bits)
+            _paged_write_tokens_q(vp, vsc, page, offset, v, bits)
+        kw = dict(softmax_scale=scale, k_scale=ksc, v_scale=vsc,
+                  quant=kv_quant, device=q.device)
+        if verify:
+            attn = paged_verify(q, kp, vp, table, positions, **kw)
+        else:
+            attn = paged_attention(q[:, 0], kp, vp, table, positions, **kw)
+        x = _layer_tail(layer, x, attn.reshape(S, C, -1))
+    return model.model.final_norm(x)
+
+
+def _pools_out(k_pool, v_pool, k_scale, v_scale):
+    if k_scale is None:
+        return k_pool, v_pool
+    return k_pool, v_pool, k_scale, v_scale
 
 
 @torch.no_grad()
 def decode_step_paged(model, tokens: torch.Tensor, k_pool: torch.Tensor,
                       v_pool: torch.Tensor, table: torch.Tensor,
-                      positions: torch.Tensor):
+                      positions: torch.Tensor, *, k_scale=None,
+                      v_scale=None, kv_quant=None):
     """One decode step attending directly over a paged KV pool.
 
     tokens: [S] int; k_pool/v_pool: [L, P, page_size, n_kv, hd] (page 0
@@ -131,26 +205,35 @@ def decode_step_paged(model, tokens: torch.Tensor, k_pool: torch.Tensor,
     — slot s's token sits at positions[s] and attends over everything
     at or before it.  This step's K/V are written into each slot's page
     BEFORE the kernel runs, so the token sees itself (write, then
-    attend).  The pools are updated in place.  Returns (logits [S,
-    vocab], k_pool, v_pool)."""
-    c = model.config
-    S = tokens.shape[0]
-    table = table.to(torch.int32).contiguous()
-    positions = positions.to(torch.int32).contiguous()
-    x = model.model.embed(tokens.long()[:, None]).to(c.compute_dtype)
-    cos_t, sin_t = rope_tables(model.rope_cos, model.rope_sin, S, 1,
-                               positions.long()[:, None])
-    page, offset = _page_slots(table, positions, k_pool.shape[2])
-    scale = c.head_dim ** -0.5
-    for li, layer in enumerate(model.model.layers):
-        q, k, v = layer.attn.project_qkv(layer.input_norm(x))
-        q, k = fused_rotary_qk(q.contiguous(), k.contiguous(), cos_t,
-                               sin_t, device=q.device)
-        kp, vp = k_pool[li], v_pool[li]
-        _paged_write(kp, page, offset, k[:, 0])
-        _paged_write(vp, page, offset, v[:, 0])
-        attn = paged_attention(q[:, 0], kp, vp, table, positions,
-                               softmax_scale=scale, device=q.device)
-        x = _layer_tail(layer, x, attn.reshape(S, 1, -1))
-    hidden = model.model.final_norm(x)
-    return model.logits(hidden)[:, 0], k_pool, v_pool
+    attend).  int8 pools pass their fp32 scales [L, P, page_size, n_kv]
+    as k_scale/v_scale; int4 pools also pass ``kv_quant="int4"`` (uint8
+    nibble payloads of head dim hd / 2).  The pools are updated in
+    place.  Returns (logits [S, vocab], k_pool, v_pool[, k_scale,
+    v_scale])."""
+    hidden = _paged_forward(model, tokens[:, None], k_pool, v_pool, table,
+                            positions, k_scale, v_scale, kv_quant,
+                            verify=False)
+    return (model.logits(hidden)[:, 0],
+            *_pools_out(k_pool, v_pool, k_scale, v_scale))
+
+
+@torch.no_grad()
+def verify_step_paged(model, tokens: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, table: torch.Tensor,
+                      positions: torch.Tensor, *, k_scale=None,
+                      v_scale=None, kv_quant=None,
+                      return_hidden: bool = False):
+    """The speculative VERIFY step over a paged KV pool: tokens [S, C]
+    (the last emitted token + k drafts a slot); token i of slot s sits
+    at positions[s] + i and attends causally over the slot's pages (the
+    `paged_verify` kernel).  The block's K/V are written BEFORE the
+    kernel runs; pools, scales and `kv_quant` as `decode_step_paged`.
+    Returns (logits [S, C, vocab], *pools), or with
+    ``return_hidden=True`` the final-norm hidden states [S, C, hidden]
+    in the logits' place — the fused sampling epilogue consumes them,
+    so the logits plane never leaves the sampling kernels' scratch."""
+    hidden = _paged_forward(model, tokens, k_pool, v_pool, table,
+                            positions, k_scale, v_scale, kv_quant,
+                            verify=True)
+    out = hidden if return_hidden else model.logits(hidden)
+    return (out, *_pools_out(k_pool, v_pool, k_scale, v_scale))

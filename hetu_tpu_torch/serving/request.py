@@ -45,8 +45,9 @@ DEFAULT_SLO = SLOClass()
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
     """Per-request decoding parameters.  The defaults are GREEDY
-    (temperature 0); this slice's engine decodes greedily and refuses a
-    request with temperature > 0."""
+    (temperature 0); an engine built with `ServeConfig(sampling=True)`
+    samples a request with temperature > 0 under its seed, and a
+    greedy-only engine refuses it."""
     temperature: float = 0.0
     top_k: int = 0                     # 0 = filter disabled
     top_p: float = 0.0                 # 0.0 (or >= 1.0) = disabled
@@ -108,6 +109,10 @@ class RequestStats:
     first_token_t: Optional[float] = None
     done_t: Optional[float] = None
     prefill_chunks: int = 0
+    #: speculative decoding: draft tokens proposed / accepted over the
+    #: request's verify steps
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
     @property
     def queue_wait_s(self) -> Optional[float]:

@@ -49,13 +49,19 @@ class SlotState:
 class Scheduler:
     """Slot + page bookkeeping for the continuous-batching engine."""
 
-    def __init__(self, *, num_slots: int, pool: PagePool, max_len: int):
+    def __init__(self, *, num_slots: int, pool: PagePool, max_len: int,
+                 lookahead: int = 0):
         if max_len % pool.page_size:
             raise ValueError(f"max_len {max_len} must be a multiple of "
                              f"page_size {pool.page_size}")
+        if lookahead < 0:
+            raise ValueError(f"lookahead must be >= 0, got {lookahead}")
         self.num_slots = num_slots
         self.pool = pool
         self.max_len = max_len
+        #: speculative decoding writes draft K/V up to `lookahead`
+        #: positions past the sequence head: every reservation covers it
+        self.lookahead = lookahead
         self.max_pages = max_len // pool.page_size
         self.slots: List[Optional[SlotState]] = [None] * num_slots
         self.queue: Deque[Request] = collections.deque()
@@ -68,19 +74,26 @@ class Scheduler:
         #: reservation was short; None = no stall observed
         self.last_stall: Optional[str] = None
 
+    def _reserve_tokens(self, req: Request) -> int:
+        """Cache positions an admission must cover: the worst-case
+        sequence plus the spec-decode write lookahead."""
+        return req.total_len + self.lookahead
+
     # ----------------------------------------------------------- queue
     def submit(self, req: Request):
         """Queue a request.  Rejects loudly what could NEVER run (a
         permanently stalled queue must be a bug report, not a hang)."""
-        if req.total_len > self.max_len:
+        if self._reserve_tokens(req) > self.max_len:
+            extra = (f" + spec lookahead {self.lookahead}"
+                     if self.lookahead else "")
             raise ValueError(
                 f"request {req.rid}: prompt {req.prompt_len} + "
-                f"max_new {req.max_new_tokens} exceeds max_len "
+                f"max_new {req.max_new_tokens}{extra} exceeds max_len "
                 f"{self.max_len}")
-        if self.pool.pages_for(req.total_len) > self.pool.num_pages:
+        need = self.pool.pages_for(self._reserve_tokens(req))
+        if need > self.pool.num_pages:
             raise ValueError(
-                f"request {req.rid}: needs "
-                f"{self.pool.pages_for(req.total_len)} pages but the pool "
+                f"request {req.rid}: needs {need} pages but the pool "
                 f"only has {self.pool.num_pages}")
         self.queue.append(req)
 
@@ -112,7 +125,8 @@ class Scheduler:
             self.last_stall = "no_slot"
             return None
         req = self.queue[0]
-        pages = self.pool.alloc(self.pool.pages_for(req.total_len))
+        pages = self.pool.alloc(self.pool.pages_for(
+            self._reserve_tokens(req)))
         if pages is None:
             self.last_stall = "no_pages"
             return None

@@ -4,7 +4,8 @@
 Seeded, replayable request streams: the same seed gives the same
 requests and arrivals as the reference, so the two engines can be held
 against each other on one trace.  The shared-prefix, sampling and
-tenant knobs arrive with the engine features that read them.
+tenant knobs arrive with the engine features that read them; the
+sampling stamp is here.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from hetu_tpu_torch.serving.request import DEFAULT_SLO, Request, SLOClass
+from hetu_tpu_torch.serving.request import (DEFAULT_SLO, GREEDY, Request,
+                                            SamplingParams, SLOClass)
 
 
 def poisson_arrivals(n: int, rate_per_s: float, *, seed: int = 0
@@ -31,11 +33,13 @@ def synthetic_requests(n: int, *, vocab_size: int, prompt_lens=(4, 24),
                        max_new=(4, 12), eos_token_id: Optional[int] = None,
                        arrivals: Optional[np.ndarray] = None,
                        slo_classes: Optional[Sequence[SLOClass]] = None,
+                       sampling: Optional[SamplingParams] = None,
                        seed: int = 0) -> List[Request]:
     """n seeded requests with uniform prompt lengths / decode budgets and
     the given arrival times (default: all at t=0).  ``slo_classes``
     assigns latency classes round-robin; None keeps every request in the
-    default class."""
+    default class.  ``sampling`` stamps the given SamplingParams on
+    every request with a per-request seed (base seed + rid)."""
     rng = np.random.default_rng(seed)
     if arrivals is None:
         arrivals = np.zeros(n)
@@ -48,7 +52,13 @@ def synthetic_requests(n: int, *, vocab_size: int, prompt_lens=(4, 24),
         slo = (slo_classes[i % len(slo_classes)] if slo_classes
                else DEFAULT_SLO)
         prompt = rng.integers(0, vocab_size, size=plen).astype(np.int32)
+        sp = GREEDY
+        if sampling is not None:
+            sp = SamplingParams(temperature=sampling.temperature,
+                                top_k=sampling.top_k, top_p=sampling.top_p,
+                                seed=sampling.seed + i)
         reqs.append(Request(rid=i, prompt=prompt, max_new_tokens=mnew,
                             eos_token_id=eos_token_id,
-                            arrival_t=float(arrivals[i]), slo=slo))
+                            arrival_t=float(arrivals[i]), slo=slo,
+                            sampling=sp))
     return reqs

@@ -26,6 +26,15 @@ within 2^-8 of their largest entry, and the Function's bf16 gradients
 within 2^-7 of it (their own rounding, and delta taken from the rounded
 o).  The training step on the card is held against the same step on the
 CPU (the plain versions).
+
+The second serving slice's kernels: the blockwise quantize bit for bit
+(payload and scales: true divisions on both sides); paged attention and
+verify over int8/int4 pages as over exact ones, against the plain
+version on the same quantized pool in fp32 (NaN planted where no key
+may be read); the sampler over existing logits token for token; the
+fused sampler's product within 1e-5 of the largest logit, its tokens
+identical wherever the plain top-two gap after noise exceeds 1e-3; the
+sampled, speculative, quantized engine token for token against the CPU.
 """
 from __future__ import annotations
 
@@ -39,12 +48,17 @@ from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
 from hetu_tpu_torch.ops.cuda import adam as tadam
 from hetu_tpu_torch.ops.cuda import flash_attention as tflash
 from hetu_tpu_torch.ops.cuda import fused_norm as tfused_norm
+from hetu_tpu_torch.ops import quantization as tquantization
 from hetu_tpu_torch.ops.cuda import paged_attention as tpaged
+from hetu_tpu_torch.ops.cuda import quant as tquant
 from hetu_tpu_torch.ops.cuda import rotary as trotary
+from hetu_tpu_torch.ops.cuda import sample as tsample
 from hetu_tpu_torch.ops.cuda import swiglu as tswiglu
 from hetu_tpu_torch.ops.rotary import build_rope_cache
-from hetu_tpu_torch.serving import (ServeConfig, ServingEngine,
-                                    poisson_arrivals, synthetic_requests)
+from hetu_tpu_torch.serving import (SamplingParams, ServeConfig,
+                                    ServingEngine, poisson_arrivals,
+                                    synthetic_requests)
+from hetu_tpu_torch.serving import sampling as tsampling
 
 pytestmark = pytest.mark.cuda
 
@@ -511,3 +525,258 @@ def test_training_on_the_card_matches_the_cpu(dev, use_flash, remat_policy):
         d = (a - b).abs()
         assert d.max() <= bound
         assert (d > 1e-5).float().mean() <= 1e-3
+
+
+# ------------------------------------------- second serving slice kernels
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,bits", [(128, 8), (64, 8), (256, 8), (32, 8),
+                                     (128, 4)])
+def test_quantize_blockwise_matches_plain(dev, dtype, bs, bits):
+    """Payload bit for bit, scales exactly (true divisions on both
+    sides)."""
+    x = _normal((3000, bs), 5, dev, dtype) * _normal((3000, 1), 6, dev).exp()
+    x[7] = 0.0                               # the 1e-12 floor
+    before = tquant.launches
+    q, s = tquant.quantize_blockwise(x, bs, bits=bits)
+    torch.cuda.synchronize()
+    assert tquant.launches == before + 1
+    rq, rs = tquant.quantize_blockwise_plain(x, bs, bits)
+    assert torch.equal(q, rq)
+    assert torch.equal(s, rs)
+
+
+def test_quantize_blockwise_refuses_other_block_sizes(dev):
+    """The kernel holds a block in one warp's registers: 32, 64, 128 or
+    256 values; other sizes raise before a launch (the plain version
+    takes any)."""
+    x = _normal((10, 96), 7, dev)
+    before = tquant.launches
+    with pytest.raises(ValueError, match="block sizes"):
+        tquant.quantize_blockwise(x, 96)
+    assert tquant.launches == before
+    tquant.quantize_blockwise(x.cpu(), 96, device="cpu")
+
+
+def _quant_pool(pool, quant):
+    """Quantize an fp32 pool [P, ps, n_kv, hd] by the pool's own path."""
+    return tquantization.quantize_heads(pool, 4 if quant == "int4" else 8)
+
+
+def _check_paged(out, ref, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    else:
+        _rounded_once_to_bf16(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_quantized_paged_attention_matches_plain(dev, dtype, quant):
+    q, kp, vp, table, positions = _paged_case(dev, torch.float32)
+    (k8, ks), (v8, vs) = _quant_pool(kp, quant), _quant_pool(vp, quant)
+    counter = f"{quant}_launches"
+    before = getattr(tpaged, counter)
+    out = tpaged.paged_attention(q.to(dtype), k8, v8, table, positions,
+                                 k_scale=ks, v_scale=vs, quant=quant)
+    torch.cuda.synchronize()
+    assert getattr(tpaged, counter) == before + 1
+    ref = tpaged.paged_attention_plain(q.to(dtype).float(), k8, v8, table,
+                                       positions, 128 ** -0.5, ks, vs, quant)
+    _check_paged(out, ref, dtype)
+
+
+@pytest.mark.parametrize("half", ["low", "high"])
+def test_int4_pages_unpack_both_nibbles(dev, half):
+    """Payload bytes whose other nibble holds 8 (the value 0): each
+    half alone must reach the output, in its own head dim."""
+    q, kp, vp, table, positions = _paged_case(dev, torch.float32)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    pages = []
+    for _ in range(2):
+        nib = torch.randint(0, 16, (*kp.shape[:-1], 64), generator=g)
+        byte = nib | (8 << 4) if half == "low" else 8 | (nib << 4)
+        pages.append(byte.to(torch.uint8).to(dev))
+    scales = [_normal(kp.shape[:-1], i, dev).abs() + 0.1 for i in (12, 13)]
+    out = tpaged.paged_attention(q, *pages, table, positions,
+                                 k_scale=scales[0], v_scale=scales[1],
+                                 quant="int4")
+    ref = tpaged.paged_attention_plain(q, *pages, table, positions,
+                                       128 ** -0.5, *scales, "int4")
+    _check_paged(out, ref, torch.float32)
+    dead = slice(1, None, 2) if half == "low" else slice(0, None, 2)
+    assert bool((out[..., dead] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+def test_paged_verify_matches_plain(dev, dtype, quant):
+    """C = 5 queries a slot at the Llama-3-8B group (4), one block
+    running past its table row; NaN planted in every key past the last
+    query's position and in the null page must not reach the output."""
+    _, kp, vp, table, _ = _paged_case(dev, torch.float32)
+    q = _normal((4, 5, 4, 128), 14, dev)
+    positions = torch.tensor([20, 9, 28, 0], dtype=torch.int32, device=dev)
+    if quant == "none":
+        kp, vp, ks, vs = kp.to(dtype), vp.to(dtype), None, None
+    else:
+        (kp, ks), (vp, vs) = _quant_pool(kp, quant), _quant_pool(vp, quant)
+    kw = dict(k_scale=ks, v_scale=vs, quant=quant)
+    ref = tpaged.paged_verify_plain(q.to(dtype).float(), kp, vp, table,
+                                    positions, 128 ** -0.5, ks, vs, quant)
+    stale = torch.full_like(kp[0, 0], 255 if quant == "int4" else 0)
+    if quant == "none":
+        stale = torch.full_like(kp[0, 0], float("nan"))
+    ps = kp.shape[1]
+    for s in range(4):                     # keys past pos + C - 1
+        for j in range(table.shape[1] * ps):
+            page = int(table[s, j // ps])
+            if page and j > int(positions[s]) + 4:
+                kp[page, j % ps] = stale
+                vp[page, j % ps] = stale
+                if ks is not None:
+                    ks[page, j % ps] = float("nan")
+                    vs[page, j % ps] = float("nan")
+    before = tpaged.verify_launches
+    out = tpaged.paged_verify(q.to(dtype), kp, vp, table, positions, **kw)
+    torch.cuda.synchronize()
+    assert tpaged.verify_launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    _check_paged(out, ref, dtype)
+
+
+def _sampling_rows(dev, R, V, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    temps = torch.tensor([0.0, 1.0, 0.8, 0.7, 1.2, 0.9, 1.0, 0.0] * 16)[:R]
+    top_ks = torch.tensor([0, 0, 50, 0, 20, 40, V, 3] * 16,
+                          dtype=torch.int32)[:R]
+    top_ps = torch.tensor([0, 0, 0, 0.9, 0.95, 0.8, 0.5, 0.9] * 16)[:R]
+    seeds = torch.randint(0, 2 ** 32, (R,), generator=g)
+    positions = torch.randint(0, 4096, (R,), generator=g)
+    words = tsampling.key_words(seeds, positions)
+    return [t.to(dev) for t in (words, temps, top_ks, top_ps)]
+
+
+def _noisy_gap(logits, words, temps, top_ks, top_ps):
+    """The gap between the two best entries of what each row's argmax
+    runs over: the raw logits (greedy rows) or filtered + noise."""
+    V = logits.shape[-1]
+    filt = tsample.filtered_logits(logits, temps, top_ks, top_ps)
+    idx = torch.arange(V, device=logits.device)[None]
+    v = torch.where(temps[:, None] > 0,
+                    filt + tsample.gumbel(words[:, :1], words[:, 1:], idx),
+                    logits.float())
+    top = v.topk(2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [128256, 4000, 13])
+def test_sample_logits_matches_plain(dev, dtype, V):
+    """Filter and draw over existing logits: tokens identical to the
+    sort-based plain version (ties at the top take the first index);
+    at V = 13 some of a row's 8 blocks hold one entry or none."""
+    R = 16
+    logits = (3.0 * _normal((R, V), 15, dev)).to(dtype)
+    logits[0, min(100, V - 1)] = logits[0, 7] = logits[0].max() + 1  # tie
+    args = _sampling_rows(dev, R, V, 16)
+    before = tsample.logits_launches
+    out = tsample.sample_logits(logits, *args)
+    torch.cuda.synchronize()
+    assert tsample.logits_launches == before + 1
+    assert int(out[0]) == 7
+    assert torch.equal(out, tsample.sample_plain(logits, *args))
+
+
+def _words_with_infinite_noise(idx, w0):
+    """Key words whose counter hash at `idx` has 0xFFFFFF in its 24 high
+    bits (the murmur finalizer inverted): the uniform rounds to 1.0 and
+    the Gumbel noise there is +inf."""
+    m = 0xFFFFFFFF
+    x = 0xFFFFFF00
+    x ^= x >> 16
+    x = (x * pow(0xC2B2AE35, -1, 2 ** 32)) & m
+    x ^= (x >> 13) ^ (x >> 26)
+    x = (x * pow(0x85EBCA6B, -1, 2 ** 32)) & m
+    x ^= x >> 16
+    return [w0, (x - (w0 ^ ((idx * 0x9E3779B1) & m))) & m]
+
+
+@pytest.mark.parametrize("V", [128256, 4000])
+def test_filtered_entry_with_infinite_noise_wins(dev, V):
+    """A filtered entry (-1e30) whose noise is +inf wins the plain
+    version's argmax, as the reference's: the kernel takes it too, with
+    the kept set in shared memory (top-k) or walked in the row (top-p
+    alone), and where it is kept (temperature alone)."""
+    logits = 3.0 * _normal((5, V), 21, dev)
+    target = logits.argmin(dim=-1)
+    words = torch.tensor([_words_with_infinite_noise(int(t), 29 * r + 3)
+                          for r, t in enumerate(target)], device=dev)
+    temps = torch.tensor([1.0, 0.8, 0.9, 1.0, 0.7], device=dev)
+    top_ks = torch.tensor([5, 0, 20, 0, 50], dtype=torch.int32, device=dev)
+    top_ps = torch.tensor([0.0, 0.5, 0.9, 0.0, 0.95], device=dev)
+    args = (words, temps, top_ks, top_ps)
+    plain = tsample.sample_plain(logits, *args)
+    assert torch.equal(plain, target.int())
+    assert torch.equal(tsample.sample_logits(logits, *args), plain)
+
+
+@pytest.mark.parametrize("R,V,dtype", [
+    (24, 32000, torch.bfloat16),     # the tensor cores, 2 row tiles
+    (70, 32000, torch.bfloat16),     # two row blocks
+    (24, 32000, torch.float32),      # fp32 FMAs, 16-byte loads
+    (24, 32001, torch.bfloat16)])    # rows off 16-byte runs
+def test_fused_sample_matches_plain(dev, R, V, dtype):
+    """The product within 1e-5 of the largest logit against the fp32
+    product; tokens identical wherever the plain top-two gap after noise
+    exceeds 1e-3."""
+    H = 1024
+    hidden = _normal((R, H), 17, dev, dtype)
+    w = (0.05 * _normal((H, V), 18, dev)).to(dtype)
+    args = _sampling_rows(dev, R, V, 19)
+    logits = tsample.lm_head_logits(hidden, w)
+    ref = hidden.float() @ w.float()
+    assert (logits - ref).abs().max() <= 1e-5 * ref.abs().max()
+    before = tsample.launches
+    out = tsample.fused_sample(hidden, w, *args)
+    torch.cuda.synchronize()
+    assert tsample.launches == before + 1
+    plain = tsample.fused_sample_plain(hidden, w, *args)
+    clear = _noisy_gap(ref, *args) > 1e-3
+    assert clear.sum() >= R - max(2, R // 12)
+    assert torch.equal(out[clear], plain[clear])
+
+
+@pytest.mark.parametrize("opts", [
+    dict(sampling=True, spec_decode="ngram", spec_k=3),
+    dict(sampling=True, spec_decode="ngram", spec_k=3, kv_quant="int8"),
+    dict(sampling=True, kv_quant="int4")])
+def test_sampled_spec_quantized_engine_on_the_card_matches_the_cpu(dev, opts):
+    """The second serving slice at a small size in fp32, half the
+    requests seeded-sampled: the engine on the card (the kernels) emits
+    the CPU engine's tokens (the plain versions)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2, intermediate_size=512,
+                           compute_dtype=torch.float32,
+                           initializer_range=0.1)
+    cpu_model = LlamaLMHeadModel(cfg, device="cpu", seed=0)
+    gpu_model = LlamaLMHeadModel(cfg, device=dev, seed=0)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    serve = ServeConfig(num_slots=3, page_size=8, max_len=64,
+                        prefill_chunk=16, **opts)
+
+    def run(model, device):
+        reqs = synthetic_requests(5, vocab_size=cfg.vocab_size,
+                                  prompt_lens=(3, 40), max_new=(4, 8),
+                                  arrivals=poisson_arrivals(5, 50.0, seed=1),
+                                  seed=2)
+        for r in reqs[1::2]:
+            r.sampling = SamplingParams(temperature=0.9, top_k=20,
+                                        top_p=0.9, seed=r.rid)
+        eng = ServingEngine(model, serve, device=device).warmup()
+        res = eng.run(reqs)
+        eng.scheduler.check_invariants()
+        return [(r.tokens, r.stats.spec_accepted) for r in res]
+
+    on_card = run(gpu_model, dev)
+    assert on_card == run(cpu_model, "cpu")

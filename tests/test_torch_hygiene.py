@@ -20,7 +20,8 @@ import torch
 from hetu_tpu_torch.engine import Trainer, TrainingConfig
 from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
 from hetu_tpu_torch.ops.cuda import build
-from hetu_tpu_torch.serving import Request, ServeConfig, ServingEngine
+from hetu_tpu_torch.serving import (Request, SamplingParams, ServeConfig,
+                                    ServingEngine)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -54,7 +55,11 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
                  "hetu_tpu_torch.optim.optimizer",
                  "hetu_tpu_torch.ops.cuda.fused_norm",
                  "hetu_tpu_torch.ops.cuda.adam",
-                 "hetu_tpu_torch.ops.cuda.flash_attention"):
+                 "hetu_tpu_torch.ops.cuda.flash_attention",
+                 "hetu_tpu_torch.ops.cuda.quant",
+                 "hetu_tpu_torch.ops.cuda.sample",
+                 "hetu_tpu_torch.serving.sampling",
+                 "hetu_tpu_torch.serving.spec_decode"):
         assert name in probe["modules"]
 
 
@@ -79,6 +84,28 @@ def test_cpu_serving_builds_nothing(monkeypatch):
     eng.warmup()
     eng.run([Request(rid=0, prompt=np.arange(1, 12, dtype=np.int32),
                      max_new_tokens=3)])
+    assert calls == []
+
+
+@pytest.mark.parametrize("opts", [
+    {"sampling": True, "spec_decode": "ngram", "kv_quant": "int8"},
+    {"sampling": True, "kv_quant": "int4"}])
+def test_cpu_sampled_spec_and_quantized_serving_builds_nothing(monkeypatch,
+                                                               opts):
+    """The same through the sampler, the verify step and quantized
+    pages."""
+    calls = []
+    monkeypatch.setattr(build, "build", lambda *a, **k: calls.append(a))
+    monkeypatch.setattr(build, "library", lambda *a, **k: calls.append(a))
+    model = LlamaLMHeadModel(LlamaConfig.tiny(), device="cpu")
+    eng = ServingEngine(model, ServeConfig(num_slots=2, max_len=32,
+                                           prefill_chunk=8, **opts),
+                        device="cpu")
+    eng.warmup()
+    eng.run([Request(rid=0, prompt=np.arange(1, 12, dtype=np.int32),
+                     max_new_tokens=3,
+                     sampling=SamplingParams(temperature=0.7, top_k=5,
+                                             seed=3))])
     assert calls == []
 
 

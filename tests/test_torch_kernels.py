@@ -37,7 +37,9 @@ from hetu_tpu_torch.ops.cuda import adam as tadam
 from hetu_tpu_torch.ops.cuda import build
 from hetu_tpu_torch.ops.cuda import fused_norm as tfused_norm
 from hetu_tpu_torch.ops.cuda import paged_attention as tpaged
+from hetu_tpu_torch.ops.cuda import quant as tquant
 from hetu_tpu_torch.ops.cuda import rotary as trotary
+from hetu_tpu_torch.ops.cuda import sample as tsample
 from hetu_tpu_torch.ops.cuda import swiglu as tswiglu
 
 FWD_TOL = 1e-5
@@ -424,9 +426,25 @@ def _adam_args():
     return (*(torch.zeros(256) for _ in range(4)), 1e-3, 0.1, 0.05)
 
 
+def _quant_pages():
+    q, kp, vp, table, positions = map(torch.from_numpy, _paged_case(2))
+    k8, ks = tquant.quantize_blockwise(kp, 128, device="cpu")
+    v8, vs = tquant.quantize_blockwise(vp, 128, device="cpu")
+    return ((q, k8.reshape(kp.shape), v8.reshape(vp.shape), table,
+             positions),
+            dict(k_scale=ks.reshape(kp.shape[:-1]),
+                 v_scale=vs.reshape(vp.shape[:-1])))
+
+
+def _sample_args(R=3, V=16):
+    return (torch.zeros(R, 2, dtype=torch.long), torch.ones(R),
+            torch.zeros(R, dtype=torch.int32), torch.zeros(R))
+
+
 @pytest.mark.parametrize("call", ["paged", "rotary", "swiglu", "norm",
                                   "norm_bwd", "swiglu_bwd", "rotary_bwd",
-                                  "adam"])
+                                  "adam", "paged_int8", "verify", "quant",
+                                  "sample", "fused_sample"])
 def test_wrappers_default_to_the_card(monkeypatch, call):
     """Default device is "cuda": with no card, CPU inputs without
     device="cpu" raise instead of quietly running the plain version,
@@ -452,6 +470,18 @@ def test_wrappers_default_to_the_card(monkeypatch, call):
                        {}),
         "adam": (tadam, "launches", tadam.adam_update, _adam_args(),
                  dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0)),
+        "paged_int8": (tpaged, "int8_launches", tpaged.paged_attention,
+                       *_quant_pages()),
+        "verify": (tpaged, "verify_launches", tpaged.paged_verify,
+                   [t[:, None] if i == 0 else t for i, t in
+                    enumerate(_quant_pages()[0])], _quant_pages()[1]),
+        "quant": (tquant, "launches", tquant.quantize_blockwise,
+                  (torch.ones(4, 128), 128), {}),
+        "sample": (tsample, "logits_launches", tsample.sample_logits,
+                   (torch.ones(3, 16), *_sample_args()), {}),
+        "fused_sample": (tsample, "launches", tsample.fused_sample,
+                         (torch.ones(3, 8), torch.ones(8, 16),
+                          *_sample_args()), {}),
     }[call]
     with pytest.raises(RuntimeError):
         fn(*args, **kw)
@@ -466,7 +496,8 @@ def test_exported_symbols_match_the_wrappers():
     no compiler runs."""
     for mod, src in ((tpaged, "paged_attention"), (trotary, "rotary"),
                      (tswiglu, "swiglu"), (tfused_norm, "fused_norm"),
-                     (tadam, "adam")):
+                     (tadam, "adam"), (tquant, "quant"),
+                     (tsample, "sample")):
         text = (build.CSRC / f"{src}.cu").read_text()
         for sym, argtypes in mod._SIGNATURES.items():
             m = re.search(rf"HETU_EXPORT int {sym}\(([^)]*)\)", text)

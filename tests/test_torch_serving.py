@@ -216,10 +216,9 @@ def test_write_pages_writes_real_pages_exactly():
 # ----------------------------------------------------- what waits
 @pytest.mark.parametrize("field", sorted(_LATER_FIELDS))
 def test_serve_config_refuses_options_of_later_slices(field):
-    value = {"quotas": {"acme": None}, "kv_quant": "int8",
-             "moe_dispatch": "int8", "spec_decode": "ngram",
+    value = {"quotas": {"acme": None}, "moe_dispatch": "int8",
              "prefix_cache_pages": 4, "serve_sample": 2,
-             "retry_budget": 1, "spec_k": 8, "brownout_page_high": 0.5,
+             "retry_budget": 1, "brownout_page_high": 0.5,
              "brownout_queue_min": 2, "brownout_streak": 1}.get(field, True)
     with pytest.raises(NotImplementedError, match=field):
         tserving.ServeConfig(**{field: value})
@@ -233,10 +232,39 @@ def test_engine_refuses_arguments_of_later_slices(tiny_pair, arg):
 
 
 def test_engine_refuses_sampling_requests(tiny_pair):
+    """The reference's rule: a greedy-only engine raises ValueError for
+    a sampling request; one built with `sampling=True` takes it."""
     _, _, tmodel = tiny_pair
-    eng = _port_engine(tmodel)
     req = tserving.Request(rid=0, prompt=np.ones(3, np.int32),
                            max_new_tokens=2,
                            sampling=tserving.SamplingParams(temperature=1.0))
-    with pytest.raises(NotImplementedError):
-        eng.submit(req)
+    with pytest.raises(ValueError, match="greedy-only"):
+        _port_engine(tmodel).submit(req)
+    _port_engine(tmodel, sampling=True).submit(req)
+
+
+@pytest.mark.parametrize("how", ["spec_decode", "draft_model"])
+def test_model_drafter_waits_for_its_slice(tiny_pair, how):
+    """spec_decode="model" and a draft model arrive with the third
+    serving slice; a custom drafter needs spec_decode set."""
+    _, _, tmodel = tiny_pair
+    with pytest.raises(NotImplementedError, match="third serving slice"):
+        if how == "spec_decode":
+            tserving.ServeConfig(spec_decode="model")
+        else:
+            tserving.ServingEngine(tmodel, device="cpu", draft_model=object())
+    with pytest.raises(ValueError):
+        tserving.ServingEngine(tmodel, device="cpu", drafter=object())
+
+
+@pytest.mark.parametrize("field,value", [("kv_quant", "int2"),
+                                         ("spec_decode", "tree"),
+                                         ("spec_k", 0)])
+def test_serve_config_validates_like_the_reference(field, value):
+    kw = {field: value}
+    if field == "spec_k":
+        kw["spec_decode"] = "ngram"
+    with pytest.raises(ValueError):
+        tserving.ServeConfig(**kw)
+    with pytest.raises(ValueError):
+        jserving.ServeConfig(**kw)

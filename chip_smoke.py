@@ -34,7 +34,10 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     (rtol 3e-7), its bf16 parameter one bf16 ulp; the flash kernels as
     `flash_kernel_phase` states; the second serving slice's kernels
     (int8/int4 paged attention, the verify kernel, the blockwise
-    quantize, the sampler) as `serving2_kernel_phase` states;
+    quantize, the sampler) as `serving2_kernel_phase` states; the
+    blockwise dequantize (the draft model's embedding [128256 x 2048]
+    at blocks 128 and 64, payloads [4096, 64] and [4096, 128], bf16 and
+    fp32 out) bit for bit (`serving3_kernel_phase`);
  4. serving reference: Llama-3-8B widths cut to 2 layers, in fp32 — the
     serving engine on the card (the kernels) against the same engine on
     the CPU (the plain versions), same weights and trace: prefill logits
@@ -46,7 +49,11 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     path's); the two speculative runs again with a drafter that proposes
     the CPU's own continuation without speculation (the CPU's tokens
     equal it, the card's the CPU's as above, and the card accepts
-    drafts);
+    drafts); then the third serving slice (`reference_serving3_phase`):
+    the prefix cache with the model drafter built by the engine from
+    `draft_model=` (a narrow draft) and passed as `drafter=` (a copy of
+    the target at temperature 0, drafts accepted), greedy, card tokens
+    equal to the CPU's and to the run without speculation;
  5. serving: Llama-3-8B at full width and depth (bf16 weights drawn on
     the card from --seed) behind `ServingEngine(ServeConfig(num_slots=8,
     page_size=16, max_len=2048, prefill_chunk=256))`: warmup, then 8
@@ -70,6 +77,14 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     decode gap, tokens/s, acceptance, tokens a verify step and peak
     memory; a sampled decode step of (b) and a verify step of (a)
     profiled as phase 6 does, with their device operations a step;
+    then the third serving slice ("serving3", `serving3_phase`): a
+    Llama-3.2-1B-width draft model resident in int8 drafting for the
+    same target, verified by the stochastic rule on int8 pages with the
+    prefix cache, 16 requests sharing a 512-token system prompt (exact
+    launch counts; TTFT, gap, tokens/s, acceptance, prefix hits, draft
+    ms a propose, peak memory; one propose and one verify step
+    profiled), and the same trace greedy on exact pages with the prefix
+    cache and without it (TTFT of both, tokens identical);
  7. training reference: a narrow Llama (hidden 512, 4 q / 2 kv heads of
     128, SwiGLU 1536, vocab 4096, 2 layers, fp32, flash attention,
     recompute policy "dots_attn") takes 3 `Trainer` steps on the card
@@ -910,6 +925,8 @@ def kernel_table():
                          tpu + "sample.py:188"),
         "sample_logits": (sa, "logits_launches", src + "sample.cu",
                           tpu + "sample.py:156"),
+        "dequantize_blockwise": (qu, "dequant_launches", src + "quant.cu",
+                                 tpu + "quant.py:103"),
     }
 
 
@@ -927,7 +944,8 @@ def read_counts(kernels):
 def reference_phase(seed: int, kernels):
     """Llama-3-8B widths at 2 layers, fp32: engine on the card vs the
     same engine on the CPU, greedy on exact pages, then the second
-    serving slice (`reference_spec_phase`)."""
+    serving slice (`reference_spec_phase`) and the third
+    (`reference_serving3_phase`)."""
     from hetu_tpu_torch.models.generation import extend_cache
     from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
     from hetu_tpu_torch.serving import (ServeConfig, ServingEngine,
@@ -966,7 +984,9 @@ def reference_phase(seed: int, kernels):
     print(f"reference: Llama-3-8B widths, 2 layers, fp32: card vs CPU "
           f"prefill logits max_abs_err={err:.3g} (tol 1e-3); greedy tokens "
           f"identical {tokens[0]} ({time.perf_counter() - t0:.1f}s)")
-    return reference_spec_phase(seed, card, cpu, kernels)
+    launches = reference_spec_phase(seed, card, cpu, kernels)
+    reference_serving3_phase(seed, card, cpu)
+    return launches
 
 
 class GapProbe:
@@ -1257,7 +1277,8 @@ def serving_phase(seed: int, kernels):
     print("serving " + json.dumps(out))
     serving_time_phase(eng, reqs)
     del eng
-    return {"serving": launches, **serving2_phase(model, seed, kernels)}
+    return {"serving": launches, **serving2_phase(model, seed, kernels),
+            **serving3_phase(model, seed, kernels)}
 
 
 def serving2_phase(model, seed: int, kernels):
@@ -1390,6 +1411,390 @@ def serving2_phase(model, seed: int, kernels):
         by_path[path] = launches
         del eng
     return by_path
+
+
+def draft_config():
+    """The draft model: Llama-3.2-1B's published widths (hidden 2048, 16
+    layers, 32 q / 8 kv heads of 64, SwiGLU 8192, vocab 128256, rope
+    theta 500000, tied embeddings), bf16.  Cut: no llama3 RoPE scaling
+    (the reference's config has no field for it), 8,192 positions,
+    random weights."""
+    from hetu_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(vocab_size=128256, hidden_size=2048,
+                       intermediate_size=8192, num_hidden_layers=16,
+                       num_attention_heads=32, num_key_value_heads=8,
+                       max_position_embeddings=8192, rope_theta=500000.0,
+                       tie_word_embeddings=True,
+                       param_dtype=torch.bfloat16)
+
+
+def serving3_kernel_phase(seed: int):
+    """The blockwise dequantize at the third serving slice's shapes: the
+    draft model's largest leaf, the tied embedding [128256 x 2048] as
+    [nb, 128] (the path's block) and [nb, 64], and payloads [4096, 64]
+    and [4096, 128]; each in the bf16 arm (the draft's working copy) and
+    the fp32 arm, bit for bit against the plain version (the bf16 arm
+    against it cast once).  `library_ms` is PyTorch's per-channel
+    quantized tensor over the same payload and scales (a qint8 tensor
+    with one scale a row, built before the timing): `.dequantize()`,
+    float(q) * scale[row] in fp32, and for the bf16 arm that and a cast.
+    It cannot be captured in a CUDA graph, so it is timed between CUDA
+    events; the port never calls it."""
+    from hetu_tpu_torch.ops.cuda import quant as qu
+    g = torch.Generator(device="cuda").manual_seed(seed + 30)
+    emb = 128256 * 2048
+    out = []
+    for nb, bs, inner in ((emb // 128, 128, 2), (emb // 64, 64, 2),
+                          (4096, 64, 20), (4096, 128, 20)):
+        x = (0.02 * torch.randn((nb, bs), generator=g,
+                                device="cuda")).bfloat16()
+        q, s = qu.quantize_blockwise(x, bs)
+        del x
+        n = nb * bs
+        qt = torch._make_per_channel_quantized_tensor(
+            q, s.double(), torch.zeros(nb, dtype=torch.long,
+                                       device="cuda"), 0)
+        for dt in (torch.bfloat16, torch.float32):
+            esize = torch.finfo(dt).bits // 8
+            library = (lambda qt=qt, dt=dt: qt.dequantize().to(dt))
+            lib_same = torch.equal(
+                library(), qu.dequantize_blockwise_plain(q, s).to(dt)
+                .view(nb, bs))
+            out.append(case(
+                f"dequantize_blockwise q [{nb},{bs}] int8 -> "
+                f"{str(dt)[6:]}", same(),
+                lambda i, q=q, s=s, dt=dt:
+                    qu.dequantize_blockwise(q, s, out_dtype=dt),
+                lambda i, q=q, s=s, dt=dt:
+                    qu.dequantize_blockwise_plain(q, s).to(dt),
+                n + 4 * nb + esize * n, n, inner=inner,
+                library_ms=event_ms(library, reps=20)))
+            print(f"  library (per-channel qint8 dequantize) equal to the "
+                  f"plain version: {lib_same}")
+        del q, s, qt
+    return {"dequantize_blockwise": out}
+
+
+def shared_prompt_trace(vocab: int, seed: int, *, n: int = 16,
+                        sampled: bool = True):
+    """n Poisson requests at 10/s sharing one 512-token system prompt
+    (32 pages of 16), each with its own tail of 64-512 tokens and 32 new
+    tokens; with `sampled` the odd ones at SamplingParams(temperature=
+    0.8, top_k=50, top_p=0.95)."""
+    from hetu_tpu_torch.serving import (GREEDY, Request, SamplingParams,
+                                        poisson_arrivals)
+    rng = np.random.default_rng(seed + 300)
+    system = rng.integers(0, vocab, 512)
+    arrivals = poisson_arrivals(n, 10.0, seed=seed + 3)
+    reqs = []
+    for i in range(n):
+        tail = rng.integers(0, vocab, int(rng.integers(64, 513)))
+        sp = GREEDY
+        if sampled and i % 2:
+            sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                                seed=seed + 200 + i)
+        reqs.append(Request(rid=i, prompt=np.concatenate([system, tail]),
+                            max_new_tokens=32, sampling=sp,
+                            arrival_t=float(arrivals[i])))
+    return reqs
+
+
+def _timed(fn, times):
+    """fn, its wall time to a synchronize appended to `times` a call."""
+    def go(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    return go
+
+
+def serving3_phase(model, seed: int, kernels):
+    """The third serving slice at full width: phase 5's Llama-3-8B as
+    the target, a draft model of Llama-3.2-1B's widths (`draft_config`)
+    resident in int8 (`ModelDrafter(quantize_bits=8,
+    quantize_block=128)`), `ServeConfig(num_slots=8, page_size=16,
+    max_len=2048, prefill_chunk=256, kv_quant="int8", sampling=True,
+    spec_decode="model", spec_k=4, prefix_cache=True)`, and
+    `shared_prompt_trace`.  Every launch count is exact: each draft
+    forward dequantizes its 65 matrices and runs 16 layers (flash, the
+    fused norm, RoPE, SwiGLU), each verify step 32 `paged_verify`
+    launches and one draw (the bonus token), each prefix hit's prime 2
+    dequantize launches (K and V of all layers), each prefill 2
+    quantize launches.  Then one propose and one verify step are
+    profiled (where serving3's time goes, and the dequantize's share),
+    and the same trace runs greedy on exact pages without speculation,
+    with the prefix cache and without it (TTFT; tokens identical)."""
+    from hetu_tpu_torch.models.generation import verify_step_paged
+    from hetu_tpu_torch.models.llama import LlamaLMHeadModel
+    from hetu_tpu_torch.serving import ServeConfig, ServingEngine
+    from hetu_tpu_torch.serving.spec_decode import (ModelDrafter,
+                                                    stochastic_verify)
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    dcfg = draft_config()
+    t0 = time.perf_counter()
+    draft = LlamaLMHeadModel(dcfg, device="cuda", seed=seed + 1)
+    check(sum(p.numel() for p in draft.parameters()) == dcfg.num_params(),
+          "draft parameter count")
+    drafter = ModelDrafter(draft, quantize_bits=8, quantize_block=128)
+    del draft               # the drafter holds its own int8 copy
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_mats = len(drafter._spec)
+    resident = sum(v["q"].numel() + 4 * v["s"].numel()
+                   for v in drafter.params_q.values() if isinstance(v, dict))
+    print(f"serving3: draft {dcfg.num_params() / 1e9:.3f}B params, "
+          f"{n_mats} matrices resident in int8 ({resident / 2 ** 30:.3f} "
+          f"GiB with scales), built in {time.perf_counter() - t0:.1f}s")
+    serve = ServeConfig(num_slots=8, page_size=16, max_len=2048,
+                        prefill_chunk=256, kv_quant="int8", sampling=True,
+                        spec_decode="model", spec_k=4, prefix_cache=True)
+    eng = ServingEngine(model, serve, device="cuda",
+                        drafter=drafter).warmup()
+    propose_s = []
+    drafter.propose_with_probs = _timed(drafter.propose_with_probs,
+                                        propose_s)
+    reqs = shared_prompt_trace(cfg.vocab_size, seed)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    drafter.forwards = 0
+    t0 = time.perf_counter()
+    results = eng.run(reqs)
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(len(results) == len(reqs), f"serving3: {len(results)} done")
+    for r in results:
+        check(r.finished_reason == "length" and len(r.tokens) == 32,
+              f"serving3: request {r.rid}: {r.finished_reason}, "
+              f"{len(r.tokens)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"serving3: request {r.rid}: token out of the vocabulary")
+    eng.scheduler.check_invariants()
+    pc = eng.prefix_cache.stats()
+    check(eng.pool.used_count == pc["pages"],
+          "serving3: pages leaked past the prefix cache's")
+    reg = eng.registry
+    steps = int(reg.counter_value("serve.decode_steps"))
+    chunks = int(reg.counter_value("serve.prefill_chunks"))
+    hits = int(reg.counter_value("serve.prefix_hits"))
+    fwd = drafter.forwards
+    D = dcfg.num_hidden_layers
+    sampled = sum(not r.sampling.greedy for r in reqs)
+    check(hits >= len(reqs) // 2, f"serving3: only {hits} prefix hits")
+    expect = {name: 0 for name in kernels}
+    expect.update(
+        paged_verify=steps * L, sample_logits=steps + sampled,
+        quantize_blockwise=2 * L * steps + 2 * len(reqs),
+        dequantize_blockwise=n_mats * fwd + 2 * hits,
+        flash_fwd=D * fwd, residual_rmsnorm_fwd=D * fwd,
+        fused_rotary_qk=(steps + chunks) * L + D * fwd,
+        fused_swiglu=(steps + chunks) * L + D * fwd)
+    check(launches == expect, f"serving3: launches {launches}, expected "
+                              f"{expect}")
+    ttft = sorted(r.stats.ttft_s for r in results)
+    gap = reg.histogram("serve.token_latency_s")
+    emitted = reg.histogram("serve.spec_emitted")
+    tokens_out = sum(len(r.tokens) for r in results)
+    prop = int(reg.counter_value("serve.spec_proposed"))
+    acc = int(reg.counter_value("serve.spec_accepted"))
+    prompt_tokens = sum(r.prompt_len for r in reqs)
+    out = {
+        "config": {k: getattr(serve, k) for k in (
+            "num_slots", "page_size", "max_len", "prefill_chunk",
+            "kv_quant", "sampling", "spec_decode", "spec_k",
+            "prefix_cache")},
+        "draft": {"layers": D, "hidden": dcfg.hidden_size,
+                  "quantize_bits": 8, "quantize_block": 128,
+                  "window": drafter.window},
+        "requests": len(results), "sampled_requests": sampled,
+        "prompt_tokens": prompt_tokens, "tokens_out": tokens_out,
+        "decode_steps": steps, "prefill_chunks": chunks,
+        "prefix_hits": hits,
+        "prefix_misses": int(reg.counter_value("serve.prefix_misses")),
+        "prefix_shared_tokens": int(reg.counter_value(
+            "serve.prefix_shared_tokens")),
+        "prefix_cache_pages": pc["pages"],
+        "ttft_s_p50": ttft[len(ttft) // 2], "ttft_s_max": ttft[-1],
+        "decode_step_s_p50": gap.percentile(50),
+        "decode_step_s_max": gap.vmax,
+        "tokens_per_s": tokens_out / wall,
+        "spec_proposed": prop, "spec_accepted": acc,
+        "acceptance": acc / prop,
+        "tokens_per_verify_step_per_slot": emitted.total / emitted.count,
+        "draft_forwards": fwd,
+        "draft_ms_per_propose_p50": 1e3 * sorted(propose_s)[
+            len(propose_s) // 2],
+        "draft_ms_per_propose_mean": 1e3 * sum(propose_s) / len(propose_s),
+        "draft_s_total": sum(propose_s),
+        "run_wall_s": wall, "peak_memory_gib": peak_gb,
+        "launches": launches,
+    }
+    print("serving3 " + json.dumps(out))
+    by_path = {"serving3": launches}
+
+    # where the time goes: one propose (4 draft forwards over the
+    # 256-token window) and one verify step with its rejection rule
+    k, S = serve.spec_k, serve.num_slots
+    ctx = reqs[0].prompt.tolist()
+    mp = eng.scheduler.max_pages
+    depths = [r.prompt_len + 16 for r in reqs][:S]
+    table = torch.zeros((S, mp), dtype=torch.int32, device="cuda")
+    for s_, d in enumerate(depths):
+        n = (d + k) // serve.page_size + 1
+        table[s_, :n] = torch.arange(1 + s_ * mp, 1 + s_ * mp + n)
+    pos = np.asarray(depths, np.int32)
+    tok = np.zeros((S, k + 1), np.int32)
+    q_probs = torch.full((S, k, cfg.vocab_size), 1.0 / cfg.vocab_size,
+                         device="cuda")
+    seeds, temps, top_ks, top_ps = eng._sample_args([])
+    temps[1::2], top_ks[1::2], top_ps[1::2] = 0.8, 50, 0.95
+    grid = pos[:, None] + np.arange(1, k + 2)
+
+    def verify():
+        logits = verify_step_paged(model, torch.as_tensor(tok).cuda(),
+                                   eng.pool.k, eng.pool.v, table,
+                                   torch.as_tensor(pos).cuda(),
+                                   **eng._pools())[0]
+        return stochastic_verify(logits, q_probs, tok[:, 1:], seeds, grid,
+                                 temps, top_ks, top_ps)
+    prof = {}
+    for name, fn in (("propose_k4", lambda: drafter.propose_with_probs(
+                          ctx, k, seed=1, start_pos=len(ctx))),
+                     ("verify_step", verify)):
+        fn()
+        counts = {}
+        busy, wall_ms, by_name, top = _profile(fn, 3, counts=counts)
+        dq = sum(t for n_, t in by_name.items() if "dequantize" in n_)
+        prof[name] = {"wall_ms": wall_ms, "device_busy_ms": busy,
+                      "device_idle_share": 1.0 - busy / wall_ms,
+                      "dequantize_ms": dq,
+                      "dequantize_share_of_busy": dq / busy,
+                      "device_ops_per_call": round(sum(counts.values())),
+                      "top_kernels_ms": top}
+    print("serving3 time " + json.dumps(prof))
+    del eng, drafter
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the prefix cache alone: greedy, exact pages, no speculation
+    runs = {}
+    for path, on in (("serving3_prefix", True),
+                     ("serving3_no_prefix", False)):
+        eng = ServingEngine(model, ServeConfig(
+            num_slots=8, page_size=16, max_len=2048, prefill_chunk=256,
+            prefix_cache=on), device="cuda").warmup()
+        reqs = shared_prompt_trace(cfg.vocab_size, seed, sampled=False)
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        res = eng.run(reqs)
+        wall = time.perf_counter() - t0
+        by_path[path] = read_counts(kernels)
+        eng.scheduler.check_invariants()
+        check(all(len(r.tokens) == 32 for r in res),
+              f"{path}: a request stopped short")
+        reg = eng.registry
+        ttft = sorted(r.stats.ttft_s for r in res)
+        runs[path] = res
+        print(f"{path} " + json.dumps({
+            "ttft_s_p50": ttft[len(ttft) // 2], "ttft_s_max": ttft[-1],
+            "prefill_chunks": int(reg.counter_value("serve.prefill_chunks")),
+            "prefix_hits": int(reg.counter_value("serve.prefix_hits")),
+            "prefix_shared_tokens": int(reg.counter_value(
+                "serve.prefix_shared_tokens")),
+            "decode_step_s_p50": reg.histogram(
+                "serve.token_latency_s").percentile(50),
+            "tokens_per_s": sum(len(r.tokens) for r in res) / wall}))
+        del eng
+    same_tokens = [a.tokens == b.tokens for a, b in
+                   zip(runs["serving3_prefix"], runs["serving3_no_prefix"])]
+    check(all(same_tokens), f"prefix cache changed greedy tokens: "
+                            f"{same_tokens}")
+    print(f"serving3 prefix cache: greedy tokens identical with and "
+          f"without it ({len(same_tokens)} requests)")
+    return by_path
+
+
+def reference_serving3_phase(seed: int, card, cpu):
+    """The third serving slice against the CPU on the 2-layer fp32
+    models, the prefix cache on exact pages, greedy, three requests
+    sharing a 32-token prompt, each way of drafting on the card and on
+    the CPU: (a) the engine's own `draft_model=` wiring (its defaults:
+    temperature 1, window 256, block 64) with a narrow draft model of
+    the target's vocabulary; (b) `drafter=ModelDrafter` over a copy of
+    the target at temperature 0 with a window longer than any context,
+    so greedy drafts are accepted.  The card's tokens equal the CPU
+    engine's and those of the CPU run without speculation or cache."""
+    from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
+    from hetu_tpu_torch.serving import Request, ServeConfig, ServingEngine
+    from hetu_tpu_torch.serving.spec_decode import ModelDrafter
+    cfg = card.config
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 7)
+    system = rng.integers(0, cfg.vocab_size, 32)
+
+    def trace():
+        r = np.random.default_rng(seed + 8)
+        return [Request(rid=i, prompt=np.concatenate(
+                    [system, r.integers(0, cfg.vocab_size, 20 + 7 * i)]),
+                    max_new_tokens=6, arrival_t=30.0 * i) for i in range(3)]
+    serve = dict(num_slots=2, page_size=16, max_len=256, prefill_chunk=64)
+    narrow = LlamaConfig(vocab_size=cfg.vocab_size, hidden_size=512,
+                         intermediate_size=1024, num_hidden_layers=2,
+                         num_attention_heads=8, num_key_value_heads=2,
+                         max_position_embeddings=cfg.max_position_embeddings,
+                         rope_theta=cfg.rope_theta, tie_word_embeddings=True,
+                         compute_dtype=torch.float32)
+    drafts = {}
+    for name, dcfg, src in (("narrow", narrow, None), ("copy", cfg, card)):
+        on_card = LlamaLMHeadModel(dcfg, device="cuda", seed=seed + 5)
+        if src is not None:
+            on_card.load_state_dict(src.state_dict())
+        on_cpu = LlamaLMHeadModel(dcfg, device="cpu", seed=seed + 5)
+        on_cpu.load_state_dict({k: v.cpu() for k, v in
+                                on_card.state_dict().items()})
+        drafts[name] = {"card": on_card, "cpu": on_cpu}
+    base = ServingEngine(cpu, ServeConfig(**serve), device="cpu").run(trace())
+    for way in ("draft_model", "drafter"):
+        runs = {}
+        for name, model in (("card", card), ("cpu", cpu)):
+            cfg_s = ServeConfig(**serve, prefix_cache=True,
+                                spec_decode="model", spec_k=4)
+            if way == "draft_model":
+                eng = ServingEngine(model, cfg_s, device=model.device,
+                                    draft_model=drafts["narrow"][name])
+            else:
+                eng = ServingEngine(model, cfg_s, device=model.device,
+                                    drafter=ModelDrafter(
+                                        drafts["copy"][name],
+                                        temperature=0.0, window=128))
+            res = eng.warmup().run(trace())
+            eng.scheduler.check_invariants()
+            runs[name] = res
+            check(eng.registry.counter_value("serve.prefix_hits") == 2,
+                  f"reference serving3 {way} ({name}): prefix hits "
+                  f"{eng.registry.counter_value('serve.prefix_hits')} != 2")
+            check(eng.drafter.forwards > 0,
+                  f"reference serving3 {way} ({name}): no draft forward")
+        tokens = [r.tokens for r in runs["card"]]
+        check(tokens == [r.tokens for r in runs["cpu"]],
+              f"reference serving3 {way}: card vs CPU tokens differ")
+        check(tokens == [r.tokens for r in base],
+              f"reference serving3 {way}: tokens differ from the run "
+              f"without speculation")
+        acc = sum(r.stats.spec_accepted for r in runs["card"])
+        prop = sum(r.stats.spec_proposed for r in runs["card"])
+        if way == "drafter":
+            check(acc > 0, "reference serving3: the card accepted no "
+                  "draft of the target's copy")
+        print(f"reference serving3 ({way}=): model drafter + prefix cache, "
+              f"card vs CPU greedy tokens identical {tokens}, equal to the "
+              f"run without speculation; accepted {acc} of {prop} drafts "
+              f"({time.perf_counter() - t0:.1f}s)")
 
 
 def _profile(fn, steps: int, top: int = 5, counts=None):
@@ -1773,6 +2178,7 @@ def main(argv=None) -> int:
     kernels = kernel_table()
     cases = serving_kernel_phase(args.seed)
     cases.update(serving2_kernel_phase(args.seed))
+    cases.update(serving3_kernel_phase(args.seed))
     gc.collect()
     torch.cuda.empty_cache()
     int4_path = reference_phase(args.seed, kernels)

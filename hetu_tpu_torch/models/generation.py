@@ -1,6 +1,10 @@
 """The serving forwards, the port of `hetu_tpu/models/generation.py`.
 
-Three programs carry the serving engine's main path:
+`last_logits` runs a whole prompt through the model's forward (flash
+attention, the fused residual norm, RoPE and SwiGLU kernels on the
+card) and returns the last position's logits, the reference's `prefill`
+logits without its cache: the model drafter's forward.  Three programs
+carry the serving engine's main path:
 
   * `extend_cache` — chunked prefill: a [b, C] token block at positions
     start..start+C-1 writes its K/V into a dense per-request cache and
@@ -79,6 +83,25 @@ def _layer_tail(layer, h, attn):
     b, s = attn.shape[:2]
     h = h + layer.attn.o_proj(attn.reshape(b, s, -1))
     return h + layer.mlp(layer.post_norm(h))
+
+
+@torch.no_grad()
+def last_logits(model, input_ids: torch.Tensor) -> torch.Tensor:
+    """The reference's `prefill` logits: the prompt input_ids [b, plen]
+    through every layer as `LlamaBlock.forward` runs it, and the LM head
+    on the last position only.  Returns [b, vocab]; no cache is built
+    (the model drafter's forward)."""
+    c = model.config
+    b, plen = input_ids.shape
+    _check_context_length(c, plen)
+    x = model.model.embed(input_ids.long()).to(c.compute_dtype)
+    cos_t, sin_t = rope_tables(model.rope_cos, model.rope_sin, b, plen)
+    for layer in model.model.layers:
+        a = layer.attn
+        q, k, v = a.heads(a.qkv(layer.input_norm(x)), cos_t, sin_t)
+        normed, x = layer.post_norm.residual(x, a.o_proj(a.attend(q, k, v)))
+        x = x + layer.mlp(normed)
+    return model.logits(model.model.final_norm(x[:, -1]))
 
 
 @torch.no_grad()

@@ -68,5 +68,7 @@ class RMSNorm(nn.Module):
 
     def residual(self, x: torch.Tensor, h: torch.Tensor):
         """The pre-norm block's fused pair: (norm(x + h), x + h), one
-        pass through the fused residual-norm kernel."""
-        return residual_rms_norm(x, h, self.weight, self.eps)
+        pass through the fused residual-norm kernel (which takes the
+        gain in fp32, as `forward` applies it; an fp32 gain is passed
+        as it is)."""
+        return residual_rms_norm(x, h, self.weight.float(), self.eps)

@@ -1,14 +1,23 @@
-"""Blockwise absmax quantize: wrapper, plain version and launch counter.
+"""Blockwise absmax quantize and dequantize: wrappers, plain versions
+and launch counters.
 
-Replaces `hetu_tpu/ops/pallas/quant.py` `quantize_blockwise_pallas`
-(its arithmetic is `hetu_tpu/comm/compress.py` `quantize_blockwise`,
-deterministic rounding).  Kernel: `csrc/quant.cu`, bound by bytes on
-the H100 (see its header): a warp a block, one read of the input (bf16
-widened in registers), one write of the int8 payload and fp32 scales;
-the payload is bit-identical to the plain version.  The serving engine
-quantizes int8 KV pages through it (`serving/kv_pool.quantize_heads`).
-Stochastic rounding feeds only the compressed collectives and arrives
-with them; the dequantize kernel too.
+Replaces `hetu_tpu/ops/pallas/quant.py` `quantize_blockwise_pallas` and
+`dequantize_blockwise_pallas` (their arithmetic is
+`hetu_tpu/comm/compress.py` `quantize_blockwise` with deterministic
+rounding, and `dequantize_blockwise`).  Kernels: `csrc/quant.cu`, bound
+by bytes on the H100 (see its header).  The quantize runs a warp a
+block, one read of the input (bf16 widened in registers), one write of
+the int8 payload and fp32 scales; the payload is bit-identical to the
+plain version.  The dequantize runs a thread per 16 payload bytes and
+writes fp32, or bf16 rounded once (the bits of fp32-then-cast), so a
+caller that wants bf16 weights writes half the bytes; it is bit-identical
+to its plain version.  The serving engine quantizes int8 KV pages
+through the quantize (`ops/quantization.quantize_heads`), reads them
+back densely for the prefix cache's prime through the dequantize
+(`dequantize_heads`), and the model drafter keeps its weights resident
+in int8 and dequantizes a working copy every forward
+(`serving/spec_decode._dequantize_resident`).  Stochastic rounding
+feeds only the compressed collectives and arrives with them.
 """
 from __future__ import annotations
 
@@ -19,8 +28,10 @@ import torch
 
 from hetu_tpu_torch.ops.cuda import build
 
-#: kernel launches (the plain version never counts)
+#: quantize kernel launches (the plain versions never count)
 launches = 0
+#: dequantize kernel launches
+dequant_launches = 0
 
 _BLOCK_SIZES = (32, 64, 128, 256)
 _MULTI_GPU = "the multi-GPU slice (ROADMAP Queue A item 5)"
@@ -28,8 +39,13 @@ _SYMBOLS = {torch.float32: "hetu_quantize_blockwise_f32",
             torch.bfloat16: "hetu_quantize_blockwise_bf16"}
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_float, ctypes.c_void_p]
+_DQ_SYMBOLS = {torch.float32: "hetu_dequantize_blockwise_f32",
+               torch.bfloat16: "hetu_dequantize_blockwise_bf16"}
+_DQ_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_void_p]
 #: every exported symbol -> its ctypes argtypes
-_SIGNATURES = dict.fromkeys(_SYMBOLS.values(), _ARGTYPES)
+_SIGNATURES = {**dict.fromkeys(_SYMBOLS.values(), _ARGTYPES),
+               **dict.fromkeys(_DQ_SYMBOLS.values(), _DQ_ARGTYPES)}
 
 
 def qmax(bits: int) -> float:
@@ -95,3 +111,45 @@ def quantize_blockwise(x: torch.Tensor, block_size: int, *, bits: int = 8,
     global launches
     launches += 1
     return q, scales
+
+
+def dequantize_blockwise_plain(q: torch.Tensor,
+                               scale: torch.Tensor) -> torch.Tensor:
+    """The reference's arithmetic: (q int8 [nb, bs], scales fp32 [nb])
+    -> flat fp32 [nb * bs], each row times its scale."""
+    return (q.float() * scale[:, None]).reshape(-1)
+
+
+def dequantize_blockwise(q: torch.Tensor, scale: torch.Tensor, *,
+                         out_dtype=torch.float32,
+                         device="cuda") -> torch.Tensor:
+    """(q int8 [nb, bs], scales fp32 [nb]) -> flat [nb * bs] of
+    `out_dtype`: fp32, or bf16 rounded once from the fp32 product.
+    `device` "cuda" launches the kernel (rows of q contiguous, any
+    bs >= 1, any base alignment), "cpu" runs the plain version and
+    casts; the tensors must lie there."""
+    dev = build.check_device("dequantize_blockwise", device, q, scale)
+    if q.dtype != torch.int8 or q.dim() != 2:
+        raise ValueError(f"dequantize_blockwise takes an int8 payload [nb, "
+                         f"bs], got {q.dtype} {tuple(q.shape)}")
+    nb, bs = q.shape
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (nb,):
+        raise ValueError(f"dequantize_blockwise takes fp32 scales [{nb}], "
+                         f"got {scale.dtype} {tuple(scale.shape)}")
+    if out_dtype not in _DQ_SYMBOLS:
+        raise ValueError(f"out_dtype must be fp32 or bf16, got {out_dtype}")
+    if dev.type == "cpu":
+        return dequantize_blockwise_plain(q, scale).to(out_dtype)
+    if nb and bs and (q.stride(1) != 1 or (nb > 1 and q.stride(0) != bs)):
+        raise ValueError("dequantize_blockwise needs a payload whose rows "
+                         f"are contiguous, got strides {q.stride()}")
+    scale = scale.contiguous()
+    y = torch.empty(nb * bs, dtype=out_dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = build.bind("quant", _DQ_SYMBOLS[out_dtype], _DQ_ARGTYPES)(
+            q.data_ptr(), scale.data_ptr(), y.data_ptr(), nb, bs,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check_launch(err, "dequantize_blockwise")
+    global dequant_launches
+    dequant_launches += 1
+    return y

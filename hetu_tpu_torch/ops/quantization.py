@@ -7,8 +7,8 @@ EVEN index in the LOW nibble, values offset by +8.  The int4 KV pages of
 `serving/kv_pool.py` use this layout, and the paged-attention kernels
 unpack it.  `quantize_heads` / `dequantize_heads` are the KV pages'
 per-head-vector quantization (the reference's `serving/kv_pool.py`
-pair): int8 through the blockwise kernel, int4 through
-`quantize_int4`.
+pair): int8 through the blockwise kernels (quantize and dequantize),
+int4 through `quantize_int4` / `dequantize_int4`.
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ from typing import Tuple
 
 import torch
 
-from hetu_tpu_torch.ops.cuda.quant import quantize_blockwise
+from hetu_tpu_torch.ops.cuda.quant import (dequantize_blockwise,
+                                          quantize_blockwise)
 
 
 def pack_nibbles(u: torch.Tensor) -> torch.Tensor:
@@ -77,10 +78,17 @@ def quantize_heads(x: torch.Tensor, bits: int = 8):
     return q.reshape(x.shape), s.reshape(x.shape[:-1])
 
 
-def dequantize_heads(q: torch.Tensor, s: torch.Tensor, bits: int = 8):
-    """Inverse of `quantize_heads`, in fp32."""
+def dequantize_heads(q: torch.Tensor, s: torch.Tensor, bits: int = 8, *,
+                     out_dtype=torch.float32):
+    """Inverse of `quantize_heads`: fp32 values (or `out_dtype`, cast
+    once from them).  int8 through the blockwise dequantize kernel on
+    q's device (its plain version on the CPU; bf16 out of the kernel
+    directly), int4 in plain PyTorch."""
     if bits == 4:
         hd = 2 * q.shape[-1]
         return dequantize_int4(q.reshape(-1, q.shape[-1]), s.reshape(-1),
-                               (*q.shape[:-1], hd))
-    return q.float() * s[..., None]
+                               (*q.shape[:-1], hd)).to(out_dtype)
+    y_dtype = out_dtype if out_dtype == torch.bfloat16 else torch.float32
+    y = dequantize_blockwise(q.reshape(-1, q.shape[-1]), s.reshape(-1),
+                             out_dtype=y_dtype, device=q.device)
+    return y.reshape(q.shape).to(out_dtype)

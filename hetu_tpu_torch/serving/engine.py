@@ -5,14 +5,20 @@ Each engine step runs, in order:
 
   * admission — the host `Scheduler` admits every queued request a slot
     and a full page reservation allow (plus `spec_k` positions of
-    lookahead under speculative decoding);
+    lookahead under speculative decoding).  With
+    `ServeConfig(prefix_cache=True)` a radix prefix cache
+    (`serving/prefix_cache.py`) admits a prompt's cached page-aligned
+    prefix resident: its pages are shared copy-on-write, the slot's
+    scratch is PRIMED from them (`PagePool.gather`), and prefill starts
+    at the shared boundary;
   * chunked prefill — every prefilling slot advances ONE chunk
     (`models/generation.extend_cache`) into its own dense scratch cache,
     so a long prompt adds engine steps for its own slot and never stalls
     the decode batch; on its last chunk the scratch K/V are written into
-    the slot's pages (`PagePool.write_pages`, quantized in the int8/int4
-    page modes) and the first token is taken from the last valid prompt
-    position's logits (`first_token_from_logits`);
+    the slot's own pages (`PagePool.write_pages`, quantized in the
+    int8/int4 page modes; shared pages are never written), the prompt is
+    indexed in the prefix cache, and the first token is taken from the
+    last valid prompt position's logits (`first_token_from_logits`);
   * decode — one gather-free step over every slot
     (`models/generation.decode_step_paged`, the `paged_attention`
     kernel), then the next token per slot; or, with
@@ -21,8 +27,12 @@ Each engine step runs, in order:
     kernel) scores the last token and the drafts in one forward, the
     fused sampling epilogue (`sample_hidden_grid`) picks the token the
     sequential path would emit at each position, and the drafts are
-    accepted while they match.  Rows that are not decoding ride along
-    pinned to the null page (`_decode_table`).
+    accepted while they match.  With `spec_decode="model"` a draft model
+    (`ModelDrafter`, resident int8) proposes with its distributions q,
+    and the verify step's logits go through the full p/q rejection rule
+    (`spec_decode.stochastic_verify`) instead; the fused sampler stays
+    off there.  Rows that are not decoding ride along pinned to the null
+    page (`_decode_table`).
 
 Tokens are the greedy argmax, or with `ServeConfig(sampling=True)` the
 seeded sampler (`serving/sampling.py`): a token's key is a pure
@@ -55,27 +65,26 @@ from hetu_tpu_torch.models.generation import (_check_context_length,
                                               verify_step_paged)
 from hetu_tpu_torch.obs.metrics import MetricsRegistry
 from hetu_tpu_torch.serving.kv_pool import PagePool
+from hetu_tpu_torch.serving.prefix_cache import RadixPrefixCache
 from hetu_tpu_torch.serving.request import (Request, RequestResult,
                                             SamplingParams)
 from hetu_tpu_torch.serving.sampling import (sample_hidden_grid,
                                              sample_tokens)
 from hetu_tpu_torch.serving.scheduler import Scheduler
-from hetu_tpu_torch.serving.spec_decode import accept_counts, make_drafter
+from hetu_tpu_torch.serving.spec_decode import (accept_counts, make_drafter,
+                                                stochastic_verify)
 from hetu_tpu_torch.utils.device import resolve_device
 
 #: the later slices of the port (ROADMAP.md, Queue A)
-_SERVING_3 = "the third serving slice (ROADMAP Queue A item 3)"
 _SERVING_HOST = "the serving host-layer slice (ROADMAP Queue A item 4)"
 _MULTI_GPU = "the multi-GPU slice (ROADMAP Queue A item 5)"
 
 #: ServeConfig fields beyond this slice: name -> (default, later slice)
 _LATER_FIELDS = {
     "moe_dispatch": ("gspmd", _MULTI_GPU),
-    "prefix_cache": (False, _SERVING_3),
-    "prefix_cache_pages": (0, _SERVING_3),
     "preempt": (False, _SERVING_HOST),
     "quotas": ({}, _SERVING_HOST),
-    "serve_sample": (1, _SERVING_3),
+    "serve_sample": (1, _SERVING_HOST),
     "retry_budget": (0, _SERVING_HOST),
     "deadline": (False, _SERVING_HOST),
     "brownout": (False, _SERVING_HOST),
@@ -87,10 +96,9 @@ _LATER_FIELDS = {
 
 #: ServingEngine keyword arguments beyond this slice
 _LATER_ENGINE_ARGS = {
-    "run_log": _SERVING_3, "tracer": _SERVING_3, "health": _SERVING_3,
-    "telemetry": _SERVING_HOST, "cost_model": _SERVING_HOST,
-    "draft_model": _SERVING_3, "draft_params": _SERVING_3,
-    "reshard": _MULTI_GPU,
+    "run_log": _SERVING_HOST, "tracer": _SERVING_HOST,
+    "health": _SERVING_HOST, "telemetry": _SERVING_HOST,
+    "cost_model": _SERVING_HOST, "reshard": _MULTI_GPU,
 }
 
 
@@ -120,9 +128,13 @@ class ServeConfig:
     `kv_quant` picks exact ("none"), int8 or int4 pages; `sampling`
     builds the seeded sampler (a greedy-only engine refuses sampling
     requests); `spec_decode="ngram"` verifies `spec_k` host-drafted
-    tokens a step.  The reference's other options keep their names and
-    defaults here; setting one to anything but its default raises
-    NotImplementedError naming the slice of the port that brings it."""
+    tokens a step, `"model"` a draft model's tokens by the stochastic
+    rule (the engine's `draft_model=`); `prefix_cache` keeps shared
+    prompt prefixes resident (`prefix_cache_pages` caps the cache's
+    pages, 0 = pool pressure only).  The reference's other options keep
+    their names and defaults here; setting one to anything but its
+    default raises NotImplementedError naming the slice of the port that
+    brings it."""
     num_slots: int = 8
     page_size: int = 16
     max_len: int = 256
@@ -171,10 +183,6 @@ class ServeConfig:
             raise ValueError(
                 f"spec_decode {self.spec_decode!r} invalid; choices: "
                 "('none', 'ngram', 'model')")
-        if self.spec_decode == "model":
-            raise NotImplementedError(
-                "ServeConfig.spec_decode='model' (a draft model verified "
-                f"by the stochastic rule) arrives with {_SERVING_3}")
         if self.spec_decode != "none" and self.spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
         if self.num_pages == 0:
@@ -194,12 +202,22 @@ class ServingEngine:
 
     `device` ("cuda" by default) must be the model's device; on a CUDA
     device the decode step runs the hand-written kernels, on the CPU
-    their plain versions."""
+    their plain versions.  `draft_model` (with
+    `ServeConfig(spec_decode="model")`) is a second `LlamaLMHeadModel`
+    on the same device; the engine's `ModelDrafter` keeps its own int8
+    copy of its matrices and leaves the model as it was.  The port's
+    models hold their own weights, so the reference's `draft_params` has
+    no counterpart and is refused."""
 
     def __init__(self, model, config: Optional[ServeConfig] = None, *,
                  registry: Optional[MetricsRegistry] = None, drafter=None,
-                 device="cuda", **later):
+                 draft_model=None, device="cuda", **later):
         for name in later:
+            if name == "draft_params":
+                raise TypeError(
+                    "ServingEngine(draft_params=...) has no counterpart in "
+                    "the port: a port model holds its own weights, so pass "
+                    "the draft model alone as draft_model=")
             if name not in _LATER_ENGINE_ARGS:
                 raise TypeError(f"ServingEngine got an unexpected keyword "
                                 f"argument {name!r}")
@@ -221,9 +239,15 @@ class ServingEngine:
             num_kv_heads=c.num_key_value_heads, head_dim=c.head_dim,
             dtype=c.compute_dtype, quant=self.config.kv_quant,
             device=self.device)
+        # radix prefix cache: shared prompt prefixes admit resident
+        self.prefix_cache = None
+        if self.config.prefix_cache:
+            self.prefix_cache = RadixPrefixCache(
+                self.pool, max_pages=self.config.prefix_cache_pages)
         self.scheduler = Scheduler(num_slots=self.config.num_slots,
                                    pool=self.pool,
                                    max_len=self.config.max_len,
+                                   prefix_cache=self.prefix_cache,
                                    lookahead=self.config.lookahead)
         # speculative decoding: the host drafter (`drafter=` overrides
         # the config's mode; the verify step and the page lookahead are
@@ -232,9 +256,28 @@ class ServingEngine:
             raise ValueError("a custom drafter needs spec_decode set "
                              "(e.g. ServeConfig(spec_decode='ngram')) so "
                              "the verify step and page lookahead exist")
+        draft_kw = {}
+        if draft_model is not None:
+            if self.config.spec_decode != "model" or drafter is not None:
+                raise ValueError("draft_model= drafts only under "
+                                 "ServeConfig(spec_decode='model') and "
+                                 "without a drafter=")
+            if draft_model.device != self.device:
+                raise ValueError(f"the draft model lives on "
+                                 f"{draft_model.device}, the engine on "
+                                 f"{self.device}")
+            if draft_model.config.vocab_size != c.vocab_size:
+                raise ValueError("the draft model's vocabulary differs "
+                                 "from the target's")
+            draft_kw = {"model": draft_model}
         self.drafter = (drafter if drafter is not None
-                        else make_drafter(self.config.spec_decode))
+                        else make_drafter(self.config.spec_decode,
+                                          **draft_kw))
         self.spec = self.drafter is not None
+        #: stochastic drafters report their proposal distributions and
+        #: are verified by the full p/q rejection rule
+        self.spec_stochastic = bool(
+            self.spec and getattr(self.drafter, "stochastic", False))
         self.registry = registry if registry is not None \
             else MetricsRegistry()
         self.steps_done = 0
@@ -294,22 +337,31 @@ class ServingEngine:
                              temps, top_ks, top_ps, device=dev).cpu().numpy()
 
     def _verify(self, table: np.ndarray, tokens: np.ndarray,
-                positions: np.ndarray, active):
+                positions: np.ndarray, active, q_probs=None):
         """One verify step over every slot: tokens [S, k+1] (the last
         emitted token + k drafts).  Returns (targets [S, k+1], n_emit
-        [S]) on the host: the sequential path's token at each position
-        and how many of them to emit (the matched draft prefix + 1)."""
+        [S]) on the host: the tokens to emit at each position and how
+        many of them (the accepted draft prefix + 1).  Without
+        `q_probs` a draft is accepted while it matches the sequential
+        path's token; with q_probs [S, k, V] (a stochastic drafter's
+        distributions) by the p/q rejection rule over the logits."""
         dev = self.device
         pos = torch.as_tensor(positions, device=dev)
         tok = torch.as_tensor(tokens, device=dev)
-        hidden = verify_step_paged(
+        out = verify_step_paged(
             self.model, tok, self.pool.k, self.pool.v,
-            torch.as_tensor(table, device=dev), pos, return_hidden=True,
-            **self._pools())[0]
+            torch.as_tensor(table, device=dev), pos,
+            return_hidden=q_probs is None, **self._pools())[0]
         # the token picked at grid position i sits at positions + i + 1
         pos_grid = positions.astype(np.int64)[:, None] + np.arange(
             1, tokens.shape[1] + 1)
         seeds, temps, top_ks, top_ps = self._sample_args(active)
+        if q_probs is not None:
+            targets, n_emit = stochastic_verify(
+                out, q_probs, tokens[:, 1:], seeds, pos_grid, temps, top_ks,
+                top_ps)
+            return targets.cpu().numpy(), n_emit.cpu().numpy()
+        hidden = out
         targets = sample_hidden_grid(
             hidden, self.model.lm_head_weight(), seeds, pos_grid, temps,
             top_ks, top_ps, device=dev).cpu().numpy()
@@ -329,17 +381,24 @@ class ServingEngine:
         zeros = np.zeros(S, np.int32)
         table = np.zeros_like(self.scheduler.page_table)
         if self.spec:
+            q_probs = None
+            if self.spec_stochastic:
+                k, V = self.config.spec_k, self.model.config.vocab_size
+                q_probs = torch.full((S, k, V), 1.0 / V,
+                                     device=self.device)
+                self.drafter.propose_with_probs([0], 1)
             self._verify(table, np.zeros((S, self.config.spec_k + 1),
-                                         np.int32), zeros, [])
+                                         np.int32), zeros, [], q_probs)
         else:
             self._decode(table, zeros, zeros, [])
         scratch = self._new_scratch()
         logits, _ = extend_cache(self.model,
                                  torch.zeros((1, C), dtype=torch.long,
                                              device=self.device), scratch, 0)
-        self.pool.write_pages(
-            np.zeros(self.scheduler.max_pages, np.int32),
-            scratch[0][:, 0], scratch[1][:, 0])
+        null_row = np.zeros(self.scheduler.max_pages, np.int32)
+        self.pool.write_pages(null_row, scratch[0][:, 0], scratch[1][:, 0])
+        if self.prefix_cache is not None:
+            self.pool.gather(null_row)
         if self.config.sampling:
             probe = Request(rid=-1, prompt=np.ones(1, np.int32),
                             max_new_tokens=1,
@@ -391,7 +450,7 @@ class ServingEngine:
                 break
             _, st = adm
             st.prefilling = True
-            st.prefill_cache = self._new_scratch()
+            self._start_prefill(st)
         if self.scheduler.queue:
             reason = self.scheduler.last_stall or "none"
             self.registry.inc("serve.admission_stalls", reason=reason)
@@ -455,12 +514,16 @@ class ServingEngine:
     # ------------------------------------------------------ spec decode
     def _spec_decode_step(self, active, positions):
         """One speculative step over the active slots: draft k tokens a
-        slot on the host, verify all k + 1 in ONE batched forward, and
-        accept by sample-then-match.  Returns {slot: emitted tokens}
-        (>= 1 a slot)."""
+        slot, verify all k + 1 in ONE batched forward, and accept by
+        sample-then-match — or by the full p/q rejection rule when the
+        drafter reports its proposal distributions.  Returns {slot:
+        emitted tokens} (>= 1 a slot)."""
         S, k = self.config.num_slots, self.config.spec_k
         w = self.drafter.window
         tokens = np.zeros((S, k + 1), np.int32)
+        q_probs = (torch.zeros((S, k, self.model.config.vocab_size),
+                               device=self.device)
+                   if self.spec_stochastic else None)
         for i in active:
             st = self.scheduler.slots[i]
             # only the trailing window the drafter reads
@@ -472,9 +535,16 @@ class ServingEngine:
             else:
                 ctx = st.request.prompt.tolist() + st.generated
             tokens[i, 0] = st.generated[-1]
-            tokens[i, 1:] = self.drafter.propose(ctx, k)
+            if q_probs is not None:
+                sp = st.request.sampling
+                tokens[i, 1:], q = self.drafter.propose_with_probs(
+                    ctx, k, seed=sp.seed & 0xFFFFFFFF,
+                    start_pos=int(positions[i]) + 1)
+                q_probs[i] = torch.as_tensor(q, device=self.device)
+            else:
+                tokens[i, 1:] = self.drafter.propose(ctx, k)
         targets, n_emit = self._verify(self._decode_table(active), tokens,
-                                       positions, active)
+                                       positions, active, q_probs)
         emitted = {}
         for i in active:
             n = int(n_emit[i])
@@ -488,16 +558,45 @@ class ServingEngine:
         return emitted
 
     # ---------------------------------------------------------- prefill
+    def _start_prefill(self, st):
+        """Attach the prefill scratch to a freshly admitted slot.  With
+        a prefix-cache hit the scratch is PRIMED: the shared pages are
+        read into positions [0, shared_tokens) (`PagePool.gather`; exact
+        pages give back the bytes written at caching time, quantized
+        ones their dequantized values), so the suffix chunks attend over
+        the resident prefix and prefill covers the suffix only."""
+        if st.shared_tokens:
+            row = np.full(self.scheduler.max_pages, PagePool.NULL_PAGE,
+                          np.int32)
+            shared_pages = st.shared_tokens // self.pool.page_size
+            row[:shared_pages] = st.pages[:shared_pages]
+            st.prefill_cache = self.pool.gather(row)
+            self.registry.inc("serve.prefix_hits")
+            self.registry.inc("serve.prefix_shared_tokens",
+                              st.shared_tokens)
+        else:
+            st.prefill_cache = self._new_scratch()
+            if self.prefix_cache is not None:
+                self.registry.inc("serve.prefix_misses")
+        if self.prefix_cache is not None:
+            self.registry.set_gauge("serve.prefix_cache_pages",
+                                    self.prefix_cache.num_pages)
+
     def _advance_prefill(self, slot_idx: int, st, clock, finished):
         """Run ONE prefill chunk for a prefilling slot; on the last
-        chunk, write the scratch K/V into the slot's pages, emit the
-        first token, and join the decode batch."""
+        chunk, write the scratch K/V into the slot's own pages, index the
+        prompt in the prefix cache, emit the first token, and join the
+        decode batch.  A prefix hit starts chunking at the shared
+        boundary (the primed prefix is already in the scratch) and never
+        writes the shared pages.  A chunk that would run past max_len
+        (a shared boundary off the chunk grid) is cut at max_len."""
         req = st.request
         plen = req.prompt_len
         C = self.config.prefill_chunk
-        padded = math.ceil(plen / C) * C
-        s = st.chunks_done * C
-        ids = np.zeros(C, np.int64)
+        base = st.shared_tokens
+        padded = base + math.ceil((plen - base) / C) * C
+        s = base + st.chunks_done * C
+        ids = np.zeros(min(C, self.config.max_len - s), np.int64)
         seg = req.prompt[s: min(s + C, plen)]
         ids[: len(seg)] = seg
         logits, _ = extend_cache(
@@ -512,11 +611,17 @@ class ServingEngine:
         # position of the final chunk (the padding tail is garbage)
         t1 = first_token_from_logits(req, logits[0, plen - 1 - s], plen,
                                      sampling=self.config.sampling)
+        # write only the slot's own pages: the shared prefix's entries
+        # point at the null page, which write_pages skips
         pages_row = np.full(self.scheduler.max_pages, PagePool.NULL_PAGE,
                             np.int32)
         pages_row[: len(st.pages)] = st.pages
+        pages_row[: base // self.pool.page_size] = PagePool.NULL_PAGE
         ck, cv = st.prefill_cache
         self.pool.write_pages(pages_row, ck[:, 0], cv[:, 0])
+        if self.prefix_cache is not None:
+            # full page blocks not yet cached adopt this request's pages
+            self.prefix_cache.insert(req.prompt, st.pages, clock())
         st.prefilling = False
         st.prefill_cache = None
         st.pos = plen

@@ -10,6 +10,14 @@ maps a sequence position p to (table[p // page_size], p % page_size).
 A finished sequence's pages go back on the free list and are recycled
 by the next admission.
 
+Pages are reference-counted for the radix prefix cache's copy-on-write
+sharing (`serving/prefix_cache.py`): a freshly allocated page has one
+owner; the cache and every slot sharing the page each hold one more,
+and `free` releases one ownership — a page returns to the free list
+when its last owner lets go.  Without sharing every count stays 0 or 1.
+`gather` reads one slot's pages back as a dense cache (the prefix
+cache's prime).
+
 Page 0 is the reserved NULL page: never allocated; empty table entries
 point at it and rows that are not decoding write into it.  The decode
 kernel reads only positions <= each slot's position, so null-page
@@ -31,8 +39,8 @@ values plus one fp32 absmax scale per head vector (block = head_dim),
 int8 quantizes through the blockwise kernel (`ops/cuda/quant.py`), int4
 through `ops/quantization.quantize_int4` (the reference's nibble
 layout: even index in the LOW nibble, +8 offset).  The paged-attention
-kernels dequantize in registers.  The copy-on-write refcounts of the
-radix prefix cache arrive with it.
+kernels dequantize in registers; `gather` dequantizes by the scales
+(int8 through the blockwise dequantize kernel).
 """
 from __future__ import annotations
 
@@ -42,7 +50,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from hetu_tpu_torch.ops.quantization import quantize_heads
+from hetu_tpu_torch.ops.quantization import (dequantize_heads,
+                                             quantize_heads)
 
 #: bytes an element of each exact page mode takes
 _ELEM_BYTES = {"fp32": 4.0, "bf16": 2.0, "fp16": 2.0}
@@ -113,7 +122,9 @@ class PagePool:
         # garbage is overwritten by the next prefill/decode write before
         # any read can see it)
         self._free: List[int] = list(range(num_pages, 0, -1))
-        self._live = set()
+        # copy-on-write reference counts: one per owner (the slot that
+        # allocated the page, each slot sharing it, the prefix cache)
+        self.refcount = np.zeros(num_pages + 1, np.int64)
         self.allocs = 0
         self.frees = 0
 
@@ -134,31 +145,59 @@ class PagePool:
         return self.used_count / self.num_pages
 
     def alloc(self, n: int) -> Optional[List[int]]:
-        """Pop n pages off the free list, or None (the caller queues)
-        when the pool cannot satisfy the reservation."""
+        """Pop n pages off the free list (refcount 1 each), or None (the
+        caller queues) when the pool cannot satisfy the reservation."""
         if n > len(self._free):
             return None
         pages = [self._free.pop() for _ in range(n)]
-        self._live.update(pages)
+        self.refcount[pages] = 1
         self.allocs += n
         return pages
 
+    def incref(self, pages: List[int]):
+        """Add one owner to each live page (prefix-cache sharing)."""
+        for p in pages:
+            if not (0 < p <= self.num_pages):
+                raise ValueError(f"incref of invalid page id {p}")
+            if self.refcount[p] < 1:
+                raise ValueError(f"incref of free page {p}")
+        for p in pages:     # one at a time: a page may repeat
+            self.refcount[p] += 1
+
     def free(self, pages: List[int]):
-        """Return pages to the free list."""
+        """Release one ownership of each page (decref); a page whose
+        last owner released it returns to the free list."""
         for p in pages:
             if not (0 < p <= self.num_pages):
                 raise ValueError(f"freeing invalid page id {p}")
-            if p not in self._live:
+            if self.refcount[p] < 1 or p in self._free:
                 raise ValueError(f"double free of page {p}")
         for p in pages:
-            self._live.discard(p)
-            self._free.append(p)
-            self.frees += 1
-
-    def is_live(self, page: int) -> bool:
-        return page in self._live
+            self.refcount[p] -= 1
+            if self.refcount[p] == 0:
+                self._free.append(p)
+                self.frees += 1
 
     # ------------------------------------------------------- device ops
+    def gather(self, pages_row: np.ndarray):
+        """One slot's dense cache from its pages: pages_row [mp] host
+        page ids (null-padded) -> (k, v), each [L, 1, mp * page_size,
+        n_kv, hd] in the pool's compute dtype, the layout of a prefill
+        scratch.  Quantized pages dequantize by their per-(token, head)
+        scales; null entries read page 0, whose rows no query of the
+        prefill reads before it overwrites them."""
+        idx = torch.as_tensor(np.asarray(pages_row), dtype=torch.long,
+                              device=self.k.device)
+        L, M = self.num_layers, idx.shape[0] * self.page_size
+        out = []
+        for pool, scale in ((self.k, self.k_scale), (self.v, self.v_scale)):
+            g = pool[:, idx]                  # [L, mp, ps, n_kv, hd(/2)]
+            if scale is not None:
+                g = dequantize_heads(g, scale[:, idx], self.quant_bits,
+                                     out_dtype=self.dtype)
+            out.append(g.reshape(L, 1, M, self.num_kv_heads, self.head_dim))
+        return out[0], out[1]
+
     def write_pages(self, pages_row: np.ndarray, ks: torch.Tensor,
                     vs: torch.Tensor):
         """Bulk-write a prefilled sequence's K/V into its pages, in

@@ -113,6 +113,8 @@ class RequestStats:
     #: request's verify steps
     spec_proposed: int = 0
     spec_accepted: int = 0
+    #: prompt tokens admitted resident from the radix prefix cache
+    shared_prefix_tokens: int = 0
 
     @property
     def queue_wait_s(self) -> Optional[float]:

@@ -10,14 +10,19 @@ mid-flight), evicted the step it finishes, and its pages recycled
 through the pool's free list.  Requests join and leave the batch at
 token boundaries.
 
+With a radix prefix cache attached (`serving/prefix_cache.py`), an
+admission starts with its page-aligned shared prefix already resident:
+the shared pages are ref'd (copy-on-write, never written by the slot)
+and only the unshared suffix is reserved.
+
 All state here is host-side Python/numpy — the device only sees the
 [slots, max_pages] int32 page table and the per-slot position vector.
-`check_invariants()` is the correctness contract: no two live slots
-share a page, live + free partition the pool, table rows mirror the
-slots' page lists.
+`check_invariants()` is the correctness contract: refcounts equal owner
+counts, a page is shared only inside shared prefixes, live + free
+partition the pool, table rows mirror the slots' page lists.
 
-The prefix-cache, quota, preemption, failover and disaggregation
-branches of the reference arrive with those features.
+The quota, preemption, failover and disaggregation branches of the
+reference arrive with the serving host-layer slice.
 """
 from __future__ import annotations
 
@@ -35,7 +40,10 @@ from hetu_tpu_torch.serving.request import Request, RequestStats
 class SlotState:
     """One live decode slot.  A freshly admitted slot spends its first
     engine steps PREFILLING (one chunk per step); it joins the decode
-    batch when the last chunk lands."""
+    batch when the last chunk lands.  ``shared_tokens`` > 0 means the
+    leading pages of ``pages`` are radix-cache pages resident from an
+    earlier request: prefill starts at that boundary and this slot never
+    writes those pages."""
     request: Request
     pages: List[int]
     pos: int                     # next cache write position (= tokens cached)
@@ -44,13 +52,18 @@ class SlotState:
     prefilling: bool = False
     prefill_cache: object = None      # dense scratch (k, v) while prefilling
     chunks_done: int = 0
+    shared_tokens: int = 0
 
 
 class Scheduler:
-    """Slot + page bookkeeping for the continuous-batching engine."""
+    """Slot + page bookkeeping for the continuous-batching engine.
+
+    ``lookahead`` widens every reservation by the spec-decode write
+    lookahead; ``prefix_cache`` (a `RadixPrefixCache` over `pool`)
+    admits shared prefixes resident."""
 
     def __init__(self, *, num_slots: int, pool: PagePool, max_len: int,
-                 lookahead: int = 0):
+                 prefix_cache=None, lookahead: int = 0):
         if max_len % pool.page_size:
             raise ValueError(f"max_len {max_len} must be a multiple of "
                              f"page_size {pool.page_size}")
@@ -63,6 +76,7 @@ class Scheduler:
         #: positions past the sequence head: every reservation covers it
         self.lookahead = lookahead
         self.max_pages = max_len // pool.page_size
+        self.prefix_cache = prefix_cache
         self.slots: List[Optional[SlotState]] = [None] * num_slots
         self.queue: Deque[Request] = collections.deque()
         # the device-facing view: row s = slot s's pages, null-padded
@@ -116,7 +130,12 @@ class Scheduler:
     def admit_next(self, now: float) -> Optional[Tuple[int, SlotState]]:
         """Admit the queue head if a slot and its full page reservation
         are available; FIFO — a large head request blocks the queue
-        rather than starving (head-of-line policy)."""
+        rather than starving (head-of-line policy).
+
+        With a prefix cache, the head's cached page-aligned prefix
+        admits already resident: its pages are ref-shared and only the
+        suffix is allocated.  A short allocation first asks the cache to
+        evict LRU entries it alone holds."""
         if not self.queue:
             self.last_stall = None
             return None
@@ -125,17 +144,36 @@ class Scheduler:
             self.last_stall = "no_slot"
             return None
         req = self.queue[0]
-        pages = self.pool.alloc(self.pool.pages_for(
-            self._reserve_tokens(req)))
-        if pages is None:
+        shared_tokens, shared_pages = 0, []
+        if self.prefix_cache is not None:
+            shared_tokens, shared_pages = self.prefix_cache.match(
+                req.prompt, now)
+            if shared_pages:
+                # pin the match before any eviction can run: the matched
+                # chain is itself an evictable leaf, and evicting it to
+                # reallocate would alias prefix and suffix on one page
+                self.pool.incref(shared_pages)
+        need = self.pool.pages_for(self._reserve_tokens(req)) \
+            - len(shared_pages)
+        fresh = self.pool.alloc(need)
+        if fresh is None and self.prefix_cache is not None:
+            self.prefix_cache.evict(need - self.pool.free_count,
+                                    require_free=True)
+            fresh = self.pool.alloc(need)
+        if fresh is None:
+            if shared_pages:
+                self.pool.free(shared_pages)    # unpin the match
             self.last_stall = "no_pages"
             return None
+        pages = list(shared_pages) + fresh
         self.last_stall = None
         self.queue.popleft()
         slot_idx = free[0]
         st = SlotState(request=req, pages=pages, pos=0,
                        stats=RequestStats(arrival_t=req.arrival_t,
-                                          admit_t=now))
+                                          admit_t=now),
+                       shared_tokens=shared_tokens)
+        st.stats.shared_prefix_tokens = shared_tokens
         self.slots[slot_idx] = st
         row = self.page_table[slot_idx]
         row[:] = PagePool.NULL_PAGE
@@ -144,9 +182,11 @@ class Scheduler:
         return slot_idx, st
 
     def release(self, slot_idx: int):
-        """Evict a finished sequence: pages freed, table row re-pointed
-        at the null page (the slot rides along in the decode batch as an
-        inactive row; its writes dump into page 0)."""
+        """Evict a finished sequence: pages released (shared prefix pages
+        decref and stay resident while the cache or another slot holds
+        them), table row re-pointed at the null page (the slot rides
+        along in the decode batch as an inactive row; its writes dump
+        into page 0)."""
         st = self.slots[slot_idx]
         if st is None:
             raise ValueError(f"slot {slot_idx} is not live")
@@ -158,30 +198,32 @@ class Scheduler:
     # ------------------------------------------------------ invariants
     def check_invariants(self):
         """The memory-pool correctness contract:
-        * no page is held by two slots, and no slot holds the null page,
-        * live pages are exactly the pool's allocated set, and live +
-          free pages partition the pool,
+        * refcounts are exact: every live page's count equals its owners
+          (the slots holding it + one per radix-cache entry),
+        * a page shared by two slots is legal only inside their shared
+          page-aligned prefixes (COW); without a prefix cache this is the
+          no-aliasing rule,
+        * live (refcount > 0) + free pages partition the pool,
         * each table row mirrors its slot's page list, null-padded; an
           empty slot's row is all null,
+        * the null page is never owned and never free-listed,
         * every live position fits its reservation and max_len,
         * no rid is live in two slots or both queued and live."""
         owners = {}
+        writers = {}         # page -> slots holding it outside a prefix
         for i, st in enumerate(self.slots):
             if st is None:
                 if (self.page_table[i] != PagePool.NULL_PAGE).any():
                     raise AssertionError(f"empty slot {i} has a non-null "
                                          "table row")
                 continue
-            for p in st.pages:
+            shared_pages = st.shared_tokens // self.pool.page_size
+            for j, p in enumerate(st.pages):
                 if p == PagePool.NULL_PAGE:
                     raise AssertionError(f"slot {i} owns the null page")
-                if p in owners:
-                    raise AssertionError(f"page {p} aliased by slots "
-                                         f"{owners[p]} and {i}")
-                if not self.pool.is_live(p):
-                    raise AssertionError(f"slot {i} holds page {p} the "
-                                         "pool counts as free")
-                owners[p] = i
+                owners[p] = owners.get(p, 0) + 1
+                if j >= shared_pages:
+                    writers.setdefault(p, []).append(i)
             want = st.pages + [PagePool.NULL_PAGE] * (self.max_pages
                                                       - len(st.pages))
             if list(self.page_table[i]) != want:
@@ -195,6 +237,15 @@ class Scheduler:
             if st.pos > self.max_len:
                 raise AssertionError(f"slot {i} position {st.pos} beyond "
                                      f"max_len {self.max_len}")
+        for p, slots_w in writers.items():
+            if len(slots_w) > 1:
+                raise AssertionError(f"page {p} aliased outside a shared "
+                                     f"prefix by slots {slots_w}")
+        if self.prefix_cache is not None:
+            for p in self.prefix_cache.owned_pages():
+                if p == PagePool.NULL_PAGE:
+                    raise AssertionError("prefix cache owns the null page")
+                owners[p] = owners.get(p, 0) + 1
         free = self.pool._free
         if len(set(free)) != len(free):
             raise AssertionError("duplicate pages on the free list")
@@ -207,6 +258,15 @@ class Scheduler:
             raise AssertionError(
                 f"pool leak: {len(owners)} live + {len(free)} free != "
                 f"{self.pool.num_pages} pages")
+        for p, n in owners.items():
+            if self.pool.refcount[p] != n:
+                raise AssertionError(f"page {p} refcount "
+                                     f"{self.pool.refcount[p]} != {n} "
+                                     "owners")
+        stray = [p for p in range(1, self.pool.num_pages + 1)
+                 if self.pool.refcount[p] > 0 and p not in owners]
+        if stray:
+            raise AssertionError(f"refcounted pages with no owner: {stray}")
         slot_rids = [st.request.rid for st in self.slots if st is not None]
         if len(slot_rids) != len(set(slot_rids)):
             raise AssertionError(f"a request is live in two slots: "

@@ -35,6 +35,11 @@ may be read); the sampler over existing logits token for token; the
 fused sampler's product within 1e-5 of the largest logit, its tokens
 identical wherever the plain top-two gap after noise exceeds 1e-3; the
 sampled, speculative, quantized engine token for token against the CPU.
+
+The third serving slice's: the blockwise dequantize bit for bit in both
+output arms, at block sizes whose rows end inside a 16-byte vector and
+on payload views off a 16-byte boundary; the model drafter with the
+prefix cache on int8 pages token for token against the CPU.
 """
 from __future__ import annotations
 
@@ -55,10 +60,11 @@ from hetu_tpu_torch.ops.cuda import rotary as trotary
 from hetu_tpu_torch.ops.cuda import sample as tsample
 from hetu_tpu_torch.ops.cuda import swiglu as tswiglu
 from hetu_tpu_torch.ops.rotary import build_rope_cache
-from hetu_tpu_torch.serving import (SamplingParams, ServeConfig,
+from hetu_tpu_torch.serving import (Request, SamplingParams, ServeConfig,
                                     ServingEngine, poisson_arrivals,
                                     synthetic_requests)
 from hetu_tpu_torch.serving import sampling as tsampling
+from hetu_tpu_torch.serving.spec_decode import ModelDrafter
 
 pytestmark = pytest.mark.cuda
 
@@ -780,3 +786,120 @@ def test_sampled_spec_quantized_engine_on_the_card_matches_the_cpu(dev, opts):
 
     on_card = run(gpu_model, dev)
     assert on_card == run(cpu_model, "cpu")
+
+
+# -------------------------------------------- third serving slice kernels
+def _dequant_payload(dev, nb, bs, seed=0):
+    x = _normal((nb, bs), seed, dev) * torch.rand(
+        (nb, 1), generator=torch.Generator().manual_seed(seed)).to(dev)
+    return tquant.quantize_blockwise_plain(x, bs)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [32, 64, 128, 256, 24, 200])
+def test_dequantize_blockwise_matches_plain(dev, bs, out_dtype):
+    """Bit for bit, in both output arms (bf16: the fp32 product cast
+    once), at the quantize's block sizes and at rows that end inside a
+    16-byte vector (24, 200)."""
+    q, s = _dequant_payload(dev, 1000 + bs % 7, bs)
+    before = tquant.dequant_launches
+    out = tquant.dequantize_blockwise(q, s, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert tquant.dequant_launches == before + 1
+    ref = tquant.dequantize_blockwise_plain(q, s).to(out_dtype)
+    assert out.dtype == out_dtype and out.shape == ref.shape
+    assert torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
+
+
+@pytest.mark.parametrize("offset", [1, 16, 37])
+def test_dequantize_blockwise_takes_a_view_at_any_offset(dev, offset):
+    """A payload that is a view into a padded flat buffer, its base off
+    (or on) a 16-byte boundary."""
+    q, s = _dequant_payload(dev, 300, 64, seed=3)
+    flat = torch.zeros(offset + q.numel() + 5, dtype=torch.int8,
+                       device=dev)
+    flat[offset:offset + q.numel()] = q.reshape(-1)
+    view = flat[offset:offset + q.numel()].view(300, 64)
+    assert view.data_ptr() % 16 == offset % 16
+    for out_dtype in (torch.float32, torch.bfloat16):
+        out = tquant.dequantize_blockwise(view, s, out_dtype=out_dtype)
+        ref = tquant.dequantize_blockwise_plain(q, s).to(out_dtype)
+        assert torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
+
+
+def test_dequantize_blockwise_refuses_wrong_devices_and_types(dev):
+    q, s = _dequant_payload(dev, 8, 64)
+    with pytest.raises(ValueError):                  # scales on the CPU
+        tquant.dequantize_blockwise(q, s.cpu())
+    with pytest.raises(ValueError):                  # asked for the CPU
+        tquant.dequantize_blockwise(q, s, device="cpu")
+    with pytest.raises(ValueError):
+        tquant.dequantize_blockwise(q.to(torch.uint8), s)
+    with pytest.raises(ValueError):
+        tquant.dequantize_blockwise(q, s.double())
+    with pytest.raises(ValueError):
+        tquant.dequantize_blockwise(q, s, out_dtype=torch.float16)
+    with pytest.raises(ValueError):                  # strided rows
+        tquant.dequantize_blockwise(q[:, ::2], s)
+
+
+@pytest.mark.parametrize("how", ["drafter", "draft_model"])
+def test_model_drafter_engine_on_the_card_matches_the_cpu(dev, how):
+    """The third serving slice at a small size in fp32: the model
+    drafter over a copy of the target — passed as `drafter=` at
+    temperature 0, so greedy drafts are accepted, or built by the engine
+    from `draft_model=` with its defaults (temperature 1, block 64) —
+    and the prefix cache over int8 pages, on the card against
+    the CPU: the same tokens and acceptances, the tokens of the engine
+    without speculation, and the dequantize, flash and verify kernels
+    launched on the way.  Requests arrive one at a time, so every one
+    after the first hits the cache on both devices."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2, intermediate_size=512,
+                           compute_dtype=torch.float32,
+                           initializer_range=0.1)
+    rng = np.random.default_rng(4)
+    sysp = rng.integers(0, cfg.vocab_size, 17)
+
+    def trace():
+        r = np.random.default_rng(5)
+        return [Request(rid=i, prompt=np.concatenate(
+                    [sysp, r.integers(0, cfg.vocab_size, 6)]).astype(
+                        np.int32), max_new_tokens=6, arrival_t=100.0 * i)
+                for i in range(4)]
+
+    weights = LlamaLMHeadModel(cfg, device="cpu", seed=0).state_dict()
+
+    def copy(device):
+        model = LlamaLMHeadModel(cfg, device=device, seed=0)
+        model.load_state_dict(weights)
+        return model
+
+    def run(device, spec=True):
+        model = copy(device)
+        opts = dict(num_slots=3, page_size=8, max_len=64, prefill_chunk=16,
+                    kv_quant="int8", prefix_cache=True)
+        kw = {}
+        if spec:
+            opts.update(spec_decode="model", spec_k=3)
+            kw = ({"drafter": ModelDrafter(copy(device), temperature=0.0)}
+                  if how == "drafter" else {"draft_model": copy(device)})
+        eng = ServingEngine(model, ServeConfig(**opts), device=device,
+                            **kw).warmup()
+        counters = lambda: (tquant.dequant_launches,  # noqa: E731
+                            tflash.launches, tpaged.verify_launches)
+        before = counters()
+        res = eng.run(trace())
+        eng.scheduler.check_invariants()
+        moved = [a - b for a, b in zip(counters(), before)]
+        return [(r.tokens, r.stats.spec_accepted) for r in res], moved
+
+    on_card, moved = run(dev)
+    on_cpu, cpu_moved = run("cpu")
+    assert on_card == on_cpu
+    assert all(n > 0 for n in moved) and cpu_moved == [0, 0, 0]
+    if how == "drafter":
+        assert sum(a for _, a in on_card) > 0
+    plain, _ = run(dev, spec=False)
+    assert [t for t, _ in on_card] == [t for t, _ in plain]

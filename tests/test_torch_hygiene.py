@@ -89,18 +89,24 @@ def test_cpu_serving_builds_nothing(monkeypatch):
 
 @pytest.mark.parametrize("opts", [
     {"sampling": True, "spec_decode": "ngram", "kv_quant": "int8"},
-    {"sampling": True, "kv_quant": "int4"}])
+    {"sampling": True, "kv_quant": "int4"},
+    {"sampling": True, "spec_decode": "model", "kv_quant": "int8",
+     "prefix_cache": True}])
 def test_cpu_sampled_spec_and_quantized_serving_builds_nothing(monkeypatch,
                                                                opts):
-    """The same through the sampler, the verify step and quantized
-    pages."""
+    """The same through the sampler, the verify step, quantized pages,
+    and the model drafter with the prefix cache."""
     calls = []
     monkeypatch.setattr(build, "build", lambda *a, **k: calls.append(a))
     monkeypatch.setattr(build, "library", lambda *a, **k: calls.append(a))
     model = LlamaLMHeadModel(LlamaConfig.tiny(), device="cpu")
+    draft = {}
+    if opts.get("spec_decode") == "model":
+        draft["draft_model"] = LlamaLMHeadModel(LlamaConfig.tiny(),
+                                                device="cpu", seed=1)
     eng = ServingEngine(model, ServeConfig(num_slots=2, max_len=32,
                                            prefill_chunk=8, **opts),
-                        device="cpu")
+                        device="cpu", **draft)
     eng.warmup()
     eng.run([Request(rid=0, prompt=np.arange(1, 12, dtype=np.int32),
                      max_new_tokens=3,
@@ -120,6 +126,20 @@ def test_no_library_attention_in_the_port():
     assert named == []
     assert "scaled_dot_product_attention" in (ROOT / "chip_smoke.py"
                                               ).read_text()
+
+
+def test_no_library_dequantize_in_the_port():
+    """The port's blockwise dequantize is its own kernel: no file of the
+    package builds PyTorch's per-channel quantized tensors (chip_smoke.py
+    times their `dequantize` beside the kernel as a yardstick, and only
+    there)."""
+    name = "_make_per_channel_quantized_tensor"
+    named = [str(path.relative_to(ROOT))
+             for path in sorted((ROOT / "hetu_tpu_torch").rglob("*"))
+             if path.suffix in (".py", ".cu", ".cuh")
+             and name in path.read_text()]
+    assert named == []
+    assert name in (ROOT / "chip_smoke.py").read_text()
 
 
 @pytest.mark.parametrize("flash,policy", [(False, "nothing"),

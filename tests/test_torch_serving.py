@@ -245,16 +245,45 @@ def test_engine_refuses_sampling_requests(tiny_pair):
 
 @pytest.mark.parametrize("how", ["spec_decode", "draft_model"])
 def test_model_drafter_waits_for_its_slice(tiny_pair, how):
-    """spec_decode="model" and a draft model arrive with the third
-    serving slice; a custom drafter needs spec_decode set."""
+    """spec_decode="model" and a draft model came with the third serving
+    slice: the config takes the mode, and the engine asks for the draft
+    model the mode needs and for the mode a draft model needs; a custom
+    drafter needs spec_decode set."""
     _, _, tmodel = tiny_pair
-    with pytest.raises(NotImplementedError, match="third serving slice"):
+    with pytest.raises(ValueError, match="draft"):
         if how == "spec_decode":
-            tserving.ServeConfig(spec_decode="model")
+            tserving.ServingEngine(
+                tmodel, tserving.ServeConfig(spec_decode="model"),
+                device="cpu")
         else:
             tserving.ServingEngine(tmodel, device="cpu", draft_model=object())
     with pytest.raises(ValueError):
         tserving.ServingEngine(tmodel, device="cpu", drafter=object())
+
+
+_SLICE_OF = {"moe_dispatch": "multi-GPU", "kv_repage": "multi-GPU",
+             "reshard": "multi-GPU"}
+
+
+@pytest.mark.parametrize("name", sorted(set(_LATER_FIELDS)
+                                        | set(_LATER_ENGINE_ARGS)))
+def test_deferred_options_name_their_slice(tiny_pair, name):
+    """Every option the port defers names the slice that brings it: the
+    serving host layers (run_log, tracer, health, serve_sample and the
+    scheduler's policies), or multi-GPU."""
+    _, _, tmodel = tiny_pair
+    want = _SLICE_OF.get(name, "serving host-layer slice")
+    with pytest.raises(NotImplementedError, match=want):
+        if name in _LATER_FIELDS:
+            value = {"quotas": {"acme": None}, "serve_sample": 2,
+                     "retry_budget": 1, "brownout_page_high": 0.5,
+                     "brownout_queue_min": 2,
+                     "brownout_streak": 1}.get(name, True)
+            tserving.ServeConfig(**{name: value})
+        else:
+            tserving.ServingEngine(tmodel, device="cpu", **{name: object()})
+    assert "prefix_cache" not in _LATER_FIELDS
+    assert "draft_model" not in _LATER_ENGINE_ARGS
 
 
 @pytest.mark.parametrize("field,value", [("kv_quant", "int2"),

@@ -249,7 +249,7 @@ def test_ngram_drafter_and_acceptance_match_reference():
             jspec.expected_tokens_per_step(a, 4)
     assert tspec.CallableDrafter(lambda t, k: [1] * k).propose([2], 3) == \
         [1, 1, 1]
-    with pytest.raises(NotImplementedError, match="third serving slice"):
+    with pytest.raises(ValueError, match="draft model"):
         tspec.make_drafter("model")
 
 

@@ -117,6 +117,42 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     Then the first training slice's path — the dense attention, whole
     blocks recomputed (policy "nothing") — at 2 layers for 2 steps, with
     its launch counts (every forward kernel twice, no flash kernel).
+ 9. GPT kernels (`gpt_kernel_phase`): the fused norm's LayerNorm
+    arm at GPT-2-large's training shape [8192, 1280], forward and
+    backward, bf16 and fp32, with a bias, each timed beside its plain
+    version, its bound and the composition it replaces (`x + h` then
+    `F.layer_norm`; aten's layer-norm backward then `+ dr`: one CUDA
+    graph each; the RMS arm is timed beside `x + h` then `F.rms_norm`,
+    and PyTorch's rms_norm backward then `+ dr`, the same way);
+    scale-only, hidden 1000 and one row checked; every other kernel of
+    the GPT paths at their own shapes, bf16, timed as in phase 3: the
+    three flash kernels at q/kv [8, 1024, 20, 64] causal (group 1),
+    paged attention on exact and int8 pages (8 slots, 20 q and kv
+    heads of 64, pages of 16, 64 a slot), the verify kernel on int8
+    pages (q [8, 5, 20, 64]), the blockwise quantize at block 64 (a
+    decode step's K of one layer, [160, 64], and a prompt's K of every
+    layer, [552960, 64]), and the fused sampler over the tied head, a
+    transposed view of `wte`;
+10. GPT reference: GPT-2-large widths cut to 2 layers, fp32, the engine
+    on the card and on the CPU (greedy tokens identical), then 3
+    `Trainer` steps on both to phase 7's tolerances;
+11. GPT training: `GPTConfig.gpt2_large()` at full depth (36 layers,
+    774.0M parameters, fp32 parameters and AdamW state, bf16 compute,
+    flash attention, policy "nothing") through
+    `TrainingConfig(global_batch_size=16, micro_batch_size=8,
+    seq_len=1024)`, 6 steps on one seeded batch, launch counts exact
+    each step (LayerNorm forward 2 x 36 x 2, backward 36 x 2; flash
+    forward 144, dq and dk/dv 72; AdamW 436), the loss check of phase
+    8, step p50, tokens/s, mfu, peak memory, and one step profiled as
+    phase 8 profiles its;
+12. GPT serving: GPT-2-large in bf16 behind ServeConfig(num_slots=8,
+    page_size=16, max_len=1024, prefill_chunk=256), 8 Poisson requests
+    at 10/s with 64-768-token prompts and 32 new tokens each: greedy on
+    exact pages, then the odd requests sampled on int8 pages without
+    and with n-gram speculation; exact launch counts, TTFT, gap,
+    tokens/s, peak memory; then one 256-token prefill chunk timed with
+    an int start (the engine's) and with a [1] start (the per-row
+    scatter), logits and caches identical.
 
 Prints the `kernels` JSON line, the nvidia-smi line, and last the
 `{"ok": true, "device": ...}` line.
@@ -269,20 +305,23 @@ def checked(label, tols, out, ref):
           f"{excess:.3g}), not timed")
     return {"case": label, "max_abs_err": err, "tolerance": text,
             "excess": excess, "ms": None, "plain_ms": None,
-            "bound_ms": None, "bound_by": None, "library_ms": None}
+            "bound_ms": None, "bound_by": None, "library_ms": None,
+            "composition_ms": None}
 
 
 def case(label, tols, run, plain, nbytes, ops, *, exact=None, library=None,
-         library_ms=None, op_dtype=torch.float32, inner=20):
+         library_ms=None, composition=None, composition_ms=None,
+         op_dtype=torch.float32, inner=20):
     """Hold run(0) against plain(0) (or `exact`(0), the plain version on
     the same values in fp32, where given) as `compare` does; then time
     the kernel, its plain version and `library` (one PyTorch call
     computing the same function, a yardstick; or its time `library_ms`
-    where the caller measured it) on the card.  Each is called with a
-    running count, so a case can cycle through copies of its inputs.
-    `op_dtype` picks the peak rate the operations are bound by; `inner`
-    the calls a timed CUDA graph holds (fewer where a call allocates
-    hundreds of MB)."""
+    where the caller measured it) on the card, and `composition` (a few
+    PyTorch calls computing it where no one call does, a yardstick too;
+    or its time `composition_ms`) the same way.  Each is called with a running count, so a case can
+    cycle through copies of its inputs.  `op_dtype` picks the peak rate
+    the operations are bound by; `inner` the calls a timed CUDA graph
+    holds (fewer where a call allocates hundreds of MB)."""
     err, excess, text = compare(label, tols, run(0), (exact or plain)(0))
     calls = [0]
 
@@ -295,14 +334,19 @@ def case(label, tols, run, plain, nbytes, ops, *, exact=None, library=None,
     plain_ms = device_ms(cycled(plain), inner)
     if library:
         library_ms = device_ms(cycled(library), inner)
+    if composition:
+        composition_ms = device_ms(cycled(composition), inner)
     b_ms, b_by = bound(nbytes, ops, op_dtype)
     res = {"case": label, "max_abs_err": err, "tolerance": text,
            "excess": excess, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+           "composition_ms": composition_ms}
     print(f"kernel {label}: max_abs_err={err:.3g} (excess over tolerance "
           f"{excess:.3g}) ms={ms:.5f} plain_ms={plain_ms:.5f} "
           f"bound_ms={b_ms:.5f} ({b_by})"
-          + ("" if library_ms is None else f" library_ms={library_ms:.5f}"))
+          + ("" if library_ms is None else f" library_ms={library_ms:.5f}")
+          + ("" if composition_ms is None
+             else f" composition_ms={composition_ms:.5f}"))
     return res
 
 
@@ -408,18 +452,19 @@ def serving_kernel_phase(seed: int):
 SPEC_DEPTHS = [1100, 1040, 900, 700, 520, 300, 128, 40]
 
 
-def serving_pages(seed, quant, C, copies, depths=SPEC_DEPTHS):
-    """Pools at Llama-3-8B's attention shape (32 q / 8 kv heads, head
-    dim 128, pages of 16, 128 pages a slot) in a page mode, `copies`
-    of them so timed launches find their pages cold in L2; q [8, C,
-    32, 128] bf16.  Every row no query reads (past positions[s] + C - 1,
+def serving_pages(seed, quant, C, copies, depths=SPEC_DEPTHS, *, nq=32,
+                  n_kv=8, hd=128, mp=128):
+    """Pools at an attention shape (by default Llama-3-8B's: 32 q / 8 kv
+    heads, head dim 128, 128 pages of 16 a slot) in a page mode,
+    `copies` of them so timed launches find their pages cold in L2; q
+    [S, C, nq, hd] bf16, a slot for each of `depths`.  Every row no query reads (past positions[s] + C - 1,
     and the null page) holds NaN (exact pages) or a NaN scale
     (quantized pages): no kernel may load it.  Returns q, pools (k, v,
     k_scale, v_scale), table, positions, the bytes a launch must move
     (q and out, the live payload and scale rows, table, positions) and
     its operations (4 x head dim a visible (query, key) pair)."""
     from hetu_tpu_torch.ops.quantization import quantize_heads
-    S, nq, n_kv, hd, ps, mp = len(depths), 32, 8, 128, 16, 128
+    S, ps = len(depths), 16
     P = S * mp + 1
     g = torch.Generator(device="cuda").manual_seed(seed)
     positions = torch.tensor(depths, dtype=torch.int32, device="cuda")
@@ -457,6 +502,125 @@ def serving_pages(seed, quant, C, copies, depths=SPEC_DEPTHS):
     return q, pools, table, positions, nbytes, ops
 
 
+def _sampler_rows(seed, R, V):
+    """Per-row sampling arguments of a verify step's 8 slots x 5 rows:
+    greedy, temperature only, top-k 50, top-p 0.95, top-k + top-p."""
+    from hetu_tpu_torch.serving.sampling import key_words
+    temps = torch.tensor([0.0, 1.0, 0.8, 0.9, 0.7] * (R // 5), device="cuda")
+    top_ks = torch.tensor([0, 0, 50, 0, 50] * (R // 5), dtype=torch.int32,
+                          device="cuda")
+    top_ps = torch.tensor([0.0, 0.0, 0.0, 0.95, 0.95] * (R // 5),
+                          device="cuda")
+    words = key_words(torch.arange(R) * 7919 + seed,
+                      torch.arange(R) + 1000).cuda()
+    return temps, top_ks, top_ps, words
+
+
+def sampler_cases(g, seed, head, head_text, R=40):
+    """The fused sampler over hidden [R, H] (bf16) and `head` [H, V]:
+    the product alone (kernel (a)), timed beside the fp32 product, held
+    within 1e-5 of the largest logit; then product + draw, its tokens
+    identical on every row whose plain top-two gap after noise exceeds
+    1e-3 (the others counted)."""
+    from hetu_tpu_torch.ops.cuda import sample as sa
+    H, V = head.shape
+    temps, top_ks, top_ps, words = _sampler_rows(seed, R, V)
+    hidden = torch.randn((R, H), generator=g, device="cuda").bfloat16()
+    ref = hidden.float() @ head.float()
+    product = case(
+        f"fused_sample product hidden [{R},{H}] x head {head_text} bf16 -> "
+        "fp32 logits", rel(1e-5, of_max=True),
+        lambda i: sa.lm_head_logits(hidden, head),
+        lambda i: hidden.float() @ head.float(),
+        H * V * 2 + R * H * 2 + R * V * 4, 2 * R * H * V,
+        op_dtype=torch.bfloat16, inner=2)
+    noisy = sa.filtered_logits(ref, temps, top_ks, top_ps) + sa.gumbel(
+        words[:, :1], words[:, 1:], torch.arange(V, device="cuda")[None])
+    noisy = torch.where(temps[:, None] > 0, noisy, ref)
+    top2 = noisy.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+    print(f"fused_sample {head_text}: {int((~clear).sum())} of {R} rows "
+          f"with a plain top-two gap after noise <= 1e-3 (tokens not "
+          f"compared there)")
+    sel = clear.nonzero()[:, 0]     # fixed indices: graph-capturable
+    del ref, noisy
+    args = (words, temps, top_ks, top_ps)
+    fused = case(
+        f"fused_sample hidden [{R},{H}] x head {head_text} bf16, greedy / "
+        "temperature / top-k 50 / top-p 0.95 / both", same(),
+        lambda i: sa.fused_sample(hidden, head, *args).index_select(0, sel),
+        lambda i: sa.fused_sample_plain(hidden, head, *args).index_select(
+            0, sel),
+        H * V * 2 + R * H * 2 + R * 4 * 5, 2 * R * H * V,
+        op_dtype=torch.bfloat16, inner=2)
+    return [fused, product]
+
+
+def paged_cases(seed, modes, depths=SPEC_DEPTHS, **shape):
+    """The paged kernels in each (page mode, C) of `modes` over
+    `serving_pages(..., depths, **shape)`: C = 1 is `paged_attention`
+    (decode), C > 1 `paged_verify`; each held against the plain version
+    on the same pool in fp32 (half a bf16 ulp + 1e-5) and timed beside
+    it and its bound.  Returns [(kernel name, case)]."""
+    from hetu_tpu_torch.ops.cuda import paged_attention as pa
+
+    S = len(depths)
+    nq, n_kv = shape.get("nq", 32), shape.get("n_kv", 8)
+    hd, mp = shape.get("hd", 128), shape.get("mp", 128)
+    scale = hd ** -0.5
+    res = []
+    for quant, C in modes:
+        q, pools, table, pos, nbytes, ops = serving_pages(
+            seed + 10 + C, quant, C, 4, depths, **shape)
+        kw = {} if quant == "none" else {"quant": quant}
+        text = f"nq={nq} n_kv={n_kv} hd={hd} ps=16 mp={mp} bf16"
+        if C == 1:
+            name = ("paged_attention" if quant == "none"
+                    else f"paged_attention_{quant}")
+            label = f"paged_attention {quant} pages S={S} {text}"
+
+            def run(i, q=q[:, 0], pools=pools, kw=kw, table=table, pos=pos):
+                k, v, ks, vs = pools[i % len(pools)]
+                return pa.paged_attention(q, k, v, table, pos,
+                                          softmax_scale=scale, k_scale=ks,
+                                          v_scale=vs, **kw)
+
+            def plain(i, q=q[:, 0], pools=pools, quant=quant, table=table,
+                      pos=pos, f32=False):
+                k, v, ks, vs = pools[i % len(pools)]
+                if f32 and quant == "none":
+                    k, v = k.float(), v.float()
+                return pa.paged_attention_plain(
+                    q.float() if f32 else q, k, v, table, pos, scale, ks,
+                    vs, quant)
+        else:
+            name = "paged_verify"
+            label = f"paged_verify {quant} pages q=[{S},{C},{nq},{hd}] {text}"
+
+            def run(i, q=q, pools=pools, kw=kw, table=table, pos=pos):
+                k, v, ks, vs = pools[i % len(pools)]
+                return pa.paged_verify(q, k, v, table, pos,
+                                       softmax_scale=scale, k_scale=ks,
+                                       v_scale=vs, **kw)
+
+            def plain(i, q=q, pools=pools, quant=quant, table=table,
+                      pos=pos, f32=False):
+                k, v, ks, vs = pools[i % len(pools)]
+                if f32 and quant == "none":
+                    k, v = k.float(), v.float()
+                return pa.paged_verify_plain(
+                    q.float() if f32 else q, k, v, table, pos, scale, ks,
+                    vs, quant)
+        # the products of bf16 queries with int8 / int4 / bf16 keys could
+        # run on the bf16 tensor cores (the scales applied a key after)
+        res.append((name, case(label, ulps(0.5, 1e-5), run, plain, nbytes,
+                               ops, exact=lambda i, plain=plain:
+                                   plain(i, f32=True),
+                               op_dtype=torch.bfloat16)))
+        del pools
+    return res
+
+
 def serving2_kernel_phase(seed: int):
     """The second serving slice's kernels at its path's shapes: paged
     attention over int8/int4 pages (decode, q [8, 32, 128] bf16), the
@@ -472,61 +636,16 @@ def serving2_kernel_phase(seed: int):
     1e-5); the draw alone token for token; the product within 1e-5 of
     the largest logit; the fused tokens identical on every row whose
     plain top-two gap after noise exceeds 1e-3 (the others counted)."""
-    from hetu_tpu_torch.ops.cuda import paged_attention as pa
     from hetu_tpu_torch.ops.cuda import quant as qu
     from hetu_tpu_torch.ops.cuda import sample as sa
-    from hetu_tpu_torch.serving.sampling import key_words
 
     out = {"paged_attention_int8": [], "paged_attention_int4": [],
            "paged_verify": [], "quantize_blockwise": [], "fused_sample": [],
            "sample_logits": []}
-    scale = 128 ** -0.5
-    for quant, C in (("int8", 1), ("int4", 1), ("none", 5), ("int8", 5),
-                     ("int4", 5)):
-        q, pools, table, pos, nbytes, ops = serving_pages(
-            seed + 10 + C, quant, C, 4)
-        kw = {} if quant == "none" else {"quant": quant}
-        if C == 1:
-            name = f"paged_attention_{quant}"
-            label = (f"paged_attention {quant} pages S=8 nq=32 n_kv=8 "
-                     f"hd=128 ps=16 bf16")
-
-            def run(i, q=q[:, 0], pools=pools, kw=kw):
-                k, v, ks, vs = pools[i % len(pools)]
-                return pa.paged_attention(q, k, v, table, pos,
-                                          softmax_scale=scale, k_scale=ks,
-                                          v_scale=vs, **kw)
-
-            def plain(i, q=q[:, 0], pools=pools, quant=quant, f32=False):
-                k, v, ks, vs = pools[i % len(pools)]
-                return pa.paged_attention_plain(
-                    q.float() if f32 else q, k, v, table, pos, scale, ks,
-                    vs, quant)
-        else:
-            name = "paged_verify"
-            label = (f"paged_verify {quant} pages q=[8,5,32,128] n_kv=8 "
-                     f"ps=16 bf16")
-
-            def run(i, q=q, pools=pools, kw=kw):
-                k, v, ks, vs = pools[i % len(pools)]
-                return pa.paged_verify(q, k, v, table, pos,
-                                       softmax_scale=scale, k_scale=ks,
-                                       v_scale=vs, **kw)
-
-            def plain(i, q=q, pools=pools, quant=quant, f32=False):
-                k, v, ks, vs = pools[i % len(pools)]
-                if f32 and quant == "none":
-                    k, v = k.float(), v.float()
-                return pa.paged_verify_plain(
-                    q.float() if f32 else q, k, v, table, pos, scale, ks,
-                    vs, quant)
-        # the products of bf16 queries with int8 / int4 / bf16 keys could
-        # run on the bf16 tensor cores (the scales applied a key after)
-        out[name].append(case(label, ulps(0.5, 1e-5), run, plain, nbytes,
-                              ops, exact=lambda i, plain=plain:
-                                  plain(i, f32=True),
-                              op_dtype=torch.bfloat16))
-        del pools
+    for name, res in paged_cases(seed, (("int8", 1), ("int4", 1),
+                                        ("none", 5), ("int8", 5),
+                                        ("int4", 5))):
+        out[name].append(res)
     # blockwise quantize, bf16 in
     g = torch.Generator(device="cuda").manual_seed(seed + 20)
     for rows, inner in ((320, 20), (524288, 2)):
@@ -541,45 +660,12 @@ def serving2_kernel_phase(seed: int):
         del x
     # the sampler
     R, H, V = 40, 4096, 128256
-    temps = torch.tensor([0.0, 1.0, 0.8, 0.9, 0.7] * 8, device="cuda")
-    top_ks = torch.tensor([0, 0, 50, 0, 50] * 8, dtype=torch.int32,
-                          device="cuda")
-    top_ps = torch.tensor([0.0, 0.0, 0.0, 0.95, 0.95] * 8, device="cuda")
-    words = key_words(torch.arange(R) * 7919 + seed,
-                      torch.arange(R) + 1000).cuda()
-    hidden = torch.randn((R, H), generator=g, device="cuda").bfloat16()
     head = (0.02 * torch.randn((H, V), generator=g, device="cuda")).bfloat16()
-    ref = hidden.float() @ head.float()
-    # the product alone (kernel (a)), timed beside the fp32 product
-    product = case(
-        f"fused_sample product hidden [{R},{H}] x head [{H},{V}] bf16 -> "
-        "fp32 logits", rel(1e-5, of_max=True),
-        lambda i: sa.lm_head_logits(hidden, head),
-        lambda i: hidden.float() @ head.float(),
-        H * V * 2 + R * H * 2 + R * V * 4, 2 * R * H * V,
-        op_dtype=torch.bfloat16, inner=2)
-    noisy = sa.filtered_logits(ref, temps, top_ks, top_ps) + sa.gumbel(
-        words[:, :1], words[:, 1:], torch.arange(V, device="cuda")[None])
-    noisy = torch.where(temps[:, None] > 0, noisy, ref)
-    top2 = noisy.topk(2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 1e-3
-    print(f"fused_sample: {int((~clear).sum())} of {R} rows with a plain "
-          f"top-two gap after noise <= 1e-3 (tokens not compared there)")
-    sel = clear.nonzero()[:, 0]     # fixed indices: graph-capturable
-    del ref, noisy
-    args = (words, temps, top_ks, top_ps)
-    out["fused_sample"].append(case(
-        f"fused_sample hidden [{R},{H}] x head [{H},{V}] bf16, greedy / "
-        "temperature / top-k 50 / top-p 0.95 / both", same(),
-        lambda i: sa.fused_sample(hidden, head, *args).index_select(0, sel),
-        lambda i: sa.fused_sample_plain(hidden, head, *args).index_select(
-            0, sel),
-        H * V * 2 + R * H * 2 + R * 4 * 5, 2 * R * H * V,
-        op_dtype=torch.bfloat16, inner=2))
-    out["fused_sample"].append(product)
-    del head, hidden
+    out["fused_sample"].extend(sampler_cases(g, seed, head, f"[{H},{V}]"))
+    del head
+    temps, top_ks, top_ps, words = _sampler_rows(seed, R, V)
     lg = (4.0 * torch.randn((8, V), generator=g, device="cuda")).bfloat16()
-    args8 = tuple(t[:8] for t in args)
+    args8 = tuple(t[:8] for t in (words, temps, top_ks, top_ps))
     out["sample_logits"].append(case(
         f"sample_logits logits [8,{V}] bf16 (the decode step's draw)",
         same(), lambda i: sa.sample_logits(lg, *args8),
@@ -588,11 +674,20 @@ def serving2_kernel_phase(seed: int):
     return out
 
 
+def _add_then(norm, x, h, *args):
+    """The two-call composition a fused residual norm replaces: s = x + h,
+    then PyTorch's norm of s (the kernel's yardstick, no one PyTorch call
+    returns both)."""
+    s = x + h
+    return norm(s, *args), s
+
+
 def training_kernel_phase(seed: int):
     """Every kernel the training path launches, at its shapes: 2 x 2048
     tokens per micro-batch, Llama-3-8B widths, bf16 activations (SwiGLU
     and RoPE forward too, keyed beside their serving shapes); AdamW on
     the largest leaf (w_gate_up, 117M fp32 elements) and a bf16 leaf."""
+    import torch.nn.functional as F
     from hetu_tpu_torch.ops.cuda import adam as ad
     from hetu_tpu_torch.ops.cuda import fused_norm as fn
     from hetu_tpu_torch.ops.cuda import rotary as ro
@@ -612,19 +707,38 @@ def training_kernel_phase(seed: int):
     act = tokens * hidden * 2
     # y and dx: one bf16 ulp, plus 1e-6 for the fp32 row sums taken in
     # another order (dx can cancel to far below its terms)
+    wb = w.bfloat16()
     norm_fwd = [case(
         f"residual_rmsnorm_fwd [{tokens},{hidden}] bf16, w fp32",
         ulps(1, 1e-6),
         lambda i: fn.residual_rmsnorm_fwd(x, h, w, eps),
         lambda i: fn.residual_rmsnorm_plain(x, h, w, eps),
-        4 * act + hidden * 4, 6 * tokens * hidden)]
+        4 * act + hidden * 4, 6 * tokens * hidden,
+        composition=lambda i: _add_then(F.rms_norm, x, h, (hidden,), wb,
+                                        eps))]
     _, s = fn.residual_rmsnorm_fwd(x, h, w, eps)
+    # the backward's composition: PyTorch's rms_norm backward, then
+    # `+ dr` — autograd's forward + backward in one CUDA graph, less
+    # the forward alone
+    leaves = [t.detach().clone().requires_grad_(True) for t in (s, wb)]
+
+    def rms_fwd_bwd():
+        ds, dw = torch.autograd.grad(
+            F.rms_norm(leaves[0], (hidden,), leaves[1], eps), leaves, dy)
+        return ds + dr, dw
+    with torch.no_grad():
+        rms_f = device_ms(lambda: F.rms_norm(s, (hidden,), wb, eps))
+    rms_fb = device_ms(rms_fwd_bwd)
+    del leaves
     norm_bwd = [case(
         f"residual_rmsnorm_bwd [{tokens},{hidden}] bf16, dw fp32",
         (ulps(1, 1e-6), rel(1e-5, of_max=True)),
         lambda i: fn.residual_rmsnorm_bwd(s, w, dy, dr, eps),
         lambda i: fn.residual_rmsnorm_bwd_plain(s, w, dy, dr, eps),
-        4 * act + 2 * hidden * 4, 11 * tokens * hidden)]
+        4 * act + 2 * hidden * 4, 11 * tokens * hidden,
+        composition_ms=rms_fb - rms_f)]
+    print(f"residual_rmsnorm_bwd composition: rms_norm forward + backward "
+          f"{rms_fb:.5f} ms, forward {rms_f:.5f} ms")
     del x, h, dy, dr, s
     # SwiGLU forward from the strided gate/up halves, and its backward
     # into one [tokens, 2, inter] buffer
@@ -709,6 +823,131 @@ def training_kernel_phase(seed: int):
             **flash_kernel_phase(seed)}
 
 
+# the GPT serving path's slots: 8 prompts of 64-768 tokens and 32 new
+GPT_DEPTHS = [790, 768, 700, 520, 300, 128, 64, 40]
+
+
+def gpt_kernel_phase(seed: int):
+    """Every kernel of the GPT paths at their shapes (module docstring,
+    phase 9).  First the fused norm's LayerNorm arm at GPT-2-large's
+    training shape,
+    [8192, 1280] (a micro-batch of 8 x 1024 tokens), with a bias: the
+    forward and the backward in bf16 and fp32, each timed beside its
+    plain version, its bound and the composition it replaces (forward:
+    `x + h` then `F.layer_norm`; backward: aten's
+    `native_layer_norm_backward` from the saved mean and rstd, then
+    `+ dr`; each in one CUDA graph).  Then correctness only: scale-only
+    (no bias, no db), hidden 1000 (the masked tail), one row.
+    Tolerances: y, s and dx one bf16 ulp (+1e-6: dx can cancel far below
+    its terms) in bf16, 1e-5 relative (+1e-5) in fp32; dw and db 1e-5 of
+    their largest entry (sums over 8192 rows in another order).  Then
+    the fused sampler at the GPT serving path's shape, hidden [40, 1280]
+    x the tied head wte.t() [1280, 50257] (a transposed view: the
+    product's FMA arm).  Then flash, the paged kernels and the quantize
+    at the GPT paths' shapes, at the tolerances of `flash_kernel_phase`
+    and `serving2_kernel_phase`."""
+    import torch.nn.functional as F
+    from hetu_tpu_torch.ops.cuda import fused_norm as fn
+    from hetu_tpu_torch.ops.cuda import quant as qu
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    eps = 1e-5
+    out = {"residual_layernorm_fwd": [], "residual_layernorm_bwd": [],
+           "fused_sample": []}
+
+    def inputs(rows, hidden, dtype, bias):
+        def randn(*shape, std=1.0):
+            return std * torch.randn(shape, generator=g, device="cuda")
+        x, h, dy, dr = (randn(rows, hidden).to(dtype) for _ in range(4))
+        w = 1.0 + randn(hidden, std=0.1)
+        b = randn(hidden, std=0.1) if bias else None
+        return x, h, dy, dr, w, b
+
+    for rows, hidden, dtype, bias, timed in (
+            (8192, 1280, torch.bfloat16, True, True),
+            (8192, 1280, torch.float32, True, True),
+            (8192, 1280, torch.bfloat16, False, False),
+            (8192, 1000, torch.bfloat16, True, False),
+            (1, 1280, torch.bfloat16, True, False),
+            (1, 1280, torch.float32, False, False)):
+        x, h, dy, dr, w, b = inputs(rows, hidden, dtype, bias)
+        _, s = fn.residual_layernorm_fwd(x, h, w, b, eps)
+        bf16 = dtype == torch.bfloat16
+        tol = ulps(1, 1e-6) if bf16 else rel(1e-5, 1e-5)
+        sums = rel(1e-5, of_max=True)
+        text = (f"[{rows},{hidden}] {'bf16' if bf16 else 'fp32'}, "
+                f"{'w, b' if bias else 'w (no bias)'} fp32")
+
+        def fwd(i, x=x, h=h, w=w, b=b):
+            return fn.residual_layernorm_fwd(x, h, w, b, eps)
+
+        def fwd_plain(i, x=x, h=h, w=w, b=b):
+            return fn.residual_layernorm_plain(x, h, w, b, eps)
+
+        def bwd(i, s=s, w=w, dy=dy, dr=dr, bias=bias):
+            return tuple(t for t in fn.residual_layernorm_bwd(
+                s, w, dy, dr, eps, has_bias=bias) if t is not None)
+
+        def bwd_plain(i, s=s, w=w, dy=dy, dr=dr, bias=bias):
+            return tuple(t for t in fn.residual_layernorm_bwd_plain(
+                s, w, dy, dr, eps, bias) if t is not None)
+        bwd_tols = (tol, sums) + ((sums,) if bias else ())
+        if not timed:
+            out["residual_layernorm_fwd"].append(checked(
+                f"residual_layernorm_fwd {text}", tol, fwd(0),
+                fwd_plain(0)))
+            out["residual_layernorm_bwd"].append(checked(
+                f"residual_layernorm_bwd {text}", bwd_tols, bwd(0),
+                bwd_plain(0)))
+            continue
+        n, esize = rows * hidden, torch.finfo(dtype).bits // 8
+        wd, bd = w.to(dtype), b.to(dtype)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(s, (hidden,), wd,
+                                                         bd, eps)
+
+        def bwd_composition(i, s=s, dy=dy, dr=dr, wd=wd, bd=bd, mean=mean,
+                            rstd=rstd):
+            dx, dw, db = torch.ops.aten.native_layer_norm_backward(
+                dy, s, (hidden,), mean, rstd, wd, bd, [True, True, True])
+            return dx + dr, dw, db
+        out["residual_layernorm_fwd"].append(case(
+            f"residual_layernorm_fwd {text}", tol, fwd, fwd_plain,
+            4 * n * esize + 2 * hidden * 4, 8 * n,
+            composition=lambda i, x=x, h=h, wd=wd, bd=bd: _add_then(
+                F.layer_norm, x, h, (hidden,), wd, bd, eps)))
+        out["residual_layernorm_bwd"].append(case(
+            f"residual_layernorm_bwd {text}", bwd_tols, bwd, bwd_plain,
+            4 * n * esize + 3 * hidden * 4, 18 * n,
+            composition=bwd_composition))
+        del x, h, dy, dr, s, mean, rstd
+    wte = (0.02 * torch.randn((50257, 1280), generator=g,
+                              device="cuda")).bfloat16()
+    out["fused_sample"].extend(sampler_cases(
+        g, seed, wte.t(), "wte.t() [1280,50257] (tied, transposed)"))
+    del wte
+    # flash at GPT-2-large's micro-batch: 8 x 1024 tokens, 20 heads of 64
+    out.update(flash_timed(g, 8, 1024, 20, 20, 64))
+    # serving: decode on exact and int8 pages, verify on int8 pages
+    shape = dict(nq=20, n_kv=20, hd=64, mp=64)
+    for name, res in paged_cases(seed + 7, (("none", 1), ("int8", 1),
+                                            ("int8", 5)), GPT_DEPTHS,
+                                 **shape):
+        out.setdefault(name, []).append(res)
+    # the quantize at block = head dim 64
+    L = 36
+    for rows, inner in ((8 * 20, 20), (L * 768 * 20, 2)):
+        x = torch.randn((rows, 64), generator=g, device="cuda").bfloat16()
+        n = x.numel()
+        out.setdefault("quantize_blockwise", []).append(case(
+            f"quantize_blockwise [{rows},64] bf16 -> int8", (same(),
+                                                             fp32_ulps(1)),
+            lambda i, x=x: qu.quantize_blockwise(x, 64),
+            lambda i, x=x: qu.quantize_blockwise_plain(x, 64),
+            n * 2 + n + rows * 4, 4 * n, inner=inner))
+        del x
+    return out
+
+
 def _flash_setup(fa, b, sq, sk, hq, hkv, d, dtype, g, *, block=128,
                  causal=True, segments=False, block_mask=None):
     """Inputs of one flash case on the card, [b, h, s, d] views of
@@ -735,16 +974,88 @@ def _flash_setup(fa, b, sq, sk, hq, hkv, d, dtype, g, *, block=128,
     return tensors, (q_pos, k_pos, q_seg, k_seg), kw, block_mask, live
 
 
+def flash_tolerances(dtype, v):
+    """(o, lse), then one for the gradients (`flash_kernel_phase`)."""
+    if dtype == torch.float32:
+        of_max = rel(1e-5, 1e-6, of_max=True)
+        return (of_max, rel(1e-5, 1e-5)), of_max
+    o_tol = ulps(0.5, 1e-5 + 2.0 ** -9 * v.abs().max().item())
+    return (o_tol, rel(1e-5, 1e-5)), rel(2.0 ** -8, 1e-6, of_max=True)
+
+
+def flash_timed(g, b, s, hq, hkv, d):
+    """The three flash kernels at q [b, s, hq, d] over k/v [b, s, hkv, d],
+    bf16, causal, held against the plain version on the same values in
+    fp32 (`flash_tolerances`) and timed beside it, their bounds (two,
+    three and four products of 2 x d operations a live element, over
+    the bf16 tensor-core peak) and `scaled_dot_product_attention`
+    (forward; for the two backward kernels its whole backward, forward +
+    backward less forward — one call computes dq, dk and dv there).
+    Returns {kernel: [case]}."""
+    import torch.nn.functional as F
+    from hetu_tpu_torch.ops.cuda import flash_attention as fa
+
+    tensors, masks, kw, block_mask, live = _flash_setup(
+        fa, b, s, s, hq, hkv, d, torch.bfloat16, g)
+    q, k, v, do = tensors
+    o, lse = fa._fwd(q, k, v, *masks, block_mask=block_mask, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, lse, do, delta, *masks)
+    live_elems = s * (s + 1) // 2 * b * hq
+    qo, kv = q.numel() * 2, k.numel() * 2          # bytes, bf16
+    stats = lse.numel() * 4
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=hq != hkv)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():     # no .grad to accumulate into: the call alone
+        torch.autograd.grad(F.scaled_dot_product_attention(
+            *leaves, is_causal=True, enable_gqa=hq != hkv), leaves, do)
+    with torch.no_grad():
+        lib_f = device_ms(sdpa)
+    # in a CUDA graph, like the kernels: timed through autograd on the
+    # host's clock, a call this short follows the host's load instead
+    lib_fb = device_ms(sdpa_fwd_bwd)
+    del leaves
+    shape = f"q=[{b},{s},{hq},{d}] kv=[{b},{s},{hkv},{d}] bf16 causal"
+    f32 = [t.float() for t in (q, k, v)]
+    fwd_tols, grad_tol = flash_tolerances(torch.bfloat16, v)
+    fwd = case(
+        f"flash_fwd {shape}", fwd_tols,
+        lambda i: fa._fwd(q, k, v, *masks, block_mask=block_mask, **kw),
+        lambda i: fa.flash_fwd_plain(q, k, v, *masks, live=live, **kw),
+        2 * qo + 2 * kv + stats, 4 * d * live_elems,
+        exact=lambda i: fa.flash_fwd_plain(*f32, *masks, live=live, **kw),
+        library_ms=lib_f, op_dtype=torch.bfloat16)
+
+    def plain_bwd(i):
+        return fa.flash_bwd_plain(*args, live=live, **kw)
+    ref = fa.flash_bwd_plain(*f32, lse, do.float(), delta, *masks,
+                             live=live, **kw)
+    dq = case(
+        f"flash_bwd_dq {shape}", grad_tol,
+        lambda i: fa.flash_bwd_dq(*args, block_mask=block_mask, **kw),
+        lambda i: plain_bwd(i)[0], 2 * qo + 2 * kv + 2 * stats + 2 * qo,
+        6 * d * live_elems, exact=lambda i: ref[0],
+        library_ms=lib_fb - lib_f, op_dtype=torch.bfloat16)
+    dkv = case(
+        f"flash_bwd_dkv {shape}", grad_tol,
+        lambda i: fa.flash_bwd_dkv(*args, block_mask=block_mask, **kw),
+        lambda i: plain_bwd(i)[1:], 2 * qo + 2 * kv + 2 * stats + 4 * kv,
+        8 * d * live_elems, exact=lambda i: ref[1:],
+        library_ms=lib_fb - lib_f, op_dtype=torch.bfloat16)
+    print(f"flash library {shape}: scaled_dot_product_attention forward "
+          f"{lib_f:.5f} ms, forward + backward {lib_fb:.5f} ms")
+    return {"flash_fwd": [fwd], "flash_bwd_dq": [dq], "flash_bwd_dkv": [dkv]}
+
+
 def flash_kernel_phase(seed: int):
     """The three flash kernels.  Timed at the training shape, q [2, 2048,
     32, 128] over k/v [2, 2048, 8, 128], bf16, causal (2,098,176 live
-    elements a head): each kernel beside the plain version, its bound
-    (two, three and four products of 2 x 128 operations a live element,
-    over the bf16 tensor-core peak) and `scaled_dot_product_attention`
-    (forward; for the two backward kernels its whole backward, forward +
-    backward less forward — one call computes dq, dk and dv there).
-    Then correctness only at smaller shapes: fp32, segments, sq != sk, a
-    block mask with a dead row.
+    elements a head; `flash_timed`).  Then correctness only at smaller
+    shapes: fp32, segments, sq != sk, a block mask with a dead row.
 
     Tolerances, against the plain version on the same values in fp32.
     The fp32 arm runs every product in fp32: 1e-5 of the largest entry
@@ -757,19 +1068,10 @@ def flash_kernel_phase(seed: int):
     (ds_j k_j, ds_i q_i, p_i do_i) have no such normalisation; their
     errors do not align, and the bound used is 2^-8 of the tensor's
     largest entry (the measured error is printed beside it)."""
-    import torch.nn.functional as F
     from hetu_tpu_torch.ops.cuda import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
-    out = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
-
-    def tolerances(dtype, v):
-        """(o, lse), then one for the gradients."""
-        if dtype == torch.float32:
-            of_max = rel(1e-5, 1e-6, of_max=True)
-            return (of_max, rel(1e-5, 1e-5)), of_max
-        o_tol = ulps(0.5, 1e-5 + 2.0 ** -9 * v.abs().max().item())
-        return (o_tol, rel(1e-5, 1e-5)), rel(2.0 ** -8, 1e-6, of_max=True)
+    out = flash_timed(g, 2, 2048, 32, 8, 128)
 
     def run_all(tensors, masks, kw, block_mask, live):
         """(kernel outputs, plain outputs) of forward, dq and dk/dv; the
@@ -787,66 +1089,6 @@ def flash_kernel_phase(seed: int):
                                      live=live, **kw)
         return ((o, lse), (dq,), dkv), (ref_fwd, ref_bwd[:1], ref_bwd[1:])
 
-    # ---- the training shape, timed
-    b, s, hq, hkv, d = 2, 2048, 32, 8, 128
-    tensors, masks, kw, block_mask, live = _flash_setup(
-        fa, b, s, s, hq, hkv, d, torch.bfloat16, g)
-    q, k, v, do = tensors
-    o, lse = fa._fwd(q, k, v, *masks, block_mask=block_mask, **kw)
-    delta = (do.float() * o.float()).sum(-1)
-    args = (q, k, v, lse, do, delta, *masks)
-    live_elems = s * (s + 1) // 2 * b * hq
-    qo, kv = q.numel() * 2, k.numel() * 2          # bytes, bf16
-    stats = lse.numel() * 4
-
-    def sdpa():
-        return F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)
-    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-
-    def sdpa_fwd_bwd():     # no .grad to accumulate into: the call alone
-        torch.autograd.grad(F.scaled_dot_product_attention(
-            *leaves, is_causal=True, enable_gqa=True), leaves, do)
-    with torch.no_grad():
-        lib_f = device_ms(sdpa)
-    # in a CUDA graph, like the kernels: timed through autograd on the
-    # host's clock, a call this short follows the host's load instead
-    lib_fb = device_ms(sdpa_fwd_bwd)
-    del leaves
-    shape = f"q=[{b},{s},{hq},{d}] kv=[{b},{s},{hkv},{d}] bf16 causal"
-    f32 = [t.float() for t in (q, k, v)]
-    fwd_tols, grad_tol = tolerances(torch.bfloat16, v)
-    out["flash_fwd"].append(case(
-        f"flash_fwd {shape}", fwd_tols,
-        lambda i: fa._fwd(q, k, v, *masks, block_mask=block_mask, **kw),
-        lambda i: fa.flash_fwd_plain(q, k, v, *masks, live=live, **kw),
-        2 * qo + 2 * kv + stats, 4 * d * live_elems,
-        exact=lambda i: fa.flash_fwd_plain(*f32, *masks, live=live, **kw),
-        library_ms=lib_f, op_dtype=torch.bfloat16))
-
-    def plain_bwd(i):
-        return fa.flash_bwd_plain(*args, live=live, **kw)
-
-    def exact_bwd():
-        return fa.flash_bwd_plain(*f32, lse, do.float(), delta, *masks,
-                                  live=live, **kw)
-    ref = exact_bwd()
-    out["flash_bwd_dq"].append(case(
-        f"flash_bwd_dq {shape}", grad_tol,
-        lambda i: fa.flash_bwd_dq(*args, block_mask=block_mask, **kw),
-        lambda i: plain_bwd(i)[0], 2 * qo + 2 * kv + 2 * stats + 2 * qo,
-        6 * d * live_elems, exact=lambda i: ref[0],
-        library_ms=lib_fb - lib_f, op_dtype=torch.bfloat16))
-    out["flash_bwd_dkv"].append(case(
-        f"flash_bwd_dkv {shape}", grad_tol,
-        lambda i: fa.flash_bwd_dkv(*args, block_mask=block_mask, **kw),
-        lambda i: plain_bwd(i)[1:], 2 * qo + 2 * kv + 2 * stats + 4 * kv,
-        8 * d * live_elems, exact=lambda i: ref[1:],
-        library_ms=lib_fb - lib_f, op_dtype=torch.bfloat16))
-    print(f"flash library: scaled_dot_product_attention forward "
-          f"{lib_f:.5f} ms, forward + backward {lib_fb:.5f} ms")
-    del tensors, q, k, v, do, o, lse, delta, args, f32, ref
-
     # ---- correctness only
     dead_row = ((True, False, True, False), (False, False, False, False))
     small = (
@@ -863,7 +1105,7 @@ def flash_kernel_phase(seed: int):
     for label, dims, opts in small:
         setup = _flash_setup(fa, *dims, g, **opts)
         got, want = run_all(*setup)
-        fwd_tols, grad_tol = tolerances(dims[-1], setup[0][2])
+        fwd_tols, grad_tol = flash_tolerances(dims[-1], setup[0][2])
         for name, tols, mine, theirs in zip(
                 out, (fwd_tols, grad_tol, grad_tol), got, want):
             out[name].append(checked(f"{name} {label}", tols, mine, theirs))
@@ -927,6 +1169,11 @@ def kernel_table():
                           tpu + "sample.py:156"),
         "dequantize_blockwise": (qu, "dequant_launches", src + "quant.cu",
                                  tpu + "quant.py:103"),
+        "residual_layernorm_fwd": (fn, "ln_launches", src + "fused_norm.cu",
+                                   tpu + "fused_norm.py:235"),
+        "residual_layernorm_bwd": (fn, "ln_bwd_launches",
+                                   src + "fused_norm.cu",
+                                   tpu + "fused_norm.py:208"),
     }
 
 
@@ -1657,8 +1904,7 @@ def serving3_phase(model, seed: int, kernels):
 
     def verify():
         logits = verify_step_paged(model, torch.as_tensor(tok).cuda(),
-                                   eng.pool.k, eng.pool.v, table,
-                                   torch.as_tensor(pos).cuda(),
+                                   eng.pool.k, eng.pool.v, table, pos,
                                    **eng._pools())[0]
         return stochastic_verify(logits, q_probs, tok[:, 1:], seeds, grid,
                                  temps, top_ks, top_ps)
@@ -1848,7 +2094,8 @@ def serving_time_phase(eng, reqs):
     for s, d in enumerate(depths):
         n = (d + C - 1) // eng.config.page_size + 1
         table[s, :n] = torch.arange(1 + s * mp, 1 + s * mp + n)
-    pos = torch.tensor(depths, dtype=torch.int32, device="cuda")
+    # positions on the host, as the engine hands them over
+    pos = np.asarray(depths, np.int32)
     # the sampled runs' rows: the odd ones at the trace's parameters
     seeds, temps, top_ks, top_ps = eng._sample_args([])
     temps[1::2], top_ks[1::2], top_ps[1::2] = 0.8, 50, 0.95
@@ -1930,7 +2177,6 @@ def training_reference_phase(seed: int):
     """A narrow Llama with flash attention, 3 Trainer steps on the card
     (the flash kernels' fp32 arm) and on the CPU (flash's plain version,
     forced: the CPU's own route is the dense attention)."""
-    from hetu_tpu_torch.engine import Trainer, TrainingConfig
     from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
 
     cfg = LlamaConfig.tiny(hidden_size=512, num_attention_heads=4,
@@ -1939,16 +2185,28 @@ def training_reference_phase(seed: int):
                            compute_dtype=torch.float32,
                            use_flash_attention=True,
                            remat_policy="dots_attn")
-    tc = TrainingConfig(global_batch_size=4, micro_batch_size=2, seq_len=64,
-                        warmup_steps=1, total_steps=10, log_every=100)
-    batch = _train_batch(cfg.vocab_size, 4, 64, seed)
-    batch["labels"][1, :5] = -100
     t0 = time.perf_counter()
     cpu = LlamaLMHeadModel(cfg, device="cpu", seed=seed)
     card = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
     card.load_state_dict(cpu.state_dict())
     for layer in cpu.model.layers:
         layer.attn.use_pallas = True
+    _card_vs_cpu_training(seed, card, cpu, "hidden 512, 2 layers, fp32, "
+                          "flash + dots_attn", t0)
+
+
+def _card_vs_cpu_training(seed, card, cpu, label, t0):
+    """3 Trainer steps of `card` and `cpu` (one set of weights) on the
+    same seeded batches of 4 x 64 tokens, two micro-batches: losses and
+    grad norms within 1e-5 relative; parameters within 2 x the summed
+    lr everywhere and within 1e-5 on all but 0.1% of elements (AdamW
+    divides by sqrt(v), so a gradient within rounding of zero moves its
+    element by up to lr in one run and not the other)."""
+    from hetu_tpu_torch.engine import Trainer, TrainingConfig
+    tc = TrainingConfig(global_batch_size=4, micro_batch_size=2, seq_len=64,
+                        warmup_steps=1, total_steps=10, log_every=100)
+    batch = _train_batch(card.config.vocab_size, 4, 64, seed)
+    batch["labels"][1, :5] = -100
     runs = []
     for model, dev in ((card, "cuda"), (cpu, "cpu")):
         tr = Trainer(model, tc, device=dev)
@@ -1968,8 +2226,7 @@ def training_reference_phase(seed: int):
     check(p_err <= bound_p and p_frac <= 1e-3,
           f"card vs CPU parameters differ: max {p_err} (bound {bound_p}), "
           f"{p_frac} of elements past 1e-5")
-    print(f"training reference: hidden 512, 2 layers, fp32, flash + "
-          f"dots_attn, 3 steps: card "
+    print(f"training reference: {label}, 3 steps: card "
           f"vs CPU loss/grad_norm/lr worst relative diff {worst} (tol "
           f"1e-5); parameters max abs diff {p_err:.3g} (bound "
           f"{bound_p:.3g}), {p_frac:.3g} of elements past 1e-5 (tol "
@@ -1977,46 +2234,53 @@ def training_reference_phase(seed: int):
           f"({time.perf_counter() - t0:.1f}s)")
 
 
-def training_phase(seed: int, kernels, card: str, *, layers: int,
-                   steps: int, use_flash: bool, policy: str,
-                   time_it: bool):
-    """Llama-3-8B widths at `layers` layers through the Trainer on the
-    card, with flash attention or the dense one and the recompute
-    policy `policy`; the launch counts of every step are checked."""
+def training_phase(seed: int, kernels, card: str, cfg, *, name: str,
+                   gbs: int, mbs: int, seq: int, steps: int, time_it: bool):
+    """`cfg`'s model (a LlamaConfig or a GPTConfig; `name` for the
+    printout) through the Trainer on the card, `gbs` x `seq` tokens a
+    step in micro-batches of `mbs`; the launch counts of every step are
+    checked.  Returns the run's launches."""
     from hetu_tpu_torch.engine import Trainer, TrainingConfig
-    from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
+    from hetu_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.models.llama import LlamaLMHeadModel
 
-    cfg = LlamaConfig.llama3_8b(num_hidden_layers=layers,
-                                use_flash_attention=use_flash,
-                                remat_policy=policy)
+    gpt = isinstance(cfg, GPTConfig)
+    model_cls = GPTLMHeadModel if gpt else LlamaLMHeadModel
+    use_flash, policy = cfg.use_flash_attention, cfg.remat_policy
     attn = "flash attention" if use_flash else "the dense attention"
-    L, seq, gbs = cfg.num_hidden_layers, 2048, 4
+    L = cfg.num_hidden_layers
     batch = _train_batch(cfg.vocab_size, gbs, seq, seed)
     sigma = cfg.initializer_range * math.sqrt(cfg.hidden_size)
     expect_first = math.log(cfg.vocab_size) + sigma ** 2 / 2
-    for mbs in (2, 1):
+    for mbs in (mbs, mbs // 2):
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        model = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
+        model = model_cls(cfg, device="cuda", seed=seed)
         tr = Trainer(model, TrainingConfig(
             global_batch_size=gbs, micro_batch_size=mbs, seq_len=seq,
             lr=1e-3, warmup_steps=2, total_steps=1000, log_every=1),
             device="cuda").build()
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in tr.params)
-        print(f"training: Llama-3-8B widths, {L} layers, {n_params / 1e9:.3f}B"
+        print(f"training: {name}, {L} layers, {n_params / 1e9:.3f}B"
               f" params fp32 + fp32 grads and AdamW moments, bf16 compute, "
               f"{attn}, remat policy {policy!r}, micro-batch {mbs} x {seq}; "
               f"built in "
               f"{time.perf_counter() - t0:.1f}s")
         n_micro = gbs // mbs
+        # every policy recomputes the norm (and RoPE, SwiGLU) forwards
         fwd, bwd = 2 * L * n_micro, L * n_micro
         per_step = {name: 0 for name in kernels}
-        per_step.update(fused_rotary_qk=fwd, fused_swiglu=fwd,
-                        residual_rmsnorm_fwd=fwd, residual_rmsnorm_bwd=bwd,
-                        swiglu_bwd=bwd, rotary_qk_bwd=bwd,
-                        adam_update=len(tr.params))
+        if gpt:
+            per_step.update(residual_layernorm_fwd=fwd,
+                            residual_layernorm_bwd=bwd)
+        else:
+            per_step.update(fused_rotary_qk=fwd, fused_swiglu=fwd,
+                            residual_rmsnorm_fwd=fwd,
+                            residual_rmsnorm_bwd=bwd, swiglu_bwd=bwd,
+                            rotary_qk_bwd=bwd)
+        per_step["adam_update"] = len(tr.params)
         if use_flash:   # "dots_attn" keeps o and lse: no second forward
             per_step.update(
                 flash_fwd=bwd if policy == "dots_attn" else fwd,
@@ -2034,8 +2298,8 @@ def training_phase(seed: int, kernels, card: str, *, layers: int,
             counts = read_counts(kernels)
             check(counts == per_step, f"step {i + 1} launches {counts}, "
                                       f"expected {per_step}")
-            for name, n in counts.items():
-                launches[name] += n
+            for name_, n in counts.items():
+                launches[name_] += n
             zero_counts(kernels)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             if i == 0 and peak > TRAIN_PEAK_GIB and mbs > 1:
@@ -2056,7 +2320,8 @@ def training_phase(seed: int, kernels, card: str, *, layers: int,
     flops = cfg.flops_per_token(seq) * tokens
     reg = tr.registry
     out = {
-        "layers": L, "attention": "flash" if use_flash else "dense",
+        "model": name, "layers": L,
+        "attention": "flash" if use_flash else "dense",
         "remat_policy": policy, "micro_batch": mbs, "micro_batches": n_micro,
         "seq_len": seq, "tokens_per_step": tokens, "losses": losses,
         "expected_first_loss": expect_first,
@@ -2090,8 +2355,9 @@ def training_time_phase(tr, batch, step_ms: float, card: str):
                                         top=10)
     ours = {key: sum(t for n, t in by_name.items() if key in n)
             for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                        "rmsnorm_fwd", "rmsnorm_bwd", "swiglu_fwd",
-                        "swiglu_bwd", "rotary_qk", "adam_kernel")}
+                        "rmsnorm_fwd", "rmsnorm_bwd", "layernorm_fwd",
+                        "layernorm_bwd", "swiglu_fwd", "swiglu_bwd",
+                        "rotary_qk", "adam_kernel")}
     cfg, c = tr.model.config, tr.config
     n_micro, L = tr.n_micro, cfg.num_hidden_layers
     mbs, seq = c.micro_batch_size, c.seq_len
@@ -2102,9 +2368,9 @@ def training_time_phase(tr, batch, step_ms: float, card: str):
     def leaf(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=g, device="cuda").to(
             dtype).requires_grad_(True)
+    n_kv = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
     q = leaf(mbs, seq, cfg.num_attention_heads, cfg.head_dim)
-    k, v = (leaf(mbs, seq, cfg.num_key_value_heads, cfg.head_dim)
-            for _ in range(2))
+    k, v = (leaf(mbs, seq, n_kv, cfg.head_dim) for _ in range(2))
     do = torch.randn_like(q)
     apart = {}
     for name, fn in (("flash", flash_attention), ("dense", attention)):
@@ -2119,14 +2385,14 @@ def training_time_phase(tr, batch, step_ms: float, card: str):
     del q, k, v, do
     hidden = leaf(mbs, seq, cfg.hidden_size)
     labels = torch.randint(0, cfg.vocab_size, (mbs, seq), device="cuda")
-    head = tr.model.lm_head
+    head = tr.model.lm_head_weight()
 
     def head_loss():
         lg = hidden @ head.to(hidden.dtype)
         softmax_cross_entropy_sparse(lg[:, :-1], labels[:, 1:],
                                      reduction="sum").backward()
     h_fb = event_ms(head_loss)
-    head.grad = None
+    tr.model.zero_grad(set_to_none=True)
     del hidden
     attention_ms = sum(ours[key] for key in ("flash_fwd", "flash_bwd_dq",
                                              "flash_bwd_dkv"))
@@ -2147,6 +2413,199 @@ def training_time_phase(tr, batch, step_ms: float, card: str):
     print("training time " + json.dumps(out))
 
 
+# ---------------------------------------------------------------- GPT
+def gpt_reference_phase(seed: int):
+    """GPT-2-large widths cut to 2 layers, fp32, one set of weights on
+    the card and on the CPU: the engine (greedy, exact pages) emits
+    identical tokens on both; then 3 Trainer steps (flash's fp32 arm at
+    head dim 64 and the LayerNorm arm on the card; the plain versions,
+    flash's forced, on the CPU) to phase 7's tolerances."""
+    from hetu_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.serving import (ServeConfig, ServingEngine,
+                                        synthetic_requests)
+
+    cfg = GPTConfig.gpt2_large(num_hidden_layers=2,
+                               compute_dtype=torch.float32)
+    t0 = time.perf_counter()
+    cpu = GPTLMHeadModel(cfg, device="cpu", seed=seed)
+    card = GPTLMHeadModel(cfg, device="cuda", seed=seed)
+    card.load_state_dict(cpu.state_dict())
+    serve = ServeConfig(num_slots=2, page_size=16, max_len=256,
+                        prefill_chunk=64)
+    tokens = []
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        reqs = synthetic_requests(
+            2, vocab_size=cfg.vocab_size, prompt_lens=(70, 120),
+            max_new=(4, 4), arrivals=100.0 * np.arange(2), seed=seed)
+        eng = ServingEngine(model, serve, device=dev).warmup()
+        tokens.append([r.tokens for r in eng.run(reqs)])
+    check(tokens[0] == tokens[1], f"GPT card vs CPU tokens differ: {tokens}")
+    print(f"reference: GPT-2-large widths, 2 layers, fp32: card vs CPU "
+          f"greedy tokens identical {tokens[0]} "
+          f"({time.perf_counter() - t0:.1f}s)")
+    for block in cpu.model.blocks:
+        block.attn.use_pallas = True
+    _card_vs_cpu_training(seed, card, cpu, "GPT-2-large widths, 2 layers, "
+                          "fp32, flash + nothing", time.perf_counter())
+
+
+def gpt_serving_phase(seed: int, kernels):
+    """GPT-2-large at full width and depth, bf16 weights drawn on the
+    card, behind ServeConfig(num_slots=8, page_size=16, max_len=1024,
+    prefill_chunk=256): 8 Poisson requests at 10/s, prompts of 64-768
+    tokens, 32 new tokens each; greedy on exact pages, then the odd
+    requests at SamplingParams(temperature=0.8, top_k=50, top_p=0.95) on
+    int8 pages, without speculation and with n-gram speculation (whose
+    verify step samples through `fused_sample` over the tied head at
+    V = 50257).  Every launch count exact; TTFT, gap, tokens/s and peak
+    memory printed.  Returns {path: launches}."""
+    from hetu_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.serving import (SamplingParams, ServeConfig,
+                                        ServingEngine, poisson_arrivals,
+                                        synthetic_requests)
+
+    cfg = GPTConfig.gpt2_large(param_dtype=torch.bfloat16)
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model = GPTLMHeadModel(cfg, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.num_params(), "GPT parameter count")
+    print(f"gpt serving: GPT-2-large {L} layers, {n_params / 1e6:.1f}M "
+          f"params bf16, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    def trace(sampled):
+        reqs = synthetic_requests(
+            8, vocab_size=cfg.vocab_size, prompt_lens=(64, 768),
+            max_new=(32, 32), arrivals=poisson_arrivals(8, 10.0, seed=seed),
+            seed=seed)
+        if sampled:
+            for r in reqs[1::2]:
+                r.sampling = SamplingParams(temperature=0.8, top_k=50,
+                                            top_p=0.95,
+                                            seed=seed + 100 + r.rid)
+        return reqs
+
+    by_path = {}
+    for path, opts in (
+            ("gpt_serving", {}),
+            ("gpt_serving_int8", dict(kv_quant="int8", sampling=True)),
+            ("gpt_serving_spec_int8", dict(kv_quant="int8", sampling=True,
+                                           spec_decode="ngram", spec_k=4))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve = ServeConfig(num_slots=8, page_size=16, max_len=1024,
+                            prefill_chunk=256, **opts)
+        eng = ServingEngine(model, serve, device="cuda").warmup()
+        reqs = trace(serve.sampling)
+        if path == "gpt_serving":
+            check(sum(r.prompt_len > serve.prefill_chunk for r in reqs) >= 2,
+                  "the GPT trace has too few multi-chunk prompts")
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        results = eng.run(reqs)
+        wall = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(len(results) == len(reqs), f"{path}: {len(results)} done")
+        for r in results:
+            check(r.finished_reason == "length" and len(r.tokens) == 32,
+                  f"{path}: request {r.rid}: {r.finished_reason}, "
+                  f"{len(r.tokens)} tokens")
+            check(all(0 <= t < cfg.vocab_size for t in r.tokens),
+                  f"{path}: request {r.rid}: token out of the vocabulary")
+        eng.scheduler.check_invariants()
+        check(eng.pool.free_count == eng.pool.num_pages,
+              f"{path}: pages leaked")
+        reg = eng.registry
+        steps = int(reg.counter_value("serve.decode_steps"))
+        chunks = int(reg.counter_value("serve.prefill_chunks"))
+        sampled = sum(not r.sampling.greedy for r in reqs)
+        # GPT applies no RoPE, its MLP is GELU and its serving forwards
+        # apply ln2 unfused: the page kernels and the sampler only
+        expect = {name: 0 for name in kernels}
+        if not serve.sampling:
+            expect.update(paged_attention=steps * L)
+        else:
+            expect.update(quantize_blockwise=2 * L * steps + 2 * len(reqs))
+            if eng.spec:
+                expect.update(paged_verify=steps * L, fused_sample=steps,
+                              sample_logits=sampled)
+            else:
+                expect.update(paged_attention_int8=steps * L,
+                              sample_logits=steps + sampled)
+        check(launches == expect, f"{path}: launches {launches}, "
+                                  f"expected {expect}")
+        ttft = sorted(r.stats.ttft_s for r in results)
+        gap = reg.histogram("serve.token_latency_s")
+        tokens_out = sum(len(r.tokens) for r in results)
+        out = {
+            "config": {k: getattr(serve, k) for k in (
+                "num_slots", "page_size", "max_len", "prefill_chunk",
+                "kv_quant", "sampling", "spec_decode", "spec_k")},
+            "requests": len(results), "sampled_requests": sampled,
+            "prompt_tokens": sum(r.prompt_len for r in reqs),
+            "tokens_out": tokens_out, "decode_steps": steps,
+            "prefill_chunks": chunks,
+            "ttft_s_p50": ttft[len(ttft) // 2], "ttft_s_max": ttft[-1],
+            "decode_step_s_p50": gap.percentile(50),
+            "decode_step_s_max": gap.vmax,
+            "tokens_per_s": tokens_out / wall, "run_wall_s": wall,
+            "peak_memory_gib": peak_gb, "launches": launches,
+        }
+        if eng.spec:
+            prop = int(reg.counter_value("serve.spec_proposed"))
+            out.update(spec_proposed=prop, spec_accepted=int(
+                reg.counter_value("serve.spec_accepted")))
+        print(f"{path} " + json.dumps(out))
+        by_path[path] = launches
+        del eng
+    prefill_chunk_times(model, seed)
+    del model
+    return by_path
+
+
+def prefill_chunk_times(model, seed: int, C: int = 256, start: int = 512,
+                        reps: int = 7):
+    """One prefill chunk through `extend_cache` at the engine's shape (one
+    request, a max_len 1,024 scratch cache, C tokens at `start`): the
+    int start (one slice write a layer, a [C, M] mask: the engine's
+    form) against a [1] start of the same value (the per-row scatter, a
+    [b, C, M] mask), wall time to a synchronize, p50 of `reps` calls
+    taken in turn after a warm call each; logits and caches identical."""
+    from hetu_tpu_torch.models.generation import extend_cache
+
+    c = model.config
+    shape = (c.num_hidden_layers, 1, 1024, c.num_attention_heads, c.head_dim)
+    g = torch.Generator(device="cuda").manual_seed(seed + 9)
+    ids = torch.randint(0, c.vocab_size, (1, C), generator=g, device="cuda")
+    starts = {"int": start, "per_row": np.array([start])}
+    caches = {name: tuple(torch.zeros(shape, dtype=c.compute_dtype,
+                                      device="cuda") for _ in range(2))
+              for name in starts}
+    walls = {name: [] for name in starts}
+    out = {}
+    for _ in range(reps + 1):
+        for name, s in starts.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = extend_cache(model, ids, caches[name], s)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            out[name] = (logits, caches[name])
+    times = {name: sorted(w[1:])[reps // 2] * 1e3
+             for name, w in walls.items()}
+    check(torch.equal(out["int"][0], out["per_row"][0])
+          and all(torch.equal(a, b) for a, b in zip(out["int"][1],
+                                                    out["per_row"][1])),
+          "extend_cache: an int start and a [1] start disagree")
+    print(f"gpt prefill chunk C={C} at {start}: int start "
+          f"{times['int']:.3f} ms, [1] start {times['per_row']:.3f} ms "
+          f"(wall p50 of {reps})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2164,6 +2623,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from hetu_tpu_torch.models.gpt import GPTConfig
+    from hetu_tpu_torch.models.llama import LlamaConfig
     from hetu_tpu_torch.ops.cuda import build
     t0 = time.perf_counter()
     reports = build.build()
@@ -2193,15 +2654,36 @@ def main(argv=None) -> int:
     for name, more in training_kernel_phase(args.seed).items():
         cases.setdefault(name, []).extend(more)
     training_reference_phase(args.seed)
+    llama = LlamaConfig.llama3_8b
     by_path["training"] = training_phase(
-        args.seed, kernels, smi, layers=8, steps=6, use_flash=True,
-        policy="dots_attn", time_it=True)
+        args.seed, kernels, smi,
+        llama(num_hidden_layers=8, remat_policy="dots_attn"),
+        name="Llama-3-8B widths", gbs=4, mbs=2, seq=2048, steps=6,
+        time_it=True)
     gc.collect()
     torch.cuda.empty_cache()
     # the first training slice's path, cut to 2 layers and 2 steps
     by_path["training_dense"] = training_phase(
-        args.seed, kernels, smi, layers=2, steps=2, use_flash=False,
-        policy="nothing", time_it=False)
+        args.seed, kernels, smi,
+        llama(num_hidden_layers=2, use_flash_attention=False),
+        name="Llama-3-8B widths", gbs=4, mbs=2, seq=2048, steps=2,
+        time_it=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the GPT family: its kernel (the LayerNorm arm) and the sampler at
+    # its head, the narrow card-vs-CPU check, then training and serving
+    # GPT-2-large at full depth
+    for name, more in gpt_kernel_phase(args.seed).items():
+        cases.setdefault(name, []).extend(more)
+    gpt_reference_phase(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["gpt_training"] = training_phase(
+        args.seed, kernels, smi, GPTConfig.gpt2_large(),
+        name="GPT-2-large", gbs=16, mbs=8, seq=1024, steps=6, time_it=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path.update(gpt_serving_phase(args.seed, kernels))
 
     line = []
     for name, (mod, attr, source, replaces) in kernels.items():
@@ -2216,6 +2698,7 @@ def main(argv=None) -> int:
             "ms": head["ms"], "kernel_ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "composition_ms": head["composition_ms"],
             "cases": cases[name]})
     print(json.dumps({"kernels": line}))
     print(f"total {time.perf_counter() - t_start:.1f}s")

@@ -5,10 +5,11 @@ it, slice by slice, keeping its module layout and names so each module
 has a findable counterpart.  It imports torch and numpy only — never
 jax, never `hetu_tpu` (whose package import loads JAX).
 
-This slice is the serving main path: `serving.ServingEngine` over
-`models.llama.LlamaLMHeadModel`, with hand-written CUDA kernels for
-paged-attention decode, fused RoPE and SwiGLU (`ops/cuda`, sources in
-`csrc/`).  Entry points take a `device` argument that defaults to
+It serves (`serving.ServingEngine`) and trains (`engine.Trainer`) both
+model families, `models.llama.LlamaLMHeadModel` and
+`models.gpt.GPTLMHeadModel`, on one card, through hand-written CUDA
+kernels for every Pallas kernel of the reference (`ops/cuda`, sources
+in `csrc/`).  Entry points take a `device` argument that defaults to
 "cuda"; a CPU tensor runs each kernel's plain PyTorch version.
 
 Importing the package builds nothing: the kernels compile at first use

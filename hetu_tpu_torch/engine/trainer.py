@@ -23,8 +23,8 @@ trainer.steps / trainer.tokens counters and the trainer.step_time_s
 histogram into its own `MetricsRegistry` (`trainer.registry`).
 
 The reference's options that need a later slice raise
-NotImplementedError: those of `TrainingConfig` and `LlamaConfig` where
-they are made; here a strategy or mesh, the run-log, health and
+NotImplementedError: those of `TrainingConfig`, `LlamaConfig` and
+`GPTConfig` where they are made; here a strategy or mesh, the run-log, health and
 numerics hooks, fp16 compute and parameters stored below fp32.
 """
 from __future__ import annotations
@@ -54,9 +54,11 @@ _LATER_ARGS = {"strategy": _MULTI_GPU, "mesh": _MULTI_GPU,
 
 
 class Trainer:
-    """Single-device training of a `LlamaLMHeadModel` that lives on
-    `device` ("cuda" by default: the CUDA kernels; "cpu": their plain
-    versions)."""
+    """Single-device training of a `LlamaLMHeadModel` or a
+    `GPTLMHeadModel` that lives on `device` ("cuda" by default: the CUDA
+    kernels; "cpu": their plain versions).  The model's training
+    forward takes (input_ids, labels, position_ids=, segment_ids=,
+    loss_reduction="sum") and returns (loss sum, token count)."""
 
     def __init__(self, model, config: TrainingConfig, *, device="cuda",
                  **later):

@@ -41,8 +41,8 @@ class TrainingConfig:
     ckpt_keep: int = 3
 
     # the reference draws its params from it in Trainer.build; the
-    # port's model draws its own (LlamaLMHeadModel(seed=...)), and a
-    # step without dropout draws nothing
+    # port's model draws its own (LlamaLMHeadModel(seed=...),
+    # GPTLMHeadModel(seed=...)), and a step without dropout draws nothing
     seed: int = 0
     dropout_deterministic: bool = True  # pretraining default: no dropout
 
@@ -76,7 +76,8 @@ class TrainingConfig:
         if self.seed != 0:
             raise ValueError(
                 "TrainingConfig.seed: the port's Trainer draws nothing; "
-                "draw the weights with LlamaLMHeadModel(seed=...)")
+                "draw the weights with LlamaLMHeadModel(seed=...) or "
+                "GPTLMHeadModel(seed=...)")
 
     def num_micro_batches(self, dp: int) -> int:
         denom = self.micro_batch_size * dp

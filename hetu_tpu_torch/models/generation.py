@@ -1,10 +1,11 @@
-"""The serving forwards, the port of `hetu_tpu/models/generation.py`.
+"""The serving forwards, the port of `hetu_tpu/models/generation.py`, for
+both families (`LlamaLMHeadModel`, `GPTLMHeadModel`).
 
 `last_logits` runs a whole prompt through the model's forward (flash
-attention, the fused residual norm, RoPE and SwiGLU kernels on the
-card) and returns the last position's logits, the reference's `prefill`
-logits without its cache: the model drafter's forward.  Three programs
-carry the serving engine's main path:
+attention and the fused residual-norm kernel on the card; RoPE and
+SwiGLU for LLaMA) and returns the last position's logits, the
+reference's `prefill` logits without its cache: the model drafter's
+forward.  Three programs carry the serving engine's main path:
 
   * `extend_cache` — chunked prefill: a [b, C] token block at positions
     start..start+C-1 writes its K/V into a dense per-request cache and
@@ -24,16 +25,23 @@ and the kernels dequantize pages in registers.  Positions of a token
 block past the slot's table row write into the null page.
 
 They drive the model's modules layer by layer, because the KV cache is
-written between the projection and the attention; what is the same for
+written between the projection and the attention: one loop for both
+families, through the model's `embed_at` (GPT adds its learned `wpe`
+rows), `rope_at` (LLaMA's RoPE rows; GPT has none) and `final_norm`,
+and each block's `serve_qkv` / `serve_tail`.  What is the same for
 every layer (the RoPE rows of the positions, the page slots the tokens
-write) is computed once per call.  Where the reference is functional
-(its caches and pools are returned as new arrays and the engine donates
-the old buffers), the port updates the caches and pools IN PLACE and
-returns the same tensors.
+write) is computed once per call.  A position past
+max_position_embeddings raises ValueError, checked on the host before
+any lookup (positions handed over as a CUDA tensor cost one
+synchronize for it; the engine hands them over as host arrays).
+
+Where the reference is functional (its caches and pools are returned
+as new arrays and the engine donates the old buffers), the port updates
+the caches and pools IN PLACE and returns the same tensors.
 
 The LM head as a [hidden, vocab] matrix (the reference's
-`lm_head_weight`, the fused sampler's weight) is
-`LlamaLMHeadModel.lm_head_weight`.
+`lm_head_weight`, the fused sampler's weight) is the model's
+`lm_head_weight()`.
 """
 from __future__ import annotations
 
@@ -44,100 +52,112 @@ from hetu_tpu_torch.ops.cuda.paged_attention import (paged_attention,
                                                      resolve_quant)
 from hetu_tpu_torch.ops.cuda.rotary import fused_rotary_qk
 from hetu_tpu_torch.ops.quantization import quantize_heads
-from hetu_tpu_torch.ops.rotary import rope_tables
 
 _NEG = -1e30
 
 
 def _check_context_length(config, max_len: int):
-    """Past the trained context the RoPE table lookup would run off its
-    end — fail loudly instead.  One guard for every cache-building entry
-    point."""
+    """Past the trained context GPT's `wpe` and LLaMA's RoPE table
+    lookups would run off their ends — fail loudly instead.  One guard
+    for every entry point that takes positions."""
     if max_len > config.max_position_embeddings:
         raise ValueError(
             f"cache length {max_len} exceeds max_position_embeddings "
             f"{config.max_position_embeddings}")
 
 
-def _attend_cached_chunk(q, ck, cv, start: int, scale: float):
+def _attend_cached_chunk(q, ck, cv, qpos: torch.Tensor, scale: float):
     """Multi-query cached attention for chunked prefill.  q: [b, C, nq,
-    hd] sits at absolute positions start..start+C-1; ck/cv: [b, M, n_kv,
-    hd].  Key position k is visible to query i iff k <= start + i.  GQA
-    contracts the grouped q heads against the kv heads directly (no
-    repeated cache).  Scores, softmax and the weighted sum in fp32."""
+    hd] at absolute positions qpos, [C] (every row alike) or [b, C];
+    ck/cv: [b, M, n_kv, hd].  Key position k is visible to query i iff
+    k <= qpos[i] (of its row).  GQA contracts the grouped q heads
+    against the kv heads directly (no repeated cache).  Scores, softmax
+    and the weighted sum in fp32."""
     b, M, n_kv, hd = ck.shape
     C, nq = q.shape[1], q.shape[2]
     group = nq // n_kv
     qg = q.reshape(b, C, n_kv, group, hd).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, ck.float()) * scale
-    qpos = start + torch.arange(C, device=q.device)               # [C]
-    mask = torch.arange(M, device=q.device)[None, :] <= qpos[:, None]
+    mask = torch.arange(M, device=q.device) <= qpos[..., None]  # [(b,) C, M]
+    if mask.dim() == 3:
+        mask = mask[:, None, None]
     s = s.masked_fill(~mask, _NEG)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, cv.float())
     return out.reshape(b, C, nq, hd).to(q.dtype)
 
 
-def _layer_tail(layer, h, attn):
-    """o_proj + residual, then the MLP on the post-norm + residual."""
-    b, s = attn.shape[:2]
-    h = h + layer.attn.o_proj(attn.reshape(b, s, -1))
-    return h + layer.mlp(layer.post_norm(h))
+def _rotate(rope, q, k):
+    """RoPE on q and k (LLaMA: the fused kernel) or nothing (GPT)."""
+    if rope is None:
+        return q, k
+    return fused_rotary_qk(q.contiguous(), k.contiguous(), *rope,
+                           device=q.device)
 
 
 @torch.no_grad()
 def last_logits(model, input_ids: torch.Tensor) -> torch.Tensor:
     """The reference's `prefill` logits: the prompt input_ids [b, plen]
-    through every layer as `LlamaBlock.forward` runs it, and the LM head
-    on the last position only.  Returns [b, vocab]; no cache is built
-    (the model drafter's forward)."""
-    c = model.config
-    b, plen = input_ids.shape
-    _check_context_length(c, plen)
-    x = model.model.embed(input_ids.long()).to(c.compute_dtype)
-    cos_t, sin_t = rope_tables(model.rope_cos, model.rope_sin, b, plen)
-    for layer in model.model.layers:
-        a = layer.attn
-        q, k, v = a.heads(a.qkv(layer.input_norm(x)), cos_t, sin_t)
-        normed, x = layer.post_norm.residual(x, a.o_proj(a.attend(q, k, v)))
-        x = x + layer.mlp(normed)
-    return model.logits(model.model.final_norm(x[:, -1]))
+    through the model's forward (`model.hidden`, every block as its
+    training forward runs it, without recompute), and the LM head on the
+    last position only.  Returns [b, vocab]; no cache is built (the
+    model drafter's forward).  The reference's `prefill` runs each
+    block's training forward too, so its residual add + ln2 / post-norm
+    is the fused norm kernel here as there; only the cache-writing
+    forwards below apply the norm after the add, unfused, as the
+    reference's do."""
+    _check_context_length(model.config, input_ids.shape[1])
+    return model.logits(model.hidden(input_ids)[:, -1])
 
 
 @torch.no_grad()
-def extend_cache(model, tokens: torch.Tensor, cache, start: int):
+def extend_cache(model, tokens: torch.Tensor, cache, start):
     """Advance a dense KV cache by a whole token block (chunked prefill).
 
-    tokens: [b, C] int at absolute positions start..start+C-1; cache:
+    tokens: [b, C] int; row r sits at absolute positions
+    start[r]..start[r]+C-1, where `start` is an int (every row alike,
+    the engine's form: the chunk is written as one slice) or [b] (as the
+    reference takes it: the chunk is scattered row by row); cache:
     (k, v), each [L, b, M, n_kv, hd] in the compute dtype, updated in
-    place.  Each query attends causally over cache[:start+i+1]; the
-    attention reads only the first start+C cache rows, the only ones a
-    chunk can see, so rows past them are never read.  Returns (logits
-    [b, C, vocab], cache)."""
+    place.  Each query attends causally over its row's
+    cache[:start+i+1]; the attention reads only the cache rows a chunk
+    can see.  Returns (logits [b, C, vocab], cache)."""
     c = model.config
     cache_k, cache_v = cache
     b, C = tokens.shape
     M = cache_k.shape[2]
-    if start < 0 or start + C > M:
-        raise ValueError(f"chunk [{start}, {start + C}) outside the "
+    start = torch.as_tensor(start)
+    if start.dim() > 1 or (start.dim() == 1 and start.numel() != b):
+        raise ValueError(f"start must be an int or [b={b}], got shape "
+                         f"{tuple(start.shape)}")
+    lo, hi = int(start.min()), int(start.max())
+    if lo < 0 or hi + C > M:
+        raise ValueError(f"chunk [{lo}, {hi + C}) outside the "
                          f"{M}-position cache")
-    x = model.model.embed(tokens.long()).to(c.compute_dtype)
-    qpos = (start + torch.arange(C, device=tokens.device)).expand(b, C)
-    cos_t, sin_t = rope_tables(model.rope_cos, model.rope_sin, b, C, qpos)
+    _check_context_length(c, hi + C)
+    steps = torch.arange(C, device=tokens.device)
+    if start.dim() == 0:
+        qpos = lo + steps                                           # [C]
+        rows = slice(None)
+        write = slice(lo, lo + C)
+    else:
+        qpos = start.to(tokens.device).long()[:, None] + steps      # [b, C]
+        rows = torch.arange(b, device=tokens.device)[:, None]
+        write = qpos
+    x = model.embed_at(tokens, qpos.expand(b, C))
+    rope = model.rope_at(b, C, qpos.expand(b, C))
     scale = c.head_dim ** -0.5
-    end = start + C
-    for li, layer in enumerate(model.model.layers):
-        q, k, v = layer.attn.project_qkv(layer.input_norm(x))
-        q, k = fused_rotary_qk(q.contiguous(), k.contiguous(), cos_t,
-                               sin_t, device=q.device)
+    end = hi + C
+    for li, layer in enumerate(model.layers):
+        q, k, v = layer.serve_qkv(x)
+        q, k = _rotate(rope, q, k)
         ck, cv = cache_k[li], cache_v[li]
-        ck[:, start:end] = k.to(ck.dtype)
-        cv[:, start:end] = v.to(cv.dtype)
-        attn = _attend_cached_chunk(q, ck[:, :end], cv[:, :end], start,
+        ck[rows, write] = k.to(ck.dtype)
+        cv[rows, write] = v.to(cv.dtype)
+        attn = _attend_cached_chunk(q, ck[:, :end], cv[:, :end], qpos,
                                     scale)
-        x = _layer_tail(layer, x, attn)
-    hidden = model.model.final_norm(x)
-    return model.logits(hidden), cache
+        x = layer.serve_tail(x, attn)
+    return model.logits(model.final_norm(x)), cache
 
 
 def _token_block_pages(table, positions, C: int, ps: int):
@@ -179,17 +199,20 @@ def _paged_forward(model, tokens, k_pool, v_pool, table, positions,
     c = model.config
     kv_quant = resolve_quant(kv_quant, k_scale, v_scale)
     S, C = tokens.shape
+    positions = torch.as_tensor(positions)
+    if positions.numel():
+        _check_context_length(c, int(positions.max()) + C)
     table = table.to(torch.int32).contiguous()
-    positions = positions.to(torch.int32).contiguous()
-    x = model.model.embed(tokens.long()).to(c.compute_dtype)
-    qpos = positions.long()[:, None] + torch.arange(C, device=x.device)
-    cos_t, sin_t = rope_tables(model.rope_cos, model.rope_sin, S, C, qpos)
+    positions = positions.to(device=table.device,
+                             dtype=torch.int32).contiguous()
+    qpos = positions.long()[:, None] + torch.arange(C, device=table.device)
+    x = model.embed_at(tokens, qpos)
+    rope = model.rope_at(S, C, qpos)
     page, offset = _token_block_pages(table, positions, C, k_pool.shape[2])
     scale = c.head_dim ** -0.5
-    for li, layer in enumerate(model.model.layers):
-        q, k, v = layer.attn.project_qkv(layer.input_norm(x))
-        q, k = fused_rotary_qk(q.contiguous(), k.contiguous(), cos_t,
-                               sin_t, device=q.device)
+    for li, layer in enumerate(model.layers):
+        q, k, v = layer.serve_qkv(x)
+        q, k = _rotate(rope, q, k)
         kp, vp = k_pool[li], v_pool[li]
         ksc = vsc = None
         if kv_quant == "none":
@@ -203,11 +226,13 @@ def _paged_forward(model, tokens, k_pool, v_pool, table, positions,
         kw = dict(softmax_scale=scale, k_scale=ksc, v_scale=vsc,
                   quant=kv_quant, device=q.device)
         if verify:
-            attn = paged_verify(q, kp, vp, table, positions, **kw)
+            attn = paged_verify(q.contiguous(), kp, vp, table, positions,
+                                **kw)
         else:
-            attn = paged_attention(q[:, 0], kp, vp, table, positions, **kw)
-        x = _layer_tail(layer, x, attn.reshape(S, C, -1))
-    return model.model.final_norm(x)
+            attn = paged_attention(q[:, 0].contiguous(), kp, vp, table,
+                                   positions, **kw)
+        x = layer.serve_tail(x, attn.reshape(S, C, -1))
+    return model.final_norm(x)
 
 
 def _pools_out(k_pool, v_pool, k_scale, v_scale):
@@ -224,11 +249,11 @@ def decode_step_paged(model, tokens: torch.Tensor, k_pool: torch.Tensor,
     """One decode step attending directly over a paged KV pool.
 
     tokens: [S] int; k_pool/v_pool: [L, P, page_size, n_kv, hd] (page 0
-    = the null page); table: [S, max_pages] int32; positions: [S] int32
-    — slot s's token sits at positions[s] and attends over everything
-    at or before it.  This step's K/V are written into each slot's page
-    BEFORE the kernel runs, so the token sees itself (write, then
-    attend).  int8 pools pass their fp32 scales [L, P, page_size, n_kv]
+    = the null page); table: [S, max_pages] int32; positions: [S] int
+    (a tensor or a host array) — slot s's token sits at positions[s]
+    and attends over everything at or before it.  This step's K/V are
+    written into each slot's page BEFORE the kernel runs, so the token
+    sees itself (write, then attend).  int8 pools pass their fp32 scales [L, P, page_size, n_kv]
     as k_scale/v_scale; int4 pools also pass ``kv_quant="int4"`` (uint8
     nibble payloads of head dim hd / 2).  The pools are updated in
     place.  Returns (logits [S, vocab], k_pool, v_pool[, k_scale,

@@ -15,8 +15,9 @@ The reference stacks the layers for `lax.scan`; here they are an
 on, each block is recomputed in the backward as `config.remat_policy`
 says (`nn/remat.py`).  The serving forwards
 (chunked prefill and paged decode) live in `models/generation.py`,
-which drives these modules layer by layer because the KV cache is
-written between the projection and the attention.
+which drives these modules layer by layer (`serve_qkv` / `serve_tail`)
+because the KV cache is written between the projection and the
+attention.
 """
 from __future__ import annotations
 
@@ -167,6 +168,17 @@ class LlamaBlock(nn.Module):
         hidden = remat(swiglu, self.mlp.gate_up(normed))
         return x + self.mlp.down_proj(hidden)
 
+    # -- the serving forwards' two halves (models/generation.py) ----------
+    def serve_qkv(self, x: torch.Tensor):
+        """q [b, s, nq, hd], k and v [b, s, n_kv, hd] of the block's
+        input, before RoPE."""
+        return self.attn.project_qkv(self.input_norm(x))
+
+    def serve_tail(self, x: torch.Tensor, attn: torch.Tensor):
+        """o_proj + residual, then the MLP on the post-norm + residual."""
+        x = x + self.attn.o_proj(attn.reshape(*attn.shape[:2], -1))
+        return x + self.mlp(self.post_norm(x))
+
 
 class LlamaModel(nn.Module):
     """Backbone: embed + decoder layers + final norm."""
@@ -195,6 +207,11 @@ class LlamaLMHeadModel(nn.Module):
     initializer_range) weights, unit norms), as the reference's init
     does with its own PRNG; real weights load with `load_jax_params`."""
 
+    #: where `load_jax_params` finds the layers: the port's ModuleList,
+    #: the reference's stacked subtree and its per-layer prefix
+    jax_layers = ("model.layers", "model.layers.layers.",
+                  "model.layers.layer_{}.")
+
     def __init__(self, config: LlamaConfig, *, device="cuda", seed: int = 0):
         super().__init__()
         self.config = c = config
@@ -214,6 +231,25 @@ class LlamaLMHeadModel(nn.Module):
         if not c.tie_word_embeddings:
             self.lm_head.normal_(0.0, c.initializer_range, generator=gen)
 
+    # -- the interface the trainer and the serving forwards share --------
+    @property
+    def layers(self) -> nn.ModuleList:
+        return self.model.layers
+
+    def embed_at(self, ids: torch.Tensor, positions=None) -> torch.Tensor:
+        """The token embeddings in the compute dtype (positions enter
+        through RoPE, `rope_at`)."""
+        return self.model.embed(ids.long()).to(self.config.compute_dtype)
+
+    def rope_at(self, b: int, s: int, positions=None):
+        """The RoPE rows (cos_t, sin_t) of positions [b, s] (default
+        0..s-1)."""
+        return rope_tables(self.rope_cos, self.rope_sin, b, s,
+                           None if positions is None else positions.long())
+
+    def final_norm(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model.final_norm(x)
+
     def lm_head_weight(self) -> torch.Tensor:
         """The LM head as a [hidden, vocab] matrix (the transposed
         embedding table when tied)."""
@@ -224,6 +260,26 @@ class LlamaLMHeadModel(nn.Module):
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return hidden @ self.lm_head_weight().to(hidden.dtype)
 
+    def hidden(self, input_ids: torch.Tensor, *, position_ids=None,
+               segment_ids=None) -> torch.Tensor:
+        """The final-norm hidden states [b, s, hidden] of the training
+        forward; each block recomputed in the backward by
+        `config.remat_policy` when gradients are on."""
+        c = self.config
+        b, s = input_ids.shape
+        x = self.embed_at(input_ids)
+        cos_t, sin_t = self.rope_at(b, s, position_ids)
+        for layer in self.model.layers:
+            if not (c.remat and torch.is_grad_enabled()):
+                x = layer(x, cos_t, sin_t, segment_ids)
+            elif c.remat_policy == "nothing":
+                x = remat(layer, x, cos_t, sin_t, segment_ids)
+            else:
+                x = layer.forward_saving_dots(
+                    x, cos_t, sin_t, segment_ids,
+                    save_attn=c.remat_policy == "dots_attn")
+        return self.final_norm(x)
+
     def forward(self, input_ids: torch.Tensor, labels=None, *,
                 position_ids=None, segment_ids=None,
                 loss_reduction: str = "mean", labels_shifted: bool = False):
@@ -233,25 +289,12 @@ class LlamaLMHeadModel(nn.Module):
         `labels_shifted`), positions labelled -100 ignored; "mean"
         returns the mean loss, "sum" returns (loss sum, token count) so
         that micro-batches weigh by their true token counts."""
-        c = self.config
         if loss_reduction not in ("mean", "sum"):
             raise ValueError(f"loss_reduction must be 'mean' or 'sum', got "
                              f"{loss_reduction!r}")
-        b, s = input_ids.shape
-        x = self.model.embed(input_ids.long()).to(c.compute_dtype)
-        cos_t, sin_t = rope_tables(
-            self.rope_cos, self.rope_sin, b, s,
-            None if position_ids is None else position_ids.long())
-        for layer in self.model.layers:
-            if not c.remat:
-                x = layer(x, cos_t, sin_t, segment_ids)
-            elif c.remat_policy == "nothing":
-                x = remat(layer, x, cos_t, sin_t, segment_ids)
-            else:
-                x = layer.forward_saving_dots(
-                    x, cos_t, sin_t, segment_ids,
-                    save_attn=c.remat_policy == "dots_attn")
-        logits = self.logits(self.model.final_norm(x))
+        logits = self.logits(self.hidden(input_ids,
+                                         position_ids=position_ids,
+                                         segment_ids=segment_ids))
         if labels is None:
             return logits
         if labels_shifted:

@@ -9,8 +9,8 @@ launch counter:
                       (replaces ops/pallas/rotary.py)
   * swiglu          — silu(gate) * up in one pass, and its backward
                       (replaces ops/pallas/swiglu.py)
-  * fused_norm      — residual add + RMSNorm, forward and backward
-                      (replaces ops/pallas/fused_norm.py, RMS)
+  * fused_norm      — residual add + RMSNorm / LayerNorm, forward and
+                      backward (replaces ops/pallas/fused_norm.py)
   * adam            — fused AdamW update per parameter leaf
                       (replaces ops/pallas/adam.py)
   * flash_attention — flash attention forward, and its dq and dk/dv
@@ -21,8 +21,8 @@ The routing rule is the device: each wrapper takes `device=` ("cuda"
 by default) and its tensors must lie there.  On CUDA it launches the
 kernel or raises; on the CPU it runs the plain version.  There is no
 shape gate that quietly falls back, and no try/except around a launch.
-`launches` (and `bwd_launches`, `dq_launches`, `dkv_launches`) in each
-module counts kernel launches only (the plain
+`launches` (and `bwd_launches`, `ln_launches`, `dq_launches`, ...) in
+each module counts kernel launches only (the plain
 version never counts), so a run can prove its path went through the
 kernels.  Sources live in `hetu_tpu_torch/csrc/`; `build.py` compiles
 them at first use.

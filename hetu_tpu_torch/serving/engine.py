@@ -197,15 +197,23 @@ class ServeConfig:
         return self.spec_k if self.spec_decode != "none" else 0
 
 
+def _kv_heads(config) -> int:
+    """K/V heads a layer caches: the config's num_key_value_heads, or
+    every head where the family has no GQA (GPT), as the reference's
+    `init_cache` reads it."""
+    return getattr(config, "num_key_value_heads", config.num_attention_heads)
+
+
 class ServingEngine:
-    """Continuous-batching facade over a `LlamaLMHeadModel`.
+    """Continuous-batching facade over a `LlamaLMHeadModel` or a
+    `GPTLMHeadModel`.
 
     `device` ("cuda" by default) must be the model's device; on a CUDA
     device the decode step runs the hand-written kernels, on the CPU
     their plain versions.  `draft_model` (with
-    `ServeConfig(spec_decode="model")`) is a second `LlamaLMHeadModel`
-    on the same device; the engine's `ModelDrafter` keeps its own int8
-    copy of its matrices and leaves the model as it was.  The port's
+    `ServeConfig(spec_decode="model")`) is a second model of the same
+    vocabulary on the same device; the engine's `ModelDrafter` keeps its
+    own int8 copy of its matrices and leaves the model as it was.  The port's
     models hold their own weights, so the reference's `draft_params` has
     no counterpart and is refused."""
 
@@ -236,7 +244,7 @@ class ServingEngine:
             num_layers=c.num_hidden_layers,
             num_pages=self.config.num_pages,
             page_size=self.config.page_size,
-            num_kv_heads=c.num_key_value_heads, head_dim=c.head_dim,
+            num_kv_heads=_kv_heads(c), head_dim=c.head_dim,
             dtype=c.compute_dtype, quant=self.config.kv_quant,
             device=self.device)
         # radix prefix cache: shared prompt prefixes admit resident
@@ -288,7 +296,7 @@ class ServingEngine:
         prefilling request (the reference's zero template)."""
         c = self.model.config
         shape = (c.num_hidden_layers, 1, self.config.max_len,
-                 c.num_key_value_heads, c.head_dim)
+                 _kv_heads(c), c.head_dim)
         return (torch.zeros(shape, dtype=c.compute_dtype, device=self.device),
                 torch.zeros(shape, dtype=c.compute_dtype, device=self.device))
 
@@ -325,10 +333,10 @@ class ServingEngine:
         or under `sampling` the seeded sampler at each token's position
         (its input token sits at positions[s])."""
         dev = self.device
-        pos = torch.as_tensor(positions, device=dev)
+        # positions stay on the host: the forward checks them there
         logits = decode_step_paged(
             self.model, torch.as_tensor(tokens, device=dev), self.pool.k,
-            self.pool.v, torch.as_tensor(table, device=dev), pos,
+            self.pool.v, torch.as_tensor(table, device=dev), positions,
             **self._pools())[0]
         if not self.config.sampling:
             return torch.argmax(logits, dim=-1).cpu().numpy()
@@ -346,11 +354,10 @@ class ServingEngine:
         path's token; with q_probs [S, k, V] (a stochastic drafter's
         distributions) by the p/q rejection rule over the logits."""
         dev = self.device
-        pos = torch.as_tensor(positions, device=dev)
         tok = torch.as_tensor(tokens, device=dev)
         out = verify_step_paged(
             self.model, tok, self.pool.k, self.pool.v,
-            torch.as_tensor(table, device=dev), pos,
+            torch.as_tensor(table, device=dev), positions,
             return_hidden=q_probs is None, **self._pools())[0]
         # the token picked at grid position i sits at positions + i + 1
         pos_grid = positions.astype(np.int64)[:, None] + np.arange(

@@ -188,9 +188,9 @@ class ModelDrafter(Drafter):
     like every other sampled token; temperature 0 is an argmax rollout
     with a point-mass q.
 
-    The draft model (a `LlamaLMHeadModel`) is left as it was given: its
-    float matrices are blockwise-quantized at construction into the
-    drafter's own int8 + fp32 scales, and the drafter runs a copy of the
+    The draft model (a `LlamaLMHeadModel` or `GPTLMHeadModel`) is left
+    as it was given: its float matrices are blockwise-quantized at
+    construction into the drafter's own int8 + fp32 scales, and the drafter runs a copy of the
     module that holds no matrices (drop the model to free its float
     weights).  Each forward dequantizes a working copy
     (`_dequantize_resident`, the blockwise dequantize kernel on the

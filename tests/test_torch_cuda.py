@@ -36,6 +36,10 @@ fused sampler's product within 1e-5 of the largest logit, its tokens
 identical wherever the plain top-two gap after noise exceeds 1e-3; the
 sampled, speculative, quantized engine token for token against the CPU.
 
+The fused norm's LayerNorm arm as its RMS arm (dw and db of its
+backward 1e-5 of their largest entry); the GPT engine and trainer
+against the CPU as the LLaMA ones.
+
 The third serving slice's: the blockwise dequantize bit for bit in both
 output arms, at block sizes whose rows end inside a 16-byte vector and
 on payload views off a 16-byte boundary; the model drafter with the
@@ -81,13 +85,13 @@ def _normal(shape, seed, dev, dtype=torch.float32):
     return torch.randn(shape, generator=g).to(dev, dtype)
 
 
-def _bf16_close(a, b):
+def _bf16_close(a, b, atol=0.0):
     """Within one bf16 ulp (8 significant bits) of the larger of the
-    two, elementwise."""
+    two, elementwise, plus `atol`."""
     a, b = a.float(), b.float()
     _, exp = torch.frexp(torch.maximum(a.abs(), b.abs()))
     ulp = torch.ldexp(torch.ones_like(a), exp - 8)
-    assert bool(((a - b).abs() <= ulp).all()), \
+    assert bool(((a - b).abs() <= ulp + atol).all()), \
         f"max diff {(a - b).abs().max().item()}"
 
 
@@ -285,6 +289,48 @@ def test_fused_norm_matches_plain(dev, dtype, hidden):
             _bf16_close(a, b)
     _, dw2 = tfused_norm.residual_rmsnorm_bwd(s, w, dy, dr)
     assert torch.equal(dw, dw2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [64, 1000, 1280, 4096])
+@pytest.mark.parametrize("bias", [True, False])
+def test_fused_layernorm_matches_plain(dev, dtype, hidden, bias):
+    """The LayerNorm arm, forward y/s and backward dx/dw/db, with a bias
+    and scale-only (no db), at GPT-2-large's 1280 (5 of 8 register
+    slots hold data), a ragged 1000 and the narrowest and a wide row;
+    dw and db are the same bits on a second run.  bf16 outputs within
+    one ulp + 1e-6, as chip_smoke.py holds them: the centred s - mean
+    and dx's g - mean(g) - ... cancel, so an output near 0 carries fp32
+    rounding (the row sums in another order) far above its own ulp."""
+    x = _normal((3, 11, hidden), 21, dev, dtype)
+    h = _normal((3, 11, hidden), 22, dev, dtype)
+    w = 1.0 + 0.1 * _normal((hidden,), 23, dev)
+    b = 0.1 * _normal((hidden,), 24, dev) if bias else None
+    dy = _normal((3, 11, hidden), 25, dev, dtype)
+    dr = _normal((3, 11, hidden), 26, dev, dtype)
+    before = tfused_norm.ln_launches, tfused_norm.ln_bwd_launches
+    y, s = tfused_norm.residual_layernorm_fwd(x, h, w, b)
+    dx, dw, db = tfused_norm.residual_layernorm_bwd(s, w, dy, dr,
+                                                    has_bias=bias)
+    assert (tfused_norm.ln_launches, tfused_norm.ln_bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    ry, rs = tfused_norm.residual_layernorm_plain(x, h, w, b, 1e-5)
+    rdx, rdw, rdb = tfused_norm.residual_layernorm_bwd_plain(
+        s, w, dy, dr, 1e-5, bias)
+    assert (db is None) == (rdb is None) == (not bias)
+    for a, ref in ((dw, rdw), (db, rdb)):
+        if ref is not None:
+            assert a.dtype == torch.float32
+            torch.testing.assert_close(a, ref, rtol=1e-5,
+                                       atol=1e-5 * float(ref.abs().max()))
+    for a, ref in ((y, ry), (s, rs), (dx, rdx)):
+        if dtype == torch.float32:
+            _close(a, ref)
+        else:
+            _bf16_close(a, ref, atol=1e-6)
+    _, dw2, db2 = tfused_norm.residual_layernorm_bwd(s, w, dy, dr,
+                                                     has_bias=bias)
+    assert torch.equal(dw, dw2) and (db2 is None or torch.equal(db, db2))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -903,3 +949,68 @@ def test_model_drafter_engine_on_the_card_matches_the_cpu(dev, how):
         assert sum(a for _, a in on_card) > 0
     plain, _ = run(dev, spec=False)
     assert [t for t, _ in on_card] == [t for t, _ in plain]
+
+
+def test_gpt_engine_on_the_card_matches_the_cpu(dev):
+    """GPT-2-large widths (hidden 1280, 20 heads of 64, vocab 50257, the
+    tied head) cut to 2 layers, fp32: the engine on the card emits the
+    tokens the same engine emits on the CPU, for the same weights and
+    trace, greedy on exact pages."""
+    from hetu_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig.gpt2_large(num_hidden_layers=2,
+                               compute_dtype=torch.float32)
+    cpu_model = GPTLMHeadModel(cfg, device="cpu", seed=0)
+    gpu_model = GPTLMHeadModel(cfg, device=dev, seed=0)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    serve = ServeConfig(num_slots=2, page_size=16, max_len=128,
+                        prefill_chunk=32)
+
+    def run(model, device):
+        reqs = synthetic_requests(3, vocab_size=cfg.vocab_size,
+                                  prompt_lens=(20, 70), max_new=(4, 6),
+                                  arrivals=100.0 * np.arange(3), seed=3)
+        eng = ServingEngine(model, serve, device=device).warmup()
+        res = eng.run(reqs)
+        eng.scheduler.check_invariants()
+        return [r.tokens for r in res]
+
+    before = tpaged.launches
+    on_card = run(gpu_model, dev)
+    assert tpaged.launches > before
+    assert on_card == run(cpu_model, "cpu")
+
+
+def test_gpt_training_on_the_card_matches_the_cpu(dev):
+    """Three Trainer steps of a narrow GPT (hidden 256, 4 heads of 64, 2
+    layers) in fp32 with flash attention, policy "nothing": the card
+    (the LayerNorm arm's launches counted per step) against the CPU
+    (flash's plain version forced), at the tolerances of
+    `test_training_on_the_card_matches_the_cpu`."""
+    from hetu_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig.tiny(hidden_size=256, num_attention_heads=4,
+                         vocab_size=4096, compute_dtype=torch.float32)
+    cpu_model = GPTLMHeadModel(cfg, device="cpu", seed=0)
+    gpu_model = GPTLMHeadModel(cfg, device=dev, seed=0)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    for block in cpu_model.model.blocks:
+        block.attn.use_pallas = True
+    before = tfused_norm.ln_launches, tfused_norm.ln_bwd_launches
+    on_card, card_params = _three_steps(gpu_model, dev)
+    L, n_micro, steps = cfg.num_hidden_layers, 2, 3
+    assert (tfused_norm.ln_launches - before[0],
+            tfused_norm.ln_bwd_launches - before[1]) == (
+        steps * 2 * L * n_micro, steps * L * n_micro)
+    on_cpu, cpu_params = _three_steps(cpu_model, "cpu")
+    for c, g in zip(on_cpu, on_card):
+        for k in ("loss", "grad_norm", "lr"):
+            assert abs(c[k] - g[k]) <= 1e-5 * abs(c[k]), (k, c, g)
+    bound = 2 * sum(m["lr"] for m in on_cpu)
+    names = [n for n, _ in cpu_model.named_parameters()]
+    for name, a, b in zip(names, card_params, cpu_params):
+        d = (a - b).abs()
+        assert d.max() <= bound, name
+        if name.endswith("bqkv"):   # the key bias: its gradient is
+            d = d[:, [0, 2]]        # rounding alone (tests/test_torch_gpt)
+        assert (d > 1e-5).float().mean() <= 1e-3, name

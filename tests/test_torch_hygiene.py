@@ -2,9 +2,9 @@
 
 The port imports torch and numpy only: never jax, never the JAX package
 (importing any `hetu_tpu` module runs its package `__init__`, which
-loads JAX).  Importing it builds nothing.  Its entry points run on the
-card unless the caller asks for the CPU, and raise where there is no
-card.
+loads JAX), never transformers (its HF converters take state dicts).
+Importing it builds nothing.  Its entry points run on the card unless
+the caller asks for the CPU, and raise where there is no card.
 """
 from __future__ import annotations
 
@@ -33,8 +33,7 @@ names = [m.name for m in pkgutil.walk_packages(hetu_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules
-             if n == "jax" or n.startswith("jax.")
-             or n == "hetu_tpu" or n.startswith("hetu_tpu."))
+             if n.split(".")[0] in ("jax", "hetu_tpu", "transformers"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -59,7 +58,11 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
                  "hetu_tpu_torch.ops.cuda.quant",
                  "hetu_tpu_torch.ops.cuda.sample",
                  "hetu_tpu_torch.serving.sampling",
-                 "hetu_tpu_torch.serving.spec_decode"):
+                 "hetu_tpu_torch.serving.spec_decode",
+                 "hetu_tpu_torch.models.gpt.model",
+                 "hetu_tpu_torch.models.gpt.convert",
+                 "hetu_tpu_torch.models.llama.convert",
+                 "hetu_tpu_torch.models.from_jax"):
         assert name in probe["modules"]
 
 
@@ -140,6 +143,49 @@ def test_no_library_dequantize_in_the_port():
              and name in path.read_text()]
     assert named == []
     assert name in (ROOT / "chip_smoke.py").read_text()
+
+
+def test_no_library_norm_in_the_port():
+    """The port's fused residual norms are its own kernels: no file of
+    the package calls PyTorch's `layer_norm` or `rms_norm` (chip_smoke.py
+    times `x + h` and them in one CUDA graph beside the kernels as a
+    yardstick, and only there)."""
+    names = ("F.layer_norm", "F.rms_norm", "functional.layer_norm",
+             "functional.rms_norm", "torch.layer_norm", "torch.rms_norm")
+    named = [str(path.relative_to(ROOT))
+             for path in sorted((ROOT / "hetu_tpu_torch").rglob("*"))
+             if path.suffix in (".py", ".cu", ".cuh")
+             and any(n in path.read_text() for n in names)]
+    assert named == []
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    assert "F.layer_norm" in smoke and "F.rms_norm" in smoke
+
+
+def test_cpu_gpt_training_and_serving_build_nothing(monkeypatch):
+    """A GPT Trainer step and a GPT engine run on the CPU take every
+    kernel's plain version (the LayerNorm arm's too) and never ask for a
+    build or a library."""
+    from hetu_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+    calls = []
+    monkeypatch.setattr(build, "build", lambda *a, **k: calls.append(a))
+    monkeypatch.setattr(build, "library", lambda *a, **k: calls.append(a))
+    model = GPTLMHeadModel(GPTConfig.tiny(), device="cpu")
+    tr = Trainer(model, TrainingConfig(global_batch_size=2,
+                                       micro_batch_size=1, seq_len=8),
+                 device="cpu")
+    ids = np.arange(16, dtype=np.int32).reshape(2, 8)
+    tr.train([{"input_ids": ids, "labels": ids}], num_steps=1)
+    eng = ServingEngine(model, ServeConfig(num_slots=2, page_size=4,
+                                           max_len=32, prefill_chunk=8,
+                                           kv_quant="int8"),
+                        device="cpu")
+    out = eng.run([Request(rid=0, prompt=np.arange(1, 12, dtype=np.int32),
+                           max_new_tokens=3)])
+    assert tr.global_step == 1 and len(out[0].tokens) == 3
+    assert calls == []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTLMHeadModel(GPTConfig.tiny())
 
 
 @pytest.mark.parametrize("flash,policy", [(False, "nothing"),

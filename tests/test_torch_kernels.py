@@ -302,6 +302,132 @@ def test_residual_rms_norm_matches_reference_in_fp32():
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=FWD_TOL)
 
 
+def _layernorm_case(shape, seed, bias):
+    x, h = _rand(shape, seed), _rand(shape, seed + 1)
+    w = 1.0 + 0.1 * _rand(shape[-1:], seed + 2)
+    b = 0.1 * _rand(shape[-1:], seed + 3) if bias else None
+    return x, h, w, b
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 256), (3, 8, 384)])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_fused_residual_layernorm_matches_pallas_kernel(shape, bias, dtype):
+    """The LayerNorm arm against the Pallas kernel in interpret mode, with
+    a bias and scale-only: y and s forward; dx, dh, dw and db from its
+    custom VJP on the same cotangents (no db without a bias, as the
+    reference returns none).  fp32 within 1e-5; bf16 y, s and dx, each
+    rounded once, within one ulp; dw and db are fp32 sums over the rows
+    (1e-5, summation order)."""
+    x, h, w, b = _layernorm_case(shape, 50, bias)
+    dy, dr = _rand(shape, 55), _rand(shape, 56)
+
+    def jfn(a, c, wt, bs):
+        return jfused_norm.fused_residual_layernorm(a, c, wt, bs, 1e-5)
+    jb = None if b is None else jnp.asarray(b)
+    (jy, js), vjp = jax.vjp(jfn, jnp.asarray(x, dtype), jnp.asarray(h, dtype),
+                            jnp.asarray(w), jb)
+    jdx, jdh, jdw, jdb = vjp((jnp.asarray(dy, dtype),
+                              jnp.asarray(dr, dtype)))
+    tdtype = torch.float32 if dtype == np.float32 else torch.bfloat16
+    tx, th = (torch.from_numpy(a).to(tdtype).requires_grad_(True)
+              for a in (x, h))
+    tw = torch.from_numpy(w).requires_grad_(True)
+    tb = None if b is None else torch.from_numpy(b).requires_grad_(True)
+    ty, ts = tfused_norm.fused_residual_layernorm(tx, th, tw, tb, 1e-5,
+                                                  device="cpu")
+    torch.autograd.backward((ty, ts), (torch.from_numpy(dy).to(tdtype),
+                                       torch.from_numpy(dr).to(tdtype)))
+    sums = [(tw.grad, jdw)]
+    if bias:
+        sums.append((tb.grad, jdb))
+    else:
+        assert jdb is None
+    for a, ref in sums:
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=FWD_TOL)
+    for a, ref in ((ty, jy), (ts, js), (tx.grad, jdx), (th.grad, jdh)):
+        if dtype == np.float32:
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(ref),
+                                       atol=FWD_TOL)
+        else:
+            _bf16_close(a.detach(), ref)
+
+
+def test_layernorm_backward_without_bias_returns_no_db():
+    x, h, w, _ = _layernorm_case((4, 64), 57, False)
+    s = torch.from_numpy(x + h)
+    dy, dr = torch.from_numpy(_rand((4, 64), 58)), torch.zeros(4, 64)
+    dx, dw, db = tfused_norm.residual_layernorm_bwd(
+        s, torch.from_numpy(w), dy, dr, has_bias=False, device="cpu")
+    assert db is None and dw.shape == (64,) and dx.shape == (4, 64)
+    _, _, db = tfused_norm.residual_layernorm_bwd(
+        s, torch.from_numpy(w), dy, dr, device="cpu")
+    torch.testing.assert_close(db, dy.sum(0))
+
+
+def test_fused_residual_layernorm_bf16_gap_to_the_reference_fallback():
+    """As for the RMS arm: the port follows the Pallas kernel, which
+    normalizes the UNROUNDED fp32 s = x + h; the reference's fallback
+    (`ops.residual_layer_norm`, use_pallas=False) rounds s to bf16
+    first.  s's rounding (up to 2^-9 |s|) reaches y through (s - mean)
+    * inv * w, an absolute error, large against y's own ulp where y is
+    near 0: the y's differ by at most 3 bf16 ulps of |y| plus 1e-2
+    (2^-9 * max|s| * inv * max|w| is under 1e-2 at these inputs); they
+    agree to 1 ulp with the kernel's."""
+    x, h, w, b = _layernorm_case((4, 8, 512), 60, True)
+    jy, _ = jops.residual_layer_norm(jnp.asarray(x, jnp.bfloat16),
+                                     jnp.asarray(h, jnp.bfloat16),
+                                     jnp.asarray(w), jnp.asarray(b),
+                                     use_pallas=False)
+    ty, _ = norms.residual_layer_norm(torch.from_numpy(x).bfloat16(),
+                                      torch.from_numpy(h).bfloat16(),
+                                      torch.from_numpy(w),
+                                      torch.from_numpy(b))
+    a = ty.float()
+    ref = torch.from_numpy(np.asarray(jy, np.float32))
+    _, exp = torch.frexp(torch.maximum(a.abs(), ref.abs()))
+    ulp = torch.ldexp(torch.ones_like(a), exp - 8)
+    gap = (a - ref).abs()
+    assert gap.max() > 0               # the paths do differ in bf16
+    assert bool((gap <= 3 * ulp + 1e-2).all()), float(gap.max())
+    jk, _ = jfused_norm.fused_residual_layernorm(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(h, jnp.bfloat16),
+        jnp.asarray(w), jnp.asarray(b))
+    _bf16_close(ty, jk)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_layer_norms_match_reference_in_fp32(bias):
+    """`layer_norm` against the reference's; `residual_layer_norm`
+    against its fallback composition (in fp32 the kernel's arithmetic
+    and the composition agree), at an odd width."""
+    x, h, w, b = _layernorm_case((3, 5, 72), 61, bias)
+    jb = None if b is None else jnp.asarray(b)
+    tb = None if b is None else torch.from_numpy(b)
+    np.testing.assert_allclose(
+        norms.layer_norm(torch.from_numpy(x), torch.from_numpy(w),
+                         tb).numpy(),
+        np.asarray(jops.layer_norm(jnp.asarray(x), jnp.asarray(w), jb)),
+        atol=FWD_TOL)
+    jy, js = jops.residual_layer_norm(jnp.asarray(x), jnp.asarray(h),
+                                      jnp.asarray(w), jb, use_pallas=False)
+    ty, ts = norms.residual_layer_norm(torch.from_numpy(x),
+                                       torch.from_numpy(h),
+                                       torch.from_numpy(w), tb)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=FWD_TOL)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=FWD_TOL)
+
+
+def test_gelu_matches_reference():
+    from hetu_tpu_torch.ops.activations import gelu
+    x = 3.0 * _rand((4, 100), 62)
+    np.testing.assert_allclose(gelu(torch.from_numpy(x)).numpy(),
+                               np.asarray(jops.gelu(jnp.asarray(x))),
+                               atol=FWD_TOL)
+
+
 # ------------------------------------------------------------- adamw
 def test_adam_update_matches_pallas_kernel_over_two_steps():
     """An fp32 leaf and a bf16 leaf, two steps (the bias corrections
@@ -444,7 +570,7 @@ def _sample_args(R=3, V=16):
 @pytest.mark.parametrize("call", ["paged", "rotary", "swiglu", "norm",
                                   "norm_bwd", "swiglu_bwd", "rotary_bwd",
                                   "adam", "paged_int8", "verify", "quant",
-                                  "sample", "fused_sample"])
+                                  "sample", "fused_sample", "ln", "ln_bwd"])
 def test_wrappers_default_to_the_card(monkeypatch, call):
     """Default device is "cuda": with no card, CPU inputs without
     device="cpu" raise instead of quietly running the plain version,
@@ -464,6 +590,13 @@ def test_wrappers_default_to_the_card(monkeypatch, call):
                      tfused_norm.residual_rmsnorm_bwd,
                      (_norm_args()[0], _norm_args()[2], *_norm_args()[:2]),
                      {}),
+        "ln": (tfused_norm, "ln_launches",
+               tfused_norm.fused_residual_layernorm,
+               (*_norm_args(), torch.zeros(128)), {}),
+        "ln_bwd": (tfused_norm, "ln_bwd_launches",
+                   tfused_norm.residual_layernorm_bwd,
+                   (_norm_args()[0], _norm_args()[2], *_norm_args()[:2]),
+                   {}),
         "swiglu_bwd": (tswiglu, "bwd_launches", tswiglu.swiglu_bwd,
                        (gu, torch.ones(8, 128)), {}),
         "rotary_bwd": (trotary, "bwd_launches", trotary.rotary_qk_bwd, rot,

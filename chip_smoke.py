@@ -949,24 +949,29 @@ def gpt_kernel_phase(seed: int):
 
 
 def _flash_setup(fa, b, sq, sk, hq, hkv, d, dtype, g, *, block=128,
-                 causal=True, segments=False, block_mask=None):
+                 causal=True, segments=False, block_mask=None,
+                 k_offset=None):
     """Inputs of one flash case on the card, [b, h, s, d] views of
     [b, s, h, d] tensors as the model hands them over, and the static
-    arguments every entry takes."""
+    arguments every entry takes.  `k_offset`: explicit positions, q at
+    0 .. sq - 1 and k from `k_offset` on (a future chunk), over a full
+    block mask."""
     def randn(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
     q, do = randn(b, sq, hq, d), randn(b, sq, hq, d)
     k, v = randn(b, sk, hkv, d), randn(b, sk, hkv, d)
     q_pos = (torch.arange(sq, dtype=torch.int32, device="cuda")
-             + (sk - sq)).expand(b, sq)
-    k_pos = torch.arange(sk, dtype=torch.int32, device="cuda").expand(b, sk)
+             + (sk - sq if k_offset is None else 0)).expand(b, sq)
+    k_pos = (torch.arange(sk, dtype=torch.int32, device="cuda")
+             + (k_offset or 0)).expand(b, sk)
     q_seg = k_seg = None
     if segments:            # two packed sequences, cut at a third
         q_seg = (q_pos >= sk // 3).int().contiguous()
         k_seg = (k_pos >= sk // 3).int().contiguous()
     bq, bk = fa.fit_block(block, sq), fa.fit_block(block, sk)
     if block_mask is None:
-        block_mask = (fa.causal_block_mask(sq, sk, bq, bk) if causal
+        block_mask = (fa.causal_block_mask(sq, sk, bq, bk)
+                      if causal and k_offset is None
                       else fa.full_block_mask(sq, sk, bq, bk))
     kw = dict(scale=d ** -0.5, causal=causal, block_q=bq, block_k=bk)
     live = torch.tensor(block_mask, dtype=torch.uint8, device="cuda")
@@ -1046,16 +1051,31 @@ def flash_timed(g, b, s, hq, hkv, d):
         lambda i: plain_bwd(i)[1:], 2 * qo + 2 * kv + 2 * stats + 4 * kv,
         8 * d * live_elems, exact=lambda i: ref[1:],
         library_ms=lib_fb - lib_f, op_dtype=torch.bfloat16)
+    runs = [fa.flash_bwd_dkv(*args, block_mask=block_mask, **kw)
+            for _ in range(2)]
+    check(all(torch.equal(x, y) for x, y in zip(*runs)),
+          f"flash_bwd_dkv {shape}: two runs differ")
     print(f"flash library {shape}: scaled_dot_product_attention forward "
           f"{lib_f:.5f} ms, forward + backward {lib_fb:.5f} ms")
+    print(f"flash ratio {shape}: forward kernel / library "
+          f"{fwd['ms'] / lib_f:.3f}; dk/dv kernel / library backward "
+          f"{dkv['ms'] / (lib_fb - lib_f):.3f}; dq kernel / library "
+          f"backward {dq['ms'] / (lib_fb - lib_f):.3f}; dq + dk/dv / "
+          f"library backward {(dq['ms'] + dkv['ms']) / (lib_fb - lib_f):.3f}"
+          f"; dk/dv two runs identical")
     return {"flash_fwd": [fwd], "flash_bwd_dq": [dq], "flash_bwd_dkv": [dkv]}
 
 
 def flash_kernel_phase(seed: int):
     """The three flash kernels.  Timed at the training shape, q [2, 2048,
     32, 128] over k/v [2, 2048, 8, 128], bf16, causal (2,098,176 live
-    elements a head; `flash_timed`).  Then correctness only at smaller
-    shapes: fp32, segments, sq != sk, a block mask with a dead row.
+    elements a head; `flash_timed`), and at the serving3 draft's q [1,
+    256, 32, 64] over 8 kv heads.  Then correctness only at smaller
+    shapes: bf16 with segments and GQA, ragged blocks of 96 and a future
+    chunk, causal blocks of 512 and a block mask whose first row skips 7
+    k blocks that its neighbours see (more tiles stream past a warpgroup
+    than the ring has slots); fp32, segments, sq != sk, a block mask
+    with a dead row.
 
     Tolerances, against the plain version on the same values in fp32.
     The fp32 arm runs every product in fp32: 1e-5 of the largest entry
@@ -1072,6 +1092,10 @@ def flash_kernel_phase(seed: int):
 
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
     out = flash_timed(g, 2, 2048, 32, 8, 128)
+    # the serving3 draft's forward (Llama-3.2-1B widths, a 256-token
+    # window): one warpgroup a block
+    for name, more in flash_timed(g, 1, 256, 32, 8, 64).items():
+        out[name].extend(more)
 
     def run_all(tensors, masks, kw, block_mask, live):
         """(kernel outputs, plain outputs) of forward, dq and dk/dv; the
@@ -1091,7 +1115,27 @@ def flash_kernel_phase(seed: int):
 
     # ---- correctness only
     dead_row = ((True, False, True, False), (False, False, False, False))
+    gap = ((True,) + (False,) * 7 + (True,), (True,) * 9, (True,) * 9)
+    # the bf16 arm's blocks: wide enough (b x hq) for blocks of two or
+    # three warpgroups, a ragged block of 96 (tiles of 64 + 32), a chunk
+    # whose keys all lie in the future (every row sees nothing)
     small = (
+        ("bf16 segments, GQA, blocks of several warpgroups d=128",
+         (2, 256, 256, 72, 36, 128, torch.bfloat16), {"segments": True}),
+        ("bf16 ragged blocks of 96 d=64",
+         (2, 192, 192, 72, 36, 64, torch.bfloat16), {"block": 96}),
+        ("bf16 future chunk d=128", (2, 128, 128, 8, 2, 128, torch.bfloat16),
+         {"block": 64, "k_offset": 1000}),
+        ("bf16 causal blocks of 512 d=64",
+         (2, 1024, 1024, 16, 4, 64, torch.bfloat16), {"block": 512}),
+        ("bf16 causal blocks of 512 d=128",
+         (2, 1024, 1024, 16, 4, 128, torch.bfloat16), {"block": 512}),
+        ("bf16 block mask with a gap of 7 d=64",
+         (2, 192, 576, 72, 36, 64, torch.bfloat16),
+         {"causal": False, "block": 64, "block_mask": gap}),
+        ("bf16 block mask with a gap of 7 d=128",
+         (2, 192, 576, 72, 36, 128, torch.bfloat16),
+         {"causal": False, "block": 64, "block_mask": gap}),
         ("fp32 causal GQA d=128", (2, 256, 256, 8, 2, 128, torch.float32),
          {}),
         ("fp32 segments d=64", (2, 256, 256, 4, 4, 64, torch.float32),
@@ -1109,13 +1153,15 @@ def flash_kernel_phase(seed: int):
         for name, tols, mine, theirs in zip(
                 out, (fwd_tols, grad_tol, grad_tol), got, want):
             out[name].append(checked(f"{name} {label}", tols, mine, theirs))
-        if "block_mask" in opts:       # the dead row: o = 0, lse = -1e30
+        if opts.get("block_mask") is dead_row or "k_offset" in opts:
+            # the dead row, the future chunk: o = 0, lse = -1e30, dq = 0
+            rows = slice(64, None) if "block_mask" in opts else slice(None)
             o, lse = got[0]
-            check(bool((o[:, :, 64:] == 0).all())
-                  and bool((lse[:, :, 64:] == fa.NEG_INF).all())
-                  and bool((got[1][0][:, :, 64:] == 0).all()),
-                  "flash: the block mask's dead row is not o = 0, "
-                  "lse = -1e30, dq = 0")
+            check(bool((o[:, :, rows] == 0).all())
+                  and bool((lse[:, :, rows] == fa.NEG_INF).all())
+                  and bool((got[1][0][:, :, rows] == 0).all()),
+                  f"flash {label}: rows that see nothing are not o = 0, "
+                  f"lse = -1e30, dq = 0")
     return out
 
 

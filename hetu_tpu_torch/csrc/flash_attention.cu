@@ -49,18 +49,27 @@
 // of both access patterns free of bank conflicts; P and dS pass through
 // shared memory once.
 //
-// bf16 inputs (second half): every product is mma.sync.m16n8k16 on the
-// tensor cores with fp32 accumulators; the softmax, lse, delta and all
-// sums stay fp32, and P and dS are rounded once to bf16 as the next
-// product's operand (as FlashAttention-2 does; the TPU kernel keeps them
-// fp32).  o is rounded once to bf16 on the way out; dq, dk, dv leave in
-// fp32 in both arms.
+// bf16 inputs (second half): every product runs on the tensor cores with
+// fp32 accumulators; the softmax, lse, delta and all sums stay fp32, and P
+// and dS are rounded once to bf16 as the next product's operand (as
+// FlashAttention-2 does; the TPU kernel keeps them fp32).  o is rounded
+// once to bf16 on the way out; dq, dk, dv leave in fp32 in both arms.
 //
-// What is left for later: both arms stage one tile at a time between two
-// __syncthreads (no cp.async / TMA ring, no double buffer), the bf16 arm
-// uses mma.sync, not wgmma, and the mask is evaluated on every element of
-// every live tile.
+// The bf16 forward and dk/dv kernels are built for Hopper (the section
+// "bf16 forward and dk/dv: Hopper" below): a producer warpgroup streams
+// K/V (or Q/dO) tiles through a ring of shared-memory slots with cp.async
+// and mbarriers, consumer warpgroups of 64 rows (three a block in the
+// forward, two in dk/dv) run wgmma.mma_async with both
+// operands of S in shared memory and P / dS as the register operand of
+// the next product, a pair of tiles that the causal mask empties is not
+// computed and a full one skips the element mask, and the softmax runs in
+// exp2 with the scale folded in.  The bf16 dq kernel still stages one tile
+// at a time between two __syncthreads and runs mma.sync.m16n8k16.
+
+#include <climits>
+
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -545,20 +554,20 @@ flash_bwd_dkv_kernel(const FlashArgs a) {
   }
 }
 
-// ===================================================== bf16: tensor cores
+// ================================================== bf16 dq: mma.sync
 //
-// The bf16 arm runs every product as mma.sync.m16n8k16 (bf16 operands,
-// fp32 accumulators).  A block is 4 warps; a warp owns 16 rows of the
-// 64 x 64 score tile.  Tiles are staged in shared memory as bf16 with a
-// row stride of D + 8 elements (16 bytes more than a power of two), so
-// the 8 rows of an ldmatrix land in 8 different 16-byte bank groups.
-// Operands come out of shared memory through ldmatrix: as stored for an
-// "A" operand and for a "B" operand that is contracted over d (K in
-// Q K^T, V in dO V^T, Q and dO in the transposed products), transposed
-// (.trans) for a "B" operand that is contracted over its rows (V in
-// P V, K in dS K, dO in P^T dO, Q in dS^T Q).  P and dS never leave
-// registers: the accumulators of two neighbouring 8-column tiles are
-// exactly one A fragment, after one rounding to bf16.
+// The bf16 dq kernel runs every product as mma.sync.m16n8k16 (bf16
+// operands, fp32 accumulators).  A block is 4 warps; a warp owns 16 rows
+// of the 64 x 64 score tile.  Tiles are staged in shared memory as bf16
+// with a row stride of D + 8 elements (16 bytes more than a power of
+// two), so the 8 rows of an ldmatrix land in 8 different 16-byte bank
+// groups.  Operands come out of shared memory through ldmatrix: as stored
+// for an "A" operand and for a "B" operand that is contracted over d (K
+// in Q K^T, V in dO V^T), transposed (.trans) for a "B" operand that is
+// contracted over its rows (K in dS K).  dS never leaves registers: the
+// accumulators of two neighbouring 8-column tiles are exactly one A
+// fragment, after one rounding to bf16 (`to_fragments`, which the Hopper
+// kernels below share: wgmma's register A operand has the same layout).
 //
 // An accumulator c[nt][e] of a warp's 16 x (8 nt) tile holds row
 // g + 8 (e >> 1) and column 8 nt + 2 tig + (e & 1), g = lane >> 2,
@@ -666,126 +675,6 @@ constexpr size_t mma_smem_bytes(int tiles) {
 
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
-flash_fwd_mma_kernel(const FlashArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + TILE * ldh<D>();
-  bf16* Vs = Ks + TILE * ldh<D>();
-  int* qpos = reinterpret_cast<int*>(Vs + TILE * ldh<D>());
-  int* qseg = qpos + TILE;
-  int* kpos = qseg + TILE;
-  int* kseg = kpos + TILE;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const TileAt qt = tile_at(gridDim.x - 1 - blockIdx.x, a.block_q);
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const int hk = h / (a.hq / a.hkv);
-  const bool use_seg = a.q_seg != nullptr;
-  const int per_k = (a.block_k + TILE - 1) / TILE;
-
-  stage_h<D>(Qs, static_cast<const bf16*>(a.q) + bi * a.q_sb + h * a.q_sh +
-                     qt.row0 * a.q_ss, a.q_ss, qt.rows);
-  stage_ints(qpos, a.q_pos + bi * a.qpos_sb + qt.row0, qt.rows);
-  stage_ints(qseg, use_seg ? a.q_seg + bi * a.qseg_sb + qt.row0 : nullptr,
-             qt.rows);
-
-  // the thread's two rows of the tile: warp * 16 + g and + 8
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this thread's part
-  float o[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-
-  const bf16* kbase = static_cast<const bf16*>(a.k) + bi * a.k_sb + hk * a.k_sh;
-  const bf16* vbase = static_cast<const bf16*>(a.v) + bi * a.v_sb + hk * a.v_sh;
-  for (int kb = 0; kb < a.nk; ++kb) {
-    if (!a.live[qt.block * a.nk + kb]) continue;
-    for (int sub = 0; sub < per_k; ++sub) {
-      const TileAt kt = tile_at(kb * per_k + sub, a.block_k);
-      __syncthreads();
-      stage_h<D>(Ks, kbase + kt.row0 * a.k_ss, a.k_ss, kt.rows);
-      stage_h<D>(Vs, vbase + kt.row0 * a.v_ss, a.v_ss, kt.rows);
-      stage_ints(kpos, a.k_pos + bi * a.kpos_sb + kt.row0, kt.rows);
-      stage_ints(kseg, use_seg ? a.k_seg + bi * a.kseg_sb + kt.row0 : nullptr,
-                 kt.rows);
-      __syncthreads();
-
-      float s[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      warp_abt<D>(Qs + warp * 16 * ldh<D>(), Ks, s);
-
-      int qp[2], qs[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        qp[hh] = qpos[warp * 16 + g + 8 * hh];
-        qs[hh] = qseg[warp * 16 + g + 8 * hh];
-      }
-      float m_cur[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * nt + 2 * tig + (e & 1), hh = e >> 1;
-          bool ok = col < kt.rows;
-          if (a.causal) ok = ok && qp[hh] >= kpos[col];
-          if (use_seg) ok = ok && qs[hh] == kseg[col];
-          s[nt][e] = ok ? s[nt][e] * a.scale : NEG_INF;
-          m_cur[hh] = fmaxf(m_cur[hh], s[nt][e]);
-        }
-      float m_exp[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const float m_new = fmaxf(m[hh], quad_max(m_cur[hh]));
-        // a row that has seen nothing yet: exp(s - m_new) would be 1
-        m_exp[hh] = m_new <= NEG_INF / 2 ? 0.f : m_new;
-        const float corr = __expf(m[hh] - m_new);
-        m[hh] = m_new;
-        l[hh] *= corr;
-#pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt) {
-          o[nt][2 * hh] *= corr;
-          o[nt][2 * hh + 1] *= corr;
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[nt][e] = __expf(s[nt][e] - m_exp[e >> 1]);
-          l[e >> 1] += s[nt][e];   // the sum is of the unrounded p
-        }
-      unsigned p[4][4];
-      to_fragments(s, p);
-      warp_pb<D>(p, Vs, o);
-    }
-  }
-
-  bf16* obase = static_cast<bf16*>(a.o) + bi * a.o_sb + h * a.o_sh;
-  float* lse = a.lse + (static_cast<long long>(bi) * a.hq + h) * a.sq;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = warp * 16 + g + 8 * hh;
-    const float lsum = quad_sum(l[hh]);
-    if (row >= qt.rows) continue;
-    const float l_safe = lsum == 0.f ? 1.f : lsum;
-    const float inv = 1.f / l_safe;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(obase + (qt.row0 + row) * a.o_ss +
-                                         8 * nt + 2 * tig) =
-          __floats2bfloat162_rn(o[nt][2 * hh] * inv, o[nt][2 * hh + 1] * inv);
-    if (tig == 0)
-      lse[qt.row0 + row] = lsum == 0.f ? NEG_INF : m[hh] + logf(l_safe);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dq_mma_kernel(const FlashArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
@@ -888,120 +777,778 @@ flash_bwd_dq_mma_kernel(const FlashArgs a) {
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_bwd_dkv_mma_kernel(const FlashArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + TILE * ldh<D>();
-  bf16* Qs = Vs + TILE * ldh<D>();
-  bf16* dOs = Qs + TILE * ldh<D>();
-  int* qpos = reinterpret_cast<int*>(dOs + TILE * ldh<D>());
-  int* qseg = qpos + TILE;
-  int* kpos = qseg + TILE;
-  int* kseg = kpos + TILE;
-  float* lse = reinterpret_cast<float*>(kseg + TILE);
-  float* delta = lse + TILE;
+// ============================================ bf16 forward and dk/dv: Hopper
+//
+// Block: NC consumer warpgroups (1 or 3 in the forward, 1 or 2 in dk/dv)
+// and one producer warpgroup, the last.  A consumer warpgroup owns one 64-row tile of the block's side
+// (q in the forward, k in dk/dv; `tile_at`'s mapping, ragged last tile
+// and all), so a block of two covers 128 rows.  The producer streams the
+// other side's tiles (K, V and their positions in the forward; Q, dO,
+// lse, delta and positions in dk/dv) through a ring of STAGES slots in
+// shared memory with cp.async 16-byte copies, which write the 128-byte
+// swizzled layout (`hopper.cuh`) and zero rows past a tile's end, so
+// nothing past an API block is ever read.  Each copy arrives on the
+// slot's `full` mbarrier when it lands, and producer warp 0 adds the
+// streamed tile's position (and segment) range; every consumer warp
+// arrives on the slot's `empty` mbarrier when its products are done, and
+// the producer refills the slot.  Consumers stage nothing through their
+// registers.  The ring takes as many slots as shared memory holds, up to
+// 8 (4 to 8 here).
+//
+// The ring carries the k (q) tiles that are live for at least one of the
+// block's warpgroups; a warpgroup computes only those live for its own
+// API block and passes over the others (a tile dead for both is never
+// loaded; one dead for this warpgroup is never computed here, whatever
+// it holds).
+//
+// Products, on wgmma.mma_async with fp32 accumulators: S = Q K^T
+// (forward) and S^T = K Q^T, dP^T = V dO^T (dk/dv) take both operands
+// K-major from shared memory; P, P^T and dS^T are rounded once to bf16 in
+// registers and are the register A operand of O += P V, dV += P^T dO and
+// dK += dS^T Q, whose B operand is read MN-major from the same tile.
+//
+// Tile classes (`tile_classes` in ops/cuda/flash_attention.py is the same
+// rule in PyTorch): a (q tile, k tile) pair is dead when its API block
+// is; where both tiles have all 64 rows and the mask is causal, empty
+// when max(q_pos of the q tile) < min(k_pos of the k tile), full when
+// min(q_pos) >= max(k_pos) and segments are off or one segment id covers
+// both tiles (not causal: that segment rule alone); else partial.  An
+// empty tile is not computed (every p would be 0: the same bits), a full
+// one skips the element mask.  The softmax runs in base 2: exp2 of s * scale
+// * log2(e) - m, with the scale folded into one multiply; lse leaves in
+// natural log.
+//
+// Grid: three consumer warpgroups a block in the forward, two in dk/dv
+// (whose consumers hold dk and dv), where that grid still has a block for
+// every SM; else one (64 rows a block, the most blocks) —
+// `consumer_warpgroups` below.  More warpgroups
+// a block keep more of them in flight on an SM: measured on the card, the
+// time of a tile goes to the softmax's exp2 and conversions (the SFU) and
+// to latency, not to the tensor cores.
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const TileAt kt = tile_at(blockIdx.x, a.block_k);
+constexpr int WG = 128;       // threads of a warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+// Registers a thread after setmaxnreg, where a block has more than one
+// consumer warpgroup: the warpgroups share what the launch gave them.
+// The forward's three: 3 x 128 x 152 + 128 x 56 = 512 x 128; dk/dv's two:
+// 2 x 128 x 232 + 128 x 40 = 384 x 168 (240 and 24 at head dim 128, where
+// dk and dv take 128 registers a thread).
+template <int D, bool DKV>
+__host__ __device__ constexpr int consumer_regs() {
+  return !DKV ? 152 : D == 128 ? 240 : 232;
+}
+template <int D, bool DKV>
+__host__ __device__ constexpr int producer_regs() {
+  return !DKV ? 56 : D == 128 ? 24 : 40;
+}
+
+template <int D>
+__host__ __device__ constexpr int tile_bytes() { return TILE * D * 2; }
+
+// Ring slots of `per_slot` bytes that fit in the 227 KB a block may hold
+// beside `fixed` bytes, with 3 KB left for barriers, the tile meta and
+// alignment; at most 8.
+__host__ __device__ constexpr int ring_slots(int fixed, int per_slot) {
+  return (227 * 1024 - 3072 - fixed) / per_slot < 8
+             ? (227 * 1024 - 3072 - fixed) / per_slot
+             : 8;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (hopper::smem_u32(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Producer: `rows` rows of a [*, D] bf16 operand (row stride `stride`)
+// into the swizzled tile at shared address `dst`; rows past `rows` are
+// zero.  `tid` is the thread's index in the producer warpgroup: it copies
+// one 16-byte column of every STEP-th row, STEP a multiple of 8, so its
+// swizzle (row % 8) and its steps through both tensors stay fixed.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          long long stride, int rows,
+                                          int tid) {
+  constexpr int CHUNKS = D / 8, STEP = WG / CHUNKS;
+  const int c = (tid % CHUNKS) * 8;
+  int r = tid / CHUNKS;
+  dst += hopper::swizzled(r, c);
+  const bf16* from = src + r * stride + c;
+#pragma unroll 1
+  for (; r < TILE; r += STEP) {
+    hopper::cp_async16(dst, r < rows ? from : src, r < rows);
+    dst += STEP * 128;
+    from += STEP * stride;
+  }
+}
+// Producer: word `i` (< 64) of a row of 4-byte values; zero past `rows`.
+__device__ __forceinline__ void load_word(uint32_t dst, const void* src,
+                                          int i, int rows) {
+  hopper::cp_async4(dst + 4 * i,
+                    static_cast<const int*>(src) + (i < rows ? i : 0),
+                    i < rows);
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 8][4],
+                                         const unsigned (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (D == 64)
+    hopper::wgmma_rs_n64(d, a, desc_b);
+  else
+    hopper::wgmma_rs_n128(d, a, desc_b);
+}
+
+// A ring of STAGES slots: the current slot and the parity of its round.
+template <int STAGES>
+struct Ring {
+  int slot = 0;
+  unsigned phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++slot == STAGES) {
+      slot = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// A consumer warpgroup's rows: min and max of the positions and of the
+// segment ids over its valid rows (the tile classes' inputs), reduced
+// over the warpgroup through `red` (16 ints).
+struct RowRange {
+  int pos_min, pos_max, seg_min, seg_max;
+};
+__device__ __forceinline__ RowRange warpgroup_range(const int (&pos)[2],
+                                                    const int (&seg)[2],
+                                                    const bool (&in)[2],
+                                                    int* red, int wg) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  int v[4] = {INT_MAX, INT_MIN, INT_MAX, INT_MIN};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    if (in[hh]) {
+      v[0] = min(v[0], pos[hh]);
+      v[1] = max(v[1], pos[hh]);
+      v[2] = min(v[2], seg[hh]);
+      v[3] = max(v[3], seg[hh]);
+    }
+  v[0] = __reduce_min_sync(0xffffffffu, v[0]);
+  v[1] = __reduce_max_sync(0xffffffffu, v[1]);
+  v[2] = __reduce_min_sync(0xffffffffu, v[2]);
+  v[3] = __reduce_max_sync(0xffffffffu, v[3]);
+  if (lane == 0)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[4 * warp + j] = v[j];
+  hopper::warpgroup_sync(1 + wg);
+  RowRange r{INT_MAX, INT_MIN, INT_MAX, INT_MIN};
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    r.pos_min = min(r.pos_min, red[4 * w]);
+    r.pos_max = max(r.pos_max, red[4 * w + 1]);
+    r.seg_min = min(r.seg_min, red[4 * w + 2]);
+    r.seg_max = max(r.seg_max, red[4 * w + 3]);
+  }
+  return r;
+}
+// The `sub`-th 64-row tile of API block `block` (`tile_at` without its
+// divisions).
+__device__ __forceinline__ TileAt sub_tile(int block, int sub,
+                                           int block_size) {
+  return TileAt{block, block * block_size + sub * TILE,
+                min(TILE, block_size - sub * TILE)};
+}
+// Bit w: API block `i` of the streamed side is live for warpgroup w's
+// own API block `own[w]` (-1: the warpgroup has no tile); `live` is read
+// at own[w] * own_stride + i * i_stride.  Producer and consumers read the
+// same bits, so they walk the same tiles through the ring.
+template <int NC>
+__device__ __forceinline__ unsigned live_bits(const unsigned char* live,
+                                              const int (&own)[NC],
+                                              int own_stride, int i_stride,
+                                              int i) {
+  unsigned f = 0;
+#pragma unroll
+  for (int w = 0; w < NC; ++w)
+    if (own[w] >= 0 && __ldg(live + own[w] * own_stride + i * i_stride))
+      f |= 1u << w;
+  return f;
+}
+// Producer warp 0, for a slot whose streamed tile has all 64 rows: min and
+// max of its positions (and segment ids, where `seg` is given) into
+// `meta`, for the consumers' full-tile rule; then the warp's one plain
+// arrival on the slot's `full` barrier, which publishes them.
+__device__ __forceinline__ void tile_meta(int4* meta, const int* pos,
+                                          const int* seg, uint64_t* bar) {
+  const int lane = threadIdx.x & 31;
+  const int p0 = pos[lane], p1 = pos[lane + 32];
+  int4 m;
+  m.x = __reduce_min_sync(0xffffffffu, min(p0, p1));
+  m.y = __reduce_max_sync(0xffffffffu, max(p0, p1));
+  m.z = m.w = 0;
+  if (seg != nullptr) {
+    const int s0 = seg[lane], s1 = seg[lane + 32];
+    m.z = __reduce_min_sync(0xffffffffu, min(s0, s1));
+    m.w = __reduce_max_sync(0xffffffffu, max(s0, s1));
+  }
+  if (lane == 0) {
+    *meta = m;
+    hopper::mbar_arrive(bar);
+  }
+}
+// A consumer warp is done with a ring slot.
+__device__ __forceinline__ void release(uint64_t* empty) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(empty);
+}
+
+// Shared memory of the forward, in bytes from a 1024-aligned base.
+template <int D, int NC>
+struct FwdSmem {
+  static constexpr int STAGES =
+      ring_slots(NC * tile_bytes<D>(), 2 * tile_bytes<D>() + 2 * TILE * 4);
+  static constexpr int q = 0;                                 // NC tiles
+  static constexpr int k = q + NC * tile_bytes<D>();          // STAGES
+  static constexpr int v = k + STAGES * tile_bytes<D>();      // STAGES
+  static constexpr int kpos = v + STAGES * tile_bytes<D>();   // [STAGES][64]
+  static constexpr int kseg = kpos + STAGES * TILE * 4;
+  static constexpr int meta = kseg + STAGES * TILE * 4;       // [STAGES] int4
+  static constexpr int bars = meta + STAGES * 16;             // 1 + 2 STAGES
+  static constexpr int red = bars + 8 * (1 + 2 * STAGES);     // NC x 16 ints
+  static constexpr int bytes = red + NC * 16 * 4 + 1024;      // + alignment
+};
+
+template <int D, int NC>
+__global__ void __launch_bounds__(WG * (NC + 1), 1)
+flash_fwd_mma_kernel(const FlashArgs a) {
+  using L = FwdSmem<D, NC>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t sbase = hopper::smem_u32(smem);
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = qfull + 1;
+  constexpr int STAGES = L::STAGES;
+  uint64_t* empty = full + STAGES;
+  const int* kpos_s = reinterpret_cast<const int*>(smem + L::kpos);
+  const int* kseg_s = reinterpret_cast<const int*>(smem + L::kseg);
+  int4* meta = reinterpret_cast<int4*>(smem + L::meta);
+
+  const int wg = threadIdx.x / WG;
+  // heavy (late, causal) rows first
+  const int cta = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, bi = blockIdx.z;
+  const int hk = h / (a.hq / a.hkv);
+  const bool use_seg = a.q_seg != nullptr;
+  const int per_k = (a.block_k + TILE - 1) / TILE;
+  const int nt_q = a.nq * ((a.block_q + TILE - 1) / TILE);
+  int qblock[NC];   // each warpgroup's API q block, -1: no tile
+#pragma unroll
+  for (int w = 0; w < NC; ++w)
+    qblock[w] = cta * NC + w < nt_q ? tile_at(cta * NC + w, a.block_q).block
+                                    : -1;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qfull, WG);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full + s, WG + 1);   // + producer warp 0's meta
+      hopper::mbar_init(empty + s, 4 * NC);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == NC) {
+    // ------------------------------------------------------ producer
+    if constexpr (NC > 1)
+      hopper::setmaxnreg_dec<producer_regs<D, false>()>();
+    const int tid = threadIdx.x - NC * WG;
+    const bf16* qbase = static_cast<const bf16*>(a.q) + bi * a.q_sb + h * a.q_sh;
+#pragma unroll
+    for (int w = 0; w < NC; ++w)
+      if (qblock[w] >= 0) {
+        const TileAt qt = tile_at(cta * NC + w, a.block_q);
+        load_tile<D>(sbase + L::q + w * tile_bytes<D>(),
+                     qbase + qt.row0 * a.q_ss, a.q_ss, qt.rows, tid);
+      }
+    hopper::cp_async_arrive(qfull);
+    const bf16* kbase = static_cast<const bf16*>(a.k) + bi * a.k_sb + hk * a.k_sh;
+    const bf16* vbase = static_cast<const bf16*>(a.v) + bi * a.v_sb + hk * a.v_sh;
+    Ring<STAGES> ring;
+    for (int kb = 0; kb < a.nk; ++kb) {
+      if (!live_bits(a.live, qblock, a.nk, 1, kb)) continue;
+      for (int sub = 0; sub < per_k; ++sub, ring.next()) {
+        const TileAt kt = sub_tile(kb, sub, a.block_k);
+        const int s = ring.slot;
+        hopper::mbar_wait(empty + s, ring.phase ^ 1u);
+        if (tid < 32) {
+          if (kt.rows == TILE)
+            tile_meta(meta + s, a.k_pos + bi * a.kpos_sb + kt.row0,
+                      use_seg ? a.k_seg + bi * a.kseg_sb + kt.row0 : nullptr,
+                      full + s);
+          else if (tid == 0)
+            hopper::mbar_arrive(full + s);
+        }
+        load_tile<D>(sbase + L::k + s * tile_bytes<D>(),
+                     kbase + kt.row0 * a.k_ss, a.k_ss, kt.rows, tid);
+        load_tile<D>(sbase + L::v + s * tile_bytes<D>(),
+                     vbase + kt.row0 * a.v_ss, a.v_ss, kt.rows, tid);
+        if (tid < TILE)
+          load_word(sbase + L::kpos + s * TILE * 4,
+                    a.k_pos + bi * a.kpos_sb + kt.row0, tid, kt.rows);
+        else if (use_seg)
+          load_word(sbase + L::kseg + s * TILE * 4,
+                    a.k_seg + bi * a.kseg_sb + kt.row0, tid - TILE, kt.rows);
+        hopper::cp_async_arrive(full + s);
+      }
+    }
+    hopper::cp_async_wait_all();
+  } else {
+    // ------------------------------------------------------ consumers
+    if constexpr (NC > 1)
+      hopper::setmaxnreg_inc<consumer_regs<D, false>()>();
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, tig = lane & 3;
+    const bool has = qblock[wg] >= 0;
+    const TileAt qt = tile_at(has ? cta * NC + wg : 0, a.block_q);
+    // the thread's two rows of the tile: 16 warp + g and + 8
+    int qp[2], qs[2];
+    bool in[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = 16 * warp + g + 8 * hh;
+      in[hh] = has && row < qt.rows;
+      qp[hh] = in[hh] ? a.q_pos[bi * a.qpos_sb + qt.row0 + row] : 0;
+      qs[hh] = in[hh] && use_seg ? a.q_seg[bi * a.qseg_sb + qt.row0 + row]
+                                 : 0;
+    }
+    const RowRange qr = warpgroup_range(
+        qp, qs, in, reinterpret_cast<int*>(smem + L::red) + 16 * wg, wg);
+    const bool q_whole = has && qt.rows == TILE;
+    const float c2 = a.scale * LOG2E;
+    const uint32_t q_tile = sbase + L::q + wg * tile_bytes<D>();
+
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this thread's
+    float o[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+
+    // O += P V of a tile is issued and left running; the next tile's
+    // S = Q K^T queues behind it, and the wait for S also sees P V done,
+    // which releases the earlier tile's slot.  Products are issued and
+    // awaited on the tile's one path, so they stay asynchronous.
+    unsigned p[4][4];
+    int pending = -1;   // the slot whose P V is in flight
+    hopper::mbar_wait(qfull, 0);
+    Ring<STAGES> ring;
+    for (int kb = 0; kb < a.nk; ++kb) {
+      const unsigned live = live_bits(a.live, qblock, a.nk, 1, kb);
+      if (!live) continue;
+      const bool mine = has && (live >> wg & 1u);
+      for (int sub = 0; sub < per_k; ++sub, ring.next()) {
+        const int s = ring.slot;
+        if (s == pending) {
+          // The ring is back at the slot whose P V is in flight: every
+          // tile since was empty or not this warpgroup's.  Release it
+          // before the wait, or the producer (which refills the slot
+          // once it is released) and this wait would wait on each other.
+          hopper::wgmma_wait<0>();
+          hopper::fence_operands(o);
+          release(empty + pending);
+          pending = -1;
+        }
+        hopper::mbar_wait(full + s, ring.phase);
+        if (mine) {
+          hopper::fence_proxy_async();
+          const TileAt kt = sub_tile(kb, sub, a.block_k);
+          const int* kpos = kpos_s + s * TILE;
+          const int* kseg = kseg_s + s * TILE;
+          bool whole = q_whole && kt.rows == TILE;
+          if (whole) {
+            const int4 km = meta[s];   // min, max of k_pos; of k_seg
+            if (a.causal && qr.pos_max < km.x) {   // empty: all masked
+              release(empty + s);
+              continue;
+            }
+            if (a.causal) whole = qr.pos_min >= km.y;
+            if (use_seg)
+              whole = whole && qr.seg_min == qr.seg_max && km.z == km.w &&
+                      km.z == qr.seg_min;
+          }
+
+          float sc[8][4];   // the first product overwrites it
+          const uint32_t k_tile = sbase + L::k + s * tile_bytes<D>();
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < D / 16; ++ks)
+            hopper::wgmma_ss_n64(sc, hopper::desc_k(q_tile, ks),
+                                 hopper::desc_k(k_tile, ks), ks > 0);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_operands(sc);
+          hopper::fence_operands(o);
+          if (pending >= 0) release(empty + pending);
+
+          // s * scale * log2(e): one multiply, then exp2; a full tile
+          // needs no mask
+          float m_cur[2] = {NEG_INF, NEG_INF};
+          if (whole) {
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                sc[nt][e] *= c2;
+                m_cur[e >> 1] = fmaxf(m_cur[e >> 1], sc[nt][e]);
+              }
+          } else {
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int col = 8 * nt + 2 * tig + (e & 1), hh = e >> 1;
+                bool ok = col < kt.rows;
+                if (a.causal) ok = ok && qp[hh] >= kpos[col];
+                if (use_seg) ok = ok && qs[hh] == kseg[col];
+                sc[nt][e] = ok ? sc[nt][e] * c2 : NEG_INF;
+                m_cur[hh] = fmaxf(m_cur[hh], sc[nt][e]);
+              }
+          }
+          float m_exp[2];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float m_new = fmaxf(m[hh], quad_max(m_cur[hh]));
+            // a row that has seen nothing yet: exp2(s - m_new) would be 1
+            m_exp[hh] = m_new <= NEG_INF / 2 ? 0.f : m_new;
+            const float corr = ex2(m[hh] - m_new);
+            m[hh] = m_new;
+            l[hh] *= corr;
+#pragma unroll
+            for (int nt = 0; nt < D / 8; ++nt) {
+              o[nt][2 * hh] *= corr;
+              o[nt][2 * hh + 1] *= corr;
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              sc[nt][e] = ex2(sc[nt][e] - m_exp[e >> 1]);
+              l[e >> 1] += sc[nt][e];   // the sum is of the unrounded p
+            }
+          to_fragments(sc, p);
+          const uint32_t v_tile = sbase + L::v + s * tile_bytes<D>();
+          hopper::fence_operands(o);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs<D>(o, p[kk], hopper::desc_mn(v_tile, kk));
+          hopper::wgmma_commit();
+          pending = s;
+        } else {
+          release(empty + s);
+        }
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(o);
+    if (pending >= 0) release(empty + pending);
+
+    if (has) {
+      bf16* obase = static_cast<bf16*>(a.o) + bi * a.o_sb + h * a.o_sh;
+      float* lse = a.lse + (static_cast<long long>(bi) * a.hq + h) * a.sq;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = 16 * warp + g + 8 * hh;
+        const float lsum = quad_sum(l[hh]);
+        if (row >= qt.rows) continue;
+        const float l_safe = lsum == 0.f ? 1.f : lsum;
+        const float inv = 1.f / l_safe;
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt)
+          *reinterpret_cast<__nv_bfloat162*>(
+              obase + (qt.row0 + row) * a.o_ss + 8 * nt + 2 * tig) =
+              __floats2bfloat162_rn(o[nt][2 * hh] * inv,
+                                    o[nt][2 * hh + 1] * inv);
+        if (tig == 0)
+          lse[qt.row0 + row] =
+              lsum == 0.f ? NEG_INF : m[hh] * LN2 + logf(l_safe);
+      }
+    }
+  }
+}
+
+// Shared memory of dk/dv, in bytes from a 1024-aligned base.
+template <int D, int NC>
+struct DkvSmem {
+  static constexpr int STAGES = ring_slots(2 * NC * tile_bytes<D>(),
+                                           2 * tile_bytes<D>() + 4 * TILE * 4);
+  static constexpr int k = 0;                                  // NC tiles
+  static constexpr int v = k + NC * tile_bytes<D>();           // NC tiles
+  static constexpr int q = v + NC * tile_bytes<D>();           // STAGES
+  static constexpr int dout = q + STAGES * tile_bytes<D>();    // STAGES
+  static constexpr int lse = dout + STAGES * tile_bytes<D>();  // [STAGES][64]
+  static constexpr int delta = lse + STAGES * TILE * 4;
+  static constexpr int qpos = delta + STAGES * TILE * 4;
+  static constexpr int qseg = qpos + STAGES * TILE * 4;
+  static constexpr int meta = qseg + STAGES * TILE * 4;        // [STAGES] int4
+  static constexpr int bars = meta + STAGES * 16;              // 1 + 2 STAGES
+  static constexpr int red = bars + 8 * (1 + 2 * STAGES);      // NC x 16 ints
+  static constexpr int bytes = red + NC * 16 * 4 + 1024;       // + alignment
+};
+
+template <int D, int NC>
+__global__ void __launch_bounds__(WG * (NC + 1), 1)
+flash_bwd_dkv_mma_kernel(const FlashArgs a) {
+  using L = DkvSmem<D, NC>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t sbase = hopper::smem_u32(smem);
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = kvfull + 1;
+  constexpr int STAGES = L::STAGES;
+  uint64_t* empty = full + STAGES;
+  int4* meta = reinterpret_cast<int4*>(smem + L::meta);
+
+  const int wg = threadIdx.x / WG;
+  // light (late, causal) k tiles last
+  const int cta = blockIdx.x;
   const int hk = blockIdx.y, bi = blockIdx.z;
   const int group = a.hq / a.hkv;
   const bool use_seg = a.q_seg != nullptr;
   const int per_q = (a.block_q + TILE - 1) / TILE;
+  const int nt_k = a.nk * ((a.block_k + TILE - 1) / TILE);
+  int kblock[NC];   // each warpgroup's API k block, -1: no tile
+#pragma unroll
+  for (int w = 0; w < NC; ++w)
+    kblock[w] = cta * NC + w < nt_k ? tile_at(cta * NC + w, a.block_k).block
+                                    : -1;
 
-  stage_h<D>(Ks, static_cast<const bf16*>(a.k) + bi * a.k_sb + hk * a.k_sh +
-                     kt.row0 * a.k_ss, a.k_ss, kt.rows);
-  stage_h<D>(Vs, static_cast<const bf16*>(a.v) + bi * a.v_sb + hk * a.v_sh +
-                     kt.row0 * a.v_ss, a.v_ss, kt.rows);
-  stage_ints(kpos, a.k_pos + bi * a.kpos_sb + kt.row0, kt.rows);
-  stage_ints(kseg, use_seg ? a.k_seg + bi * a.kseg_sb + kt.row0 : nullptr,
-             kt.rows);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kvfull, WG);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full + s, WG + 1);   // + producer warp 0's meta
+      hopper::mbar_init(empty + s, 4 * NC);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
 
-  float dk[D / 8][4], dv[D / 8][4];
+  if (wg == NC) {
+    // ------------------------------------------------------ producer
+    if constexpr (NC > 1)
+      hopper::setmaxnreg_dec<producer_regs<D, true>()>();
+    const int tid = threadIdx.x - NC * WG;
+    const bf16* kbase = static_cast<const bf16*>(a.k) + bi * a.k_sb + hk * a.k_sh;
+    const bf16* vbase = static_cast<const bf16*>(a.v) + bi * a.v_sb + hk * a.v_sh;
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
-
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi;
-    const bf16* qbase = static_cast<const bf16*>(a.q) + bi * a.q_sb + h * a.q_sh;
-    const bf16* dobase =
-        static_cast<const bf16*>(a.dout) + bi * a.do_sb + h * a.do_sh;
-    const long long stat = (static_cast<long long>(bi) * a.hq + h) * a.sq;
-    for (int qb = 0; qb < a.nq; ++qb) {
-      if (!a.live[qb * a.nk + kt.block]) continue;
-      for (int sub = 0; sub < per_q; ++sub) {
-        const TileAt qt = tile_at(qb * per_q + sub, a.block_q);
-        __syncthreads();
-        stage_h<D>(Qs, qbase + qt.row0 * a.q_ss, a.q_ss, qt.rows);
-        stage_h<D>(dOs, dobase + qt.row0 * a.do_ss, a.do_ss, qt.rows);
-        stage_ints(qpos, a.q_pos + bi * a.qpos_sb + qt.row0, qt.rows);
-        stage_ints(qseg,
-                   use_seg ? a.q_seg + bi * a.qseg_sb + qt.row0 : nullptr,
-                   qt.rows);
-        if (threadIdx.x < TILE) {
-          const bool in = threadIdx.x < qt.rows;
-          const float x = in ? a.lse[stat + qt.row0 + threadIdx.x] : 0.f;
-          lse[threadIdx.x] = x <= NEG_INF / 2 ? 0.f : x;
-          delta[threadIdx.x] =
-              in ? a.delta[stat + qt.row0 + threadIdx.x] : 0.f;
-        }
-        __syncthreads();
-
-        // transposed tiles: rows are the warp's 16 k rows, columns q rows
-        float st[8][4], dpt[8][4];
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-        warp_abt<D>(Ks + warp * 16 * ldh<D>(), Qs, st);
-        warp_abt<D>(Vs + warp * 16 * ldh<D>(), dOs, dpt);
-
-        int kp[2], ksg[2];
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          kp[hh] = kpos[warp * 16 + g + 8 * hh];
-          ksg[hh] = kseg[warp * 16 + g + 8 * hh];
-        }
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qcol = 8 * nt + 2 * tig + (e & 1), hh = e >> 1;
-            bool ok = warp * 16 + g + 8 * hh < kt.rows && qcol < qt.rows;
-            if (a.causal) ok = ok && qpos[qcol] >= kp[hh];
-            if (use_seg) ok = ok && qseg[qcol] == ksg[hh];
-            const float p =
-                ok ? __expf(st[nt][e] * a.scale - lse[qcol]) : 0.f;
-            st[nt][e] = p;
-            dpt[nt][e] = p * (dpt[nt][e] - delta[qcol]);   // dS^T
+    for (int w = 0; w < NC; ++w)
+      if (kblock[w] >= 0) {
+        const TileAt kt = tile_at(cta * NC + w, a.block_k);
+        load_tile<D>(sbase + L::k + w * tile_bytes<D>(),
+                     kbase + kt.row0 * a.k_ss, a.k_ss, kt.rows, tid);
+        load_tile<D>(sbase + L::v + w * tile_bytes<D>(),
+                     vbase + kt.row0 * a.v_ss, a.v_ss, kt.rows, tid);
+      }
+    hopper::cp_async_arrive(kvfull);
+    Ring<STAGES> ring;
+    for (int gi = 0; gi < group; ++gi) {
+      const int h = hk * group + gi;
+      const bf16* qbase = static_cast<const bf16*>(a.q) + bi * a.q_sb + h * a.q_sh;
+      const bf16* dobase =
+          static_cast<const bf16*>(a.dout) + bi * a.do_sb + h * a.do_sh;
+      const long long stat = (static_cast<long long>(bi) * a.hq + h) * a.sq;
+      for (int qb = 0; qb < a.nq; ++qb) {
+        if (!live_bits(a.live, kblock, 1, a.nk, qb)) continue;
+        for (int sub = 0; sub < per_q; ++sub, ring.next()) {
+          const TileAt qt = sub_tile(qb, sub, a.block_q);
+          const int s = ring.slot;
+          hopper::mbar_wait(empty + s, ring.phase ^ 1u);
+          if (tid < 32) {
+            if (qt.rows == TILE)
+              tile_meta(meta + s, a.q_pos + bi * a.qpos_sb + qt.row0,
+                        use_seg ? a.q_seg + bi * a.qseg_sb + qt.row0
+                                : nullptr,
+                        full + s);
+            else if (tid == 0)
+              hopper::mbar_arrive(full + s);
           }
-        unsigned frag[4][4];
-        to_fragments(st, frag);
-        warp_pb<D>(frag, dOs, dv);
-        to_fragments(dpt, frag);
-        warp_pb<D>(frag, Qs, dk);
+          load_tile<D>(sbase + L::q + s * tile_bytes<D>(),
+                       qbase + qt.row0 * a.q_ss, a.q_ss, qt.rows, tid);
+          load_tile<D>(sbase + L::dout + s * tile_bytes<D>(),
+                       dobase + qt.row0 * a.do_ss, a.do_ss, qt.rows, tid);
+          const int i = tid & (TILE - 1);
+          if (tid < TILE) {
+            load_word(sbase + L::lse + s * TILE * 4,
+                      a.lse + stat + qt.row0, i, qt.rows);
+            load_word(sbase + L::qpos + s * TILE * 4,
+                      a.q_pos + bi * a.qpos_sb + qt.row0, i, qt.rows);
+          } else {
+            load_word(sbase + L::delta + s * TILE * 4,
+                      a.delta + stat + qt.row0, i, qt.rows);
+            if (use_seg)
+              load_word(sbase + L::qseg + s * TILE * 4,
+                        a.q_seg + bi * a.qseg_sb + qt.row0, i, qt.rows);
+          }
+          hopper::cp_async_arrive(full + s);
+        }
       }
     }
-  }
+    hopper::cp_async_wait_all();
+  } else {
+    // ------------------------------------------------------ consumers
+    if constexpr (NC > 1)
+      hopper::setmaxnreg_inc<consumer_regs<D, true>()>();
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, tig = lane & 3;
+    const bool has = kblock[wg] >= 0;
+    const TileAt kt = tile_at(has ? cta * NC + wg : 0, a.block_k);
+    // the thread's two k rows: 16 warp + g and + 8
+    int kp[2], ksg[2];
+    bool in[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = 16 * warp + g + 8 * hh;
+      in[hh] = has && row < kt.rows;
+      kp[hh] = in[hh] ? a.k_pos[bi * a.kpos_sb + kt.row0 + row] : 0;
+      ksg[hh] = in[hh] && use_seg ? a.k_seg[bi * a.kseg_sb + kt.row0 + row]
+                                  : 0;
+    }
+    const RowRange kr = warpgroup_range(
+        kp, ksg, in, reinterpret_cast<int*>(smem + L::red) + 16 * wg, wg);
+    const bool k_whole = has && kt.rows == TILE;
+    const float c2 = a.scale * LOG2E;
+    const uint32_t k_tile = sbase + L::k + wg * tile_bytes<D>();
+    const uint32_t v_tile = sbase + L::v + wg * tile_bytes<D>();
 
-  float* dkp = a.dk + bi * a.dk_sb + hk * a.dk_sh;
-  float* dvp = a.dv + bi * a.dv_sb + hk * a.dv_sh;
+    float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = warp * 16 + g + 8 * hh;
-    if (row >= kt.rows) continue;
+    for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      const long long at = (kt.row0 + row) * a.dk_ss + 8 * nt + 2 * tig;
-      *reinterpret_cast<float2*>(dkp + at) =
-          make_float2(dk[nt][2 * hh] * a.scale, dk[nt][2 * hh + 1] * a.scale);
-      *reinterpret_cast<float2*>(
-          dvp + (kt.row0 + row) * a.dv_ss + 8 * nt + 2 * tig) =
-          make_float2(dv[nt][2 * hh], dv[nt][2 * hh + 1]);
+      for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
+
+    hopper::mbar_wait(kvfull, 0);
+    Ring<STAGES> ring;
+    for (int gi = 0; gi < group; ++gi) {
+      for (int qb = 0; qb < a.nq; ++qb) {
+        const unsigned live = live_bits(a.live, kblock, 1, a.nk, qb);
+        if (!live) continue;
+        const bool mine = has && (live >> wg & 1u);
+        for (int sub = 0; sub < per_q; ++sub, ring.next()) {
+          const int s = ring.slot;
+          hopper::mbar_wait(full + s, ring.phase);
+          if (mine) {
+            hopper::fence_proxy_async();
+            const TileAt qt = sub_tile(qb, sub, a.block_q);
+            const int* qpos =
+                reinterpret_cast<const int*>(smem + L::qpos) + s * TILE;
+            const int* qseg =
+                reinterpret_cast<const int*>(smem + L::qseg) + s * TILE;
+            const float* lse =
+                reinterpret_cast<const float*>(smem + L::lse) + s * TILE;
+            const float* delta =
+                reinterpret_cast<const float*>(smem + L::delta) + s * TILE;
+            bool whole = k_whole && qt.rows == TILE;
+            if (whole) {
+              const int4 qm = meta[s];   // min, max of q_pos; of q_seg
+              if (a.causal && qm.y < kr.pos_min) {   // empty: all masked
+                release(empty + s);
+                continue;
+              }
+              if (a.causal) whole = qm.x >= kr.pos_max;
+              if (use_seg)
+                whole = whole && kr.seg_min == kr.seg_max && qm.z == qm.w &&
+                        qm.z == kr.seg_min;
+            }
+
+            // transposed tiles: rows are k rows, columns q rows
+            float st[8][4], dpt[8][4];
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+            const uint32_t q_tile = sbase + L::q + s * tile_bytes<D>();
+            const uint32_t do_tile = sbase + L::dout + s * tile_bytes<D>();
+            hopper::fence_operands(st);
+            hopper::fence_operands(dpt);
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int ks = 0; ks < D / 16; ++ks) {
+              hopper::wgmma_ss_n64(st, hopper::desc_k(k_tile, ks),
+                                   hopper::desc_k(q_tile, ks), ks > 0);
+              hopper::wgmma_ss_n64(dpt, hopper::desc_k(v_tile, ks),
+                                   hopper::desc_k(do_tile, ks), ks > 0);
+            }
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<0>();
+            hopper::fence_operands(st);
+            hopper::fence_operands(dpt);
+
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) {
+              const int c0 = 8 * nt + 2 * tig;
+              const float2 lv = *reinterpret_cast<const float2*>(lse + c0);
+              const float2 dl = *reinterpret_cast<const float2*>(delta + c0);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int qcol = c0 + (e & 1), hh = e >> 1;
+                const float x = (e & 1) ? lv.y : lv.x;
+                // a row that saw nothing
+                const float lse2 = x <= NEG_INF / 2 ? 0.f : x * LOG2E;
+                bool ok = whole;
+                if (!whole) {
+                  ok = in[hh] && qcol < qt.rows;
+                  if (a.causal) ok = ok && qpos[qcol] >= kp[hh];
+                  if (use_seg) ok = ok && qseg[qcol] == ksg[hh];
+                }
+                const float p = ok ? ex2(fmaf(st[nt][e], c2, -lse2)) : 0.f;
+                st[nt][e] = p;
+                dpt[nt][e] = p * (dpt[nt][e] - ((e & 1) ? dl.y : dl.x));
+              }
+            }
+            unsigned pf[4][4], dsf[4][4];
+            to_fragments(st, pf);
+            to_fragments(dpt, dsf);
+            hopper::fence_operands(dv);
+            hopper::fence_operands(dk);
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              wgmma_rs<D>(dv, pf[kk], hopper::desc_mn(do_tile, kk));
+              wgmma_rs<D>(dk, dsf[kk], hopper::desc_mn(q_tile, kk));
+            }
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<0>();
+            hopper::fence_operands(dv);
+            hopper::fence_operands(dk);
+          }
+          release(empty + s);
+        }
+      }
+    }
+
+    if (has) {
+      float* dkp = a.dk + bi * a.dk_sb + hk * a.dk_sh;
+      float* dvp = a.dv + bi * a.dv_sb + hk * a.dv_sh;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = 16 * warp + g + 8 * hh;
+        if (row >= kt.rows) continue;
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          *reinterpret_cast<float2*>(dkp + (kt.row0 + row) * a.dk_ss + 8 * nt +
+                                     2 * tig) =
+              make_float2(dk[nt][2 * hh] * a.scale,
+                          dk[nt][2 * hh + 1] * a.scale);
+          *reinterpret_cast<float2*>(dvp + (kt.row0 + row) * a.dv_ss + 8 * nt +
+                                     2 * tig) =
+              make_float2(dv[nt][2 * hh], dv[nt][2 * hh + 1]);
+        }
+      }
     }
   }
 }
@@ -1022,16 +1569,39 @@ int launch(Kernel kernel, const FlashArgs& a, dim3 grid, int threads,
   return static_cast<int>(cudaGetLastError());
 }
 
-// T = float: the fp32 arm on the CUDA cores; T = bf16: the tensor cores.
+// Consumer warpgroups a Hopper block: `most` (3 in the forward, 2 in
+// dk/dv) where that grid over `tiles` 64-row tiles x `heads` x `batch`
+// still holds a block for each of the card's SMs; else 1 (64 rows a
+// block, the most blocks).
+int consumer_warpgroups(int tiles, int heads, int batch, int most) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long blocks =
+      static_cast<long long>((tiles + most - 1) / most) * heads * batch;
+  return blocks >= sms ? most : 1;
+}
+
+template <int D, int NC>
+int fwd_mma(const FlashArgs& a, int tiles, void* stream) {
+  return launch(flash_fwd_mma_kernel<D, NC>, a,
+                dim3((tiles + NC - 1) / NC, a.hq, a.b), WG * (NC + 1),
+                FwdSmem<D, NC>::bytes, stream);
+}
+
+// T = float: the fp32 arm on the CUDA cores; T = bf16: the tensor cores
+// (forward and dk/dv on wgmma, dq on mma.sync).
 template <typename T, int D>
 int fwd(const FlashArgs& a, void* stream) {
-  dim3 grid(tiles_along(a.nq, a.block_q), a.hq, a.b);
-  if constexpr (sizeof(T) == 4)
-    return launch(flash_fwd_kernel<D>, a, grid, THREADS, smem_bytes<D>(3, 1),
-                  stream);
-  else
-    return launch(flash_fwd_mma_kernel<D>, a, grid, MMA_THREADS,
-                  mma_smem_bytes<D>(3), stream);
+  const int tiles = tiles_along(a.nq, a.block_q);
+  if constexpr (sizeof(T) == 4) {
+    return launch(flash_fwd_kernel<D>, a, dim3(tiles, a.hq, a.b), THREADS,
+                  smem_bytes<D>(3, 1), stream);
+  } else {
+    return consumer_warpgroups(tiles, a.hq, a.b, 3) == 3
+               ? fwd_mma<D, 3>(a, tiles, stream)
+               : fwd_mma<D, 1>(a, tiles, stream);
+  }
 }
 template <typename T, int D>
 int bwd_dq(const FlashArgs& a, void* stream) {
@@ -1045,13 +1615,17 @@ int bwd_dq(const FlashArgs& a, void* stream) {
 }
 template <typename T, int D>
 int bwd_dkv(const FlashArgs& a, void* stream) {
-  dim3 grid(tiles_along(a.nk, a.block_k), a.hkv, a.b);
+  const int tiles = tiles_along(a.nk, a.block_k);
   if constexpr (sizeof(T) == 4)
-    return launch(flash_bwd_dkv_kernel<D>, a, grid, THREADS,
-                  smem_bytes<D>(4, 2), stream);
+    return launch(flash_bwd_dkv_kernel<D>, a, dim3(tiles, a.hkv, a.b),
+                  THREADS, smem_bytes<D>(4, 2), stream);
+  else if (consumer_warpgroups(tiles, a.hkv, a.b, 2) == 2)
+    return launch(flash_bwd_dkv_mma_kernel<D, 2>, a,
+                  dim3((tiles + 1) / 2, a.hkv, a.b), 3 * WG,
+                  DkvSmem<D, 2>::bytes, stream);
   else
-    return launch(flash_bwd_dkv_mma_kernel<D>, a, grid, MMA_THREADS,
-                  mma_smem_bytes<D>(4), stream);
+    return launch(flash_bwd_dkv_mma_kernel<D, 1>, a, dim3(tiles, a.hkv, a.b),
+                  2 * WG, DkvSmem<D, 1>::bytes, stream);
 }
 
 }  // namespace

@@ -29,7 +29,11 @@ What does not carry over is the TPU's geometry: the 1024 x 1024 default
 blocks and the lane rules (head dim % 128, the 128 ladder of
 `check_default_shapes`).  Here the default block is 128, the kernels'
 own tile is 64 x 64 whatever the block, and the kernels take head dim 64
-or 128, fp32 or bf16, hq a multiple of hkv; anything else raises.
+or 128, fp32 or bf16, hq a multiple of hkv; anything else raises.  The
+bf16 forward and dk/dv kernels class each pair of tiles dead, empty,
+full or partial (`tile_classes`): they compute neither a dead nor an
+empty one, skip the element mask on a full one, and run one or more
+64-row tiles a block (the launchers' rule in the CUDA source).
 
 On CUDA tensors every entry launches its kernel or raises; the plain
 versions (`flash_fwd_plain`, `flash_bwd_plain`) run for CPU tensors and
@@ -136,6 +140,67 @@ def _element_mask(b, sq, sk, q_pos, k_pos, q_seg, k_seg, causal, block_q,
     if q_seg is not None:
         m = m & (q_seg[:, :, None] == k_seg[:, None, :])
     return m[:, None, None]
+
+
+#: the kernels' own tile: 64 rows a side, `tile_at` in the CUDA source
+TILE = 64
+#: classes of a (q tile, k tile) pair (`tile_classes`)
+DEAD, PARTIAL, FULL, EMPTY = 0, 1, 2, 3
+
+
+def _tiles(block: int, n_blocks: int):
+    """(API block, first row, rows) of each kernel tile along one side:
+    an API block holds ceil(block / 64) tiles, the last one ragged."""
+    per = -(-block // TILE)
+    for t in range(n_blocks * per):
+        blk, sub = divmod(t, per)
+        yield blk, blk * block + sub * TILE, min(TILE, block - sub * TILE)
+
+
+def tile_classes(q_pos, k_pos, q_seg, k_seg, *, causal, block_q, block_k,
+                 live: torch.Tensor) -> torch.Tensor:
+    """[b, q tiles, k tiles] int8, the class of each pair of kernel
+    tiles as the bf16 Hopper kernels decide it: DEAD where its API block
+    is dead (never loaded nor computed).  Where both tiles have all 64
+    rows: EMPTY where the mask is causal and max(q_pos of the q tile) <
+    min(k_pos of the k tile) (every element masked: not computed, which
+    gives the same bits); FULL where the mask is not causal or min(q_pos)
+    >= max(k_pos), and segments are off or one segment id covers both
+    tiles (no element mask is applied).  Else PARTIAL (the element mask
+    applies).  Min and max run over the whole tile: positions need not be
+    monotone."""
+    b, nq, nk = q_pos.shape[0], live.shape[0], live.shape[1]
+    q_tiles = list(_tiles(block_q, nq))
+    k_tiles = list(_tiles(block_k, nk))
+    out = torch.full((b, len(q_tiles), len(k_tiles)), PARTIAL,
+                     dtype=torch.int8)
+
+    def span(t, r0, rows):
+        part = t[:, r0:r0 + rows]
+        return part.amin(1), part.amax(1)
+    for i, (qb, q0, qr) in enumerate(q_tiles):
+        q_min, q_max = span(q_pos, q0, qr)
+        qs_min, qs_max = span(q_seg, q0, qr) if q_seg is not None else (
+            None, None)
+        for j, (kb, k0, kr) in enumerate(k_tiles):
+            if not live[qb, kb]:
+                out[:, i, j] = DEAD
+                continue
+            if qr < TILE or kr < TILE:
+                continue
+            full = torch.ones(b, dtype=torch.bool)
+            empty = torch.zeros(b, dtype=torch.bool)
+            if causal:
+                k_min, k_max = span(k_pos, k0, kr)
+                empty = q_max < k_min
+                full &= q_min >= k_max
+            if q_seg is not None:
+                ks_min, ks_max = span(k_seg, k0, kr)
+                full &= (qs_min == qs_max) & (ks_min == ks_max) & (
+                    qs_min == ks_min)
+            out[:, i, j] = torch.where(empty, EMPTY, torch.where(
+                full, FULL, PARTIAL)).to(torch.int8)
+    return out
 
 
 def _scores(q, k, mask, scale):

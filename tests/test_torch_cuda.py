@@ -369,8 +369,7 @@ _FLASH_CASES = {
 }
 
 
-def _flash_inputs(dev, dtype, sq, sk, hq, hkv, d, opts):
-    b = 2
+def _flash_inputs(dev, dtype, sq, sk, hq, hkv, d, opts, b=2):
     q = _normal((b, sq, hq, d), 20, dev, dtype)
     k = _normal((b, sk, hkv, d), 21, dev, dtype)
     v = _normal((b, sk, hkv, d), 22, dev, dtype)
@@ -406,6 +405,18 @@ def test_flash_matches_plain(dev, dtype, d, hq, hkv, case):
     sq, sk, bq, bk, opts = _FLASH_CASES[case]
     q, k, v, kw = _flash_inputs(dev, dtype, sq, sk, hq, hkv, d, opts)
     kw.update(block_q=bq, block_k=bk)
+    o, lse = _check_flash(dev, q, k, v, kw)
+    if case in ("dead_row", "future_chunk"):
+        rows = slice(64, None) if case == "dead_row" else slice(None)
+        assert bool((o[:, rows] == 0).all())
+        assert bool((lse[:, :, rows] == tflash.NEG_INF).all())
+
+
+def _check_flash(dev, q, k, v, kw):
+    """The body of `test_flash_matches_plain`: forward and backward of
+    `flash_attention(q, k, v, **kw)` against the plain versions in
+    fp32, launch counts, a backward's bits twice.  Returns (o, lse)."""
+    dtype = q.dtype
     before = tflash.launches, tflash.dq_launches, tflash.dkv_launches
     o, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -415,10 +426,6 @@ def test_flash_matches_plain(dev, dtype, d, hq, hkv, case):
            for key, t in kw.items()}, device="cpu")
     assert o.dtype == dtype and lse.dtype == torch.float32
     assert bool(torch.isfinite(o).all())
-    if case in ("dead_row", "future_chunk"):
-        rows = slice(64, None) if case == "dead_row" else slice(None)
-        assert bool((o[:, rows] == 0).all())
-        assert bool((lse[:, :, rows] == tflash.NEG_INF).all())
     torch.testing.assert_close(lse.cpu(), rlse, rtol=1e-5, atol=1e-5)
     if dtype == torch.float32:
         _of_max(o.cpu(), ro)
@@ -450,6 +457,104 @@ def test_flash_matches_plain(dev, dtype, d, hq, hkv, case):
         else:   # rounded once to bf16 by the Function (half an ulp),
             # and delta was taken from the o the kernel rounded
             _of_max(mine.cpu(), r.grad, rtol=2.0 ** -7)
+    return o, lse
+
+
+# q block 0 sees k blocks 0 and 8 only: seven tiles that stream for the
+# other warpgroups of its block and not for its own
+_GAP = ((True,) + (False,) * 7 + (True,), (True,) * 9, (True,) * 9)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["ragged_tiles", "odd_tiles", "segments",
+                                  "draft", "causal_block_512",
+                                  "gap_of_7_blocks"])
+def test_flash_bf16_block_shapes_match_plain(dev, d, case):
+    """The bf16 Hopper kernels at shapes that decide their blocks, held
+    as `test_flash_matches_plain` holds its cases: wide enough (b x hq
+    blocks) that a block runs three (forward) or two (dk/dv) 64-row
+    warpgroups, with sq not a multiple of 128 — 192 = blocks of 96
+    (tiles of 64 + 32: ragged tiles inside a block; 4 q tiles, so the
+    forward's second block holds one) and blocks of 64 (3 tiles: dk/dv's
+    last block has one warpgroup without a tile) — and segments; the
+    serving3 draft's q [1, 256, 32, 64] over 8 kv heads, which runs one
+    warpgroup a block (fewer blocks of more would leave SMs idle); and
+    two where more tiles than the ring has slots stream past a
+    warpgroup after the last one it computed, so it must hand back the
+    slot it still holds: causal blocks of 512 (8 tiles of one k block
+    that only the block's third warpgroup computes, and 7 empty ones
+    after a first q tile's only tile) and a block mask whose first row
+    skips 7 k blocks that its neighbours see."""
+    b, sq, sk, hq, hkv, bq, opts = {
+        "ragged_tiles": (2, 192, 192, 72, 36, 128, {}),
+        "odd_tiles": (2, 192, 192, 72, 36, 64, {}),
+        "segments": (2, 256, 256, 72, 36, 128, {"segments": True}),
+        "draft": (1, 256, 256, 32, 8, 128, {}),
+        "causal_block_512": (2, 1024, 1024, 16, 4, 512, {}),
+        "gap_of_7_blocks": (2, 192, 576, 72, 36, 64,
+                            {"causal": False, "block_mask": _GAP}),
+    }[case]
+    q, k, v, kw = _flash_inputs(dev, torch.bfloat16, sq, sk, hq, hkv, d,
+                                opts, b=b)
+    kw.update(block_q=bq, block_k=bq)
+    _check_flash(dev, q, k, v, kw)
+
+
+def test_flash_block_of_two_skips_a_tile_dead_for_one_warpgroup(dev):
+    """A block of 64-row warpgroups whose API blocks differ in
+    liveness.  Forward: NaN in the keys and values of k block 1, live
+    for q block 0 and dead for q block 1 (and k block 3 dead for both):
+    the ring loads it for the first warpgroup, the second passes over
+    it, and q block 1's o and lse equal the plain version's on the same
+    values with the NaN block zeroed.  dk/dv: NaN in the queries and
+    output gradients of q block 0, live for k block 0 and dead for k
+    block 1: k block 1's dk and dv equal the plain version's likewise."""
+    b, sq, sk, hq, hkv, d = 2, 128, 256, 72, 36, 64
+    q, k, v, _ = _flash_inputs(dev, torch.bfloat16, sq, sk, hq, hkv, d, {},
+                               b=b)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))      # [b, h, s, d]
+    q_pos = torch.arange(sq, dtype=torch.int32, device=dev).expand(b, sq)
+    k_pos = torch.arange(sk, dtype=torch.int32, device=dev).expand(b, sk)
+    kw = dict(scale=d ** -0.5, causal=False, block_q=64, block_k=64)
+    # the forward's block holds both q tiles (three warpgroups, the third
+    # without a tile), dk/dv's two k tiles a block
+    fwd_mask = ((True, True, True, False), (True, False, True, False))
+    bad_k, bad_v = k.clone(), v.clone()
+    bad_k[:, :, 64:128], bad_v[:, :, 64:128] = float("nan"), float("nan")
+    o, lse = tflash._fwd(q, bad_k, bad_v, q_pos, k_pos, None, None,
+                         block_mask=fwd_mask, **kw)
+    zk, zv = (torch.nan_to_num(t.float(), nan=0.0).cpu()
+              for t in (bad_k, bad_v))
+    ro, rlse = tflash.flash_fwd_plain(
+        q.float().cpu(), zk, zv, q_pos.cpu(), k_pos.cpu(), None, None,
+        live=tflash._mask_tensor(fwd_mask, torch.device("cpu")), **kw)
+    assert bool(torch.isnan(o[:, :, :64]).any())          # it was loaded
+    assert bool(torch.isfinite(o[:, :, 64:]).all())
+    torch.testing.assert_close(lse[:, :, 64:].cpu(), rlse[:, :, 64:],
+                               rtol=1e-5, atol=1e-5)
+    _rounded_once_to_bf16(o[:, :, 64:].cpu(), ro[:, :, 64:],
+                          atol=1e-5 + 2.0 ** -9 * float(v.abs().max()))
+
+    bwd_mask = ((True, False, True, True), (True, True, True, True))
+    do = _normal(q.shape, 24, dev, torch.bfloat16)
+    lse = tflash._fwd(q, k, v, q_pos, k_pos, None, None, block_mask=bwd_mask,
+                      **kw)[1]
+    delta = _normal(lse.shape, 25, dev)
+    bad_q, bad_do = q.clone(), do.clone()
+    bad_q[:, :, :64], bad_do[:, :, :64] = float("nan"), float("nan")
+    dk, dv = tflash.flash_bwd_dkv(bad_q, k, v, lse, bad_do, delta, q_pos,
+                                  k_pos, None, None, block_mask=bwd_mask,
+                                  **kw)
+    zq, zdo = (torch.nan_to_num(t.float(), nan=0.0).cpu()
+               for t in (bad_q, bad_do))
+    _, rdk, rdv = tflash.flash_bwd_plain(
+        zq, k.float().cpu(), v.float().cpu(), lse.cpu(), zdo, delta.cpu(),
+        q_pos.cpu(), k_pos.cpu(), None, None,
+        live=tflash._mask_tensor(bwd_mask, torch.device("cpu")), **kw)
+    assert bool(torch.isnan(dk[:, :, :64]).any())
+    for mine, ref in ((dk, rdk), (dv, rdv)):
+        assert bool(torch.isfinite(mine[:, :, 64:128]).all())
+        _of_max(mine[:, :, 64:128].cpu(), ref[:, :, 64:128], rtol=2.0 ** -8)
 
 
 def test_flash_never_loads_a_dead_tile(dev):

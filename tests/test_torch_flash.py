@@ -12,6 +12,10 @@ nothing, fp32 gradients from `_bwd`.  Inputs are numpy arrays made from
 a seed and handed to both.  Everything is fp32: o and lse agree to 1e-5,
 gradients to 1e-4 of each tensor's largest entry (a backward's worth of
 sums in another order).
+
+The bf16 Hopper kernels' tile classes (dead / partial / full) are held
+here too, through their PyTorch mirror `tile_classes`: a full tile needs
+no element mask, a dead one is a dead API block.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import re
 
 import numpy as np
 import pytest
+from hypothesis import given, settings, strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +39,8 @@ GRAD_TOL = 1e-4
 
 _DEAD_ROW = ((True, False, True, False), (False, False, False, False))
 _SPARSE = ((True, False, False, False), (False, True, True, False))
+# q block 0 skips k blocks 1-7, which its neighbours see
+_GAP = ((True,) + (False,) * 7 + (True,), (True,) * 9, (True,) * 9)
 
 #: name -> (sq, sk, hq, hkv, block_q, block_k, options)
 CASES = {
@@ -47,9 +54,13 @@ CASES = {
                                           "causal": False}),
     "sparse_mask": (128, 256, 4, 2, 64, 64, {"block_mask": _SPARSE}),
     "asymmetric_blocks": (256, 256, 2, 1, 128, 64, {}),
+    "causal_blocks_of_512": (1024, 1024, 2, 1, 512, 512, {}),
+    "gap_mask": (192, 576, 2, 1, 64, 64, {"block_mask": _GAP,
+                                          "causal": False}),
 }
 GRAD_CASES = ("causal_gqa4", "segments", "sparse_mask", "dead_row",
-              "asymmetric_blocks", "sq_ne_sk")
+              "asymmetric_blocks", "sq_ne_sk", "causal_blocks_of_512",
+              "gap_mask")
 
 
 def _inputs(name, d=64, b=2, seed=0):
@@ -265,3 +276,126 @@ def test_default_device_is_the_card(monkeypatch):
             entry(tq, tk, tv)
     with pytest.raises(ValueError):
         tflash.flash_attention(tq, tk, tv, device="meta")
+
+
+# ------------------------------------------------------------ tile classes
+#: (sq, sk, block_q, block_k, options) of every case here and of the card
+#: tests' `_FLASH_CASES` (tests/test_torch_cuda.py)
+_CLASS_SHAPES = sorted({(sq, sk, bq, bk, tuple(sorted(
+    (k, v) for k, v in opts.items())))
+    for sq, sk, _, _, bq, bk, opts in CASES.values()} | {
+    (256, 256, 128, 128, ()),
+    (128, 256, 64, 128, (("causal", False),)),
+    (128, 256, 64, 64, ()),
+    (256, 256, 128, 64, (("segments", True),)),
+    (128, 256, 64, 64, (("block_mask", _DEAD_ROW), ("causal", False))),
+    (192, 96, 96, 96, ()),
+    (128, 128, 64, 64, (("k_offset", 1000),)),
+    (192, 256, 64, 64, ()),
+    (256, 256, 128, 128, (("k_offset", 0),)),
+    # `test_flash_bf16_block_shapes_match_plain`'s
+    (192, 192, 96, 96, ()),
+    (192, 192, 64, 64, ()),
+    (256, 256, 128, 128, (("segments", True),)),
+    (1024, 1024, 512, 512, ()),
+    (192, 576, 64, 64, (("block_mask", _GAP), ("causal", False))),
+    # chip_smoke.py's sq != sk and the GPT training shape
+    (128, 384, 128, 128, ()),
+    (1024, 1024, 128, 128, ())},
+    key=repr)
+
+
+def _check_classes(q_pos, k_pos, q_seg, k_seg, causal, bq, bk, mask):
+    """Every FULL tile has all its elements visible and every EMPTY tile
+    none, both with all 64 rows a side; every DEAD tile lies in a dead
+    API block and every tile of a dead API block is DEAD.  Returns the
+    classes."""
+    b, sq, sk = q_pos.shape[0], q_pos.shape[1], k_pos.shape[1]
+    live = tflash._mask_tensor(mask, torch.device("cpu"))
+    classes = tflash.tile_classes(q_pos, k_pos, q_seg, k_seg, causal=causal,
+                                  block_q=bq, block_k=bk, live=live)
+    elem = tflash._element_mask(b, sq, sk, q_pos, k_pos, q_seg, k_seg,
+                                causal, bq, bk, live)[:, 0, 0]
+    q_tiles = list(tflash._tiles(bq, sq // bq))
+    k_tiles = list(tflash._tiles(bk, sk // bk))
+    assert classes.shape == (b, len(q_tiles), len(k_tiles))
+    for i, (qb, q0, qr) in enumerate(q_tiles):
+        for j, (kb, k0, kr) in enumerate(k_tiles):
+            got = classes[:, i, j]
+            assert bool((got == tflash.DEAD).all()) == (not mask[qb][kb])
+            assert bool((got == tflash.DEAD).any()) == (not mask[qb][kb])
+            tile = elem[:, q0:q0 + qr, k0:k0 + kr]
+            for cls, seen in ((tflash.FULL, True), (tflash.EMPTY, False)):
+                hit = got == cls
+                if hit.any():
+                    assert qr == kr == tflash.TILE
+                    assert bool((tile[hit] == seen).all()), (cls, i, j)
+            if not causal:
+                assert not bool((got == tflash.EMPTY).any())
+    return classes
+
+
+@pytest.mark.parametrize("shape", _CLASS_SHAPES, ids=repr)
+def test_tile_classes_agree_with_the_element_mask(shape):
+    """The full / partial / dead rule of the bf16 kernels against
+    `_element_mask` at every flash test shape, with its default
+    positions (bottom-right), segments cut at a third and the offset of a
+    future chunk; interior tiles of the causal mask come out full."""
+    sq, sk, bq, bk, opts = shape
+    opts = dict(opts)
+    b, causal = 2, opts.get("causal", True)
+    k_pos = (torch.arange(sk, dtype=torch.int32)
+             + opts.get("k_offset", 0)).expand(b, sk)
+    q_pos = (torch.arange(sq, dtype=torch.int32)
+             + (0 if "k_offset" in opts else sk - sq)).expand(b, sq)
+    q_seg = k_seg = None
+    if opts.get("segments"):
+        q_seg = (q_pos >= sk // 3).int()
+        k_seg = (k_pos >= sk // 3).int()
+    mask = opts.get("block_mask") or (
+        tflash.causal_block_mask(sq, sk, bq, bk) if causal
+        and "k_offset" not in opts else tflash.full_block_mask(sq, sk, bq,
+                                                                bk))
+    classes = _check_classes(q_pos, k_pos, q_seg, k_seg, causal, bq, bk,
+                             mask)
+    if causal and bq % 64 == 0 and bk % 64 == 0 and not {
+            "segments", "k_offset", "block_mask"} & set(opts):
+        # bottom-right causal: a tile wholly below the diagonal is full,
+        # a live one wholly above it empty
+        for i, (qb, q0, _) in enumerate(tflash._tiles(bq, sq // bq)):
+            for j, (kb, k0, _) in enumerate(tflash._tiles(bk, sk // bk)):
+                want = (tflash.FULL if q0 + sk - sq >= k0 + 63 else
+                        tflash.EMPTY if q0 + sk - sq + 63 < k0
+                        and mask[qb][kb] else None)
+                if want is not None:
+                    assert bool((classes[:, i, j] == want).all())
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, database=None)
+@given(data=st.data(), bq=st.sampled_from([32, 64, 96, 128, 192]),
+       bk=st.sampled_from([32, 64, 96, 128]), nq=st.integers(1, 3),
+       nk=st.integers(1, 3), causal=st.booleans(), segs=st.integers(0, 3))
+def test_tile_classes_hold_for_random_positions_and_segments(
+        data, bq, bk, nq, nk, causal, segs):
+    """Random (not monotone) positions, random segment ids from a few
+    values (none when `segs` is 0) and a random block mask: the rule
+    still never calls a tile full that holds a masked element."""
+    b, sq, sk = 2, nq * bq, nk * bk
+    seed = data.draw(st.integers(0, 2 ** 31 - 1))
+    rng = np.random.default_rng(seed)
+    spread = data.draw(st.sampled_from([4, 64, 4096]))
+    q_pos = torch.from_numpy(rng.integers(0, spread, (b, sq)).astype(
+        np.int32))
+    k_pos = torch.from_numpy(rng.integers(0, spread, (b, sk)).astype(
+        np.int32))
+    if data.draw(st.booleans()):            # mostly ordered, as in training
+        q_pos, k_pos = q_pos.sort(1).values, k_pos.sort(1).values
+    q_seg = k_seg = None
+    if segs:
+        q_seg = torch.from_numpy(rng.integers(0, segs, (b, sq)).astype(
+            np.int32))
+        k_seg = torch.from_numpy(rng.integers(0, segs, (b, sk)).astype(
+            np.int32))
+    mask = tuple(tuple(bool(x) for x in row)
+                 for row in rng.random((nq, nk)) < 0.7)
+    _check_classes(q_pos, k_pos, q_seg, k_seg, causal, bq, bk, mask)

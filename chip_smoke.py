@@ -9,7 +9,9 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     (no CUDA device -> exit 1 before anything else runs);
  2. build: every CUDA kernel from hetu_tpu_torch/csrc, one nvcc per
     source, all at once; prints the ptxas report (registers, shared
-    memory, spills) and the build time;
+    memory, spills) and the build time, then the bf16 dq kernel's
+    registers and spills; a (C7520) warning (ptxas serialising wgmma)
+    fails the run;
  3. kernels: each kernel at the shapes each path gives it for Llama-3-8B
     (serving: decode and a 256-token prefill chunk, checked here;
     training: 2 x 2048 tokens per micro-batch, every kernel of that
@@ -25,7 +27,10 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     the bf16 tensor-core peak, 989 TFLOP/s) — and, where one PyTorch call
     computes the same function, that call (`torch._fused_adamw_` for
     AdamW, `scaled_dot_product_attention` for the flash kernels; timed
-    as yardsticks only, the port never calls them).  Tolerances:
+    as yardsticks only, the port never calls them); AdamW through its
+    multi-tensor launch, beside the rates PyTorch's copy and add reach
+    at the same size; dq and dk/dv run twice give the same bits.
+    Tolerances:
     one bf16 ulp where a kernel rounds once to bf16 (paged attention on
     bf16 pools: the plain version on the same values in fp32, rounded
     once — half an ulp, plus 1e-5 for fp32 summation order); fp32
@@ -104,14 +109,16 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     grow by exactly its count per step (norm, RoPE and SwiGLU forwards
     2 x layers x micro-batches — every policy recomputes them; the flash
     forward and every backward kernel layers x micro-batches — the
-    policy keeps o and lse; AdamW once per parameter leaf).  The first
+    policy keeps o and lse; AdamW once a step, one launch over every
+    parameter leaf).  The first
     loss lies within 0.5 of ln(vocab) + sigma^2 / 2 (sigma = 0.02 *
     sqrt(4096), the logits' spread at init), every loss is finite and
     the last is below the first.  Prints step time p50, tokens/s, mfu
     (model FLOPs per token, no recompute, over 989 TFLOP/s), peak
     memory; then one step under torch.profiler (idle share, heaviest
     kernels, the time of each ported kernel in the step, the attention's
-    from its three kernels) and flash attention, the dense attention
+    from its three kernels; every dq kernel the profiler sees must be
+    the bf16 Hopper kernel) and flash attention, the dense attention
     and the LM head + loss timed apart at the step's shapes.  Past
     70 GiB of peak memory the micro-batch halves (printed as a cut).
     Then the first training slice's path — the dense attention, whole
@@ -132,7 +139,8 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     pages (q [8, 5, 20, 64]), the blockwise quantize at block 64 (a
     decode step's K of one layer, [160, 64], and a prompt's K of every
     layer, [552960, 64]), and the fused sampler over the tied head, a
-    transposed view of `wte`;
+    transposed view of `wte`; AdamW over GPT-2-large's 436 leaves with
+    a 1,001-element leaf and a view off a 16-byte boundary, one launch;
 10. GPT reference: GPT-2-large widths cut to 2 layers, fp32, the engine
     on the card and on the CPU (greedy tokens identical), then 3
     `Trainer` steps on both to phase 7's tolerances;
@@ -142,7 +150,7 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     `TrainingConfig(global_batch_size=16, micro_batch_size=8,
     seq_len=1024)`, 6 steps on one seeded batch, launch counts exact
     each step (LayerNorm forward 2 x 36 x 2, backward 36 x 2; flash
-    forward 144, dq and dk/dv 72; AdamW 436), the loss check of phase
+    forward 144, dq and dk/dv 72; AdamW 1), the loss check of phase
     8, step p50, tokens/s, mfu, peak memory, and one step profiled as
     phase 8 profiles its;
 12. GPT serving: GPT-2-large in bf16 behind ServeConfig(num_slots=8,
@@ -186,6 +194,29 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_check(report: str, kernel: str):
+    """Print the registers, shared memory and spills ptxas reports for
+    each instantiation of `kernel`, and fail on a (C7520) warning: ptxas
+    serialises a kernel's wgmma.mma_async instructions where a product is
+    issued or awaited on a branch of its own.  An empty report means the
+    library was already built (nothing to read)."""
+    if not report:
+        print(f"ptxas {kernel}: library already built, no report")
+        return
+    check("C7520" not in report,
+          "ptxas serialises wgmma (C7520):\n" + "\n".join(
+              line for line in report.splitlines() if "C7520" in line))
+    lines, entry = report.splitlines(), None
+    for line in lines:
+        if "Compiling entry function" in line:
+            entry = line if kernel in line else None
+        elif entry is not None and ("Used" in line or "spill" in line):
+            name = entry.split("'")[1] if "'" in entry else entry
+            print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
+    check(any(kernel in line for line in lines),
+          f"ptxas reported no {kernel}")
 
 
 def device_ms(fn, inner: int = 20, reps: int = 5) -> float:
@@ -688,7 +719,6 @@ def training_kernel_phase(seed: int):
     and RoPE forward too, keyed beside their serving shapes); AdamW on
     the largest leaf (w_gate_up, 117M fp32 elements) and a bf16 leaf."""
     import torch.nn.functional as F
-    from hetu_tpu_torch.ops.cuda import adam as ad
     from hetu_tpu_torch.ops.cuda import fused_norm as fn
     from hetu_tpu_torch.ops.cuda import rotary as ro
     from hetu_tpu_torch.ops.cuda import swiglu as sw
@@ -774,48 +804,26 @@ def training_kernel_phase(seed: int):
         2 * (dq.numel() + dk.numel()) * 2 + 2 * cos_t.numel() * 4,
         6 * pairs)]
     del dq, dk
-    # AdamW, in place: p/m/v of the kernel, the plain version and the
-    # library call each start from the same values and stay their own
-    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
-    step, lr = 10, 3e-4
-    c1 = float(np.float32(1) - np.float32(0.9) ** np.float32(step))
-    c2 = float(np.float32(1) - np.float32(0.95) ** np.float32(step))
-    adam = []
-    for label, numel, dtype in (
-            ("w_gate_up [4096,2,14336] fp32", hidden * 2 * inter,
-             torch.float32),
-            ("wqkv [4096,8,6,128] bf16", hidden * 8 * 6 * 128,
-             torch.bfloat16)):
-        p0 = randn(numel, dtype=dtype, std=0.02)
-        grad = randn(numel, dtype=torch.float32, std=1e-3)
-        m0 = randn(numel, dtype=torch.float32, std=1e-4)
-        v0 = randn(numel, dtype=torch.float32, std=1e-6).abs()
-        mine = [t.clone() for t in (p0, m0, v0)]
-        ref = [t.clone() for t in (p0, m0, v0)]
-        library = None
-        if dtype == torch.float32:
-            lib = [t.clone() for t in (p0, m0, v0)]
-            steps = [torch.full((), float(step), device="cuda")]
-
-            def library(i, lib=lib, grad=grad, steps=steps):
-                torch._fused_adamw_([lib[0]], [grad], [lib[1]], [lib[2]],
-                                    [], steps, lr=lr, beta1=0.9,
-                                    beta2=0.95, weight_decay=0.1, eps=1e-8,
-                                    amsgrad=False, maximize=False)
-        del p0, m0, v0
-        esize = torch.finfo(dtype).bits // 8
-        adam.append(case(
-            f"adam_update {label}",
-            (ulps(1) if dtype == torch.bfloat16 else rel(3e-7),
-             rel(3e-7), rel(3e-7)),
-            lambda i, t=mine, grad=grad: (
-                ad.adam_update(t[0], grad, t[1], t[2], lr, c1, c2, **kw),
-                tuple(t))[1],
-            lambda i, t=ref, grad=grad: (
-                ad.adam_plain(t[0], grad, t[1], t[2], lr, c1, c2, **kw),
-                tuple(t))[1],
-            numel * (2 * esize + 4 + 4 * 4), 15 * numel, library=library))
-        del mine, ref, grad
+    # AdamW on the largest leaf and a bf16 leaf, one launch each
+    adam = [adam_case(f"adam_update {label}", [numel], dtype, g)
+            for label, numel, dtype in (
+                ("w_gate_up [4096,2,14336] fp32", hidden * 2 * inter,
+                 torch.float32),
+                ("wqkv [4096,8,6,128] bf16", hidden * 8 * 6 * 128,
+                 torch.bfloat16))]
+    # what the card's memory gives a plain stream at w_gate_up's size:
+    # PyTorch's copy (read one, write one) and add (read two, write one),
+    # beside AdamW's seven streams
+    n = hidden * 2 * inter
+    a, b, c = (torch.empty(n, device="cuda") for _ in range(3))
+    for label, fn, nbytes in (("copy", lambda: c.copy_(a), 8 * n),
+                              ("add", lambda: torch.add(a, b, out=c),
+                               12 * n)):
+        ms = device_ms(fn, inner=10)
+        print(f"memory {label} [{n}] fp32: {ms:.5f} ms, "
+              f"{nbytes / ms / 1e9:.4f} TB/s, "
+              f"{ms / bound(nbytes, 0)[0]:.3f} x its bound")
+    del a, b, c
     return {"residual_rmsnorm_fwd": norm_fwd,
             "residual_rmsnorm_bwd": norm_bwd, "fused_swiglu": swiglu,
             "swiglu_bwd": swiglu_bwd, "fused_rotary_qk": rotary,
@@ -823,8 +831,92 @@ def training_kernel_phase(seed: int):
             **flash_kernel_phase(seed)}
 
 
+def adam_case(label, numels, dtype, g, *, views=(), inner=20):
+    """AdamW over leaves of `numels` elements (p of `dtype`; g, m, v
+    fp32), in place, through `adam_update_multi`: one launch a list.  The
+    p, m and v of the kernel, of the plain version and of the library
+    call (`torch._fused_adamw_` over the same lists, where it takes p's
+    dtype with fp32 g, m and v; its decay is decoupled, a yardstick of
+    the same traffic) each start from the same values and stay their
+    own.  Leaves in `views` are views one element into a larger buffer:
+    off a 16-byte boundary, the kernel's scalar path.  Tolerances: one
+    fp32 ulp (rtol 3e-7); a bf16 p one bf16 ulp."""
+    from hetu_tpu_torch.ops.cuda import adam as ad
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    step, lr = 10, 3e-4
+    c1 = float(np.float32(1) - np.float32(0.9) ** np.float32(step))
+    c2 = float(np.float32(1) - np.float32(0.95) ** np.float32(step))
+
+    def randn(n, dt, std, i):
+        off = 1 if i in views else 0
+        return (std * torch.randn(n + off, generator=g, device="cuda")).to(
+            dt)[off:]
+    p0 = [randn(n, dtype, 0.02, i) for i, n in enumerate(numels)]
+    grad = [randn(n, torch.float32, 1e-3, i) for i, n in enumerate(numels)]
+    m0 = [randn(n, torch.float32, 1e-4, i) for i, n in enumerate(numels)]
+    v0 = [randn(n, torch.float32, 1e-6, i).abs_()
+          for i, n in enumerate(numels)]
+
+    def copies():
+        out = []
+        for ts in (p0, m0, v0):
+            out.append([])
+            for i, t in enumerate(ts):
+                c = torch.empty(t.numel() + (i in views), dtype=t.dtype,
+                                device="cuda")[int(i in views):]
+                out[-1].append(c.copy_(t))
+        return out
+    mine, ref, lib = copies(), copies(), copies()
+    del p0, m0, v0
+    library = None
+    steps = [torch.full((), float(step), device="cuda") for _ in numels]
+
+    def library_call(i):
+        torch._fused_adamw_(lib[0], grad, lib[1], lib[2], [], steps, lr=lr,
+                            beta1=0.9, beta2=0.95, weight_decay=0.1,
+                            eps=1e-8, amsgrad=False, maximize=False)
+    try:
+        library_call(0)
+        library = library_call
+    except RuntimeError as e:       # a yardstick only: the port never calls it
+        print(f"{label}: torch._fused_adamw_ does not take this list "
+              f"({str(e).splitlines()[0]}); library_ms stays null")
+
+    def run(i):
+        ad.adam_update_multi(*mine[:1], grad, *mine[1:], lr, c1, c2, **kw)
+        return tuple(t for ts in mine for t in ts)
+
+    def plain(i):
+        for p, gr, m, v in zip(ref[0], grad, ref[1], ref[2]):
+            ad.adam_plain(p, gr, m, v, lr, c1, c2, **kw)
+        return tuple(t for ts in ref for t in ts)
+    n, esize = sum(numels), torch.finfo(dtype).bits // 8
+    p_tol = ulps(1) if dtype == torch.bfloat16 else rel(3e-7)
+    tols = (p_tol,) * len(numels) + (rel(3e-7),) * (2 * len(numels))
+    res = case(label, tols, run, plain, n * (2 * esize + 4 + 4 * 4),
+               15 * n, library=library, inner=inner)
+    del mine, ref, lib, grad
+    return res
+
+
 # the GPT serving path's slots: 8 prompts of 64-768 tokens and 32 new
 GPT_DEPTHS = [790, 768, 700, 520, 300, 128, 64, 40]
+
+
+def gpt_leaf_numels():
+    """The element counts of GPT-2-large's parameter leaves, in the
+    model's order: a one-layer model's, its block repeated 36 times."""
+    from hetu_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+    cfg = GPTConfig.gpt2_large()
+    one = GPTLMHeadModel(GPTConfig.gpt2_large(num_hidden_layers=1),
+                         device="cuda", seed=0)
+    leaves = [(name, p.numel()) for name, p in one.named_parameters()]
+    del one
+    block = [n for name, n in leaves if ".blocks." in name]
+    head = [n for name, n in leaves if ".blocks." not in name]
+    first = next(i for i, (name, _) in enumerate(leaves)
+                 if ".blocks." in name)
+    return (head[:first] + block * cfg.num_hidden_layers + head[first:])
 
 
 def gpt_kernel_phase(seed: int):
@@ -927,6 +1019,14 @@ def gpt_kernel_phase(seed: int):
     del wte
     # flash at GPT-2-large's micro-batch: 8 x 1024 tokens, 20 heads of 64
     out.update(flash_timed(g, 8, 1024, 20, 20, 64))
+    # AdamW over GPT-2-large's 436 leaves (fp32, as the Trainer keeps
+    # them), a leaf of 1,001 elements (a scalar tail) and a view off a
+    # 16-byte boundary, in one launch
+    numels = gpt_leaf_numels() + [1001, 4096]
+    out["adam_update"] = [adam_case(
+        f"adam_update GPT-2-large's {len(numels) - 2} leaves + a 1001-element"
+        f" leaf + an unaligned view, fp32", numels, torch.float32, g,
+        views=(len(numels) - 1,), inner=5)]
     # serving: decode on exact and int8 pages, verify on int8 pages
     shape = dict(nq=20, n_kv=20, hd=64, mp=64)
     for name, res in paged_cases(seed + 7, (("none", 1), ("int8", 1),
@@ -1051,10 +1151,11 @@ def flash_timed(g, b, s, hq, hkv, d):
         lambda i: plain_bwd(i)[1:], 2 * qo + 2 * kv + 2 * stats + 4 * kv,
         8 * d * live_elems, exact=lambda i: ref[1:],
         library_ms=lib_fb - lib_f, op_dtype=torch.bfloat16)
-    runs = [fa.flash_bwd_dkv(*args, block_mask=block_mask, **kw)
-            for _ in range(2)]
-    check(all(torch.equal(x, y) for x, y in zip(*runs)),
-          f"flash_bwd_dkv {shape}: two runs differ")
+    for name, fn in (("dq", fa.flash_bwd_dq), ("dkv", fa.flash_bwd_dkv)):
+        runs = [fn(*args, block_mask=block_mask, **kw) for _ in range(2)]
+        runs = [r if isinstance(r, tuple) else (r,) for r in runs]
+        check(all(torch.equal(x, y) for x, y in zip(*runs)),
+              f"flash_bwd_{name} {shape}: two runs differ")
     print(f"flash library {shape}: scaled_dot_product_attention forward "
           f"{lib_f:.5f} ms, forward + backward {lib_fb:.5f} ms")
     print(f"flash ratio {shape}: forward kernel / library "
@@ -1062,7 +1163,7 @@ def flash_timed(g, b, s, hq, hkv, d):
           f"{dkv['ms'] / (lib_fb - lib_f):.3f}; dq kernel / library "
           f"backward {dq['ms'] / (lib_fb - lib_f):.3f}; dq + dk/dv / "
           f"library backward {(dq['ms'] + dkv['ms']) / (lib_fb - lib_f):.3f}"
-          f"; dk/dv two runs identical")
+          f"; dq and dk/dv two runs identical")
     return {"flash_fwd": [fwd], "flash_bwd_dq": [dq], "flash_bwd_dkv": [dkv]}
 
 
@@ -2289,6 +2390,7 @@ def training_phase(seed: int, kernels, card: str, cfg, *, name: str,
     from hetu_tpu_torch.engine import Trainer, TrainingConfig
     from hetu_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
     from hetu_tpu_torch.models.llama import LlamaLMHeadModel
+    from hetu_tpu_torch.ops.cuda import adam as ad
 
     gpt = isinstance(cfg, GPTConfig)
     model_cls = GPTLMHeadModel if gpt else LlamaLMHeadModel
@@ -2326,7 +2428,8 @@ def training_phase(seed: int, kernels, card: str, cfg, *, name: str,
                             residual_rmsnorm_fwd=fwd,
                             residual_rmsnorm_bwd=bwd, swiglu_bwd=bwd,
                             rotary_qk_bwd=bwd)
-        per_step["adam_update"] = len(tr.params)
+        # one launch over every leaf (a table holds MAX_LEAVES)
+        per_step["adam_update"] = -(-len(tr.params) // ad.MAX_LEAVES)
         if use_flash:   # "dots_attn" keeps o and lse: no second forward
             per_step.update(
                 flash_fwd=bwd if policy == "dots_attn" else fwd,
@@ -2403,7 +2506,12 @@ def training_time_phase(tr, batch, step_ms: float, card: str):
             for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                         "rmsnorm_fwd", "rmsnorm_bwd", "layernorm_fwd",
                         "layernorm_bwd", "swiglu_fwd", "swiglu_bwd",
-                        "rotary_qk", "adam_kernel")}
+                        "rotary_qk", "adam_multi_kernel")}
+    # the bf16 dq launches are the Hopper kernel's
+    dq_names = {n for n in by_name if "flash_bwd_dq" in n}
+    check(bool(dq_names) and all("flash_bwd_dq_wgmma_kernel" in n
+                                 for n in dq_names),
+          f"the step's dq kernels are {dq_names}")
     cfg, c = tr.model.config, tr.config
     n_micro, L = tr.n_micro, cfg.num_hidden_layers
     mbs, seq = c.micro_batch_size, c.seq_len
@@ -2453,7 +2561,7 @@ def training_time_phase(tr, batch, step_ms: float, card: str):
                apart["dense_attention_fwd_ms"]
                + apart["dense_attention_fwd_bwd_ms"]),
            "lm_head_loss_fwd_bwd_ms": h_fb, "lm_head_loss_ms_per_step": head_ms,
-           "adamw_ms_per_step": ours["adam_kernel"],
+           "adamw_ms_per_step": ours["adam_multi_kernel"],
            "other_device_ms": busy - head_ms - sum(ours.values()),
            "card": card}
     print("training time " + json.dumps(out))
@@ -2679,6 +2787,7 @@ def main(argv=None) -> int:
         print(rep.strip())
     print(f"build: {len(reports)} kernels in "
           f"{time.perf_counter() - t0:.2f}s")
+    ptxas_check(reports["flash_attention"], "flash_bwd_dq_wgmma_kernel")
 
     # each path runs beside its own kernel checks: serving first, so
     # the training kernels' large buffers and CUDA graphs come after it

@@ -1,4 +1,5 @@
-// Fused AdamW update of one parameter leaf, in place.
+// Fused AdamW update of a list of parameter leaves, in place, in one
+// launch.
 //
 // Replaces hetu_tpu/ops/pallas/adam.py `_adam_kernel` / `adam_update`:
 //   m' = b1 * m + (1 - b1) * g
@@ -11,69 +12,200 @@
 // the reference (not torch's decoupled p *= 1 - lr * wd).
 //
 // Bound on an H100 by bytes: 28 bytes per fp32 element (p, m, v read
-// and written, g read) against ~15 flops.  Design: one elementwise
-// grid-stride pass that reads p, g, m and v once and writes p, m and v
-// IN PLACE: where the JAX package donates its old buffers to the
-// jitted step, the port updates the tensors it owns, so no second copy
-// of the optimizer state is ever allocated.  _rn intrinsics keep the
-// compiler from contracting into FMAs, matching the plain PyTorch
-// version's rounding order.
+// and written, g read) against ~15 flops.  Design:
+//   * one launch takes a table of leaves (`AdamTable`, a
+//     __grid_constant__ parameter of up to 32,764 bytes, CUDA 12.1+): the
+//     TPU kernel is called once per leaf, and a model's hundreds of small
+//     biases and gains would each cost a launch;
+//   * the leaves are cut into chunks of ADAM_CHUNK elements; the host
+//     writes each leaf's first chunk into the table (a prefix of chunk
+//     counts), and a block finds a chunk's leaf by a binary search over
+//     it; the grid holds as many blocks as the SMs keep resident at once,
+//     and each block strides over the chunks;
+//   * g, m and v (and an fp32 p) move as 16-byte float4 accesses, a bf16
+//     p as 4 x bf16 (8 bytes), ADAM_UNROLL vectors in flight a thread; a
+//     leaf whose pointers are not 16-byte aligned (a view) and the tail
+//     of a leaf whose length is not a multiple of 4 take a scalar path in
+//     the same kernel;
+//   * it reads p, g, m and v once and writes p, m and v IN PLACE: where
+//     the JAX package donates its old buffers to the jitted step, the
+//     port updates the tensors it owns, so no second copy of the
+//     optimizer state is ever allocated.
+// _rn intrinsics keep the compiler from contracting into FMAs, matching
+// the plain PyTorch version's rounding order.
 #include "common.cuh"
 
+using bf16 = __nv_bfloat16;
+
+// The table's sizes; mirrored by ops/cuda/adam.py.
+constexpr int ADAM_MAX_LEAVES = 512;
+constexpr int ADAM_CHUNK = 16384;
+constexpr int ADAM_THREADS = 256;
+constexpr int ADAM_UNROLL = 4;
+
+// One leaf: p (fp32 or bf16), g, m, v of n elements each.  `aligned`: p,
+// g, m and v all start on a 16-byte boundary (the vector path).
+struct AdamLeaf {
+  void* p;
+  const float* g;
+  float* m;
+  float* v;
+  long long n;
+  int aligned;
+  int pad;
+};
+
+// One launch's arguments; mirrored field for field by the ctypes
+// Structure in ops/cuda/adam.py.  Leaf i owns chunks chunk_start[i] ..
+// chunk_start[i + 1] - 1; chunk_start[leaves] is the launch's total.
+struct AdamTable {
+  float b1, one_minus_b1, b2, one_minus_b2, lr, c1, c2, eps, wd;
+  int leaves;
+  int chunk_start[ADAM_MAX_LEAVES + 1];
+  AdamLeaf leaf[ADAM_MAX_LEAVES];
+};
+static_assert(sizeof(AdamTable) <= 32764, "kernel parameters past 32,764 B");
+
+namespace {
+
+struct Hyper {
+  float b1, omb1, b2, omb2, lr, c1, c2, eps, wd;
+};
+
+__device__ __forceinline__ float adam_step(float pf, float gv, float& m,
+                                           float& v, const Hyper& h) {
+  const float mv = __fadd_rn(__fmul_rn(h.b1, m), __fmul_rn(h.omb1, gv));
+  const float vv = __fadd_rn(__fmul_rn(h.b2, v),
+                             __fmul_rn(h.omb2, __fmul_rn(gv, gv)));
+  const float mhat = __fdiv_rn(mv, h.c1);
+  const float vhat = __fdiv_rn(vv, h.c2);
+  const float upd = __fadd_rn(
+      __fdiv_rn(mhat, __fadd_rn(__fsqrt_rn(vhat), h.eps)), __fmul_rn(h.wd, pf));
+  m = mv;
+  v = vv;
+  return __fsub_rn(pf, __fmul_rn(h.lr, upd));
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+__device__ __forceinline__ void load4(const bf16* p, float (&x)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  x[0] = lo.x; x[1] = lo.y; x[2] = hi.x; x[3] = hi.y;
+}
+__device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store4(bf16* p, const float (&x)[4]) {
+  // round to nearest even, as __float2bfloat16 and torch's .to() do
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+  uint2 v;
+  v.x = *reinterpret_cast<const unsigned*>(&lo);
+  v.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = v;
+}
+
 template <typename P>
-__global__ void adam_kernel(P* __restrict__ p, const float* __restrict__ g,
-                            float* __restrict__ m, float* __restrict__ v,
-                            long long n, float b1, float one_minus_b1,
-                            float b2, float one_minus_b2, float lr, float c1,
-                            float c2, float eps, float wd) {
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += step) {
-    const float gv = g[i];
-    const float mv = __fadd_rn(__fmul_rn(b1, m[i]),
-                               __fmul_rn(one_minus_b1, gv));
-    const float vv = __fadd_rn(__fmul_rn(b2, v[i]),
-                               __fmul_rn(one_minus_b2, __fmul_rn(gv, gv)));
-    const float mhat = __fdiv_rn(mv, c1);
-    const float vhat = __fdiv_rn(vv, c2);
-    const float pf = to_f32(p[i]);
-    const float upd = __fadd_rn(
-        __fdiv_rn(mhat, __fadd_rn(__fsqrt_rn(vhat), eps)), __fmul_rn(wd, pf));
-    p[i] = from_f32<P>(__fsub_rn(pf, __fmul_rn(lr, upd)));
-    m[i] = mv;
-    v[i] = vv;
+__global__ void __launch_bounds__(ADAM_THREADS)
+adam_multi_kernel(const __grid_constant__ AdamTable t) {
+  const Hyper h{t.b1, t.one_minus_b1, t.b2, t.one_minus_b2, t.lr,
+                t.c1, t.c2, t.eps, t.wd};
+  const int chunks = t.chunk_start[t.leaves];
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+    // the chunk's leaf: the last i with chunk_start[i] <= c
+    int lo = 0, hi = t.leaves - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (t.chunk_start[mid] <= c) lo = mid; else hi = mid - 1;
+    }
+    const AdamLeaf& leaf = t.leaf[lo];
+    P* p = static_cast<P*>(leaf.p);
+    const float* g = leaf.g;
+    float* m = leaf.m;
+    float* v = leaf.v;
+    const long long c0 =
+        static_cast<long long>(c - t.chunk_start[lo]) * ADAM_CHUNK;
+    const long long c1 = min(c0 + ADAM_CHUNK, leaf.n);
+    long long scalar_from = c0;
+    if (leaf.aligned) {
+      // vectors c0 / 4 .. c1 / 4 - 1 (c0 is a multiple of 4)
+      const long long v_end = c1 >> 2;
+      for (long long base = (c0 >> 2) + threadIdx.x; base < v_end;
+           base += ADAM_THREADS * ADAM_UNROLL) {
+        float pv[ADAM_UNROLL][4], gv[ADAM_UNROLL][4], mv[ADAM_UNROLL][4],
+            vv[ADAM_UNROLL][4];
+#pragma unroll
+        for (int u = 0; u < ADAM_UNROLL; ++u) {
+          const long long j = base + u * ADAM_THREADS, i = j << 2;
+          if (j < v_end) {
+            load4(g + i, gv[u]);
+            load4(m + i, mv[u]);
+            load4(v + i, vv[u]);
+            load4(p + i, pv[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < ADAM_UNROLL; ++u) {
+          const long long j = base + u * ADAM_THREADS, i = j << 2;
+          if (j < v_end) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              pv[u][e] = adam_step(pv[u][e], gv[u][e], mv[u][e], vv[u][e], h);
+            store4(p + i, pv[u]);
+            store4(m + i, mv[u]);
+            store4(v + i, vv[u]);
+          }
+        }
+      }
+      scalar_from = v_end << 2;
+    }
+    // an unaligned leaf, or the last (n % 4) elements of an aligned one
+    for (long long i = scalar_from + threadIdx.x; i < c1; i += ADAM_THREADS) {
+      float mi = m[i], vi = v[i];
+      p[i] = from_f32<P>(adam_step(to_f32(p[i]), g[i], mi, vi, h));
+      m[i] = mi;
+      v[i] = vi;
+    }
   }
 }
 
+// Blocks of the kernel that the card keeps resident at once: the grid
+// fills the SMs and no more (each block strides over the chunks).
 template <typename P>
-static int launch(void* p, const void* g, void* m, void* v, long long n,
-                  float b1, float one_minus_b1, float b2, float one_minus_b2,
-                  float lr, float c1, float c2, float eps, float wd,
-                  void* stream) {
-  constexpr int threads = 256;
-  adam_kernel<P><<<grid_for(n, threads, 132 * 16), threads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<P*>(p), static_cast<const float*>(g),
-      static_cast<float*>(m), static_cast<float*>(v), n, b1, one_minus_b1,
-      b2, one_minus_b2, lr, c1, c2, eps, wd);
+int resident_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, adam_multi_kernel<P>, ADAM_THREADS, 0);
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return blocks;
+}
+
+template <typename P>
+int launch(const AdamTable* t, void* stream) {
+  const int chunks = t->chunk_start[t->leaves];
+  if (t->leaves < 1 || t->leaves > ADAM_MAX_LEAVES || chunks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = min(chunks, resident_blocks<P>());
+  adam_multi_kernel<P><<<grid, ADAM_THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(*t);
   return static_cast<int>(cudaGetLastError());
 }
 
-HETU_EXPORT int hetu_adam_f32(void* p, const void* g, void* m, void* v,
-                              long long n, float b1, float one_minus_b1,
-                              float b2, float one_minus_b2, float lr,
-                              float c1, float c2, float eps, float wd,
-                              void* stream) {
-  return launch<float>(p, g, m, v, n, b1, one_minus_b1, b2, one_minus_b2, lr,
-                       c1, c2, eps, wd, stream);
+}  // namespace
+
+HETU_EXPORT int hetu_adam_multi_f32(const AdamTable* t, void* stream) {
+  return launch<float>(t, stream);
 }
 
-HETU_EXPORT int hetu_adam_bf16(void* p, const void* g, void* m, void* v,
-                               long long n, float b1, float one_minus_b1,
-                               float b2, float one_minus_b2, float lr,
-                               float c1, float c2, float eps, float wd,
-                               void* stream) {
-  return launch<__nv_bfloat16>(p, g, m, v, n, b1, one_minus_b1, b2,
-                               one_minus_b2, lr, c1, c2, eps, wd, stream);
+HETU_EXPORT int hetu_adam_multi_bf16(const AdamTable* t, void* stream) {
+  return launch<bf16>(t, stream);
 }

@@ -55,22 +55,22 @@
 // FlashAttention-2 does; the TPU kernel keeps them fp32).  o is rounded
 // once to bf16 on the way out; dq, dk, dv leave in fp32 in both arms.
 //
-// The bf16 forward and dk/dv kernels are built for Hopper (the section
-// "bf16 forward and dk/dv: Hopper" below): a producer warpgroup streams
-// K/V (or Q/dO) tiles through a ring of shared-memory slots with cp.async
-// and mbarriers, consumer warpgroups of 64 rows (three a block in the
-// forward, two in dk/dv) run wgmma.mma_async with both
-// operands of S in shared memory and P / dS as the register operand of
-// the next product, a pair of tiles that the causal mask empties is not
-// computed and a full one skips the element mask, and the softmax runs in
-// exp2 with the scale folded in.  The bf16 dq kernel still stages one tile
-// at a time between two __syncthreads and runs mma.sync.m16n8k16.
+// The three bf16 kernels are built for Hopper (the section "bf16:
+// Hopper" below): a producer warpgroup streams K/V (dk/dv: Q/dO) tiles
+// through a ring of shared-memory slots with cp.async and mbarriers,
+// consumer warpgroups of 64 rows (three a block in the forward, two in dq
+// and dk/dv) run wgmma.mma_async with both operands of S (and dP) in
+// shared memory and P / dS as the register operand of the next product,
+// a pair of tiles that the causal mask empties is not computed and a full
+// one skips the element mask, and the softmax runs in exp2 with the scale
+// folded in.
 
 #include <climits>
 
 #include "common.cuh"
 #include "hopper.cuh"
-#include "mma.cuh"
+
+using bf16 = __nv_bfloat16;
 
 namespace {
 
@@ -554,99 +554,69 @@ flash_bwd_dkv_kernel(const FlashArgs a) {
   }
 }
 
-// ================================================== bf16 dq: mma.sync
+// ==================================================== bf16: Hopper
 //
-// The bf16 dq kernel runs every product as mma.sync.m16n8k16 (bf16
-// operands, fp32 accumulators).  A block is 4 warps; a warp owns 16 rows
-// of the 64 x 64 score tile.  Tiles are staged in shared memory as bf16
-// with a row stride of D + 8 elements (16 bytes more than a power of
-// two), so the 8 rows of an ldmatrix land in 8 different 16-byte bank
-// groups.  Operands come out of shared memory through ldmatrix: as stored
-// for an "A" operand and for a "B" operand that is contracted over d (K
-// in Q K^T, V in dO V^T), transposed (.trans) for a "B" operand that is
-// contracted over its rows (K in dS K).  dS never leaves registers: the
-// accumulators of two neighbouring 8-column tiles are exactly one A
-// fragment, after one rounding to bf16 (`to_fragments`, which the Hopper
-// kernels below share: wgmma's register A operand has the same layout).
+// The three bf16 kernels are built for Hopper (sm_90a).  Block: NC
+// consumer warpgroups (1 or 3 in the forward, 1 or 2 in dq and in
+// dk/dv) and one producer warpgroup, the last.  A consumer warpgroup
+// owns one 64-row tile of the block's side (q in the forward and dq, k
+// in dk/dv; `tile_at`'s mapping, ragged last tile and all), so a block
+// of two covers 128 rows.  The producer loads the block's own tiles once
+// (Q; Q and dO; K and V) and streams the other side's tiles (K, V and
+// their positions in the forward and dq; Q, dO, lse, delta and positions
+// in dk/dv) through a ring of STAGES slots in shared memory with
+// cp.async 16-byte copies, which write the 128-byte swizzled layout
+// (`hopper.cuh`) and zero rows past a tile's end, so nothing past an API
+// block is ever read.  Each copy arrives on the slot's `full` mbarrier
+// when it lands, and producer warp 0 adds the streamed tile's position
+// (and segment) range; every consumer warp arrives on the slot's `empty`
+// mbarrier when its products are done, and the producer refills the
+// slot.  Consumers stage nothing through their registers.  The ring
+// takes as many slots as shared memory holds, up to 8 (4 to 8 here).
 //
-// An accumulator c[nt][e] of a warp's 16 x (8 nt) tile holds row
-// g + 8 (e >> 1) and column 8 nt + 2 tig + (e & 1), g = lane >> 2,
-// tig = lane & 3.
-
-constexpr int MMA_THREADS = 128;
-
-template <int D>
-__host__ __device__ constexpr int ldh() { return D + 8; }
+// The ring carries the streamed tiles that are live for at least one of
+// the block's warpgroups; a warpgroup computes only those live for its
+// own API block and passes over the others (a tile dead for both is
+// never loaded; one dead for this warpgroup is never computed here,
+// whatever it holds).
+//
+// Products, on wgmma.mma_async with fp32 accumulators: S = Q K^T
+// (forward, dq), dP = dO V^T (dq), S^T = K Q^T and dP^T = V dO^T (dk/dv)
+// take both operands K-major from shared memory; P, dS, P^T and dS^T are
+// rounded once to bf16 in registers (`to_fragments`: the accumulators of
+// two neighbouring 8-column tiles are exactly one A fragment) and are the
+// register A operand of O += P V, dQ += dS K, dV += P^T dO and
+// dK += dS^T Q, whose B operand is read MN-major from the same tile.
+//
+// Tile classes (`tile_classes` in ops/cuda/flash_attention.py is the same
+// rule in PyTorch): a (q tile, k tile) pair is dead when its API block
+// is; where both tiles have all 64 rows and the mask is causal, empty
+// when max(q_pos of the q tile) < min(k_pos of the k tile), full when
+// min(q_pos) >= max(k_pos) and segments are off or one segment id covers
+// both tiles (not causal: that segment rule alone); else partial.  An
+// empty tile is not computed (every p would be 0: the same bits), a full
+// one skips the element mask.  The softmax runs in base 2: exp2 of s * scale
+// * log2(e) - m (forward) or - lse * log2(e) (dq, dk/dv), with the scale
+// folded into one multiply; lse leaves in natural log.
+//
+// Grid: three consumer warpgroups a block in the forward, two in dq and
+// dk/dv, where that grid still has a block for every SM; else one (64
+// rows a block, the most blocks) — `consumer_warpgroups` below.  More
+// warpgroups a block keep more of them in flight on an SM: measured on
+// the card, the time of a tile goes to the softmax's exp2 and
+// conversions (the SFU) and to latency, not to the tensor cores.
+//
+// An accumulator c[nt][e] of a warpgroup's 64 x (8 nt) tile holds, in
+// warp w, row 16 w + g + 8 (e >> 1) and column 8 nt + 2 tig + (e & 1),
+// g = lane >> 2, tig = lane & 3 (`hopper.cuh`).
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// Stage `rows` rows of a [*, D] bf16 operand into dst [TILE][D + 8] with
-// 16-byte copies; rows past `rows` are zero.
-template <int D>
-__device__ __forceinline__ void stage_h(bf16* dst, const bf16* src,
-                                        long long stride, int rows) {
-  constexpr int VEC = D / 8;
-  for (int i = threadIdx.x; i < TILE * VEC; i += MMA_THREADS) {
-    const int r = i / VEC, c = (i % VEC) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ldh<D>() + c) = val;
-  }
-}
-
-// c[nt] += A (the warp's 16 rows, [16][D]) . B^T (B a staged [64][D] tile)
-template <int D>
-__device__ __forceinline__ void warp_abt(const bf16* A, const bf16* B,
-                                         float (&c)[8][4]) {
-  const int lane = threadIdx.x & 31;
-  // ldmatrix.x4 takes its 4 matrices' row addresses from lanes 8i .. 8i+7.
-  // A: rows 0-7 / 8-15 of columns d .. d+7, then of columns d+8 .. d+15.
-  const bf16* a_ptr =
-      A + (((lane >> 3) & 1) * 8 + (lane & 7)) * ldh<D>() + (lane >> 4) * 8;
-  // B: rows n .. n+7 at columns d and d+8 (one 8-column tile's b0, b1),
-  // then rows n+8 .. n+15 (the next tile's).
-  const bf16* b_ptr =
-      B + ((lane >> 4) * 8 + (lane & 7)) * ldh<D>() + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int d = 0; d < D; d += 16) {
-    unsigned a[4];
-    ldmatrix_x4(a, a_ptr + d);
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      unsigned b[4];
-      ldmatrix_x4(b, b_ptr + 16 * t * ldh<D>() + d);
-      mma_bf16(c[2 * t], a, b[0], b[1]);
-      mma_bf16(c[2 * t + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// c[nt] += P (16 x 64, as 4 A fragments) . B (a staged [64][D] tile)
-template <int D>
-__device__ __forceinline__ void warp_pb(const unsigned (&p)[4][4],
-                                        const bf16* B,
-                                        float (&c)[D / 8][4]) {
-  const int lane = threadIdx.x & 31;
-  // transposed: rows k .. k+7 / k+8 .. k+15 of columns n .. n+7 (one
-  // tile's b0, b1), then of columns n+8 .. n+15 (the next tile's)
-  const bf16* b_ptr =
-      B + (((lane >> 3) & 1) * 8 + (lane & 7)) * ldh<D>() + (lane >> 4) * 8;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-    for (int nn = 0; nn < D / 16; ++nn) {
-      unsigned b[4];
-      ldmatrix_x4_trans(b, b_ptr + 16 * ks * ldh<D>() + 16 * nn);
-      mma_bf16(c[2 * nn], p[ks], b[0], b[1]);
-      mma_bf16(c[2 * nn + 1], p[ks], b[2], b[3]);
-    }
-}
-
-// The 16 x 64 accumulator tile, rounded once to bf16, as the A operand
-// of the next product.
+// A warp's 16 x 64 slab of an accumulator tile, rounded once to bf16, as
+// the register A operand of the next product (k16 slices ks = 0 .. 3).
 __device__ __forceinline__ void to_fragments(const float (&c)[8][4],
                                              unsigned (&p)[4][4]) {
 #pragma unroll
@@ -658,6 +628,7 @@ __device__ __forceinline__ void to_fragments(const float (&c)[8][4],
   }
 }
 
+// Reduce over the 4 lanes (tig) that share a row.
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -667,180 +638,24 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D>
-constexpr size_t mma_smem_bytes(int tiles) {
-  return sizeof(bf16) * static_cast<size_t>(tiles) * TILE * ldh<D>() +
-         sizeof(float) * 6 * TILE;
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_bwd_dq_mma_kernel(const FlashArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + TILE * ldh<D>();
-  bf16* Ks = dOs + TILE * ldh<D>();
-  bf16* Vs = Ks + TILE * ldh<D>();
-  int* qpos = reinterpret_cast<int*>(Vs + TILE * ldh<D>());
-  int* qseg = qpos + TILE;
-  int* kpos = qseg + TILE;
-  int* kseg = kpos + TILE;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const TileAt qt = tile_at(gridDim.x - 1 - blockIdx.x, a.block_q);
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const int hk = h / (a.hq / a.hkv);
-  const bool use_seg = a.q_seg != nullptr;
-  const int per_k = (a.block_k + TILE - 1) / TILE;
-
-  stage_h<D>(Qs, static_cast<const bf16*>(a.q) + bi * a.q_sb + h * a.q_sh +
-                     qt.row0 * a.q_ss, a.q_ss, qt.rows);
-  stage_h<D>(dOs, static_cast<const bf16*>(a.dout) + bi * a.do_sb +
-                      h * a.do_sh + qt.row0 * a.do_ss, a.do_ss, qt.rows);
-  stage_ints(qpos, a.q_pos + bi * a.qpos_sb + qt.row0, qt.rows);
-  stage_ints(qseg, use_seg ? a.q_seg + bi * a.qseg_sb + qt.row0 : nullptr,
-             qt.rows);
-
-  const long long stat = (static_cast<long long>(bi) * a.hq + h) * a.sq +
-                         qt.row0;
-  float lse[2], delta[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = warp * 16 + g + 8 * hh;
-    const bool in = row < qt.rows;
-    const float x = in ? a.lse[stat + row] : 0.f;
-    lse[hh] = x <= NEG_INF / 2 ? 0.f : x;  // a row that saw nothing
-    delta[hh] = in ? a.delta[stat + row] : 0.f;
-  }
-  float dq[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
-
-  const bf16* kbase = static_cast<const bf16*>(a.k) + bi * a.k_sb + hk * a.k_sh;
-  const bf16* vbase = static_cast<const bf16*>(a.v) + bi * a.v_sb + hk * a.v_sh;
-  for (int kb = 0; kb < a.nk; ++kb) {
-    if (!a.live[qt.block * a.nk + kb]) continue;
-    for (int sub = 0; sub < per_k; ++sub) {
-      const TileAt kt = tile_at(kb * per_k + sub, a.block_k);
-      __syncthreads();
-      stage_h<D>(Ks, kbase + kt.row0 * a.k_ss, a.k_ss, kt.rows);
-      stage_h<D>(Vs, vbase + kt.row0 * a.v_ss, a.v_ss, kt.rows);
-      stage_ints(kpos, a.k_pos + bi * a.kpos_sb + kt.row0, kt.rows);
-      stage_ints(kseg, use_seg ? a.k_seg + bi * a.kseg_sb + kt.row0 : nullptr,
-                 kt.rows);
-      __syncthreads();
-
-      float s[8][4], dp[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-      warp_abt<D>(Qs + warp * 16 * ldh<D>(), Ks, s);
-      warp_abt<D>(dOs + warp * 16 * ldh<D>(), Vs, dp);
-
-      int qp[2], qs[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        qp[hh] = qpos[warp * 16 + g + 8 * hh];
-        qs[hh] = qseg[warp * 16 + g + 8 * hh];
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * nt + 2 * tig + (e & 1), hh = e >> 1;
-          bool ok = col < kt.rows;
-          if (a.causal) ok = ok && qp[hh] >= kpos[col];
-          if (use_seg) ok = ok && qs[hh] == kseg[col];
-          const float p = ok ? __expf(s[nt][e] * a.scale - lse[hh]) : 0.f;
-          s[nt][e] = p * (dp[nt][e] - delta[hh]);     // dS
-        }
-      unsigned ds[4][4];
-      to_fragments(s, ds);
-      warp_pb<D>(ds, Ks, dq);
-    }
-  }
-
-  float* out = a.dq + bi * a.dq_sb + h * a.dq_sh;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = warp * 16 + g + 8 * hh;
-    if (row >= qt.rows) continue;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<float2*>(out + (qt.row0 + row) * a.dq_ss + 8 * nt +
-                                 2 * tig) =
-          make_float2(dq[nt][2 * hh] * a.scale, dq[nt][2 * hh + 1] * a.scale);
-  }
-}
-
-// ============================================ bf16 forward and dk/dv: Hopper
-//
-// Block: NC consumer warpgroups (1 or 3 in the forward, 1 or 2 in dk/dv)
-// and one producer warpgroup, the last.  A consumer warpgroup owns one 64-row tile of the block's side
-// (q in the forward, k in dk/dv; `tile_at`'s mapping, ragged last tile
-// and all), so a block of two covers 128 rows.  The producer streams the
-// other side's tiles (K, V and their positions in the forward; Q, dO,
-// lse, delta and positions in dk/dv) through a ring of STAGES slots in
-// shared memory with cp.async 16-byte copies, which write the 128-byte
-// swizzled layout (`hopper.cuh`) and zero rows past a tile's end, so
-// nothing past an API block is ever read.  Each copy arrives on the
-// slot's `full` mbarrier when it lands, and producer warp 0 adds the
-// streamed tile's position (and segment) range; every consumer warp
-// arrives on the slot's `empty` mbarrier when its products are done, and
-// the producer refills the slot.  Consumers stage nothing through their
-// registers.  The ring takes as many slots as shared memory holds, up to
-// 8 (4 to 8 here).
-//
-// The ring carries the k (q) tiles that are live for at least one of the
-// block's warpgroups; a warpgroup computes only those live for its own
-// API block and passes over the others (a tile dead for both is never
-// loaded; one dead for this warpgroup is never computed here, whatever
-// it holds).
-//
-// Products, on wgmma.mma_async with fp32 accumulators: S = Q K^T
-// (forward) and S^T = K Q^T, dP^T = V dO^T (dk/dv) take both operands
-// K-major from shared memory; P, P^T and dS^T are rounded once to bf16 in
-// registers and are the register A operand of O += P V, dV += P^T dO and
-// dK += dS^T Q, whose B operand is read MN-major from the same tile.
-//
-// Tile classes (`tile_classes` in ops/cuda/flash_attention.py is the same
-// rule in PyTorch): a (q tile, k tile) pair is dead when its API block
-// is; where both tiles have all 64 rows and the mask is causal, empty
-// when max(q_pos of the q tile) < min(k_pos of the k tile), full when
-// min(q_pos) >= max(k_pos) and segments are off or one segment id covers
-// both tiles (not causal: that segment rule alone); else partial.  An
-// empty tile is not computed (every p would be 0: the same bits), a full
-// one skips the element mask.  The softmax runs in base 2: exp2 of s * scale
-// * log2(e) - m, with the scale folded into one multiply; lse leaves in
-// natural log.
-//
-// Grid: three consumer warpgroups a block in the forward, two in dk/dv
-// (whose consumers hold dk and dv), where that grid still has a block for
-// every SM; else one (64 rows a block, the most blocks) —
-// `consumer_warpgroups` below.  More warpgroups
-// a block keep more of them in flight on an SM: measured on the card, the
-// time of a tile goes to the softmax's exp2 and conversions (the SFU) and
-// to latency, not to the tensor cores.
-
 constexpr int WG = 128;       // threads of a warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 // Registers a thread after setmaxnreg, where a block has more than one
 // consumer warpgroup: the warpgroups share what the launch gave them.
-// The forward's three: 3 x 128 x 152 + 128 x 56 = 512 x 128; dk/dv's two:
-// 2 x 128 x 232 + 128 x 40 = 384 x 168 (240 and 24 at head dim 128, where
-// dk and dv take 128 registers a thread).
-template <int D, bool DKV>
+// The forward's three: 3 x 128 x 152 + 128 x 56 = 512 x 128; dq's two:
+// 2 x 128 x 224 + 128 x 56 = 384 x 168 (dq takes 64 registers a thread at
+// head dim 128, S and dP 32 each); dk/dv's two: 2 x 128 x 232 + 128 x 40
+// = 384 x 168 (240 and 24 at head dim 128, where dk and dv take 128
+// registers a thread).
+enum Pass { FWD, DQ, DKV };
+template <int D, Pass P>
 __host__ __device__ constexpr int consumer_regs() {
-  return !DKV ? 152 : D == 128 ? 240 : 232;
+  return P == FWD ? 152 : P == DQ ? 224 : D == 128 ? 240 : 232;
 }
-template <int D, bool DKV>
+template <int D, Pass P>
 __host__ __device__ constexpr int producer_regs() {
-  return !DKV ? 56 : D == 128 ? 24 : 40;
+  return P != DKV ? 56 : D == 128 ? 24 : 40;
 }
 
 template <int D>
@@ -1006,6 +821,54 @@ __device__ __forceinline__ void release(uint64_t* empty) {
   if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(empty);
 }
 
+// Producer of the forward and dq: stream the K and V tiles live for any
+// of the block's warpgroups (API q blocks `qblock`), with their
+// positions, segments and, for a tile of all 64 rows, its position range
+// (`tile_meta`), through the ring of the layout L (members k, v, kpos,
+// kseg, meta).  The consumers walk the same tiles with the same `Ring`.
+template <typename L, int D, int NC>
+__device__ __forceinline__ void stream_kv(const FlashArgs& a,
+                                          unsigned char* smem,
+                                          uint64_t* full, uint64_t* empty,
+                                          const int (&qblock)[NC], int bi,
+                                          int hk, int tid) {
+  const uint32_t sbase = hopper::smem_u32(smem);
+  int4* meta = reinterpret_cast<int4*>(smem + L::meta);
+  const bool use_seg = a.q_seg != nullptr;
+  const int per_k = (a.block_k + TILE - 1) / TILE;
+  const bf16* kbase = static_cast<const bf16*>(a.k) + bi * a.k_sb + hk * a.k_sh;
+  const bf16* vbase = static_cast<const bf16*>(a.v) + bi * a.v_sb + hk * a.v_sh;
+  Ring<L::STAGES> ring;
+  for (int kb = 0; kb < a.nk; ++kb) {
+    if (!live_bits(a.live, qblock, a.nk, 1, kb)) continue;
+    for (int sub = 0; sub < per_k; ++sub, ring.next()) {
+      const TileAt kt = sub_tile(kb, sub, a.block_k);
+      const int s = ring.slot;
+      hopper::mbar_wait(empty + s, ring.phase ^ 1u);
+      if (tid < 32) {
+        if (kt.rows == TILE)
+          tile_meta(meta + s, a.k_pos + bi * a.kpos_sb + kt.row0,
+                    use_seg ? a.k_seg + bi * a.kseg_sb + kt.row0 : nullptr,
+                    full + s);
+        else if (tid == 0)
+          hopper::mbar_arrive(full + s);
+      }
+      load_tile<D>(sbase + L::k + s * tile_bytes<D>(),
+                   kbase + kt.row0 * a.k_ss, a.k_ss, kt.rows, tid);
+      load_tile<D>(sbase + L::v + s * tile_bytes<D>(),
+                   vbase + kt.row0 * a.v_ss, a.v_ss, kt.rows, tid);
+      if (tid < TILE)
+        load_word(sbase + L::kpos + s * TILE * 4,
+                  a.k_pos + bi * a.kpos_sb + kt.row0, tid, kt.rows);
+      else if (use_seg)
+        load_word(sbase + L::kseg + s * TILE * 4,
+                  a.k_seg + bi * a.kseg_sb + kt.row0, tid - TILE, kt.rows);
+      hopper::cp_async_arrive(full + s);
+    }
+  }
+  hopper::cp_async_wait_all();
+}
+
 // Shared memory of the forward, in bytes from a 1024-aligned base.
 template <int D, int NC>
 struct FwdSmem {
@@ -1064,7 +927,7 @@ flash_fwd_mma_kernel(const FlashArgs a) {
   if (wg == NC) {
     // ------------------------------------------------------ producer
     if constexpr (NC > 1)
-      hopper::setmaxnreg_dec<producer_regs<D, false>()>();
+      hopper::setmaxnreg_dec<producer_regs<D, FWD>()>();
     const int tid = threadIdx.x - NC * WG;
     const bf16* qbase = static_cast<const bf16*>(a.q) + bi * a.q_sb + h * a.q_sh;
 #pragma unroll
@@ -1075,41 +938,11 @@ flash_fwd_mma_kernel(const FlashArgs a) {
                      qbase + qt.row0 * a.q_ss, a.q_ss, qt.rows, tid);
       }
     hopper::cp_async_arrive(qfull);
-    const bf16* kbase = static_cast<const bf16*>(a.k) + bi * a.k_sb + hk * a.k_sh;
-    const bf16* vbase = static_cast<const bf16*>(a.v) + bi * a.v_sb + hk * a.v_sh;
-    Ring<STAGES> ring;
-    for (int kb = 0; kb < a.nk; ++kb) {
-      if (!live_bits(a.live, qblock, a.nk, 1, kb)) continue;
-      for (int sub = 0; sub < per_k; ++sub, ring.next()) {
-        const TileAt kt = sub_tile(kb, sub, a.block_k);
-        const int s = ring.slot;
-        hopper::mbar_wait(empty + s, ring.phase ^ 1u);
-        if (tid < 32) {
-          if (kt.rows == TILE)
-            tile_meta(meta + s, a.k_pos + bi * a.kpos_sb + kt.row0,
-                      use_seg ? a.k_seg + bi * a.kseg_sb + kt.row0 : nullptr,
-                      full + s);
-          else if (tid == 0)
-            hopper::mbar_arrive(full + s);
-        }
-        load_tile<D>(sbase + L::k + s * tile_bytes<D>(),
-                     kbase + kt.row0 * a.k_ss, a.k_ss, kt.rows, tid);
-        load_tile<D>(sbase + L::v + s * tile_bytes<D>(),
-                     vbase + kt.row0 * a.v_ss, a.v_ss, kt.rows, tid);
-        if (tid < TILE)
-          load_word(sbase + L::kpos + s * TILE * 4,
-                    a.k_pos + bi * a.kpos_sb + kt.row0, tid, kt.rows);
-        else if (use_seg)
-          load_word(sbase + L::kseg + s * TILE * 4,
-                    a.k_seg + bi * a.kseg_sb + kt.row0, tid - TILE, kt.rows);
-        hopper::cp_async_arrive(full + s);
-      }
-    }
-    hopper::cp_async_wait_all();
+    stream_kv<L, D, NC>(a, smem, full, empty, qblock, bi, hk, tid);
   } else {
     // ------------------------------------------------------ consumers
     if constexpr (NC > 1)
-      hopper::setmaxnreg_inc<consumer_regs<D, false>()>();
+      hopper::setmaxnreg_inc<consumer_regs<D, FWD>()>();
     const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
     const int g = lane >> 2, tig = lane & 3;
     const bool has = qblock[wg] >= 0;
@@ -1282,6 +1115,238 @@ flash_fwd_mma_kernel(const FlashArgs a) {
   }
 }
 
+// Shared memory of dq, in bytes from a 1024-aligned base: the forward's
+// ring behind the warpgroups' Q and dO tiles.
+template <int D, int NC>
+struct DqSmem {
+  static constexpr int STAGES = ring_slots(
+      2 * NC * tile_bytes<D>(), 2 * tile_bytes<D>() + 2 * TILE * 4);
+  static constexpr int q = 0;                                 // NC tiles
+  static constexpr int dout = q + NC * tile_bytes<D>();       // NC tiles
+  static constexpr int k = dout + NC * tile_bytes<D>();       // STAGES
+  static constexpr int v = k + STAGES * tile_bytes<D>();      // STAGES
+  static constexpr int kpos = v + STAGES * tile_bytes<D>();   // [STAGES][64]
+  static constexpr int kseg = kpos + STAGES * TILE * 4;
+  static constexpr int meta = kseg + STAGES * TILE * 4;       // [STAGES] int4
+  static constexpr int bars = meta + STAGES * 16;             // 1 + 2 STAGES
+  static constexpr int red = bars + 8 * (1 + 2 * STAGES);     // NC x 16 ints
+  static constexpr int bytes = red + NC * 16 * 4 + 1024;      // + alignment
+};
+
+// dq: the forward's walk over the k tiles of each warpgroup's q tile,
+// recomputing S = Q K^T and dP = dO V^T, P = exp2(S scale log2(e) -
+// lse log2(e)) and dS = P (dP - delta), and accumulating dQ += dS K in
+// registers; dq = scale dQ is written once, so two runs give the same
+// bits (no atomics).
+template <int D, int NC>
+__global__ void __launch_bounds__(WG * (NC + 1), 1)
+flash_bwd_dq_wgmma_kernel(const FlashArgs a) {
+  using L = DqSmem<D, NC>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t sbase = hopper::smem_u32(smem);
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = qfull + 1;
+  constexpr int STAGES = L::STAGES;
+  uint64_t* empty = full + STAGES;
+  const int* kpos_s = reinterpret_cast<const int*>(smem + L::kpos);
+  const int* kseg_s = reinterpret_cast<const int*>(smem + L::kseg);
+  const int4* meta = reinterpret_cast<const int4*>(smem + L::meta);
+
+  const int wg = threadIdx.x / WG;
+  // heavy (late, causal) rows first
+  const int cta = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, bi = blockIdx.z;
+  const int hk = h / (a.hq / a.hkv);
+  const bool use_seg = a.q_seg != nullptr;
+  const int per_k = (a.block_k + TILE - 1) / TILE;
+  const int nt_q = a.nq * ((a.block_q + TILE - 1) / TILE);
+  int qblock[NC];   // each warpgroup's API q block, -1: no tile
+#pragma unroll
+  for (int w = 0; w < NC; ++w)
+    qblock[w] = cta * NC + w < nt_q ? tile_at(cta * NC + w, a.block_q).block
+                                    : -1;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qfull, WG);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full + s, WG + 1);   // + producer warp 0's meta
+      hopper::mbar_init(empty + s, 4 * NC);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == NC) {
+    // ------------------------------------------------------ producer
+    if constexpr (NC > 1)
+      hopper::setmaxnreg_dec<producer_regs<D, DQ>()>();
+    const int tid = threadIdx.x - NC * WG;
+    const bf16* qbase = static_cast<const bf16*>(a.q) + bi * a.q_sb + h * a.q_sh;
+    const bf16* dobase =
+        static_cast<const bf16*>(a.dout) + bi * a.do_sb + h * a.do_sh;
+#pragma unroll
+    for (int w = 0; w < NC; ++w)
+      if (qblock[w] >= 0) {
+        const TileAt qt = tile_at(cta * NC + w, a.block_q);
+        load_tile<D>(sbase + L::q + w * tile_bytes<D>(),
+                     qbase + qt.row0 * a.q_ss, a.q_ss, qt.rows, tid);
+        load_tile<D>(sbase + L::dout + w * tile_bytes<D>(),
+                     dobase + qt.row0 * a.do_ss, a.do_ss, qt.rows, tid);
+      }
+    hopper::cp_async_arrive(qfull);
+    stream_kv<L, D, NC>(a, smem, full, empty, qblock, bi, hk, tid);
+  } else {
+    // ------------------------------------------------------ consumers
+    if constexpr (NC > 1)
+      hopper::setmaxnreg_inc<consumer_regs<D, DQ>()>();
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, tig = lane & 3;
+    const bool has = qblock[wg] >= 0;
+    const TileAt qt = tile_at(has ? cta * NC + wg : 0, a.block_q);
+    const long long stat =
+        (static_cast<long long>(bi) * a.hq + h) * a.sq + qt.row0;
+    // the thread's two rows of the tile: 16 warp + g and + 8; lse in
+    // base 2 (0 for a row that saw nothing, whose p are all masked)
+    int qp[2], qs[2];
+    bool in[2];
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = 16 * warp + g + 8 * hh;
+      in[hh] = has && row < qt.rows;
+      qp[hh] = in[hh] ? a.q_pos[bi * a.qpos_sb + qt.row0 + row] : 0;
+      qs[hh] = in[hh] && use_seg ? a.q_seg[bi * a.qseg_sb + qt.row0 + row]
+                                 : 0;
+      const float x = in[hh] ? a.lse[stat + row] : 0.f;
+      lse2[hh] = x <= NEG_INF / 2 ? 0.f : x * LOG2E;
+      dl[hh] = in[hh] ? a.delta[stat + row] : 0.f;
+    }
+    const RowRange qr = warpgroup_range(
+        qp, qs, in, reinterpret_cast<int*>(smem + L::red) + 16 * wg, wg);
+    const bool q_whole = has && qt.rows == TILE;
+    const float c2 = a.scale * LOG2E;
+    const uint32_t q_tile = sbase + L::q + wg * tile_bytes<D>();
+    const uint32_t do_tile = sbase + L::dout + wg * tile_bytes<D>();
+
+    float dq[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
+
+    // dQ += dS K of a tile is issued and left running; the next tile's
+    // S and dP queue behind it, and the wait for them also sees dQ done,
+    // which releases the earlier tile's slot.  Products are issued and
+    // awaited on the tile's one path, so they stay asynchronous.
+    unsigned ds[4][4];
+    int pending = -1;   // the slot whose dQ += dS K is in flight
+    hopper::mbar_wait(qfull, 0);
+    Ring<STAGES> ring;
+    for (int kb = 0; kb < a.nk; ++kb) {
+      const unsigned live = live_bits(a.live, qblock, a.nk, 1, kb);
+      if (!live) continue;
+      const bool mine = has && (live >> wg & 1u);
+      for (int sub = 0; sub < per_k; ++sub, ring.next()) {
+        const int s = ring.slot;
+        if (s == pending) {
+          // The ring is back at the slot whose dQ is in flight: every
+          // tile since was empty or not this warpgroup's.  Release it
+          // before the wait, or the producer (which refills the slot
+          // once it is released) and this wait would wait on each other.
+          hopper::wgmma_wait<0>();
+          hopper::fence_operands(dq);
+          release(empty + pending);
+          pending = -1;
+        }
+        hopper::mbar_wait(full + s, ring.phase);
+        if (mine) {
+          hopper::fence_proxy_async();
+          const TileAt kt = sub_tile(kb, sub, a.block_k);
+          const int* kpos = kpos_s + s * TILE;
+          const int* kseg = kseg_s + s * TILE;
+          bool whole = q_whole && kt.rows == TILE;
+          if (whole) {
+            const int4 km = meta[s];   // min, max of k_pos; of k_seg
+            if (a.causal && qr.pos_max < km.x) {   // empty: all masked
+              release(empty + s);
+              continue;
+            }
+            if (a.causal) whole = qr.pos_min >= km.y;
+            if (use_seg)
+              whole = whole && qr.seg_min == qr.seg_max && km.z == km.w &&
+                      km.z == qr.seg_min;
+          }
+
+          float sc[8][4], dp[8][4];   // the first products overwrite them
+          const uint32_t k_tile = sbase + L::k + s * tile_bytes<D>();
+          const uint32_t v_tile = sbase + L::v + s * tile_bytes<D>();
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < D / 16; ++ks) {
+            hopper::wgmma_ss_n64(sc, hopper::desc_k(q_tile, ks),
+                                 hopper::desc_k(k_tile, ks), ks > 0);
+            hopper::wgmma_ss_n64(dp, hopper::desc_k(do_tile, ks),
+                                 hopper::desc_k(v_tile, ks), ks > 0);
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_operands(sc);
+          hopper::fence_operands(dp);
+          hopper::fence_operands(dq);
+          if (pending >= 0) release(empty + pending);
+
+          // p = exp2(s * scale * log2(e) - lse * log2(e)): one FMA, then
+          // exp2; a full tile needs no mask.  dS overwrites S.
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int hh = e >> 1;
+              bool ok = whole;
+              if (!whole) {
+                const int col = 8 * nt + 2 * tig + (e & 1);
+                ok = col < kt.rows;
+                if (a.causal) ok = ok && qp[hh] >= kpos[col];
+                if (use_seg) ok = ok && qs[hh] == kseg[col];
+              }
+              const float pv = ok ? ex2(fmaf(sc[nt][e], c2, -lse2[hh])) : 0.f;
+              sc[nt][e] = pv * (dp[nt][e] - dl[hh]);
+            }
+          to_fragments(sc, ds);
+          hopper::fence_operands(dq);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs<D>(dq, ds[kk], hopper::desc_mn(k_tile, kk));
+          hopper::wgmma_commit();
+          pending = s;
+        } else {
+          release(empty + s);
+        }
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(dq);
+    if (pending >= 0) release(empty + pending);
+
+    if (has) {
+      float* out = a.dq + bi * a.dq_sb + h * a.dq_sh;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = 16 * warp + g + 8 * hh;
+        if (row >= qt.rows) continue;
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt)
+          *reinterpret_cast<float2*>(out + (qt.row0 + row) * a.dq_ss +
+                                     8 * nt + 2 * tig) =
+              make_float2(dq[nt][2 * hh] * a.scale,
+                          dq[nt][2 * hh + 1] * a.scale);
+      }
+    }
+  }
+}
+
 // Shared memory of dk/dv, in bytes from a 1024-aligned base.
 template <int D, int NC>
 struct DkvSmem {
@@ -1341,7 +1406,7 @@ flash_bwd_dkv_mma_kernel(const FlashArgs a) {
   if (wg == NC) {
     // ------------------------------------------------------ producer
     if constexpr (NC > 1)
-      hopper::setmaxnreg_dec<producer_regs<D, true>()>();
+      hopper::setmaxnreg_dec<producer_regs<D, DKV>()>();
     const int tid = threadIdx.x - NC * WG;
     const bf16* kbase = static_cast<const bf16*>(a.k) + bi * a.k_sb + hk * a.k_sh;
     const bf16* vbase = static_cast<const bf16*>(a.v) + bi * a.v_sb + hk * a.v_sh;
@@ -1402,7 +1467,7 @@ flash_bwd_dkv_mma_kernel(const FlashArgs a) {
   } else {
     // ------------------------------------------------------ consumers
     if constexpr (NC > 1)
-      hopper::setmaxnreg_inc<consumer_regs<D, true>()>();
+      hopper::setmaxnreg_inc<consumer_regs<D, DKV>()>();
     const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
     const int g = lane >> 2, tig = lane & 3;
     const bool has = kblock[wg] >= 0;
@@ -1570,7 +1635,7 @@ int launch(Kernel kernel, const FlashArgs& a, dim3 grid, int threads,
 }
 
 // Consumer warpgroups a Hopper block: `most` (3 in the forward, 2 in
-// dk/dv) where that grid over `tiles` 64-row tiles x `heads` x `batch`
+// dq and dk/dv) where that grid over `tiles` 64-row tiles x `heads` x `batch`
 // still holds a block for each of the card's SMs; else 1 (64 rows a
 // block, the most blocks).
 int consumer_warpgroups(int tiles, int heads, int batch, int most) {
@@ -1589,8 +1654,8 @@ int fwd_mma(const FlashArgs& a, int tiles, void* stream) {
                 FwdSmem<D, NC>::bytes, stream);
 }
 
-// T = float: the fp32 arm on the CUDA cores; T = bf16: the tensor cores
-// (forward and dk/dv on wgmma, dq on mma.sync).
+// T = float: the fp32 arm on the CUDA cores; T = bf16: the Hopper
+// kernels on the tensor cores (wgmma).
 template <typename T, int D>
 int fwd(const FlashArgs& a, void* stream) {
   const int tiles = tiles_along(a.nq, a.block_q);
@@ -1609,9 +1674,13 @@ int bwd_dq(const FlashArgs& a, void* stream) {
   if constexpr (sizeof(T) == 4)
     return launch(flash_bwd_dq_kernel<D>, a, grid, THREADS,
                   smem_bytes<D>(4, 1), stream);
+  else if (consumer_warpgroups(grid.x, a.hq, a.b, 2) == 2)
+    return launch(flash_bwd_dq_wgmma_kernel<D, 2>, a,
+                  dim3((grid.x + 1) / 2, a.hq, a.b), 3 * WG,
+                  DqSmem<D, 2>::bytes, stream);
   else
-    return launch(flash_bwd_dq_mma_kernel<D>, a, grid, MMA_THREADS,
-                  mma_smem_bytes<D>(4), stream);
+    return launch(flash_bwd_dq_wgmma_kernel<D, 1>, a, grid, 2 * WG,
+                  DqSmem<D, 1>::bytes, stream);
 }
 template <typename T, int D>
 int bwd_dkv(const FlashArgs& a, void* stream) {

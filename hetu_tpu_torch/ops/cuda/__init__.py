@@ -11,7 +11,7 @@ launch counter:
                       (replaces ops/pallas/swiglu.py)
   * fused_norm      — residual add + RMSNorm / LayerNorm, forward and
                       backward (replaces ops/pallas/fused_norm.py)
-  * adam            — fused AdamW update per parameter leaf
+  * adam            — fused AdamW update over a list of leaves
                       (replaces ops/pallas/adam.py)
   * flash_attention — flash attention forward, and its dq and dk/dv
                       backward kernels

@@ -1,18 +1,20 @@
-"""Fused AdamW update of one parameter leaf, in place: wrapper, plain
-version and launch counter.
+"""Fused AdamW update of a list of parameter leaves, in place: wrapper,
+host table builder, plain version and launch counter.
 
 Replaces `hetu_tpu/ops/pallas/adam.py` `adam_update`.  Kernel:
 `csrc/adam.cu`, bound by bytes on the H100 (28 bytes per fp32
 element; see its header): one pass reads p, g, m and v and writes p, m
-and v in place.  Every leaf goes through it: the Pallas `% 128` gate
-is a TPU lane rule, and the CUDA kernel takes any element count.
-lr, c1 and c2 arrive as host floats (the optimizer computes them in
-fp32 from the step count, as JAX does in its graph), so the update
-never reads a value back from the card.
+and v in place, over every leaf of a list in one launch.  Every leaf
+goes through it: the Pallas `% 128` gate is a TPU lane rule, and the
+CUDA kernel takes any element count (a scalar path takes the tail and
+views off a 16-byte boundary).  lr, c1 and c2 arrive as host floats (the
+optimizer computes them in fp32 from the step count, as JAX does in its
+graph), so the update never reads a value back from the card.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,9 +24,33 @@ from hetu_tpu_torch.ops.cuda import build
 #: kernel launches (the plain version never counts)
 launches = 0
 
-_SYMBOLS = {torch.float32: "hetu_adam_f32", torch.bfloat16: "hetu_adam_bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [
-    ctypes.c_float] * 9 + [ctypes.c_void_p]
+#: leaves a launch's table holds (`ADAM_MAX_LEAVES` in csrc/adam.cu)
+MAX_LEAVES = 512
+#: elements a block takes at once (`ADAM_CHUNK` in csrc/adam.cu)
+CHUNK = 16384
+
+_SYMBOLS = {torch.float32: "hetu_adam_multi_f32",
+            torch.bfloat16: "hetu_adam_multi_bf16"}
+
+
+class _Leaf(ctypes.Structure):
+    """`struct AdamLeaf` of csrc/adam.cu, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("p", "g", "m", "v")]
+                + [("n", ctypes.c_longlong), ("aligned", ctypes.c_int),
+                   ("pad", ctypes.c_int)])
+
+
+class _Table(ctypes.Structure):
+    """`struct AdamTable` of csrc/adam.cu, field for field."""
+    _fields_ = ([(n, ctypes.c_float) for n in (
+        "b1", "one_minus_b1", "b2", "one_minus_b2", "lr", "c1", "c2", "eps",
+        "wd")]
+        + [("leaves", ctypes.c_int),
+           ("chunk_start", ctypes.c_int * (MAX_LEAVES + 1)),
+           ("leaf", _Leaf * MAX_LEAVES)])
+
+
+_ARGTYPES = [ctypes.POINTER(_Table), ctypes.c_void_p]
 #: every exported symbol -> its ctypes argtypes
 _SIGNATURES = dict.fromkeys(_SYMBOLS.values(), _ARGTYPES)
 
@@ -63,13 +89,51 @@ def adam_plain(p, g, m, v, lr, c1, c2, *, b1, b2, eps, weight_decay):
     v.copy_(v_new)
 
 
-def adam_update(p, g, m, v, lr, c1, c2, *, b1: float, b2: float,
-                eps: float, weight_decay: float, device="cuda") -> None:
-    """One leaf's AdamW step, IN PLACE on p (fp32 or bf16), m and v
-    (fp32), from the fp32 gradient g.  lr, c1 = 1 - b1^step and
-    c2 = 1 - b2^step are host numbers.  `device` "cuda" launches the
-    kernel, "cpu" runs the plain version; the tensors must lie there."""
-    dev = build.check_device("adam_update", device, p, g, m, v)
+def plan_tables(sizes: Sequence[int], max_leaves: int = MAX_LEAVES,
+                chunk: int = CHUNK) -> List[Tuple[List[int], List[int]]]:
+    """Cut leaves of `sizes` elements into launches: a list of (leaf
+    indices, chunk_start) per launch, at most `max_leaves` leaves each,
+    in order; chunk_start[i] is the first chunk of the launch's i-th
+    leaf and its last entry the launch's chunk count (a prefix of
+    ceil(size / chunk)).  Empty leaves are left out: they have no work."""
+    tables, leaves, starts = [], [], [0]
+    for i, n in enumerate(sizes):
+        if n <= 0:
+            continue
+        if len(leaves) == max_leaves:
+            tables.append((leaves, starts))
+            leaves, starts = [], [0]
+        leaves.append(i)
+        starts.append(starts[-1] + -(-n // chunk))
+    if leaves:
+        tables.append((leaves, starts))
+    return tables
+
+
+def vector_aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor starts on a 16-byte boundary, so the kernel
+    moves the leaf in 16-byte vectors (else its scalar path)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def make_tables(params, grads, ms, vs, scalars) -> List[_Table]:
+    """The launches' tables for leaves of one p dtype (`plan_tables`),
+    with the nine fp32 scalars of `_scalars`."""
+    out = []
+    for idx, starts in plan_tables([p.numel() for p in params]):
+        t = _Table(*scalars)
+        t.leaves = len(idx)
+        t.chunk_start[:len(starts)] = starts
+        for j, i in enumerate(idx):
+            p, g, m, v = params[i], grads[i], ms[i], vs[i]
+            t.leaf[j] = _Leaf(p.data_ptr(), g.data_ptr(), m.data_ptr(),
+                              v.data_ptr(), p.numel(),
+                              int(vector_aligned(p, g, m, v)), 0)
+        out.append(t)
+    return out
+
+
+def _check_leaf(p, g, m, v):
     if not (p.shape == g.shape == m.shape == v.shape):
         raise ValueError(f"p/g/m/v shapes must match, got {tuple(p.shape)} "
                          f"{tuple(g.shape)} {tuple(m.shape)} "
@@ -78,21 +142,55 @@ def adam_update(p, g, m, v, lr, c1, c2, *, b1: float, b2: float,
             torch.float32,) * 3:
         raise ValueError(f"adam_update takes an fp32/bf16 p and fp32 g/m/v, "
                          f"got {p.dtype} {g.dtype} {m.dtype} {v.dtype}")
+
+
+def adam_update_multi(params, grads, ms, vs, lr, c1, c2, *, b1: float,
+                      b2: float, eps: float, weight_decay: float,
+                      device="cuda") -> None:
+    """One AdamW step over lists of leaves, IN PLACE on each p (fp32 or
+    bf16), m and v (fp32), from the fp32 gradients.  lr, c1 = 1 - b1^step
+    and c2 = 1 - b2^step are host numbers.  `device` "cuda" launches the
+    kernel once for each p dtype (or once for each `MAX_LEAVES` leaves of
+    it), "cpu" runs the plain version leaf by leaf; the tensors must lie
+    there."""
+    global launches
+    leaves = list(zip(params, grads, ms, vs))
+    if not len(params) == len(grads) == len(ms) == len(vs):
+        raise ValueError(f"{len(params)} params, {len(grads)} grads, "
+                         f"{len(ms)} m, {len(vs)} v")
+    dev = build.check_device("adam_update", device,
+                             *(t for leaf in leaves for t in leaf))
+    for leaf in leaves:
+        _check_leaf(*leaf)
     with torch.no_grad():
         if dev.type == "cpu":
-            adam_plain(p, g, m, v, lr, c1, c2, b1=b1, b2=b2, eps=eps,
-                       weight_decay=weight_decay)
+            for leaf in leaves:
+                adam_plain(*leaf, lr, c1, c2, b1=b1, b2=b2, eps=eps,
+                           weight_decay=weight_decay)
             return
-        for name, t in (("p", p), ("g", g), ("m", m), ("v", v)):
-            if not t.is_contiguous():
-                raise ValueError(f"adam_update needs contiguous {name}")
-        if p.numel() == 0:
-            return
-        with torch.cuda.device(p.device):
-            err = build.bind("adam", _SYMBOLS[p.dtype], _ARGTYPES)(
-                p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-                p.numel(), *_scalars(lr, c1, c2, b1, b2, eps, weight_decay),
-                torch.cuda.current_stream(p.device).cuda_stream)
-    build.check_launch(err, "adam_update")
-    global launches
-    launches += 1
+        for leaf in leaves:
+            for name, t in zip("pgmv", leaf):
+                if not t.is_contiguous():
+                    raise ValueError(f"adam_update needs contiguous {name}")
+        scalars = _scalars(lr, c1, c2, b1, b2, eps, weight_decay)
+        for dtype, symbol in _SYMBOLS.items():
+            group = [leaf for leaf in leaves if leaf[0].dtype == dtype]
+            if not group:
+                continue
+            device_ = group[0][0].device
+            with torch.cuda.device(device_):
+                fn = build.bind("adam", symbol, _ARGTYPES)
+                stream = torch.cuda.current_stream(device_).cuda_stream
+                for table in make_tables(*zip(*group), scalars):
+                    build.check_launch(fn(ctypes.byref(table), stream),
+                                       "adam_update")
+                    launches += 1
+
+
+def adam_update(p, g, m, v, lr, c1, c2, *, b1: float, b2: float,
+                eps: float, weight_decay: float, device="cuda") -> None:
+    """One leaf's AdamW step, IN PLACE on p (fp32 or bf16), m and v
+    (fp32), from the fp32 gradient g: `adam_update_multi` over a list of
+    one leaf."""
+    adam_update_multi([p], [g], [m], [v], lr, c1, c2, b1=b1, b2=b2, eps=eps,
+                      weight_decay=weight_decay, device=device)

@@ -30,9 +30,9 @@ blocks and the lane rules (head dim % 128, the 128 ladder of
 `check_default_shapes`).  Here the default block is 128, the kernels'
 own tile is 64 x 64 whatever the block, and the kernels take head dim 64
 or 128, fp32 or bf16, hq a multiple of hkv; anything else raises.  The
-bf16 forward and dk/dv kernels class each pair of tiles dead, empty,
-full or partial (`tile_classes`): they compute neither a dead nor an
-empty one, skip the element mask on a full one, and run one or more
+three bf16 kernels (forward, dq, dk/dv) class each pair of tiles dead,
+empty, full or partial (`tile_classes`): they compute neither a dead nor
+an empty one, skip the element mask on a full one, and run one or more
 64-row tiles a block (the launchers' rule in the CUDA source).
 
 On CUDA tensors every entry launches its kernel or raises; the plain

@@ -6,7 +6,7 @@ step; here `AdamW.update` and `clip_by_global_norm` write into the
 tensors they are given.  The update is the reference's arithmetic —
 b2 = 0.95, eps outside the square root, weight decay inside the
 bracket on EVERY leaf, fp32 moments — through `ops.cuda.adam`, one
-launch per leaf; not torch.optim.AdamW, whose decoupled decay is other
+launch a step over every leaf; not torch.optim.AdamW, whose decoupled decay is other
 arithmetic.  `AdamW(device=...)`, "cuda" by default, is where the update
 runs: the kernel, or with "cpu" its plain version; the tensors must lie
 there.  `clip_by_global_norm` launches no kernel of its own and runs
@@ -26,7 +26,7 @@ from typing import Callable, List, Union
 import numpy as np
 import torch
 
-from hetu_tpu_torch.ops.cuda.adam import adam_update
+from hetu_tpu_torch.ops.cuda.adam import adam_update_multi
 
 _f32 = np.float32
 
@@ -49,7 +49,7 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
 class AdamW:
     """AdamW with bias correction.  `lr` is a number or a schedule
     step -> lr (the step counts from 1); `device` as in
-    `ops.cuda.adam.adam_update`."""
+    `ops.cuda.adam.adam_update_multi`."""
 
     lr: Union[float, Callable[[int], float]] = 1e-3
     b1: float = 0.9
@@ -75,10 +75,9 @@ class AdamW:
         lr = self._lr(step)
         c1 = _f32(1.0) - _f32(self.b1) ** _f32(step)
         c2 = _f32(1.0) - _f32(self.b2) ** _f32(step)
-        for p, g, m, v in zip(params, grads, state["m"], state["v"]):
-            adam_update(p, g, m, v, lr, c1, c2, b1=self.b1, b2=self.b2,
-                        eps=self.eps, weight_decay=self.weight_decay,
-                        device=self.device)
+        adam_update_multi(params, grads, state["m"], state["v"], lr, c1, c2,
+                          b1=self.b1, b2=self.b2, eps=self.eps,
+                          weight_decay=self.weight_decay, device=self.device)
         state["step"] = step
         return params, state
 

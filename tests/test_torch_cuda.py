@@ -354,6 +354,54 @@ def test_adam_matches_plain(dev, dtype):
                                    atol=1e-10)
 
 
+
+def _adam_leaf(n, seed, dev, dtype, off):
+    """A leaf of n elements `off` elements into its buffer (off a 16-byte
+    boundary where off % 4 != 0)."""
+    buf = torch.empty(n + off, dtype=dtype, device=dev)[off:]
+    return buf.copy_(_normal((n,), seed, dev, dtype))
+
+
+@pytest.mark.parametrize("many", [False, True])
+def test_adam_update_multi_matches_plain(dev, many):
+    """Two in-place steps over a mixed list in one call a step: fp32 and
+    bf16 leaves (one launch each), lengths no multiple of 4 (the scalar
+    tail), leaves off a 16-byte boundary (the scalar path), leaves of
+    several chunks and an empty one; `many`: 1,100 small leaves, more than
+    a table holds (three fp32 launches a step)."""
+    if many:
+        spec = [(1 + i % 37, torch.float32, 0) for i in range(1100)]
+    else:
+        C = tadam.CHUNK
+        spec = [(3 * C + 5, torch.float32, 0), (1001, torch.float32, 1),
+                (C, torch.bfloat16, 0), (4097, torch.bfloat16, 2),
+                (0, torch.float32, 0), (4096, torch.float32, 3),
+                (12, torch.bfloat16, 0)]
+    p = [_adam_leaf(n, 30 + i, dev, dt, off) for i, (n, dt, off) in
+         enumerate(spec)]
+    g = [_adam_leaf(n, 40 + i, dev, torch.float32, off).mul_(0.1)
+         for i, (n, _, off) in enumerate(spec)]
+    m = [torch.zeros(n, device=dev) for n, _, _ in spec]
+    v = [torch.zeros(n, device=dev) for n, _, _ in spec]
+    ref = [[t.clone() for t in ts] for ts in (p, m, v)]
+    launches = tadam.launches
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    for step in (1, 2):
+        c1 = np.float32(1) - np.float32(0.9) ** np.float32(step)
+        c2 = np.float32(1) - np.float32(0.95) ** np.float32(step)
+        tadam.adam_update_multi(p, g, m, v, 1e-3, c1, c2, **kw)
+        for leaf in zip(ref[0], g, ref[1], ref[2]):
+            tadam.adam_plain(*leaf, 1e-3, c1, c2, **kw)
+    torch.cuda.synchronize()
+    assert tadam.launches == launches + 2 * (3 if many else 2)
+    for mine, theirs in zip((p, m, v), ref):
+        for a, b in zip(mine, theirs):
+            if a.dtype == torch.bfloat16:
+                _bf16_close(a, b)
+            else:
+                torch.testing.assert_close(a, b, rtol=3e-7, atol=1e-10)
+
+
 # ------------------------------------------------------------ flash
 _DEAD_ROW = ((True, False, True, False), (False, False, False, False))
 #: name -> (sq, sk, block_q, block_k, what the case turns on)
@@ -405,17 +453,19 @@ def test_flash_matches_plain(dev, dtype, d, hq, hkv, case):
     sq, sk, bq, bk, opts = _FLASH_CASES[case]
     q, k, v, kw = _flash_inputs(dev, dtype, sq, sk, hq, hkv, d, opts)
     kw.update(block_q=bq, block_k=bk)
-    o, lse = _check_flash(dev, q, k, v, kw)
+    o, lse, dq = _check_flash(dev, q, k, v, kw)
     if case in ("dead_row", "future_chunk"):
         rows = slice(64, None) if case == "dead_row" else slice(None)
         assert bool((o[:, rows] == 0).all())
         assert bool((lse[:, :, rows] == tflash.NEG_INF).all())
+        assert bool((dq[:, rows] == 0).all())
 
 
 def _check_flash(dev, q, k, v, kw):
     """The body of `test_flash_matches_plain`: forward and backward of
     `flash_attention(q, k, v, **kw)` against the plain versions in
-    fp32, launch counts, a backward's bits twice.  Returns (o, lse)."""
+    fp32, launch counts, a backward's bits twice.  Returns (o, lse, the
+    gradient of q)."""
     dtype = q.dtype
     before = tflash.launches, tflash.dq_launches, tflash.dkv_launches
     o, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
@@ -457,7 +507,7 @@ def _check_flash(dev, q, k, v, kw):
         else:   # rounded once to bf16 by the Function (half an ulp),
             # and delta was taken from the o the kernel rounded
             _of_max(mine.cpu(), r.grad, rtol=2.0 ** -7)
-    return o, lse
+    return o, lse, grads[0][0]
 
 
 # q block 0 sees k blocks 0 and 8 only: seven tiles that stream for the
@@ -555,6 +605,45 @@ def test_flash_block_of_two_skips_a_tile_dead_for_one_warpgroup(dev):
     for mine, ref in ((dk, rdk), (dv, rdv)):
         assert bool(torch.isfinite(mine[:, :, 64:128]).all())
         _of_max(mine[:, :, 64:128].cpu(), ref[:, :, 64:128], rtol=2.0 ** -8)
+
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_dq_block_of_two_skips_a_tile_dead_for_one_warpgroup(dev, d):
+    """dq's blocks hold two 64-row q warpgroups: NaN in the keys and
+    values of k block 1, live for q block 0 and dead for q block 1 (k
+    block 3 dead for both): the ring loads it for the first warpgroup,
+    the second passes over it, and q block 1's dq equals the plain
+    version's on the same values with the NaN block zeroed; q block 0's
+    takes the NaN (the tile was computed there)."""
+    b, sq, sk, hq, hkv = 2, 128, 256, 72, 36
+    q, k, v, _ = _flash_inputs(dev, torch.bfloat16, sq, sk, hq, hkv, d, {},
+                               b=b)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))      # [b, h, s, d]
+    q_pos = torch.arange(sq, dtype=torch.int32, device=dev).expand(b, sq)
+    k_pos = torch.arange(sk, dtype=torch.int32, device=dev).expand(b, sk)
+    kw = dict(scale=d ** -0.5, causal=False, block_q=64, block_k=64)
+    mask = ((True, True, True, False), (True, False, True, False))
+    lse = tflash._fwd(q, k, v, q_pos, k_pos, None, None, block_mask=mask,
+                      **kw)[1]
+    do = _normal(q.shape, 24, dev, torch.bfloat16)
+    delta = _normal(lse.shape, 25, dev)
+    bad_k, bad_v = k.clone(), v.clone()
+    bad_k[:, :, 64:128], bad_v[:, :, 64:128] = float("nan"), float("nan")
+    before = tflash.dq_launches
+    dq = tflash.flash_bwd_dq(q, bad_k, bad_v, lse, do, delta, q_pos, k_pos,
+                             None, None, block_mask=mask, **kw)
+    torch.cuda.synchronize()
+    assert tflash.dq_launches == before + 1
+    zk, zv = (torch.nan_to_num(t.float(), nan=0.0).cpu()
+              for t in (bad_k, bad_v))
+    rdq = tflash.flash_bwd_plain(
+        q.float().cpu(), zk, zv, lse.cpu(), do.float().cpu(), delta.cpu(),
+        q_pos.cpu(), k_pos.cpu(), None, None,
+        live=tflash._mask_tensor(mask, torch.device("cpu")), **kw)[0]
+    assert bool(torch.isnan(dq[:, :, :64]).any())         # it was loaded
+    assert bool(torch.isfinite(dq[:, :, 64:]).all())
+    _of_max(dq[:, :, 64:].cpu(), rdq[:, :, 64:], rtol=2.0 ** -8)
 
 
 def test_flash_never_loads_a_dead_tile(dev):
@@ -667,7 +756,7 @@ def test_training_on_the_card_matches_the_cpu(dev, use_flash, remat_policy):
     flash_fwd = 0 if not use_flash else (
         bwd if remat_policy == "dots_attn" else fwd)
     per_step = {"norm": (fwd, bwd), "swiglu": (fwd, bwd),
-                "rotary": (fwd, bwd), "adam": (len(card_params), 0),
+                "rotary": (fwd, bwd), "adam": (1, 0),
                 "flash": (flash_fwd, bwd if use_flash else 0),
                 "flash_dkv": (bwd if use_flash else 0, 0)}
     for name, expect in per_step.items():

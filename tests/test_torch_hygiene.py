@@ -131,6 +131,18 @@ def test_no_library_attention_in_the_port():
                                               ).read_text()
 
 
+def test_no_library_adamw_in_the_port():
+    """The port's AdamW is its own kernel: no file of the package names
+    PyTorch's fused AdamW (chip_smoke.py times it beside the kernel as a
+    yardstick, and only there)."""
+    named = [str(path.relative_to(ROOT))
+             for path in sorted((ROOT / "hetu_tpu_torch").rglob("*"))
+             if path.suffix in (".py", ".cu", ".cuh")
+             and "_fused_adam" in path.read_text()]
+    assert named == []
+    assert "torch._fused_adamw_" in (ROOT / "chip_smoke.py").read_text()
+
+
 def test_no_library_dequantize_in_the_port():
     """The port's blockwise dequantize is its own kernel: no file of the
     package builds PyTorch's per-channel quantized tensors (chip_smoke.py

@@ -470,6 +470,153 @@ def test_adam_update_refuses_what_the_kernel_does_not_take():
                           b2=0.95, eps=1e-8, weight_decay=0.0, device="cpu")
 
 
+def test_adam_update_multi_matches_pallas_and_the_reference_adamw():
+    """One `adam_update_multi` call a step over a mixed list — fp32 and
+    bf16 leaves, lane-aligned and ragged, one a view off a 16-byte
+    boundary — two steps, in place: the lane-aligned leaves against the
+    Pallas kernel (interpret mode), the ragged ones against the
+    reference's `AdamW.update` (its unfused chain: the Pallas gate is
+    n % 128), at the reference's 1-ulp bound."""
+    from hetu_tpu.optim import optimizer as joptim
+    b1, b2, eps, wd, lr = 0.9, 0.95, 1e-8, 0.01, 1e-2
+    leaves = {"w": ((8, 128), np.float32, True),
+              "e": ((256,), jnp.bfloat16, True),
+              "b": ((5,), np.float32, False),
+              "t": ((1001,), np.float32, False)}
+    p0 = {n: _rand(shape, 60 + i) for i, (n, (shape, _, _)) in
+          enumerate(leaves.items())}
+    grads = {n: (_rand(x.shape, 70 + i) * 0.1).astype(np.float32)
+             for i, (n, x) in enumerate(p0.items())}
+    jp = {n: jnp.asarray(p0[n], dt) for n, (_, dt, _) in leaves.items()}
+    jm = {n: jnp.zeros(x.shape) for n, x in p0.items()}
+    jv = dict(jm)
+    ragged = [n for n, (_, _, lane) in leaves.items() if not lane]
+    jopt = joptim.AdamW(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=wd)
+    jr = {n: jp[n] for n in ragged}
+    jstate = jopt.init(jr)
+
+    def view(x: np.ndarray, dtype) -> torch.Tensor:
+        """`x` in a buffer one element in: off a 16-byte boundary."""
+        buf = torch.empty(x.size + 1, dtype=dtype)[1:].view(x.shape)
+        return buf.copy_(torch.from_numpy(np.array(x, np.float32)))
+    names = list(leaves)
+    tp = [view(np.asarray(jp[n], np.float32),
+               torch.bfloat16 if leaves[n][1] == jnp.bfloat16
+               else torch.float32) for n in names]
+    tg = [view(grads[n], torch.float32) for n in names]
+    tm = [torch.zeros(p0[n].shape) for n in names]
+    tv = [torch.zeros(p0[n].shape) for n in names]
+    for step in (1, 2):
+        c1 = np.float32(1.0) - np.float32(b1) ** np.float32(step)
+        c2 = np.float32(1.0) - np.float32(b2) ** np.float32(step)
+        for n in names:
+            if leaves[n][2]:
+                jp[n], jm[n], jv[n] = jadam.adam_update(
+                    jp[n], jnp.asarray(grads[n]), jm[n], jv[n], lr, c1, c2,
+                    b1=b1, b2=b2, eps=eps, weight_decay=wd)
+        jr, jstate = jopt.update({n: jnp.asarray(grads[n]) for n in ragged},
+                                 jstate, jr)
+        tadam.adam_update_multi(tp, tg, tm, tv, lr, c1, c2, b1=b1, b2=b2,
+                                eps=eps, weight_decay=wd, device="cpu")
+    for i, n in enumerate(names):
+        want = ((jp[n], jm[n], jv[n]) if leaves[n][2] else
+                (jr[n], jstate["m"][n], jstate["v"][n]))
+        for a, b in zip((tp[i], tm[i], tv[i]), want):
+            np.testing.assert_allclose(a.float().numpy(),
+                                       np.asarray(b, np.float32),
+                                       rtol=3e-7, atol=1e-8, err_msg=n)
+
+
+@pytest.mark.parametrize("max_leaves", [1, 2, tadam.MAX_LEAVES])
+def test_adam_plan_tables_cuts_chunks_and_splits_long_lists(max_leaves):
+    """The host side of the multi-tensor launch: each leaf's chunks
+    (ceil(n / CHUNK)) as a prefix from 0, empty leaves left out, and a
+    list longer than a table cut into as few launches as it needs, in
+    order."""
+    C = tadam.CHUNK
+    sizes = [10, 0, C, C + 1, 3 * C - 1, 1]
+    tables = tadam.plan_tables(sizes, max_leaves)
+    live = [i for i, n in enumerate(sizes) if n]
+    assert len(tables) == -(-len(live) // max_leaves)
+    assert [i for idx, _ in tables for i in idx] == live
+    for idx, starts in tables:
+        assert 1 <= len(idx) <= max_leaves and len(starts) == len(idx) + 1
+        assert starts[0] == 0
+        assert [b - a for a, b in zip(starts, starts[1:])] == [
+            -(-sizes[i] // C) for i in idx]
+    assert tadam.plan_tables([0, 0]) == []
+
+
+def test_adam_plan_tables_fit_gpt2_large_in_one_launch():
+    """GPT-2-large's 436 leaves (the Trainer's fp32 parameters) take one
+    table; 1,100 one-element leaves take three."""
+    from hetu_tpu_torch.models.gpt import GPTConfig
+    c = GPTConfig.gpt2_large()
+    h, i = c.hidden_size, c.intermediate_size
+    block = [h, h, 3 * h * h, 3 * h, h * h, h, h, h, h * i, i, i * h, h]
+    sizes = ([c.max_position_embeddings * h, c.vocab_size * h]
+             + block * c.num_hidden_layers + [h, h])
+    assert len(sizes) == 436
+    (idx, starts), = tadam.plan_tables(sizes)
+    assert idx == list(range(436))
+    assert starts[-1] == sum(-(-n // tadam.CHUNK) for n in sizes)
+    assert [len(ix) for ix, _ in tadam.plan_tables([1] * 1100)] == [
+        512, 512, 76]
+
+
+def test_adam_tables_hold_pointers_chunks_and_alignment_flags():
+    """`make_tables` writes each leaf's pointers, length and alignment
+    flag (every one of p, g, m, v on a 16-byte boundary: the vector
+    path) and the chunk prefix, with the nine scalars."""
+    def off(n, k, dtype=torch.float32):
+        return torch.zeros(n + k, dtype=dtype)[k:]
+    leaves = [(torch.zeros(40000), torch.zeros(40000), torch.zeros(40000),
+               torch.zeros(40000)),
+              (off(7, 1), torch.zeros(7), torch.zeros(7), torch.zeros(7)),
+              (off(8, 4, torch.bfloat16), off(8, 4), off(8, 4), off(8, 4)),
+              (torch.zeros(0),) * 4]
+    scalars = tadam._scalars(1e-3, 0.1, 0.05, 0.9, 0.95, 1e-8, 0.1)
+    (t,) = tadam.make_tables(*zip(*leaves), scalars)
+    assert t.leaves == 3
+    assert list(t.chunk_start[:4]) == [0, 3, 4, 5]
+    assert [t.leaf[j].aligned for j in range(3)] == [1, 0, 0]
+    assert [t.leaf[j].n for j in range(3)] == [40000, 7, 8]
+    for j in range(3):
+        assert [getattr(t.leaf[j], f) for f in "pgmv"] == [
+            x.data_ptr() for x in leaves[j]]
+    assert (t.b1, t.lr, t.wd) == (scalars[0], scalars[4], scalars[8])
+    assert tadam.vector_aligned(off(8, 4)) and not tadam.vector_aligned(
+        off(8, 1))
+
+
+def test_adam_table_mirrors_the_source():
+    """`_Leaf` / `_Table` are `struct AdamLeaf` / `struct AdamTable` of
+    csrc/adam.cu field for field, its MAX_LEAVES and CHUNK are the
+    source's, and the table fits the 32,764 bytes a kernel's parameters
+    may take: checked here, where no compiler runs."""
+    import ctypes
+    text = (build.CSRC / "adam.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (ADAM_\w+) = (\d+);", text)}
+    assert const["ADAM_MAX_LEAVES"] == tadam.MAX_LEAVES
+    assert const["ADAM_CHUNK"] == tadam.CHUNK
+    assert const["ADAM_CHUNK"] % (4 * const["ADAM_THREADS"]) == 0
+
+    def fields(struct):
+        body = re.search(rf"struct {struct} \{{(.*?)\n\}};", text,
+                         re.S).group(1)
+        out = []
+        for decl in filter(None, (d.strip() for d in body.split(";"))):
+            decl = re.sub(r"\[.*?\]", "", decl)
+            names = re.match(r".*?[\s*](\w+(?:\s*,\s*\w+)*)$", decl,
+                             re.S).group(1)
+            out += [n.strip() for n in names.split(",")]
+        return out
+    assert fields("AdamLeaf") == [f for f, _ in tadam._Leaf._fields_]
+    assert fields("AdamTable") == [f for f, _ in tadam._Table._fields_]
+    assert ctypes.sizeof(tadam._Table) <= 32764
+
+
 # ------------------------------------------------------ paged attention
 def _paged_case(seed, dtype=np.float32):
     """hd 128, GQA group 2, mixed depths, one inactive slot on the null

@@ -564,6 +564,26 @@ def test_default_device_trainer_raises_without_a_card(monkeypatch):
         Trainer(model, TrainingConfig(), device="meta")
 
 
+def test_adamw_update_is_one_multi_tensor_call(monkeypatch):
+    """`AdamW.update` hands every leaf to the multi-tensor wrapper in
+    one call a step (one launch on the card), with the step's lr and
+    bias corrections."""
+    calls = []
+    real = toptim.adam_update_multi
+
+    def spy(params, grads, ms, vs, lr, c1, c2, **kw):
+        calls.append((len(params), lr, float(c1), float(c2)))
+        real(params, grads, ms, vs, lr, c1, c2, **kw)
+    monkeypatch.setattr(toptim, "adam_update_multi", spy)
+    params = [torch.zeros(8, 128), torch.zeros(5), torch.zeros(3, 7)]
+    opt = toptim.AdamW(lr=1e-2, weight_decay=0.1, device="cpu")
+    state = opt.init(params)
+    for _ in range(2):
+        opt.update([torch.ones_like(p) for p in params], state, params)
+    assert [c[0] for c in calls] == [3, 3]
+    assert calls[1][2] == float(np.float32(1) - np.float32(0.9) ** 2)
+
+
 def test_default_device_adamw_raises_without_a_card(monkeypatch):
     """AdamW runs where it was asked to: "cuda" by default, which
     raises here rather than quietly running the plain version."""

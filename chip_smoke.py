@@ -9,9 +9,9 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     (no CUDA device -> exit 1 before anything else runs);
  2. build: every CUDA kernel from hetu_tpu_torch/csrc, one nvcc per
     source, all at once; prints the ptxas report (registers, shared
-    memory, spills) and the build time, then the bf16 dq kernel's
-    registers and spills; a (C7520) warning (ptxas serialising wgmma)
-    fails the run;
+    memory, spills) and the build time, then the bf16 dq kernel's and
+    the paged kernels' (split and merge) registers and spills; a
+    (C7520) warning (ptxas serialising wgmma) fails the run;
  3. kernels: each kernel at the shapes each path gives it for Llama-3-8B
     (serving: decode and a 256-token prefill chunk, checked here;
     training: 2 x 2048 tokens per micro-batch, every kernel of that
@@ -29,7 +29,8 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     AdamW, `scaled_dot_product_attention` for the flash kernels; timed
     as yardsticks only, the port never calls them); AdamW through its
     multi-tensor launch, beside the rates PyTorch's copy and add reach
-    at the same size; dq and dk/dv run twice give the same bits.
+    at the same size; dq and dk/dv run twice give the same bits, and
+    so does every paged case (its splits merged in a fixed order).
     Tolerances:
     one bf16 ulp where a kernel rounds once to bf16 (paged attention on
     bf16 pools: the plain version on the same values in fp32, rounded
@@ -68,8 +69,9 @@ Phases, in order; any failure exits non-zero and nothing carries on:
  6. serving time: one decode step over 8 slots and one 256-token
     prefill chunk, each timed on the host (enqueue, and wall to a
     synchronize) and under torch.profiler (the summed time of the
-    kernels it saw on the card): the card's idle share and its heaviest
-    kernels; then the same model and trace with half the requests at
+    kernels it saw on the card): the card's idle share, its heaviest
+    kernels and the paged kernels' time and share of it; then the same
+    model and trace with half the requests at
     SamplingParams(temperature=0.8, top_k=50, top_p=0.95) on int8 pages,
     (b) without speculation, then (a) with n-gram speculation (spec_k
     4), then (a) again with (a)'s own continuation as its drafts (its
@@ -88,8 +90,9 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     prefix cache, 16 requests sharing a 512-token system prompt (exact
     launch counts; TTFT, gap, tokens/s, acceptance, prefix hits, draft
     ms a propose, peak memory; one propose and one verify step
-    profiled), and the same trace greedy on exact pages with the prefix
-    cache and without it (TTFT of both, tokens identical);
+    profiled, with the paged kernels' share), and the same trace greedy
+    on exact pages with the prefix cache and without it (TTFT of both,
+    tokens identical);
  7. training reference: a narrow Llama (hidden 512, 4 q / 2 kv heads of
     128, SwiGLU 1536, vocab 4096, 2 layers, fp32, flash attention,
     recompute policy "dots_attn") takes 3 `Trainer` steps on the card
@@ -160,7 +163,10 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     and with n-gram speculation; exact launch counts, TTFT, gap,
     tokens/s, peak memory; then one 256-token prefill chunk timed with
     an int start (the engine's) and with a [1] start (the per-row
-    scatter), logits and caches identical.
+    scatter), logits and caches identical;
+13. the draft forward's elementwise kernels (`draft_kernel_phase`):
+    RoPE at q [1,256,32,64] / k [1,256,8,64], SwiGLU at [256, 8192] and
+    the RMS forward at [256, 2048], bf16, timed as phase 3 times them.
 
 Prints the `kernels` JSON line, the nvidia-smi line, and last the
 `{"ok": true, "device": ...}` line.
@@ -329,6 +335,15 @@ def compare(label, tols, out, ref):
     return err, excess, " / ".join(dict.fromkeys(t.text for t in tols))
 
 
+def same_bits(label, run):
+    """Two launches of `run` on the same inputs give the same bits (the
+    paged kernels merge their splits in a fixed order, no atomics)."""
+    a, b = run(0), run(0)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), f"{label}: two runs differ")
+    print(f"kernel {label}: two runs the same bits")
+
+
 def checked(label, tols, out, ref):
     """A correctness-only case: compared, not timed."""
     err, excess, text = compare(label, tols, out, ref)
@@ -427,12 +442,15 @@ def serving_kernel_phase(seed: int):
                        (torch.float32, ulps(0, 1e-4))):
         q, pools, table, pos, nbytes, ops = paged_case(dtype, seed, 4)
         scale = 128 ** -0.5
+        label = (f"paged_attention S=8 nq=32 n_kv=8 hd=128 ps=16 mp=128 "
+                 f"{str(dtype)[6:]}")
+
+        def run(i, q=q, pools=pools, table=table, pos=pos):
+            return pa.paged_attention(q, *pools[i % len(pools)], table, pos,
+                                      softmax_scale=scale)
+        same_bits(label, run)
         paged.append(case(
-            f"paged_attention S=8 nq=32 n_kv=8 hd=128 ps=16 mp=128 "
-            f"{str(dtype)[6:]}", tol,
-            lambda i, q=q, pools=pools, table=table, pos=pos:
-                pa.paged_attention(q, *pools[i % len(pools)], table, pos,
-                                   softmax_scale=scale),
+            label, tol, run,
             lambda i, q=q, pools=pools, table=table, pos=pos:
                 pa.paged_attention_plain(q, *pools[i % len(pools)], table,
                                          pos, scale),
@@ -642,8 +660,9 @@ def paged_cases(seed, modes, depths=SPEC_DEPTHS, **shape):
                 return pa.paged_verify_plain(
                     q.float() if f32 else q, k, v, table, pos, scale, ks,
                     vs, quant)
-        # the products of bf16 queries with int8 / int4 / bf16 keys could
-        # run on the bf16 tensor cores (the scales applied a key after)
+        # the products of bf16 queries with int8 / int4 / bf16 keys run
+        # on the bf16 tensor cores (the scales applied a key after)
+        same_bits(label, run)
         res.append((name, case(label, ulps(0.5, 1e-5), run, plain, nbytes,
                                ops, exact=lambda i, plain=plain:
                                    plain(i, f32=True),
@@ -1869,6 +1888,53 @@ def serving3_kernel_phase(seed: int):
     return {"dequantize_blockwise": out}
 
 
+def draft_kernel_phase(seed: int):
+    """RoPE, SwiGLU and the RMS forward at the draft forward's shapes
+    (serving3: a 256-token window at Llama-3.2-1B's widths, `draft_config`)
+    — q [1,256,32,64] / k [1,256,8,64], [256, 8192] and [256, 2048],
+    bf16 — timed as phase 3 times them, at phase 3's tolerances."""
+    from hetu_tpu_torch.ops.cuda import fused_norm as fn
+    from hetu_tpu_torch.ops.cuda import rotary as ro
+    from hetu_tpu_torch.ops.cuda import swiglu as sw
+    from hetu_tpu_torch.ops.rotary import build_rope_cache
+    d = draft_config()
+    hd = d.hidden_size // d.num_attention_heads
+    T, hidden, inter = 256, d.hidden_size, d.intermediate_size
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    cos, sin = build_rope_cache(d.max_position_embeddings, hd,
+                                d.rope_theta, device="cuda")
+    pos = torch.arange(T, device="cuda")[None]
+    cos_t, sin_t = cos[pos].contiguous(), sin[pos].contiguous()
+    q = randn(1, T, d.num_attention_heads, hd)
+    k = randn(1, T, d.num_key_value_heads, hd)
+    rotary = case(
+        f"fused_rotary_qk q=[1,{T},{d.num_attention_heads},{hd}] "
+        f"k=[1,{T},{d.num_key_value_heads},{hd}] bf16 (the draft)", ulps(1),
+        lambda i: ro.fused_rotary_qk(q, k, cos_t, sin_t),
+        lambda i: ro.rotary_qk_plain(q, k, cos_t, sin_t),
+        2 * (q.numel() + k.numel()) * 2 + 2 * cos_t.numel() * 4,
+        6 * (q.numel() + k.numel()) // 2)
+    gu = randn(T, 2, inter)
+    n = T * inter
+    swiglu = case(
+        f"fused_swiglu [{T},{inter}] bf16 (the draft)", ulps(1),
+        lambda i: sw.fused_swiglu(gu),
+        lambda i: sw.swiglu_plain(gu[:, 0], gu[:, 1]), 3 * n * 2, 5 * n)
+    x, h = randn(T, hidden), randn(T, hidden)
+    w = 1.0 + 0.1 * randn(hidden, dtype=torch.float32)
+    norm = case(
+        f"residual_rmsnorm_fwd [{T},{hidden}] bf16, w fp32 (the draft)",
+        ulps(1, 1e-6),
+        lambda i: fn.residual_rmsnorm_fwd(x, h, w, d.rms_norm_eps),
+        lambda i: fn.residual_rmsnorm_plain(x, h, w, d.rms_norm_eps),
+        4 * T * hidden * 2 + hidden * 4, 6 * T * hidden)
+    return {"fused_rotary_qk": [rotary], "fused_swiglu": [swiglu],
+            "residual_rmsnorm_fwd": [norm]}
+
+
 def shared_prompt_trace(vocab: int, seed: int, *, n: int = 16,
                         sampled: bool = True):
     """n Poisson requests at 10/s sharing one 512-token system prompt
@@ -2063,10 +2129,13 @@ def serving3_phase(model, seed: int, kernels):
         counts = {}
         busy, wall_ms, by_name, top = _profile(fn, 3, counts=counts)
         dq = sum(t for n_, t in by_name.items() if "dequantize" in n_)
+        paged = paged_ms(by_name)
         prof[name] = {"wall_ms": wall_ms, "device_busy_ms": busy,
                       "device_idle_share": 1.0 - busy / wall_ms,
                       "dequantize_ms": dq,
                       "dequantize_share_of_busy": dq / busy,
+                      "paged_attention_ms": paged,
+                      "paged_attention_share_of_busy": paged / busy,
                       "device_ops_per_call": round(sum(counts.values())),
                       "top_kernels_ms": top}
     print("serving3 time " + json.dumps(prof))
@@ -2222,6 +2291,12 @@ def _profile(fn, steps: int, top: int = 5, counts=None):
 STEP_OPS = {}
 
 
+def paged_ms(by_name):
+    """The paged kernels' device time (split kernel and merge) in a
+    profile's per-kernel sums."""
+    return sum(t for n, t in by_name.items() if "paged_" in n)
+
+
 def serving_time_phase(eng, reqs):
     """One decode step and one prefill chunk at the serving shapes —
     for a speculative engine one verify step with its sampling epilogue
@@ -2293,10 +2368,13 @@ def serving_time_phase(eng, reqs):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / reps
         counts = STEP_OPS[name] = {}
-        busy, _, _, top = _profile(fn, 3, counts=counts)
+        busy, _, by_name, top = _profile(fn, 3, counts=counts)
+        paged = paged_ms(by_name)
         out[name] = {"host_enqueue_ms": enqueue * 1e3, "wall_ms": wall * 1e3,
                      "device_busy_ms": busy,
                      "device_idle_share": 1.0 - busy / (wall * 1e3),
+                     "paged_attention_ms": paged,
+                     "paged_attention_share_of_busy": paged / busy,
                      "device_ops_per_step": round(sum(counts.values())),
                      "top_kernels_ms": top,
                      "most_launched": sorted(
@@ -2788,6 +2866,8 @@ def main(argv=None) -> int:
     print(f"build: {len(reports)} kernels in "
           f"{time.perf_counter() - t0:.2f}s")
     ptxas_check(reports["flash_attention"], "flash_bwd_dq_wgmma_kernel")
+    ptxas_check(reports["paged_attention"], "paged_split_kernel")
+    ptxas_check(reports["paged_attention"], "paged_merge_kernel")
 
     # each path runs beside its own kernel checks: serving first, so
     # the training kernels' large buffers and CUDA graphs come after it
@@ -2839,6 +2919,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     by_path.update(gpt_serving_phase(args.seed, kernels))
+    # the draft forward's shapes, after each kernel's own paths' cases
+    for name, more in draft_kernel_phase(args.seed).items():
+        cases[name].extend(more)
 
     line = []
     for name, (mod, attr, source, replaces) in kernels.items():

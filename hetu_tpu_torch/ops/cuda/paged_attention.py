@@ -5,11 +5,14 @@ Replaces `hetu_tpu/ops/pallas/paged_attention.py` `paged_attention`
 (decode, one query token a slot) and `paged_verify` (C = k + 1 query
 tokens a slot), each over exact, int8 or int4 pages (`_load_page`).
 Kernel: `csrc/paged_attention.cu`, one kernel for both, bound by the
-bytes of the live K/V pages on the H100 (see its header): one block per
-(slot, kv head) stages tiles of keys in shared memory, dequantizing
-quantized payloads in registers, reads each live row once for all of
-the kv head's query rows, and never loads a key past the slot's last
-query position.
+bytes of the live K/V pages on the H100 (see its header): each slot's
+keys are split across blocks by `split_plan` (from the table's width
+and the row count alone, so a launch never reads `positions` on the
+host and can be captured in a CUDA graph), each block streams its pages
+through a cp.async ring and never loads a key past the slot's last
+query position, and a second kernel merges the splits in a fixed
+order.  `paged_verify_split_plain` is that split-then-merge arithmetic
+in PyTorch, for the tests.
 """
 from __future__ import annotations
 
@@ -29,10 +32,16 @@ int4_launches = 0
 #: verify launches, every page mode
 verify_launches = 0
 
-#: the kernel's limits (csrc/paged_attention.cu PA_MAX_ROWS, PA_MAX_D *
-#: PA_THREADS): C * group query rows a block, the head dim
+#: the kernel's limits (csrc/paged_attention.cu PA_MAX_ROWS,
+#: PA_MAX_HD, PA_MAX_SPLIT): C * group query rows a kv head, the head
+#: dim, the keys a split
 MAX_ROWS = 32
 MAX_HEAD_DIM = 256
+MAX_SPLIT = 1024
+# keys a split where a kv head holds few query rows (decode) and many
+# (verify), timed on the card (csrc/paged_attention.cu's header)
+_SPLIT_KEYS_FEW_ROWS = 256
+_SPLIT_KEYS_MANY_ROWS = 128
 
 _NEG = -1e30
 _MODES = ("none", "int8", "int4")
@@ -45,8 +54,9 @@ _SYMBOLS = {
     (torch.float32, "int4"): "hetu_paged_attention_int4_f32",
     (torch.bfloat16, "int4"): "hetu_paged_attention_int4_bf16",
 }
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                                         ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p])
 #: every exported symbol -> its ctypes argtypes
 _SIGNATURES = dict.fromkeys(_SYMBOLS.values(), _ARGTYPES)
 
@@ -115,6 +125,71 @@ def paged_attention_plain(q, k_pool, v_pool, table, positions,
                               softmax_scale, k_scale, v_scale, quant)[:, 0]
 
 
+def split_plan(max_pages: int, page_size: int, rows: int):
+    """(splits, keys a split) of the kernel's grid for a table of
+    `max_pages` pages of `page_size` and `rows` = C * group query rows a
+    kv head.  Shapes alone decide it, never `positions`: the kernel
+    reads those on the card, so a launch never waits on the device and
+    a CUDA graph replays it for any positions.  Keys a split are a
+    multiple of the page size; one split when it covers the table."""
+    target = _SPLIT_KEYS_FEW_ROWS if rows <= 8 else _SPLIT_KEYS_MANY_ROWS
+    keys = max(1, target // page_size) * page_size
+    total = max_pages * page_size
+    if total <= keys:
+        return 1, total
+    return -(-total // keys), keys
+
+
+def paged_verify_split_plain(q, k_pool, v_pool, table, positions,
+                             softmax_scale: float, k_scale=None,
+                             v_scale=None, quant: str = "none",
+                             keys_per_split: Optional[int] = None):
+    """The kernel's split-then-merge arithmetic in PyTorch (for the
+    tests; any `keys_per_split`, `split_plan`'s by default): each split
+    j over keys [j K, (j + 1) K) keeps each row's max m_j (the finite
+    sentinel -1e30 where it sees no key), sum l_j and unnormalised
+    accumulator; splits starting past a slot's last visible key are not
+    live; the live ones merge in split order, M = max m_j, out = sum
+    acc_j exp(m_j - M) / sum l_j exp(m_j - M) (l == 0 -> 1).  Same
+    arguments and result as `paged_verify_plain`."""
+    S, C, nq, hd = q.shape
+    n_kv = k_pool.shape[2]
+    group = nq // n_kv
+    ps = k_pool.shape[1]
+    K = keys_per_split or split_plan(table.shape[1], ps, C * group)[1]
+    ks = _dense(k_pool, k_scale, table, quant, hd)
+    vs = _dense(v_pool, v_scale, table, quant, hd)
+    M = ks.shape[1]
+    keys = torch.arange(M, device=q.device)
+    qpos = positions.long()[:, None] + torch.arange(C, device=q.device)
+    visible = keys[None, None, :] <= qpos[:, :, None]            # [S, C, M]
+    qg = q.float().reshape(S, C, n_kv, group, hd)
+    s = torch.einsum("schgd,skhd->shgck", qg, ks) * softmax_scale
+    s = s.masked_fill(~visible[:, None, None], _NEG)
+    vs = vs.masked_fill(~visible[:, -1, :, None, None], 0.0)
+    n_keys = torch.clamp(positions.long() + C, max=M)             # [S]
+    parts = []                      # each split's (live, m, l, acc)
+    for j0 in range(0, M, K):
+        sj = s[..., j0:j0 + K]
+        vis = visible[:, None, None, :, j0:j0 + K]
+        m = sj.amax(dim=-1)         # -1e30 where the split sees no key
+        p = torch.where(vis, torch.exp(sj - m[..., None]), 0.0)
+        acc = torch.einsum("shgck,skhd->shgcd", p, vs[:, j0:j0 + K])
+        live = ((j0 < n_keys) | (j0 == 0))[:, None, None, None]
+        parts.append((live, m, p.sum(dim=-1), acc))
+    # the merge: live splits only, summed in split order
+    m_max = torch.stack([torch.where(live, m, _NEG)
+                         for live, m, _, _ in parts]).amax(dim=0)
+    l_sum = torch.zeros_like(m_max)
+    o_sum = torch.zeros_like(parts[0][3])
+    for live, m, l, acc in parts:
+        f = torch.where(live, torch.exp(m - m_max), 0.0)
+        l_sum = l_sum + l * f
+        o_sum = o_sum + acc * f[..., None]
+    out = o_sum / torch.where(l_sum == 0, 1.0, l_sum)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(S, C, nq, hd).to(q.dtype)
+
+
 def _check(q, k_pool, v_pool, table, positions, k_scale, v_scale,
            quant: str):
     """q is [S, C, nq, hd] here."""
@@ -162,11 +237,12 @@ def _launch(q, k_pool, v_pool, table, positions, k_scale, v_scale,
     S, C, nq, hd = q.shape
     _, ps, n_kv, _ = k_pool.shape
     group = nq // n_kv
+    mp = table.shape[1]
     if C * group > MAX_ROWS or hd > MAX_HEAD_DIM:
         raise ValueError(f"the CUDA kernel takes C * group <= {MAX_ROWS} "
                          f"query rows a kv head and head dims <= "
                          f"{MAX_HEAD_DIM}, got C {C}, group {group}, hd {hd}")
-    # the kernel stages page rows with 16-byte loads
+    # the kernel stages page rows with 16-byte copies
     if (k_pool.shape[-1] * k_pool.element_size()) % 16 \
             or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError(f"the CUDA kernel needs 16-byte page rows on "
@@ -179,7 +255,17 @@ def _launch(q, k_pool, v_pool, table, positions, k_scale, v_scale,
     for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"paged attention needs contiguous {name}")
+    splits, kps = split_plan(mp, ps, C * group)
+    if kps > MAX_SPLIT:
+        raise ValueError(f"the CUDA kernel takes pages of at most "
+                         f"{MAX_SPLIT} keys, got {ps}")
     out = torch.empty_like(q)
+    # the splits' fp32 partials: the accumulators of each (slot, kv head,
+    # split, row), then their (m, l)
+    part = None
+    if splits > 1:
+        part = torch.empty(S * n_kv * splits * C * group * (hd + 2),
+                           dtype=torch.float32, device=q.device)
     sc = (k_scale.data_ptr(), v_scale.data_ptr()) if quant != "none" \
         else (None, None)
     with torch.cuda.device(q.device):
@@ -187,7 +273,8 @@ def _launch(q, k_pool, v_pool, table, positions, k_scale, v_scale,
                          _ARGTYPES)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *sc,
             table.data_ptr(), positions.data_ptr(), out.data_ptr(), S, C,
-            n_kv, group, hd, ps, table.shape[1], scale,
+            n_kv, group, hd, ps, mp, scale,
+            None if part is None else part.data_ptr(), kps,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(err, "paged_attention")
     return out

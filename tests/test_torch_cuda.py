@@ -1208,3 +1208,136 @@ def test_gpt_training_on_the_card_matches_the_cpu(dev):
         if name.endswith("bqkv"):   # the key bias: its gradient is
             d = d[:, [0, 2]]        # rounding alone (tests/test_torch_gpt)
         assert (d > 1e-5).float().mean() <= 1e-3, name
+
+
+def _split_case(dev, quant, dtype, group, hd, C, seed=21, ps=16, mp=130,
+                n_kv=2):
+    """Slots whose keys span many splits of the kernel's plan: depth
+    2,047 (the table's 130 pages hold 2,080 keys, not a multiple of the
+    split), depths K - 1, K and K + 1 around a split boundary, a verify
+    slot whose query limits straddle one (K - 3 .. K + 1), and an
+    inactive slot (position 0 on the null page).  Every pool row no
+    query may read — past the slot's position in its own page, later
+    pages, the rest of the null page — holds NaN (exact pages) or a NaN
+    scale (quantized pages).  Returns q, (k, v, k_scale, v_scale) on the
+    card, table, positions and the split's keys K."""
+    _, K = tpaged.split_plan(mp, ps, C * group)
+    depths = [2047, K - 1, K, K + 1, K - 3, 0]
+    S = len(depths)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n_pages = [0 if d == 0 else (d + C - 1) // ps + 1 for d in depths]
+    P = sum(n_pages) + 1
+    perm = torch.randperm(P - 1, generator=g) + 1
+    table = torch.zeros((S, mp), dtype=torch.int32)
+    used = 0
+    for s, n in enumerate(n_pages):
+        table[s, :n] = perm[used:used + n]
+        used += n
+    live = torch.zeros(P * ps, dtype=torch.bool)
+    for s, d in enumerate(depths):
+        keys = torch.arange(d + C)
+        live[table[s, keys // ps].long() * ps + keys % ps] = True
+    pools = []
+    for _ in range(2):
+        x = torch.randn((P, ps, n_kv, hd), generator=g)
+        if quant == "none":
+            x = x.to(dtype)
+            x.view(P * ps, n_kv, hd)[~live] = float("nan")
+            pools.append((x, None))
+        else:
+            pq, sc = _quant_pool(x, quant)
+            sc.view(P * ps, n_kv)[~live] = float("nan")
+            pools.append((pq, sc))
+    q = torch.randn((S, C, n_kv * group, hd), generator=g).to(dtype)
+    (kp, ks), (vp, vs) = pools
+    on = [t if t is None else t.to(dev) for t in (kp, vp, ks, vs)]
+    positions = torch.tensor(depths, dtype=torch.int32, device=dev)
+    return q.to(dev), on, table.to(dev), positions, K
+
+
+def _split_call(q, pools, table, positions, quant):
+    k, v, ks, vs = pools
+    kw = {} if quant == "none" else dict(k_scale=ks, v_scale=vs, quant=quant)
+    if q.shape[1] == 1:
+        return tpaged.paged_attention(q[:, 0], k, v, table, positions,
+                                      **kw)[:, None]
+    return tpaged.paged_verify(q, k, v, table, positions, **kw)
+
+
+def _split_plain(q, pools, table, positions, quant):
+    """The plain version on the same values in fp32."""
+    k, v, ks, vs = pools
+    if quant == "none":
+        k, v = k.float(), v.float()
+    return tpaged.paged_verify_plain(q.float(), k, v, table, positions,
+                                     q.shape[-1] ** -0.5, ks, vs, quant)
+
+
+@pytest.mark.parametrize("C", [1, 5])
+@pytest.mark.parametrize("group,hd", [(1, 64), (4, 64), (1, 128), (4, 128),
+                                      (1, 96), (4, 96),    # padded to 128
+                                      (1, 256), (4, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+def test_paged_split_and_merge_match_plain(dev, quant, dtype, group, hd, C):
+    """The split kernel and its merge against the plain version, NaN in
+    every unread row, at depths that span many splits and sit on split
+    boundaries; two launches on the same inputs give the same bits.
+    Head dim 96 runs zero-padded to 128; 256 merges two float4s a lane,
+    and at C = 5, group 4 its 20 rows run as two row chunks."""
+    q, pools, table, positions, _ = _split_case(dev, quant, dtype, group,
+                                                hd, C)
+    counter = ("verify_launches" if C > 1 else
+               "launches" if quant == "none" else f"{quant}_launches")
+    before = getattr(tpaged, counter)
+    out = _split_call(q, pools, table, positions, quant)
+    again = _split_call(q, pools, table, positions, quant)
+    torch.cuda.synchronize()
+    assert getattr(tpaged, counter) == before + 2
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, again)
+    _check_paged(out, _split_plain(q, pools, table, positions, quant), dtype)
+
+
+@pytest.mark.parametrize("C", [1, 5])
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+def test_paged_split_replays_from_a_cuda_graph(dev, quant, C):
+    """A launch captured in a CUDA graph, replayed after `positions`
+    changed in place, equals an eager launch on the new positions bit
+    for bit: the split count comes from shapes alone, and the kernels
+    read positions on the card."""
+    q, pools, table, positions, K = _split_case(dev, quant, torch.bfloat16,
+                                                4, 128, C)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _split_call(q, pools, table, positions, quant)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _split_call(q, pools, table, positions, quant)
+    # fewer keys than at capture (rows past the old ones hold NaN)
+    positions.copy_(torch.tensor([1500, K - 2, K - 1, 7, K - 4, 0],
+                                 dtype=torch.int32, device=dev))
+    graph.replay()
+    eager = _split_call(q, pools, table, positions, quant)
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    _check_paged(captured, _split_plain(q, pools, table, positions, quant),
+                 torch.bfloat16)
+
+
+@pytest.mark.parametrize("C", [6, 8])
+@pytest.mark.parametrize("hd", [128, 96, 256])
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+def test_paged_verify_many_rows_match_plain(dev, quant, hd, C):
+    """24 and 32 query rows a kv head (C = 6 and 8 at group 4): the
+    kernel's largest row count, over many splits, NaN in unread rows;
+    at head dim 256 in row chunks of 16."""
+    q, pools, table, positions, _ = _split_case(dev, quant, torch.bfloat16,
+                                                4, hd, C)
+    out = _split_call(q, pools, table, positions, quant)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    _check_paged(out, _split_plain(q, pools, table, positions, quant),
+                 torch.bfloat16)

@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     (no CUDA device -> exit 1 before anything else runs);
  2. build: every CUDA kernel from hetu_tpu_torch/csrc, one nvcc per
     source, all at once; prints the ptxas report (registers, shared
-    memory, spills) and the build time, then the bf16 dq kernel's and
-    the paged kernels' (split and merge) registers and spills; a
+    memory, spills) and the build time, then the bf16 dq kernel's, the
+    paged kernels' (split and merge), the SwiGLU forward's and RoPE's
+    registers and spills; a
     (C7520) warning (ptxas serialising wgmma) fails the run;
  3. kernels: each kernel at the shapes each path gives it for Llama-3-8B
     (serving: decode and a 256-token prefill chunk, checked here;
@@ -27,7 +28,12 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     the bf16 tensor-core peak, 989 TFLOP/s) — and, where one PyTorch call
     computes the same function, that call (`torch._fused_adamw_` for
     AdamW, `scaled_dot_product_attention` for the flash kernels; timed
-    as yardsticks only, the port never calls them); AdamW through its
+    as yardsticks only, the port never calls them), else the few
+    PyTorch calls that compose it, one CUDA graph (SwiGLU: `F.silu(g) *
+    u` on the bf16 halves; RoPE: the half-split rotation's ops on the
+    bf16 tensors); RoPE also as the LLaMA attention calls it, q and k
+    read in place from the fused QKV projection (the training shape
+    and the draft's); AdamW through its
     multi-tensor launch, beside the rates PyTorch's copy and add reach
     at the same size; dq and dk/dv run twice give the same bits, and
     so does every paged case (its splits merged in a fixed order).
@@ -70,7 +76,10 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     prefill chunk, each timed on the host (enqueue, and wall to a
     synchronize) and under torch.profiler (the summed time of the
     kernels it saw on the card): the card's idle share, its heaviest
-    kernels and the paged kernels' time and share of it; then the same
+    kernels and the paged kernels' time and share of it; both again as
+    they ran before RoPE read q and k in place from the fused projection
+    (q and k copied first), which must cost exactly 2 x 32 more device
+    operations; then the same
     model and trace with half the requests at
     SamplingParams(temperature=0.8, top_k=50, top_p=0.95) on int8 pages,
     (b) without speculation, then (a) with n-gram speculation (spec_k
@@ -89,8 +98,10 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     same target, verified by the stochastic rule on int8 pages with the
     prefix cache, 16 requests sharing a 512-token system prompt (exact
     launch counts; TTFT, gap, tokens/s, acceptance, prefix hits, draft
-    ms a propose, peak memory; one propose and one verify step
-    profiled, with the paged kernels' share), and the same trace greedy
+    ms a propose, peak memory; one propose, one draft forward and one
+    verify step profiled, with the paged kernels' share; the draft
+    forward again with q and k copied before RoPE: exactly 2 x 16 more
+    device operations), and the same trace greedy
     on exact pages with the prefix cache and without it (TTFT of both,
     tokens identical);
  7. training reference: a narrow Llama (hidden 512, 4 q / 2 kv heads of
@@ -165,8 +176,10 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     an int start (the engine's) and with a [1] start (the per-row
     scatter), logits and caches identical;
 13. the draft forward's elementwise kernels (`draft_kernel_phase`):
-    RoPE at q [1,256,32,64] / k [1,256,8,64], SwiGLU at [256, 8192] and
-    the RMS forward at [256, 2048], bf16, timed as phase 3 times them.
+    RoPE at q [1,256,32,64] / k [1,256,8,64] (contiguous, and read in
+    place from the fused projection [1,256,8,4+2,64]), SwiGLU at [256,
+    8192] and the RMS forward at [256, 2048], bf16, timed as phase 3
+    times them.
 
 Prints the `kernels` JSON line, the nvidia-smi line, and last the
 `{"ok": true, "device": ...}` line.
@@ -174,6 +187,7 @@ Prints the `kernels` JSON line, the nvidia-smi line, and last the
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -480,7 +494,7 @@ def serving_kernel_phase(seed: int):
                 ro.fused_rotary_qk(q, k, c, s_),
             lambda i, q=q, k=k, c=cos_t, s_=sin_t:
                 ro.rotary_qk_plain(q, k, c, s_),
-            nbytes, ops))
+            nbytes, ops, composition=rope_composition(q, k, cos_t, sin_t)))
     # swiglu: the fused gate/up projection's strided halves
     swiglu = []
     for tokens in (8, 256):
@@ -491,7 +505,7 @@ def serving_kernel_phase(seed: int):
             f"fused_swiglu [{tokens},14336] bf16", ulps(1),
             lambda i, gu=gu: sw.fused_swiglu(gu),
             lambda i, gu=gu: sw.swiglu_plain(gu[:, 0], gu[:, 1]),
-            3 * n * 2, 5 * n))
+            3 * n * 2, 5 * n, composition=swiglu_composition(gu)))
     return {"paged_attention": paged, "fused_rotary_qk": rotary,
             "fused_swiglu": swiglu}
 
@@ -732,6 +746,92 @@ def _add_then(norm, x, h, *args):
     return norm(s, *args), s
 
 
+def rope_composition(q, k, cos_t, sin_t, sign: float = 1.0):
+    """The rotary rows' yardstick for `case(composition=)`: the
+    half-split rotation as PyTorch ops on q and k in their own dtype
+    (the tables cast to it once, here), by sign * theta."""
+    c, s = cos_t.to(q.dtype), (sign * sin_t).to(q.dtype)
+
+    def rot(x):
+        shape = x.shape[:2] + (1,) * (x.dim() - 3) + (c.shape[-1],)
+        cx, sx = c.view(shape), s.view(shape)
+        x1, x2 = x.chunk(2, dim=-1)
+        return torch.cat([x1 * cx - x2 * sx, x2 * cx + x1 * sx], dim=-1)
+    return lambda i: (rot(q), rot(k))
+
+
+def swiglu_composition(gu):
+    """The SwiGLU rows' yardstick: `F.silu(gate) * up` on gu's strided
+    bf16 halves."""
+    import torch.nn.functional as F
+    return lambda i: F.silu(gu[:, 0]) * gu[:, 1]
+
+
+def rope_qkv_case(label, qkv, group, cos_t, sin_t):
+    """RoPE as the LLaMA attention calls it: q (the grouped view [b, s,
+    n_kv, group, hd]) and k read in place from the fused projection qkv
+    [b, s, n_kv, group+2, hd], held against the plain version on
+    contiguous copies and timed beside the composition on the same
+    views."""
+    from hetu_tpu_torch.ops.cuda import rotary as ro
+    b, s, n_kv, _, hd = qkv.shape
+    q, k = qkv[..., :group, :], qkv[..., group, :]
+    q4, k4 = q.reshape(b, s, n_kv * group, hd), k.contiguous()
+    n = q4.numel() + k4.numel()
+    return case(
+        label, ulps(1), lambda i: ro.fused_rotary_qk(q, k, cos_t, sin_t),
+        lambda i: ro.rotary_qk_plain(q4, k4, cos_t, sin_t),
+        2 * n * qkv.element_size() + 2 * cos_t.numel() * 4, 6 * n // 2,
+        composition=rope_composition(q, k, cos_t, sin_t))
+
+
+@contextlib.contextmanager
+def parent_rope_copies():
+    """The LLaMA paths as they ran before RoPE read q and k in place: q
+    copied to [b, s, nq, hd] and k made contiguous before every
+    `fused_rotary_qk` call (two copy kernels a layer), to count on the
+    card what reading them in place removed."""
+    from hetu_tpu_torch.models import generation
+    from hetu_tpu_torch.models.llama import model as llama
+    rotate = llama.fused_rotary_qk
+
+    def copying(q, k, *args, **kw):
+        return rotate(q.reshape(*q.shape[:2], -1, q.shape[-1]),
+                      k.contiguous(), *args, **kw)
+    llama.fused_rotary_qk = generation.fused_rotary_qk = copying
+    try:
+        yield
+    finally:
+        llama.fused_rotary_qk = generation.fused_rotary_qk = rotate
+
+
+def rope_copy_drop(name, fn, layers: int, tries: int = 3) -> tuple:
+    """The device operations of one call of `fn` as this tree runs it
+    and as the parent's path runs it (`parent_rope_copies`); checks that
+    this tree runs 2 x layers fewer and returns (this tree's, the parent
+    path's).  The profiler now and then drops a call's events, so each
+    side is profiled `tries` times, one call each after a warm call, and
+    counts each kernel name at its largest."""
+    ops = []
+    for copies in (False, True):
+        most = {}
+        with parent_rope_copies() if copies else contextlib.nullcontext():
+            fn()
+            for _ in range(tries):
+                counts = {}
+                _profile(fn, 1, counts=counts)
+                for n, c in counts.items():
+                    most[n] = max(most.get(n, 0), c)
+        ops.append(round(sum(most.values())))
+    now, parent = ops
+    print(f"rope in place: {name} {parent} -> {now} device operations "
+          f"a call ({parent - now} fewer, 2 x {layers} layers expected)")
+    check(parent - now == 2 * layers,
+          f"{name}: reading q and k in place removed {parent - now} "
+          f"device operations, not 2 x {layers}")
+    return now, parent
+
+
 def training_kernel_phase(seed: int):
     """Every kernel the training path launches, at its shapes: 2 x 2048
     tokens per micro-batch, Llama-3-8B widths, bf16 activations (SwiGLU
@@ -797,7 +897,7 @@ def training_kernel_phase(seed: int):
         f"fused_swiglu [{tokens},{inter}] bf16", ulps(1),
         lambda i: sw.fused_swiglu(gu),
         lambda i: sw.swiglu_plain(gu[:, 0], gu[:, 1]),
-        3 * n * 2, 5 * n)]
+        3 * n * 2, 5 * n, composition=swiglu_composition(gu))]
     swiglu_bwd = [case(
         f"swiglu_bwd [{tokens},{inter}] bf16", ulps(1),
         lambda i: sw.swiglu_bwd(gu, dy),
@@ -815,13 +915,16 @@ def training_kernel_phase(seed: int):
         lambda i: ro.fused_rotary_qk(dq, dk, cos_t, sin_t),
         lambda i: ro.rotary_qk_plain(dq, dk, cos_t, sin_t),
         2 * (dq.numel() + dk.numel()) * 2 + 2 * cos_t.numel() * 4,
-        6 * pairs)]
+        6 * pairs, composition=rope_composition(dq, dk, cos_t, sin_t)),
+        rope_qkv_case(
+            "fused_rotary_qk q,k views of qkv [2,2048,8,4+2,128] bf16",
+            randn(2, 2048, 8, 6, 128), 4, cos_t, sin_t)]
     rotary_bwd = [case(
         "rotary_qk_bwd q=[2,2048,32,128] k=[2,2048,8,128] bf16", ulps(1),
         lambda i: ro.rotary_qk_bwd(dq, dk, cos_t, sin_t),
         lambda i: ro.rotary_qk_plain(dq, dk, cos_t, -sin_t),
         2 * (dq.numel() + dk.numel()) * 2 + 2 * cos_t.numel() * 4,
-        6 * pairs)]
+        6 * pairs, composition=rope_composition(dq, dk, cos_t, sin_t, -1.0))]
     del dq, dk
     # AdamW on the largest leaf and a bf16 leaf, one launch each
     adam = [adam_case(f"adam_update {label}", [numel], dtype, g)
@@ -1916,13 +2019,21 @@ def draft_kernel_phase(seed: int):
         lambda i: ro.fused_rotary_qk(q, k, cos_t, sin_t),
         lambda i: ro.rotary_qk_plain(q, k, cos_t, sin_t),
         2 * (q.numel() + k.numel()) * 2 + 2 * cos_t.numel() * 4,
-        6 * (q.numel() + k.numel()) // 2)
+        6 * (q.numel() + k.numel()) // 2,
+        composition=rope_composition(q, k, cos_t, sin_t))
+    n_kv = d.num_key_value_heads
+    group = d.num_attention_heads // n_kv
+    rotary_qkv = rope_qkv_case(
+        f"fused_rotary_qk q,k views of qkv [1,{T},{n_kv},{group}+2,{hd}] "
+        f"bf16 (the draft)", randn(1, T, n_kv, group + 2, hd), group, cos_t,
+        sin_t)
     gu = randn(T, 2, inter)
     n = T * inter
     swiglu = case(
         f"fused_swiglu [{T},{inter}] bf16 (the draft)", ulps(1),
         lambda i: sw.fused_swiglu(gu),
-        lambda i: sw.swiglu_plain(gu[:, 0], gu[:, 1]), 3 * n * 2, 5 * n)
+        lambda i: sw.swiglu_plain(gu[:, 0], gu[:, 1]), 3 * n * 2, 5 * n,
+        composition=swiglu_composition(gu))
     x, h = randn(T, hidden), randn(T, hidden)
     w = 1.0 + 0.1 * randn(hidden, dtype=torch.float32)
     norm = case(
@@ -1931,8 +2042,8 @@ def draft_kernel_phase(seed: int):
         lambda i: fn.residual_rmsnorm_fwd(x, h, w, d.rms_norm_eps),
         lambda i: fn.residual_rmsnorm_plain(x, h, w, d.rms_norm_eps),
         4 * T * hidden * 2 + hidden * 4, 6 * T * hidden)
-    return {"fused_rotary_qk": [rotary], "fused_swiglu": [swiglu],
-            "residual_rmsnorm_fwd": [norm]}
+    return {"fused_rotary_qk": [rotary, rotary_qkv],
+            "fused_swiglu": [swiglu], "residual_rmsnorm_fwd": [norm]}
 
 
 def shared_prompt_trace(vocab: int, seed: int, *, n: int = 16,
@@ -2124,6 +2235,7 @@ def serving3_phase(model, seed: int, kernels):
     prof = {}
     for name, fn in (("propose_k4", lambda: drafter.propose_with_probs(
                           ctx, k, seed=1, start_pos=len(ctx))),
+                     ("draft_forward", lambda: drafter._logits(ctx)),
                      ("verify_step", verify)):
         fn()
         counts = {}
@@ -2138,6 +2250,9 @@ def serving3_phase(model, seed: int, kernels):
                       "paged_attention_share_of_busy": paged / busy,
                       "device_ops_per_call": round(sum(counts.values())),
                       "top_kernels_ms": top}
+    # what reading q and k in place removed: two copies a draft layer
+    prof["draft_forward"]["device_ops_one_call_and_with_copies"] = \
+        rope_copy_drop("draft_forward", lambda: drafter._logits(ctx), D)
     print("serving3 time " + json.dumps(prof))
     del eng, drafter
     gc.collect()
@@ -2387,6 +2502,12 @@ def serving_time_phase(eng, reqs):
             out[name]["ops_beyond_greedy_decode"] = sorted(
                 ((n[:60], c) for n, c in more.items() if c > 0),
                 key=lambda nc: -nc[1])
+    if "decode_step" in calls:
+        # what reading q and k in place removed: two copies a layer
+        L = model.config.num_hidden_layers
+        for name in ("decode_step", "prefill_chunk"):
+            out[name]["device_ops_one_call_and_with_copies"] = \
+                rope_copy_drop(name, calls[name], L)
     tag = eng.config.kv_quant + (", spec" if eng.spec else "")
     print(f"serving time ({tag}) " + json.dumps(out))
 
@@ -2868,6 +2989,8 @@ def main(argv=None) -> int:
     ptxas_check(reports["flash_attention"], "flash_bwd_dq_wgmma_kernel")
     ptxas_check(reports["paged_attention"], "paged_split_kernel")
     ptxas_check(reports["paged_attention"], "paged_merge_kernel")
+    ptxas_check(reports["swiglu"], "swiglu_fwd_kernel")
+    ptxas_check(reports["rotary"], "rotary_qk_kernel")
 
     # each path runs beside its own kernel checks: serving first, so
     # the training kernels' large buffers and CUDA graphs come after it

@@ -177,15 +177,7 @@ adam_multi_kernel(const __grid_constant__ AdamTable t) {
 // fills the SMs and no more (each block strides over the chunks).
 template <typename P>
 int resident_blocks() {
-  static int blocks = 0;
-  if (blocks == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, adam_multi_kernel<P>, ADAM_THREADS, 0);
-    blocks = sms * (per_sm > 0 ? per_sm : 1);
-  }
+  static const int blocks = wave_blocks(adam_multi_kernel<P>, ADAM_THREADS);
   return blocks;
 }
 

@@ -88,11 +88,11 @@ def _attend_cached_chunk(q, ck, cv, qpos: torch.Tensor, scale: float):
 
 
 def _rotate(rope, q, k):
-    """RoPE on q and k (LLaMA: the fused kernel) or nothing (GPT)."""
+    """RoPE on q and k (LLaMA: the fused kernel, reading `serve_qkv`'s
+    views in place; q comes out [b, s, nq, hd]) or nothing (GPT)."""
     if rope is None:
         return q, k
-    return fused_rotary_qk(q.contiguous(), k.contiguous(), *rope,
-                           device=q.device)
+    return fused_rotary_qk(q, k, *rope, device=q.device)
 
 
 @torch.no_grad()

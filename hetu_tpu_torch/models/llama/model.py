@@ -63,22 +63,24 @@ class LlamaAttention(nn.Module):
         return torch.einsum("bsh,hkgd->bskgd", x, self.wqkv.to(x.dtype))
 
     def split(self, qkv: torch.Tensor):
-        """qkv -> q [b, s, nq, hd], k and v [b, s, n_kv, hd]."""
-        b, s = qkv.shape[:2]
-        q = qkv[..., : self.group, :].reshape(b, s, self.n_q, self.head_dim)
-        return q, qkv[..., self.group, :], qkv[..., self.group + 1, :]
+        """qkv -> q [b, s, n_kv, group, hd], k and v [b, s, n_kv, hd]:
+        views of qkv, which `fused_rotary_qk` reads in place (q head h
+        is q[..., h // group, h % group, :])."""
+        return (qkv[..., : self.group, :], qkv[..., self.group, :],
+                qkv[..., self.group + 1, :])
 
     def project_qkv(self, x: torch.Tensor):
-        """x [b, s, h] -> q [b, s, nq, hd], k and v [b, s, n_kv, hd]."""
+        """x [b, s, h] -> q [b, s, n_kv, group, hd], k and v [b, s, n_kv,
+        hd]: views of the fused projection, for RoPE to read in place."""
         return self.split(self.qkv(x))
 
     def heads(self, qkv: torch.Tensor, cos_t: torch.Tensor,
               sin_t: torch.Tensor):
-        """qkv -> (q, k, v) with RoPE on q and k; cos_t/sin_t [b, s,
-        hd/2] are the RoPE rows of the positions (`rope_tables`)."""
+        """qkv -> (q [b, s, nq, hd], k, v) with RoPE on q and k, which the
+        kernel reads in place from qkv; cos_t/sin_t [b, s, hd/2] are the
+        RoPE rows of the positions (`rope_tables`)."""
         q, k, v = self.split(qkv)
-        q, k = fused_rotary_qk(q.contiguous(), k.contiguous(), cos_t, sin_t,
-                               device=qkv.device)
+        q, k = fused_rotary_qk(q, k, cos_t, sin_t, device=qkv.device)
         return q, k, v
 
     def attend(self, q, k, v, segment_ids=None) -> torch.Tensor:
@@ -170,8 +172,8 @@ class LlamaBlock(nn.Module):
 
     # -- the serving forwards' two halves (models/generation.py) ----------
     def serve_qkv(self, x: torch.Tensor):
-        """q [b, s, nq, hd], k and v [b, s, n_kv, hd] of the block's
-        input, before RoPE."""
+        """q [b, s, n_kv, group, hd], k and v [b, s, n_kv, hd] of the
+        block's input, before RoPE: views of the fused projection."""
         return self.attn.project_qkv(self.input_norm(x))
 
     def serve_tail(self, x: torch.Tensor, attn: torch.Tensor):

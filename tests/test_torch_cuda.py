@@ -40,6 +40,13 @@ The fused norm's LayerNorm arm as its RMS arm (dw and db of its
 backward 1e-5 of their largest entry); the GPT engine and trainer
 against the CPU as the LLaMA ones.
 
+SwiGLU's forward and RoPE stream 16-byte vectors where every base and
+stride allows, else take a scalar arm of the same kernel: the same
+values one element off a 16-byte boundary give the same bits.  RoPE
+reads q and k in place from views of the fused QKV projection, forward,
+backward and through autograd, against the plain version on contiguous
+copies; `LlamaAttention.heads` launches that one kernel and no copy.
+
 The third serving slice's: the blockwise dequantize bit for bit in both
 output arms, at block sizes whose rows end inside a 16-byte vector and
 on payload views off a 16-byte boundary; the model drafter with the
@@ -195,6 +202,136 @@ def test_swiglu_matches_plain_on_strided_views(dev, dtype):
     out = tswiglu.fused_swiglu(gu)
     assert tswiglu.launches == before + 1
     _close(out, tswiglu.swiglu_plain(gu[:, :, 0], gu[:, :, 1]))
+
+
+def _offset_copy(t):
+    """The values of t in a view one element past a 16-byte boundary:
+    the kernels' scalar arm takes it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inner", [13, 1000, 8192, 14336])
+def test_swiglu_fwd_arms_match_plain(dev, dtype, inner):
+    """The strided halves of a [tokens, 2, inner] buffer against the
+    plain version; the same values one element off a 16-byte boundary
+    (the scalar arm) give the same bits as the vector arm."""
+    gu = _normal((37, 2, inner), 21, dev, dtype)
+    before = tswiglu.launches
+    out = tswiglu.fused_swiglu(gu)
+    assert tswiglu.launches == before + 1
+    _close(out, tswiglu.swiglu_plain(gu[:, 0], gu[:, 1]))
+    assert torch.equal(tswiglu.fused_swiglu(_offset_copy(gu)), out)
+
+
+def _fused_qkv(dev, dtype, rows, hd, seed, n_kv=2, group=4):
+    """A fused projection [b, s, n_kv, group+2, hd] (b * s = rows), its
+    q (grouped) and k views, and RoPE rows at seeded positions."""
+    b = 2 if rows % 2 == 0 else 1
+    s = rows // b
+    qkv = _normal((b, s, n_kv, group + 2, hd), seed, dev, dtype)
+    cos, sin = build_rope_cache(512, hd, 500000.0, device=dev)
+    pos = torch.randint(0, 512, (b, s), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed))
+    return (qkv, qkv[..., :group, :], qkv[..., group, :],
+            cos[pos].contiguous(), sin[pos].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 37, 300])
+@pytest.mark.parametrize("hd", [36, 64, 96, 128, 256])
+def test_rotary_on_fused_qkv_views_matches_plain(dev, dtype, rows, hd):
+    """Forward and backward read q and k in place from the fused
+    projection's slices; the plain version rotates contiguous copies.
+    The backward's cotangents are such views too."""
+    _, q, k, cos_t, sin_t = _fused_qkv(dev, dtype, rows, hd, 22)
+    b, s = q.shape[:2]
+    q4, k4 = q.reshape(b, s, -1, hd).contiguous(), k.contiguous()
+    before = trotary.launches, trotary.bwd_launches
+    tq, tk = trotary.fused_rotary_qk(q, k, cos_t, sin_t)
+    gq, gk = trotary.rotary_qk_bwd(q, k, cos_t, sin_t)
+    assert (trotary.launches, trotary.bwd_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert tq.shape == q4.shape and tq.is_contiguous() and gq.is_contiguous()
+    for out, ref in zip((tq, tk), trotary.rotary_qk_plain(q4, k4, cos_t,
+                                                          sin_t)):
+        _close(out, ref)
+    for out, ref in zip((gq, gk), trotary.rotary_qk_plain(q4, k4, cos_t,
+                                                          -sin_t)):
+        _close(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_rotary_vector_and_scalar_arms_same_bits(dev, dtype, hd):
+    """The same values one element off a 16-byte boundary (the scalar
+    arm) rotate to the same bits as the aligned views (the vector
+    arm)."""
+    qkv, q, k, cos_t, sin_t = _fused_qkv(dev, dtype, 300, hd, 23)
+    off = _offset_copy(qkv)
+    ref = trotary.fused_rotary_qk(q, k, cos_t, sin_t)
+    out = trotary.fused_rotary_qk(off[..., :4, :], off[..., 4, :], cos_t,
+                                  sin_t)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+def test_rotary_autograd_through_views_matches_contiguous(dev):
+    """The gradient of qkv through the strided `fused_rotary_qk` (dq
+    returned in the grouped view's shape, scattered by autograd) equals
+    the gradient through contiguous copies of q and k."""
+    qkv, *_, cos_t, sin_t = _fused_qkv(dev, torch.float32, 37, 128, 24)
+    b, s = qkv.shape[:2]
+    dq = _normal((b, s, 8, 128), 25, dev)
+    dk = _normal((b, s, 2, 128), 26, dev)
+    grads = []
+    for copy in (False, True):
+        x = qkv.detach().clone().requires_grad_(True)
+        q, k = x[..., :4, :], x[..., 4, :]
+        if copy:
+            q, k = q.reshape(b, s, 8, 128), k.contiguous()
+        torch.autograd.backward(
+            trotary.fused_rotary_qk(q, k, cos_t, sin_t), (dq, dk))
+        grads.append(x.grad)
+    assert torch.equal(*grads)
+
+
+def test_rotary_rejects_a_strided_head_dim(dev):
+    """A head dim without unit stride raises; nothing is copied in
+    silence and nothing launches."""
+    qkv, q, k, cos_t, sin_t = _fused_qkv(dev, torch.float32, 8, 128, 27)
+    wide = torch.stack([k, k], dim=-1).flatten(-2)[..., ::2]  # stride 2
+    before = trotary.launches
+    with pytest.raises(ValueError, match="unit stride"):
+        trotary.fused_rotary_qk(q, wide, cos_t, sin_t)
+    assert trotary.launches == before
+
+
+def test_llama_heads_launch_only_the_rotary_kernel(dev):
+    """`LlamaAttention.heads` reads q and k from the fused projection in
+    place: the profiler sees one kernel on the card, the rotary, and no
+    copy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from hetu_tpu_torch.ops.rotary import rope_tables
+    cfg = LlamaConfig.tiny(hidden_size=1024, num_attention_heads=8,
+                           num_key_value_heads=2,
+                           compute_dtype=torch.bfloat16)
+    attn = LlamaLMHeadModel(cfg, device=dev, seed=0).model.layers[0].attn
+    qkv = _normal((2, 37, 2, 6, 128), 28, dev, torch.bfloat16)
+    cos, sin = build_rope_cache(64, 128, 500000.0, device=dev)
+    cos_t, sin_t = rope_tables(cos, sin, 2, 37)
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        q, k, v = attn.heads(qkv, cos_t, sin_t)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "rotary_qk_kernel" in names[0], names
+    assert q.shape == (2, 37, 8, 128) and v.data_ptr() != q.data_ptr()
 
 
 def test_engine_on_the_card_matches_the_cpu(dev):

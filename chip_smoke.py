@@ -10,8 +10,8 @@ Phases, in order; any failure exits non-zero and nothing carries on:
  2. build: every CUDA kernel from hetu_tpu_torch/csrc, one nvcc per
     source, all at once; prints the ptxas report (registers, shared
     memory, spills) and the build time, then the bf16 dq kernel's, the
-    paged kernels' (split and merge), the SwiGLU forward's and RoPE's
-    registers and spills; a
+    paged kernels' (split and merge), the SwiGLU forward's, RoPE's and
+    the four fused-norm kernels' registers and spills; a
     (C7520) warning (ptxas serialising wgmma) fails the run;
  3. kernels: each kernel at the shapes each path gives it for Llama-3-8B
     (serving: decode and a 256-token prefill chunk, checked here;
@@ -33,7 +33,9 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     u` on the bf16 halves; RoPE: the half-split rotation's ops on the
     bf16 tensors); RoPE also as the LLaMA attention calls it, q and k
     read in place from the fused QKV projection (the training shape
-    and the draft's); AdamW through its
+    and the draft's); the RMS norm's scalar arm (`norm_scalar_cases`:
+    the training shape one element off a 16-byte boundary, the vector
+    arm's bits, and hidden 4092); AdamW through its
     multi-tensor launch, beside the rates PyTorch's copy and add reach
     at the same size; dq and dk/dv run twice give the same bits, and
     so does every paged case (its splits merged in a fixed order).
@@ -145,7 +147,9 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     `F.layer_norm`; aten's layer-norm backward then `+ dr`: one CUDA
     graph each; the RMS arm is timed beside `x + h` then `F.rms_norm`,
     and PyTorch's rms_norm backward then `+ dr`, the same way);
-    scale-only, hidden 1000 and one row checked; every other kernel of
+    scale-only, hidden 1000 and one row checked, and the scalar arm
+    (the training shape one element off a 16-byte boundary, the vector
+    arm's bits; hidden 1004 bf16 and 1002 fp32); every other kernel of
     the GPT paths at their own shapes, bf16, timed as in phase 3: the
     three flash kernels at q/kv [8, 1024, 20, 64] causal (group 1),
     paged attention on exact and int8 pages (8 slots, 20 q and kv
@@ -179,7 +183,7 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     RoPE at q [1,256,32,64] / k [1,256,8,64] (contiguous, and read in
     place from the fused projection [1,256,8,4+2,64]), SwiGLU at [256,
     8192] and the RMS forward at [256, 2048], bf16, timed as phase 3
-    times them.
+    times them (the RMS forward beside `x + h` then `F.rms_norm`).
 
 Prints the `kernels` JSON line, the nvidia-smi line, and last the
 `{"ok": true, "device": ...}` line.
@@ -746,6 +750,82 @@ def _add_then(norm, x, h, *args):
     return norm(s, *args), s
 
 
+def norm_scalar_cases(kind, dtype, rows, hidden, odd, g):
+    """The fused norms' scalar arm (`kind` "rms", or "ln" with a bias):
+    [rows, hidden] one element off a 16-byte boundary (x, h, and the s,
+    dy, dr of the backward) must give the vector arm's bits, forward and
+    backward, and is held against the plain version; [rows, odd], no
+    whole number of 16-byte chunks, too.  Tolerances as the vector
+    arm's: y, s, dx one bf16 ulp + 1e-6 (fp32: 1e-5 relative + 1e-5),
+    dw and db 1e-5 of their largest entry.  Returns {kernel: [cases]}."""
+    from hetu_tpu_torch.ops.cuda import fused_norm as fn
+    eps, bf16 = 1e-5, dtype == torch.bfloat16
+    tol = ulps(1, 1e-6) if bf16 else rel(1e-5, 1e-5)
+    sums = rel(1e-5, of_max=True)
+    names = {"rms": ("residual_rmsnorm_fwd", "residual_rmsnorm_bwd"),
+             "ln": ("residual_layernorm_fwd", "residual_layernorm_bwd")}
+    f_name, b_name = names[kind]
+
+    def inputs(width):
+        def randn(*shape, std=1.0):
+            return std * torch.randn(shape, generator=g, device="cuda")
+        x, h, dy, dr = (randn(rows, width).to(dtype) for _ in range(4))
+        w = 1.0 + randn(width, std=0.1)
+        return x, h, dy, dr, w, randn(width, std=0.1) if kind == "ln" \
+            else None
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        return buf[1:].view(t.shape).copy_(t)
+
+    def fwd(x, h, w, b, plain=False):
+        if kind == "rms":
+            return (fn.residual_rmsnorm_plain(x, h, w, eps) if plain
+                    else fn.residual_rmsnorm_fwd(x, h, w, eps))
+        return (fn.residual_layernorm_plain(x, h, w, b, eps) if plain
+                else fn.residual_layernorm_fwd(x, h, w, b, eps))
+
+    def bwd(s, w, dy, dr, plain=False):
+        if kind == "rms":
+            return (fn.residual_rmsnorm_bwd_plain if plain
+                    else fn.residual_rmsnorm_bwd)(s, w, dy, dr, eps)
+        return (fn.residual_layernorm_bwd_plain(s, w, dy, dr, eps) if plain
+                else fn.residual_layernorm_bwd(s, w, dy, dr, eps))
+    bwd_tols = (tol, sums) + ((sums,) if kind == "ln" else ())
+    out = {f_name: [], b_name: []}
+    text = "bf16" if bf16 else "fp32"
+    x, h, dy, dr, w, b = inputs(hidden)
+    xo, ho, dyo, dro = (off(t) for t in (x, h, dy, dr))
+    check(fn.launch_plan(hidden, dtype, rows, (xo.data_ptr(),),
+                         backward=False, sms=1).scalar,
+          "the offset view does not take the scalar arm")
+    vec_f = fwd(x, h, w, b)
+    sca_f = fwd(xo, ho, w, b)
+    so = off(vec_f[1])
+    vec_b, sca_b = bwd(vec_f[1], w, dy, dr), bwd(so, w, dyo, dro)
+    torch.cuda.synchronize()
+    for name, a, r in ((f_name, sca_f, vec_f), (b_name, sca_b, vec_b)):
+        check(all(torch.equal(u, v) for u, v in zip(a, r)),
+              f"{name}: the scalar arm's bits differ from the vector arm's")
+        print(f"kernel {name} [{rows},{hidden}] {text} one element off 16 "
+              f"bytes (scalar arm): the vector arm's bits")
+    label = f"[{rows},{hidden}] {text} one element off 16 bytes (scalar arm)"
+    out[f_name].append(checked(f"{f_name} {label}", tol, sca_f,
+                               fwd(xo, ho, w, b, plain=True)))
+    out[b_name].append(checked(f"{b_name} {label}", bwd_tols, sca_b,
+                               bwd(so, w, dyo, dro, plain=True)))
+    del x, h, dy, dr, xo, ho, dyo, dro, so, vec_f, sca_f, vec_b, sca_b
+    x, h, dy, dr, w, b = inputs(odd)
+    s = fwd(x, h, w, b)[1]
+    label = f"[{rows},{odd}] {text} (scalar arm)"
+    out[f_name].append(checked(f"{f_name} {label}", tol, fwd(x, h, w, b),
+                               fwd(x, h, w, b, plain=True)))
+    out[b_name].append(checked(f"{b_name} {label}", bwd_tols,
+                               bwd(s, w, dy, dr),
+                               bwd(s, w, dy, dr, plain=True)))
+    return out
+
+
 def rope_composition(q, k, cos_t, sin_t, sign: float = 1.0):
     """The rotary rows' yardstick for `case(composition=)`: the
     half-split rotation as PyTorch ops on q and k in their own dtype
@@ -889,6 +969,10 @@ def training_kernel_phase(seed: int):
     print(f"residual_rmsnorm_bwd composition: rms_norm forward + backward "
           f"{rms_fb:.5f} ms, forward {rms_f:.5f} ms")
     del x, h, dy, dr, s
+    scalar = norm_scalar_cases("rms", torch.bfloat16, tokens, hidden,
+                               hidden - 4, g)
+    norm_fwd += scalar["residual_rmsnorm_fwd"]
+    norm_bwd += scalar["residual_rmsnorm_bwd"]
     # SwiGLU forward from the strided gate/up halves, and its backward
     # into one [tokens, 2, inter] buffer
     gu, dy = randn(tokens, 2, inter), randn(tokens, inter)
@@ -1134,6 +1218,10 @@ def gpt_kernel_phase(seed: int):
             4 * n * esize + 3 * hidden * 4, 18 * n,
             composition=bwd_composition))
         del x, h, dy, dr, s, mean, rstd
+    for dtype, odd in ((torch.bfloat16, 1004), (torch.float32, 1002)):
+        for name, more in norm_scalar_cases("ln", dtype, 8192, 1280, odd,
+                                            g).items():
+            out[name] += more
     wte = (0.02 * torch.randn((50257, 1280), generator=g,
                               device="cuda")).bfloat16()
     out["fused_sample"].extend(sampler_cases(
@@ -1995,7 +2083,9 @@ def draft_kernel_phase(seed: int):
     """RoPE, SwiGLU and the RMS forward at the draft forward's shapes
     (serving3: a 256-token window at Llama-3.2-1B's widths, `draft_config`)
     — q [1,256,32,64] / k [1,256,8,64], [256, 8192] and [256, 2048],
-    bf16 — timed as phase 3 times them, at phase 3's tolerances."""
+    bf16 — timed as phase 3 times them, at phase 3's tolerances; the
+    RMS forward beside `x + h` then `F.rms_norm`, one CUDA graph."""
+    import torch.nn.functional as F
     from hetu_tpu_torch.ops.cuda import fused_norm as fn
     from hetu_tpu_torch.ops.cuda import rotary as ro
     from hetu_tpu_torch.ops.cuda import swiglu as sw
@@ -2036,12 +2126,15 @@ def draft_kernel_phase(seed: int):
         composition=swiglu_composition(gu))
     x, h = randn(T, hidden), randn(T, hidden)
     w = 1.0 + 0.1 * randn(hidden, dtype=torch.float32)
+    wb = w.bfloat16()
     norm = case(
         f"residual_rmsnorm_fwd [{T},{hidden}] bf16, w fp32 (the draft)",
         ulps(1, 1e-6),
         lambda i: fn.residual_rmsnorm_fwd(x, h, w, d.rms_norm_eps),
         lambda i: fn.residual_rmsnorm_plain(x, h, w, d.rms_norm_eps),
-        4 * T * hidden * 2 + hidden * 4, 6 * T * hidden)
+        4 * T * hidden * 2 + hidden * 4, 6 * T * hidden,
+        composition=lambda i: _add_then(F.rms_norm, x, h, (hidden,), wb,
+                                        d.rms_norm_eps))
     return {"fused_rotary_qk": [rotary, rotary_qkv],
             "fused_swiglu": [swiglu], "residual_rmsnorm_fwd": [norm]}
 
@@ -2991,6 +3084,9 @@ def main(argv=None) -> int:
     ptxas_check(reports["paged_attention"], "paged_merge_kernel")
     ptxas_check(reports["swiglu"], "swiglu_fwd_kernel")
     ptxas_check(reports["rotary"], "rotary_qk_kernel")
+    for kernel in ("rmsnorm_fwd_kernel", "rmsnorm_bwd_kernel",
+                   "layernorm_fwd_kernel", "layernorm_bwd_kernel"):
+        ptxas_check(reports["fused_norm"], kernel)
 
     # each path runs beside its own kernel checks: serving first, so
     # the training kernels' large buffers and CUDA graphs come after it

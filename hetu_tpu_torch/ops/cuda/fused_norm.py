@@ -1,18 +1,23 @@
 """Fused residual-add + RMSNorm / LayerNorm, forward and backward:
-wrappers, plain versions, launch counters and the autograd Functions.
+wrappers, plain versions, launch counters, the launch plan and the
+autograd Functions.
 
 Replaces `hetu_tpu/ops/pallas/fused_norm.py` `fused_residual_rmsnorm`
 and `fused_residual_layernorm` (`_fwd_kernel` and `_bwd_kernel`, both
 arms, the LayerNorm one with and without a bias).  Kernels:
-`csrc/fused_norm.cu`, bound by bytes on the H100 (see its header): one
-block per row holds the row in registers, so each operand is read once
-and each result written once; the backward's dw (and db) is written as
-per-block partial rows summed here with one `torch.sum`, deterministic,
-never with atomics.
+`csrc/fused_norm.cu`, bound by bytes on the H100 (see its header): a
+row is held in registers as 16-byte chunks spread over a warp-multiple
+of threads (`launch_plan`), so each operand is read once and each
+result written once; the backward runs one wave of blocks, each
+summing dw (and db) over its rows in registers and writing one partial
+row, summed here with one `torch.sum`, deterministic, never with
+atomics.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -35,11 +40,13 @@ _LN_FWD = {torch.float32: "hetu_layernorm_fwd_f32",
            torch.bfloat16: "hetu_layernorm_fwd_bf16"}
 _LN_BWD = {torch.float32: "hetu_layernorm_bwd_f32",
            torch.bfloat16: "hetu_layernorm_bwd_bf16"}
+# every entry point ends in the plan (vpt, threads, block rows, grid,
+# scalar) and the stream
+_PLAN_ARGS = [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_void_p]
+                                     ctypes.c_float] + _PLAN_ARGS
 _BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_float,
-                                     ctypes.c_void_p]
+                                     ctypes.c_float] + _PLAN_ARGS
 # the LayerNorm arm adds one pointer to each: the bias, and db's partials
 _LN_FWD_ARGS = [ctypes.c_void_p] + _FWD_ARGS
 _LN_BWD_ARGS = [ctypes.c_void_p] + _BWD_ARGS
@@ -48,13 +55,77 @@ _SIGNATURES = {**dict.fromkeys(_FWD.values(), _FWD_ARGS),
                **dict.fromkeys(_BWD.values(), _BWD_ARGS),
                **dict.fromkeys(_LN_FWD.values(), _LN_FWD_ARGS),
                **dict.fromkeys(_LN_BWD.values(), _LN_BWD_ARGS)}
-#: the kernels hold a row in 256 threads x at most 32 values each
-MAX_HIDDEN = 256 * 32
-#: blocks of the backward, so at most this many dw partial rows
-_BWD_BLOCKS = 512
-#: the LayerNorm backward's: at [8192, 1280] bf16 on an H100 1024 blocks
-#: took 0.067 ms where 512 took 0.079, their partial rows summed
-_LN_BWD_BLOCKS = 1024
+#: 16-byte chunks a thread may hold, per storage type: the kernels'
+#: instantiations (`kMaxVpt` in csrc/fused_norm.cu), each in a vector
+#: and a scalar arm
+INSTANCES = {torch.float32: (1, 2, 4), torch.bfloat16: (1, 2)}
+#: threads a block at most (`kMaxThreads`): a block this large always
+#: fits an SM, two where a thread holds one chunk a row
+#: (`kBlocksPerSm`), so a backward grid of that many blocks an SM is one
+#: wave
+MAX_THREADS = 512
+#: the widest row: 512 threads x the widest instantiation's chunks
+MAX_HIDDEN = 8192
+#: narrow rows share a block up to this many threads
+_BLOCK_THREADS = 256
+#: values a thread holds where a row allows it (registers: the
+#: backward keeps a row's values and its dw and db sums)
+_THREAD_VALUES = 16
+#: the forward's grid-stride cap
+_MAX_GRID = 65535
+
+
+class Plan(NamedTuple):
+    """How the kernels lay [rows, hidden] out: a row over `threads`
+    threads (a multiple of a warp) holding `vpt` 16-byte chunks each,
+    `block_rows` rows a block, `grid` blocks, and the arm: element-wise
+    loads and stores (`scalar`) where a width or a base is off 16
+    bytes.  The backward writes one partial row a block."""
+    vpt: int
+    threads: int
+    block_rows: int
+    grid: int
+    scalar: bool
+
+
+def launch_plan(hidden: int, dtype: torch.dtype, rows: int,
+                ptrs: Sequence[int], *, backward: bool, sms: int) -> Plan:
+    """The plan for [rows, hidden] of `dtype` whose operands start at
+    `ptrs` (data pointers) on a card of `sms` SMs.  A thread takes the
+    fewest chunks that keep a row within 256 threads and a thread
+    within 16 values (else within 512 threads).  The forward runs a
+    block a row group, narrow rows sharing a block up to 256 threads;
+    the backward one wave: a block an SM, two where a thread holds one
+    chunk, each holding as many rows as MAX_THREADS allows (one partial
+    row a block)."""
+    esize = torch.finfo(dtype).bits // 8
+    chunks = -(-hidden // (16 // esize))
+    vpts = INSTANCES[dtype]
+    vpt = next((v for v in vpts if -(-chunks // v) <= _BLOCK_THREADS
+                and v * 16 // esize <= _THREAD_VALUES), vpts[-1])
+    threads = 32 * -(-chunks // (32 * vpt))
+    block = MAX_THREADS if backward else _BLOCK_THREADS
+    block_rows = max(1, min(block // threads, rows))
+    groups = -(-rows // block_rows)
+    scalar = (hidden * esize) % 16 != 0 or any(p % 16 for p in ptrs)
+    wave = sms * (2 if vpt == 1 else 1)
+    return Plan(vpt, threads, block_rows,
+                min(groups, wave if backward else _MAX_GRID), scalar)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(symbol, argtypes, name, ptrs, rows, hidden, eps, plan, dev):
+    """One launch of `symbol` under `plan`; raises on a refused launch."""
+    with torch.cuda.device(dev):
+        err = build.bind("fused_norm", symbol, argtypes)(
+            *ptrs, rows, hidden, eps, plan.vpt, plan.threads,
+            plan.block_rows, plan.grid, int(plan.scalar),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch(err, name)
 
 
 def residual_rmsnorm_plain(x, h, weight, eps: float):
@@ -149,12 +220,12 @@ def residual_rmsnorm_fwd(x, h, weight, eps: float = 1e-5, *,
     hidden = x.shape[-1]
     rows = x.numel() // hidden
     if rows:
-        with torch.cuda.device(x.device):
-            err = build.bind("fused_norm", _FWD[x.dtype], _FWD_ARGS)(
-                x.data_ptr(), h.data_ptr(), w.data_ptr(), y.data_ptr(),
-                s.data_ptr(), rows, hidden, eps,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        build.check_launch(err, "residual_rmsnorm_fwd")
+        ptrs = (x.data_ptr(), h.data_ptr(), w.data_ptr(), y.data_ptr(),
+                s.data_ptr())
+        plan = launch_plan(hidden, x.dtype, rows, ptrs, backward=False,
+                           sms=_sms(x.device.index))
+        _launch(_FWD[x.dtype], _FWD_ARGS, "residual_rmsnorm_fwd", ptrs,
+                rows, hidden, eps, plan, x.device)
         global launches
         launches += 1
     return y, s
@@ -172,24 +243,23 @@ def residual_rmsnorm_bwd(s, weight, dy, dr, eps: float = 1e-5, *,
     if dev.type == "cpu":
         return residual_rmsnorm_bwd_plain(s, weight, dy, dr, eps)
     s, dy, dr = s.contiguous(), dy.contiguous(), dr.contiguous()
+    w = weight.contiguous()
     hidden = s.shape[-1]
     rows = s.numel() // hidden
-    grid = max(1, min(rows, _BWD_BLOCKS))
     dx = torch.empty(s.shape, dtype=s.dtype, device=s.device)
-    parts = torch.empty((grid, hidden), dtype=torch.float32,
-                        device=s.device)
+    plan = launch_plan(hidden, s.dtype, rows,
+                       (s.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                        dr.data_ptr()), backward=True,
+                       sms=_sms(s.device.index))
+    parts = torch.empty((plan.grid, hidden), dtype=torch.float32,
+                        device=s.device)      # no rows: no partials
     if rows:
-        with torch.cuda.device(s.device):
-            err = build.bind("fused_norm", _BWD[s.dtype], _BWD_ARGS)(
-                s.data_ptr(), weight.contiguous().data_ptr(),
-                dy.data_ptr(), dr.data_ptr(), dx.data_ptr(),
-                parts.data_ptr(), rows, hidden, grid, eps,
-                torch.cuda.current_stream(s.device).cuda_stream)
-        build.check_launch(err, "residual_rmsnorm_bwd")
+        _launch(_BWD[s.dtype], _BWD_ARGS, "residual_rmsnorm_bwd",
+                (s.data_ptr(), w.data_ptr(), dy.data_ptr(), dr.data_ptr(),
+                 dx.data_ptr(), parts.data_ptr()), rows, hidden, eps, plan,
+                s.device)
         global bwd_launches
         bwd_launches += 1
-    else:
-        parts.zero_()
     return dx, parts.sum(dim=0)
 
 
@@ -238,13 +308,14 @@ def residual_layernorm_fwd(x, h, weight, bias, eps: float = 1e-5, *,
     hidden = x.shape[-1]
     rows = x.numel() // hidden
     if rows:
-        with torch.cuda.device(x.device):
-            err = build.bind("fused_norm", _LN_FWD[x.dtype], _LN_FWD_ARGS)(
-                x.data_ptr(), h.data_ptr(), w.data_ptr(),
+        ptrs = (x.data_ptr(), h.data_ptr(), w.data_ptr(),
                 None if b is None else b.data_ptr(), y.data_ptr(),
-                s.data_ptr(), rows, hidden, eps,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        build.check_launch(err, "residual_layernorm_fwd")
+                s.data_ptr())
+        plan = launch_plan(hidden, x.dtype, rows,
+                           [p for p in ptrs if p is not None],
+                           backward=False, sms=_sms(x.device.index))
+        _launch(_LN_FWD[x.dtype], _LN_FWD_ARGS, "residual_layernorm_fwd",
+                ptrs, rows, hidden, eps, plan, x.device)
         global ln_launches
         ln_launches += 1
     return y, s
@@ -263,25 +334,24 @@ def residual_layernorm_bwd(s, weight, dy, dr, eps: float = 1e-5, *,
     if dev.type == "cpu":
         return residual_layernorm_bwd_plain(s, weight, dy, dr, eps, has_bias)
     s, dy, dr = s.contiguous(), dy.contiguous(), dr.contiguous()
+    w = weight.contiguous()
     hidden = s.shape[-1]
     rows = s.numel() // hidden
-    grid = max(1, min(rows, _LN_BWD_BLOCKS))
     dx = torch.empty(s.shape, dtype=s.dtype, device=s.device)
-    parts = torch.empty((1 + has_bias, grid, hidden), dtype=torch.float32,
-                        device=s.device)
+    plan = launch_plan(hidden, s.dtype, rows,
+                       (s.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                        dr.data_ptr()), backward=True,
+                       sms=_sms(s.device.index))
+    parts = torch.empty((1 + has_bias, plan.grid, hidden),
+                        dtype=torch.float32, device=s.device)
     if rows:
-        with torch.cuda.device(s.device):
-            err = build.bind("fused_norm", _LN_BWD[s.dtype], _LN_BWD_ARGS)(
-                s.data_ptr(), weight.contiguous().data_ptr(),
-                dy.data_ptr(), dr.data_ptr(), dx.data_ptr(),
-                parts[0].data_ptr(),
-                parts[1].data_ptr() if has_bias else None, rows, hidden,
-                grid, eps, torch.cuda.current_stream(s.device).cuda_stream)
-        build.check_launch(err, "residual_layernorm_bwd")
+        _launch(_LN_BWD[s.dtype], _LN_BWD_ARGS, "residual_layernorm_bwd",
+                (s.data_ptr(), w.data_ptr(), dy.data_ptr(), dr.data_ptr(),
+                 dx.data_ptr(), parts[0].data_ptr(),
+                 parts[1].data_ptr() if has_bias else None), rows, hidden,
+                eps, plan, s.device)
         global ln_bwd_launches
         ln_bwd_launches += 1
-    else:
-        parts.zero_()
     sums = parts.sum(dim=1)
     return dx, sums[0], sums[1] if has_bias else None
 

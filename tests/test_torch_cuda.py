@@ -40,6 +40,13 @@ The fused norm's LayerNorm arm as its RMS arm (dw and db of its
 backward 1e-5 of their largest entry); the GPT engine and trainer
 against the CPU as the LLaMA ones.
 
+The fused norms (all four kernels) on one row layout of 16-byte
+chunks: the scalar arm (hidden 1004 bf16, 1002 fp32) against the plain
+version, and on values one element off a 16-byte boundary the vector
+arm's bits; 1, 7 and 8,193 rows (across the plan's rows a block and the
+backward's one wave) and hidden 8,192, dw and db the same bits on a
+second run.
+
 SwiGLU's forward and RoPE stream 16-byte vectors where every base and
 stride allows, else take a scalar arm of the same kernel: the same
 values one element off a 16-byte boundary give the same bits.  RoPE
@@ -468,6 +475,131 @@ def test_fused_layernorm_matches_plain(dev, dtype, hidden, bias):
     _, dw2, db2 = tfused_norm.residual_layernorm_bwd(s, w, dy, dr,
                                                      has_bias=bias)
     assert torch.equal(dw, dw2) and (db2 is None or torch.equal(db, db2))
+
+
+def _norm_inputs(dev, dtype, rows, hidden, seed, bias=True):
+    """x, h, dy, dr [rows, hidden] of `dtype`; w, b fp32."""
+    x, h, dy, dr = (_normal((rows, hidden), seed + i, dev, dtype)
+                    for i in range(4))
+    w = 1.0 + 0.1 * _normal((hidden,), seed + 4, dev)
+    b = 0.1 * _normal((hidden,), seed + 5, dev) if bias else None
+    return x, h, dy, dr, w, b
+
+
+def _norm_run(kind, x, h, dy, dr, w, b):
+    """(y, s, dx, dw[, db]) of the RMS ("rms") or LayerNorm ("ln")
+    kernels, the backward from the kernel's own s."""
+    if kind == "rms":
+        y, s = tfused_norm.residual_rmsnorm_fwd(x, h, w)
+        return (y, s) + tuple(tfused_norm.residual_rmsnorm_bwd(s, w, dy,
+                                                                dr))
+    y, s = tfused_norm.residual_layernorm_fwd(x, h, w, b)
+    grads = tfused_norm.residual_layernorm_bwd(s, w, dy, dr,
+                                               has_bias=b is not None)
+    return (y, s) + tuple(g for g in grads if g is not None)
+
+
+def _norm_plain(kind, x, h, dy, dr, w, b, s):
+    """The plain versions of `_norm_run`, the backward from `s`."""
+    if kind == "rms":
+        return (tfused_norm.residual_rmsnorm_plain(x, h, w, 1e-5)
+                + tfused_norm.residual_rmsnorm_bwd_plain(s, w, dy, dr,
+                                                         1e-5))
+    grads = tfused_norm.residual_layernorm_bwd_plain(s, w, dy, dr, 1e-5,
+                                                     b is not None)
+    return (tfused_norm.residual_layernorm_plain(x, h, w, b, 1e-5)
+            + tuple(g for g in grads if g is not None))
+
+
+def _norm_matches_plain(kind, x, h, dy, dr, w, b):
+    """The kernels against their plain versions at chip_smoke.py's
+    tolerances: y, s and dx one bf16 ulp + 1e-6 (dx cancels) or 1e-5
+    relative + 1e-5 in fp32; dw and db 1e-5 of their largest entry (sums
+    over the rows in another order).  dw and db are the same bits on a
+    second run.  Returns the kernels' outputs."""
+    out = _norm_run(kind, x, h, dy, dr, w, b)
+    ref = _norm_plain(kind, x, h, dy, dr, w, b, out[1])
+    for a, r in zip(out[:3], ref[:3]):
+        if a.dtype == torch.float32:
+            torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+        else:
+            _bf16_close(a, r, atol=1e-6)
+    for a, r in zip(out[3:], ref[3:]):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, r, rtol=1e-5,
+                                   atol=1e-5 * float(r.abs().max()))
+    again = _norm_run(kind, x, h, dy, dr, w, b)
+    for a, r in zip(out[3:], again[3:]):
+        assert torch.equal(a, r)
+    return out
+
+
+def _off16(t):
+    """`t`'s values in a buffer one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("kind", ["rms", "ln"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [1280, 4096])
+def test_fused_norm_scalar_arm_same_bits_as_vector_arm(dev, kind, dtype,
+                                                       hidden):
+    """The same values one element off a 16-byte boundary (x, h, dy, dr
+    and the s fed to the backward) take the scalar arm, and all four
+    kernels give the vector arm's bits: the same chunks a thread, the
+    same instructions, the same order of every sum."""
+    x, h, dy, dr, w, b = _norm_inputs(dev, dtype, 37, hidden, 40)
+    vec = _norm_matches_plain(kind, x, h, dy, dr, w, b)
+    xo, ho, dyo, dro = (_off16(t) for t in (x, h, dy, dr))
+    assert tfused_norm.launch_plan(hidden, dtype, 37, (xo.data_ptr(),),
+                                   backward=False, sms=132).scalar
+    sca = _norm_run(kind, xo, ho, dyo, dro, w, b)
+    for a, r in zip(sca, vec):
+        assert torch.equal(a, r)
+    # the backward from an offset s as well
+    so = _off16(vec[1])
+    if kind == "rms":
+        bwd = tfused_norm.residual_rmsnorm_bwd(so, w, dyo, dro)
+    else:
+        bwd = tfused_norm.residual_layernorm_bwd(so, w, dyo, dro)
+    for a, r in zip(bwd, vec[2:]):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("kind", ["rms", "ln"])
+@pytest.mark.parametrize("dtype,hidden", [(torch.bfloat16, 1004),
+                                          (torch.float32, 1002)])
+def test_fused_norm_scalar_widths_match_plain(dev, kind, dtype, hidden):
+    """Widths that are no whole number of 16-byte chunks run the scalar
+    arm (the last chunk part-masked), against the plain version."""
+    x, h, dy, dr, w, b = _norm_inputs(dev, dtype, 33, hidden, 50)
+    assert tfused_norm.launch_plan(hidden, dtype, 33, (x.data_ptr(),),
+                                   backward=True, sms=132).scalar
+    _norm_matches_plain(kind, x, h, dy, dr, w, b)
+
+
+@pytest.mark.parametrize("kind", ["rms", "ln"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [64, 1280])
+@pytest.mark.parametrize("rows", [1, 7, 8193])
+def test_fused_norm_row_counts_match_plain(dev, kind, dtype, hidden, rows):
+    """Row counts below, inside and past the plan's rows a block (64:
+    8 rows of a warp a block) and the backward's one wave (8,193 rows:
+    every block takes several row groups, the last one partial)."""
+    x, h, dy, dr, w, b = _norm_inputs(dev, dtype, rows, hidden, 60)
+    _norm_matches_plain(kind, x, h, dy, dr, w, b)
+
+
+@pytest.mark.parametrize("kind,bias", [("rms", False), ("ln", True),
+                                       ("ln", False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_norm_max_hidden_matches_plain(dev, kind, bias, dtype):
+    """hidden MAX_HIDDEN (8,192): 512 threads a row, the widest
+    instantiation; the LayerNorm arm with a bias and scale-only."""
+    x, h, dy, dr, w, b = _norm_inputs(dev, dtype, 19,
+                                      tfused_norm.MAX_HIDDEN, 70, bias)
+    _norm_matches_plain(kind, x, h, dy, dr, w, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -27,7 +27,8 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     sampler's LM head and the second serving slice's attention against
     the bf16 tensor-core peak, 989 TFLOP/s) — and, where one PyTorch call
     computes the same function, that call (`torch._fused_adamw_` for
-    AdamW, `scaled_dot_product_attention` for the flash kernels; timed
+    AdamW, `scaled_dot_product_attention` for the flash kernels,
+    `torch.mm` with fp32 output for the sampler's product; timed
     as yardsticks only, the port never calls them), else the few
     PyTorch calls that compose it, one CUDA graph (SwiGLU: `F.silu(g) *
     u` on the bf16 halves; RoPE: the half-split rotation's ops on the
@@ -88,7 +89,8 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     4), then (a) again with (a)'s own continuation as its drafts (its
     tokens equal (a)'s, and it accepts drafts): every request ends by
     length with 32 tokens, no page leaks, every launch count exact
-    (verify: paged_verify layers a step, fused_sample once a step, the
+    (verify: paged_verify layers a step, fused_sample once a step, its
+    product on the N-major tensor-core arm, the
     quantize twice a layer a step and twice a prefill, the draw over
     existing logits once a sampled request's first token; decode: the
     int8 arm layers a step and the draw once a step instead); TTFT, the
@@ -157,7 +159,8 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     pages (q [8, 5, 20, 64]), the blockwise quantize at block 64 (a
     decode step's K of one layer, [160, 64], and a prompt's K of every
     layer, [552960, 64]), and the fused sampler over the tied head, a
-    transposed view of `wte`; AdamW over GPT-2-large's 436 leaves with
+    transposed view of `wte` (the product's K-major arm, beside
+    `product_yardstick`); AdamW over GPT-2-large's 436 leaves with
     a 1,001-element leaf and a view off a 16-byte boundary, one launch;
 10. GPT reference: GPT-2-large widths cut to 2 layers, fp32, the engine
     on the card and on the CPU (greedy tokens identical), then 3
@@ -175,7 +178,9 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     page_size=16, max_len=1024, prefill_chunk=256), 8 Poisson requests
     at 10/s with 64-768-token prompts and 32 new tokens each: greedy on
     exact pages, then the odd requests sampled on int8 pages without
-    and with n-gram speculation; exact launch counts, TTFT, gap,
+    and with n-gram speculation; exact launch counts (the verify
+    step's `fused_sample` products all on the K-major tensor-core arm,
+    none on the FMAs), TTFT, gap,
     tokens/s, peak memory; then one 256-token prefill chunk timed with
     an int start (the engine's) and with a [1] start (the per-row
     scatter), logits and caches identical;
@@ -583,24 +588,44 @@ def _sampler_rows(seed, R, V):
     return temps, top_ks, top_ps, words
 
 
+def product_yardstick():
+    """One PyTorch call computing the sampler's product, a yardstick the
+    port never calls: `torch.mm` of the bf16 operands with fp32 output
+    where this PyTorch takes `out_dtype`, else a bf16 `torch.matmul`
+    (bf16 logits: half the output bytes).  Returns (fn, its label)."""
+    a = torch.ones((16, 16), device="cuda", dtype=torch.bfloat16)
+    try:
+        torch.mm(a, a, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return torch.matmul, "torch.matmul, bf16 out"
+    return (lambda x, w: torch.mm(x, w, out_dtype=torch.float32),
+            "torch.mm(out_dtype=fp32)")
+
+
 def sampler_cases(g, seed, head, head_text, R=40):
     """The fused sampler over hidden [R, H] (bf16) and `head` [H, V]:
-    the product alone (kernel (a)), timed beside the fp32 product, held
-    within 1e-5 of the largest logit; then product + draw, its tokens
-    identical on every row whose plain top-two gap after noise exceeds
-    1e-3 (the others counted)."""
+    the product alone (kernel (a)), timed beside the fp32 product and
+    `product_yardstick`, held within 1e-5 of the largest logit; then
+    product + draw, its tokens identical on every row whose plain
+    top-two gap after noise exceeds 1e-3 (the others counted)."""
     from hetu_tpu_torch.ops.cuda import sample as sa
     H, V = head.shape
     temps, top_ks, top_ps, words = _sampler_rows(seed, R, V)
     hidden = torch.randn((R, H), generator=g, device="cuda").bfloat16()
     ref = hidden.float() @ head.float()
+    mm, mm_text = product_yardstick()
+    route = sa.lm_head_route(hidden, head)
     product = case(
         f"fused_sample product hidden [{R},{H}] x head {head_text} bf16 -> "
-        "fp32 logits", rel(1e-5, of_max=True),
+        f"fp32 logits, {route} arm (library: {mm_text})",
+        rel(1e-5, of_max=True),
         lambda i: sa.lm_head_logits(hidden, head),
         lambda i: hidden.float() @ head.float(),
         H * V * 2 + R * H * 2 + R * V * 4, 2 * R * H * V,
-        op_dtype=torch.bfloat16, inner=2)
+        library=lambda i: mm(hidden, head), op_dtype=torch.bfloat16,
+        inner=2)
+    print(f"lm_head ratio {head_text}: kernel / {mm_text} "
+          f"{product['ms'] / product['library_ms']:.3f}")
     noisy = sa.filtered_logits(ref, temps, top_ks, top_ps) + sa.gumbel(
         words[:, :1], words[:, 1:], torch.arange(V, device="cuda")[None])
     noisy = torch.where(temps[:, None] > 0, noisy, ref)
@@ -697,8 +722,11 @@ def serving2_kernel_phase(seed: int):
     and one prefill page write of all 32 layers, [524288, 128], bf16),
     and the sampler: the fused LM head + draw at hidden [40, 4096] x
     head [4096, 128256] bf16 (rows greedy, temperature only, top-k,
-    top-p, top-k + top-p) and the draw alone over bf16 logits [8,
-    128256].  Tolerances: the quantize payload bit for bit, scales
+    top-p, top-k + top-p), the product timed beside
+    `product_yardstick`, and the draw alone over bf16 logits [8,
+    128256], [40, 128256] and [40, 50257] (a verify step's rows), each
+    run twice for the same bits, with the clusters the card runs at
+    once.  Tolerances: the quantize payload bit for bit, scales
     within one fp32 ulp; attention as the exact pages' (the plain
     version on the same quantized pool in fp32, half a bf16 ulp +
     1e-5); the draw alone token for token; the product within 1e-5 of
@@ -731,14 +759,35 @@ def serving2_kernel_phase(seed: int):
     head = (0.02 * torch.randn((H, V), generator=g, device="cuda")).bfloat16()
     out["fused_sample"].extend(sampler_cases(g, seed, head, f"[{H},{V}]"))
     del head
-    temps, top_ks, top_ps, words = _sampler_rows(seed, R, V)
-    lg = (4.0 * torch.randn((8, V), generator=g, device="cuda")).bfloat16()
-    args8 = tuple(t[:8] for t in (words, temps, top_ks, top_ps))
-    out["sample_logits"].append(case(
-        f"sample_logits logits [8,{V}] bf16 (the decode step's draw)",
-        same(), lambda i: sa.sample_logits(lg, *args8),
-        lambda i: sa.sample_plain(lg, *args8), 8 * V * 2 + 8 * 4 * 5,
-        8 * V * 4))
+    # the draw alone: a decode step's 8 rows, and the 40 rows of a
+    # verify step's fused sampler over Llama's and GPT-2's vocabularies
+    # (the draw's share of those rows); each twice on the same inputs
+    for rows, vocab, what in ((8, V, "the decode step's draw"),
+                              (40, V, "a verify step's draw"),
+                              (40, 50257, "GPT's verify step's draw")):
+        temps, top_ks, top_ps, words = _sampler_rows(seed, 40, vocab)
+        lg = (4.0 * torch.randn((rows, vocab), generator=g,
+                                device="cuda")).bfloat16()
+        args = tuple(t[:rows] for t in (words, temps, top_ks, top_ps))
+        label = f"sample_logits logits [{rows},{vocab}] bf16 ({what})"
+        same_bits(label, lambda i, lg=lg, args=args: sa.sample_logits(
+            lg, *args))
+        out["sample_logits"].append(case(
+            label, same(), lambda i, lg=lg, args=args: sa.sample_logits(
+                lg, *args),
+            lambda i, lg=lg, args=args: sa.sample_plain(lg, *args),
+            rows * vocab * 2 + rows * 4 * 5, rows * vocab * 4))
+        clusters = sa.active_clusters(rows, vocab)
+        print(f"sample_logits V={vocab}: {clusters} clusters of 8 at once, "
+              f"{rows} rows in {-(-rows // clusters)} wave(s)")
+        if rows > 8:   # the kernel's two builds (many waves, one): one draw
+            whole = sa.sample_logits(lg, *args)
+            eights = torch.cat([sa.sample_logits(
+                lg[i:i + 8], *(a[i:i + 8] for a in args))
+                for i in range(0, rows, 8)])
+            check(torch.equal(whole, eights),
+                  f"{label}: 8-row launches differ from one launch")
+            print(f"kernel {label}: launches of 8 rows the same tokens")
     return out
 
 
@@ -885,24 +934,25 @@ def parent_rope_copies():
         llama.fused_rotary_qk = generation.fused_rotary_qk = rotate
 
 
-def rope_copy_drop(name, fn, layers: int, tries: int = 3) -> tuple:
+def rope_copy_drop(name, fn, layers: int, tries: int = 6) -> tuple:
     """The device operations of one call of `fn` as this tree runs it
     and as the parent's path runs it (`parent_rope_copies`); checks that
     this tree runs 2 x layers fewer and returns (this tree's, the parent
-    path's).  The profiler now and then drops a call's events, so each
-    side is profiled `tries` times, one call each after a warm call, and
-    counts each kernel name at its largest."""
+    path's).  The profiler now and then drops a call's events (never
+    adds one), so each side is profiled `tries` times, one call each
+    after a warm call, and keeps the largest total: a drop only lowers a
+    total, and a library that picks another kernel from call to call
+    does not raise one (a largest count kept per kernel name would)."""
     ops = []
     for copies in (False, True):
-        most = {}
+        most = 0
         with parent_rope_copies() if copies else contextlib.nullcontext():
             fn()
             for _ in range(tries):
                 counts = {}
                 _profile(fn, 1, counts=counts)
-                for n, c in counts.items():
-                    most[n] = max(most.get(n, 0), c)
-        ops.append(round(sum(most.values())))
+                most = max(most, round(sum(counts.values())))
+        ops.append(most)
     now, parent = ops
     print(f"rope in place: {name} {parent} -> {now} device operations "
           f"a call ({parent - now} fewer, 2 x {layers} layers expected)")
@@ -1141,7 +1191,7 @@ def gpt_kernel_phase(seed: int):
     their largest entry (sums over 8192 rows in another order).  Then
     the fused sampler at the GPT serving path's shape, hidden [40, 1280]
     x the tied head wte.t() [1280, 50257] (a transposed view: the
-    product's FMA arm).  Then flash, the paged kernels and the quantize
+    product's K-major tensor-core arm).  Then flash, the paged kernels and the quantize
     at the GPT paths' shapes, at the tolerances of `flash_kernel_phase`
     and `serving2_kernel_phase`."""
     import torch.nn.functional as F
@@ -1535,8 +1585,22 @@ def kernel_table():
 
 
 def zero_counts(kernels):
+    from hetu_tpu_torch.ops.cuda import sample as sa
     for mod, attr, *_ in kernels.values():
         setattr(mod, attr, 0)
+    for arm in sa.lm_head_routes:
+        sa.lm_head_routes[arm] = 0
+
+
+def check_product_arm(path, launches, arm):
+    """Every `fused_sample` launch of the run since `zero_counts` took
+    the product's `arm` (`sample.lm_head_routes`)."""
+    from hetu_tpu_torch.ops.cuda import sample as sa
+    expect = dict.fromkeys(sa.lm_head_routes, 0)
+    expect[arm] = launches["fused_sample"]
+    check(sa.lm_head_routes == expect, f"{path}: product arms "
+          f"{sa.lm_head_routes}, expected {expect}")
+    print(f"{path}: product arms {sa.lm_head_routes}")
 
 
 def read_counts(kernels):
@@ -1941,6 +2005,7 @@ def serving2_phase(model, seed: int, kernels):
         results = eng.run(reqs)
         wall = time.perf_counter() - t0
         launches = read_counts(kernels)
+        check_product_arm(path, launches, "n_major")
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         check(len(results) == len(reqs), f"{path}: {len(results)} done")
         for r in results:
@@ -2954,6 +3019,8 @@ def gpt_serving_phase(seed: int, kernels):
         results = eng.run(reqs)
         wall = time.perf_counter() - t0
         launches = read_counts(kernels)
+        # the tied head wte.t(): the tensor cores' K-major arm, no FMAs
+        check_product_arm(path, launches, "k_major")
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         check(len(results) == len(reqs), f"{path}: {len(results)} done")
         for r in results:

@@ -4,12 +4,15 @@ counter-based noise they share.
 Replaces `hetu_tpu/ops/pallas/sample.py` `fused_sample` (`_sample_kernel`
 with `hash_uniform`, `gumbel`, `_kth_largest_key`, `_nucleus_key`).
 Kernels: `csrc/sample.cu` — (a) the LM-head product into an fp32 logits
-scratch buffer, one read of the head (bf16 on the tensor cores); (b)
+scratch buffer, one read of the head through a `cp.async` ring (bf16 on
+the tensor cores in either layout of the head, `lm_head_route`); (b)
 filter and draw, a cluster of 8 blocks a row, the row held in their
-shared memory.  `fused_sample` launches both (B9, counted in `launches`);
-`sample_logits` launches (b) alone where the logits already exist (the
-decode step and the first token, counted in `logits_launches`), so no
-plain sampler runs on the card.
+shared memory, the nucleus found by a radix select over mass and
+confirmed by the bisection's own predicate.  `fused_sample` launches
+both (B9, counted in `launches`, the product's arm in
+`lm_head_routes`); `sample_logits` launches (b) alone where the logits
+already exist (the decode step and the first token, counted in
+`logits_launches`), so no plain sampler runs on the card.
 
 The plain versions are the reference's XLA path: `sample_plain` sorts
 each row once (`filtered_logits`, HF semantics: top-k first, the
@@ -31,6 +34,10 @@ from hetu_tpu_torch.ops.cuda import build
 launches = 0
 #: filter-and-draw launches over existing logits
 logits_launches = 0
+#: product launches by arm (`lm_head_route`): the tensor cores over an
+#: [H, V] head ("n_major") or the transposed view of a [V, H] table
+#: ("k_major"), or fp32 FMAs ("fma")
+lm_head_routes = {"n_major": 0, "k_major": 0, "fma": 0}
 
 #: the longest row the draw kernel holds: a cluster of 8 blocks, each
 #: its share of the row in shared memory (csrc/sample.cu SB_CLUSTER x
@@ -45,13 +52,18 @@ _SAMPLE = {torch.float32: "hetu_sample_f32",
            torch.bfloat16: "hetu_sample_bf16"}
 _LM_HEAD = {torch.float32: "hetu_lm_head_f32",
             torch.bfloat16: "hetu_lm_head_bf16"}
+_CLUSTERS = {torch.float32: "hetu_sample_clusters_f32",
+             torch.bfloat16: "hetu_sample_clusters_bf16"}
 _SAMPLE_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                 ctypes.c_int] + [ctypes.c_void_p] * 6
 _LM_HEAD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+#: the product's arms, as csrc/sample.cu numbers them
+_ROUTES = {"n_major": 0, "k_major": 1, "fma": 2}
 #: every exported symbol -> its ctypes argtypes
 _SIGNATURES = {**dict.fromkeys(_SAMPLE.values(), _SAMPLE_ARGS),
-               **dict.fromkeys(_LM_HEAD.values(), _LM_HEAD_ARGS)}
+               **dict.fromkeys(_LM_HEAD.values(), _LM_HEAD_ARGS),
+               **dict.fromkeys(_CLUSTERS.values(), [ctypes.c_int] * 2)}
 
 
 def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -196,21 +208,55 @@ def sample_logits(logits, key_words, temps, top_ks, top_ps, *,
     return out
 
 
+def lm_head_route(hidden, w) -> str:
+    """The product's arm for contiguous hidden [R, H] and head w [H, V]:
+    "n_major" (rows of an [H, V] head: unit column stride, a row stride
+    of whole 16-byte runs) or "k_major" (the transposed view of a [V, H]
+    table, `wte.t()`: unit row stride, table rows of whole 16-byte runs)
+    on the tensor cores where both are bf16, H is a multiple of 8 and
+    both start on 16-byte boundaries; else "fma"."""
+    if (hidden.dtype != torch.bfloat16 or w.dtype != torch.bfloat16
+            or hidden.shape[1] % 8 or hidden.data_ptr() % 16
+            or w.data_ptr() % 16):
+        return "fma"
+    sk, sn = w.stride()
+    if sn == 1 and sk % 8 == 0:
+        return "n_major"
+    if sk == 1 and sn % 8 == 0:
+        return "k_major"
+    return "fma"
+
+
 def lm_head_logits(hidden, w) -> torch.Tensor:
     """Kernel (a) alone: fp32 logits [R, V] of hidden [R, H] x w [H, V]
-    (fp32 or bf16, one type), on the card.  Counts no launch of its
-    own: `fused_sample` counts its pair."""
+    (fp32 or bf16, one type), on the card, on the arm `lm_head_route`
+    picks (counted in `lm_head_routes`).  Counts no launch in
+    `launches`: `fused_sample` counts its pair."""
     R, H = hidden.shape
     V = w.shape[1]
     hidden = hidden.contiguous()
+    route = lm_head_route(hidden, w)
     logits = torch.empty((R, V), dtype=torch.float32, device=hidden.device)
     with torch.cuda.device(hidden.device):
         err = build.bind("sample", _LM_HEAD[hidden.dtype], _LM_HEAD_ARGS)(
             hidden.data_ptr(), w.data_ptr(), logits.data_ptr(), R, H, V,
-            w.stride(0), w.stride(1),
+            w.stride(0), w.stride(1), _ROUTES[route],
             torch.cuda.current_stream(hidden.device).cuda_stream)
     build.check_launch(err, "lm_head")
+    lm_head_routes[route] += 1
     return logits
+
+
+def active_clusters(R: int, V: int, dtype=torch.bfloat16) -> int:
+    """Clusters of the draw kernel (8 blocks, one row each) the current
+    card runs at once for R rows of V entries, in the build the launch
+    takes for them: the rows take ceil(R / this) waves.  Builds the
+    kernel where needed; a measurement aid, no launch."""
+    n = build.bind("sample", _CLUSTERS[dtype], [ctypes.c_int] * 2)(R, V)
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
+                           f"cudaError_t {-n}")
+    return n
 
 
 def fused_sample(hidden, w, key_words, temps, top_ks, top_ps, *,

@@ -35,6 +35,14 @@ may be read); the sampler over existing logits token for token; the
 fused sampler's product within 1e-5 of the largest logit, its tokens
 identical wherever the plain top-two gap after noise exceeds 1e-3; the
 sampled, speculative, quantized engine token for token against the CPU.
+The sampler's product takes the tensor cores' K-major arm over a tied
+table's transposed view (H 1024/1280, ragged V, 8-70 rows; the route
+counter checked) and each head layout its own arm; the nucleus (a radix
+select over mass, confirmed by the bisection's predicate) token for
+token at its edges: top-p alone over V = 128,256, equal logits, one
+dominant logit, top-p 1e-6 and 0.999999, a k-th value duplicated across
+the cut, V = 13 (a row is excused only where a drawn token's mass above
+lies within 1e-5 of top_p, and counted).
 
 The fused norm's LayerNorm arm as its RMS arm (dw and db of its
 backward 1e-5 of their largest entry); the GPT engine and trainer
@@ -1259,6 +1267,142 @@ def test_fused_sample_matches_plain(dev, R, V, dtype):
     clear = _noisy_gap(ref, *args) > 1e-3
     assert clear.sum() >= R - max(2, R // 12)
     assert torch.equal(out[clear], plain[clear])
+
+
+@pytest.mark.parametrize("R", [8, 40, 70])
+@pytest.mark.parametrize("V", [32001, 50257])
+@pytest.mark.parametrize("H", [1024, 1280])
+def test_fused_sample_over_a_tied_table_takes_the_k_major_arm(dev, H, V, R):
+    """A tied head, the transposed view `table.t()` of a [V, H] table (as
+    `lm_head_weight()` returns GPT's `wte`), at ragged V: the product on
+    the tensor cores' K-major arm (counted in `lm_head_routes`) within
+    1e-5 of the largest logit against the fp32 product; tokens identical
+    wherever the plain top-two gap after noise exceeds 1e-3."""
+    table = (0.05 * _normal((V, H), 31, dev)).bfloat16()
+    head = table.t()
+    hidden = _normal((R, H), 32, dev, torch.bfloat16)
+    args = _sampling_rows(dev, R, V, 33)
+    before = dict(tsample.lm_head_routes)
+    logits = tsample.lm_head_logits(hidden, head)
+    torch.cuda.synchronize()
+    assert tsample.lm_head_routes["k_major"] == before["k_major"] + 1
+    ref = hidden.float() @ head.float()
+    assert (logits - ref).abs().max() <= 1e-5 * ref.abs().max()
+    out = tsample.fused_sample(hidden, head, *args)
+    torch.cuda.synchronize()
+    assert tsample.lm_head_routes["k_major"] == before["k_major"] + 2
+    assert tsample.lm_head_routes["fma"] == before["fma"]
+    plain = tsample.fused_sample_plain(hidden, head, *args)
+    clear = _noisy_gap(ref, *args) > 1e-3
+    assert clear.sum() >= R - max(2, R // 12)
+    assert torch.equal(out[clear], plain[clear])
+
+
+def test_lm_head_routes_by_layout(dev):
+    """Each head layout takes its arm and matches the fp32 product: an
+    [H, V] head on the N-major arm, a padded one (row stride a multiple
+    of 8, V ragged) too, a column-strided view and fp32 on the FMAs."""
+    H, R = 256, 24
+    hidden = _normal((R, H), 34, dev, torch.bfloat16)
+    padded = (0.05 * _normal((H, 1008), 35, dev)).bfloat16()
+    cases = {"n_major": [padded[:, :1000], padded[:, :1001]],
+             "fma": [padded[:, ::2], padded.float()[:, :1000]]}
+    for route, heads in cases.items():
+        for w in heads:
+            x = hidden.to(w.dtype)
+            before = tsample.lm_head_routes[route]
+            logits = tsample.lm_head_logits(x, w)
+            torch.cuda.synchronize()
+            assert tsample.lm_head_routes[route] == before + 1
+            ref = x.float() @ w.float()
+            assert (logits - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def _mass_above(logits, temps, top_ks):
+    """For each entry, the renormalized top-k mass of the entries with a
+    strictly larger scaled value (float64): the nucleus keeps an entry
+    exactly where this is below top_p."""
+    x = (logits.double() / temps.double()[:, None])
+    V = x.shape[-1]
+    desc, order = torch.sort(x, dim=-1, descending=True)
+    k = torch.where(top_ks > 0, top_ks, torch.full_like(top_ks, V)).long()
+    ranks = torch.arange(V, device=x.device)[None]
+    p = torch.softmax(torch.where(ranks < k[:, None], desc,
+                                  torch.full_like(desc, -torch.inf)), -1)
+    before = torch.cumsum(p, -1) - p
+    # equal values: the mass before the first of them
+    first = torch.searchsorted(-desc, -desc, side="left")
+    above = torch.gather(before, 1, first)
+    return torch.empty_like(above).scatter_(1, order, above)
+
+
+def _nucleus_case(dev, case, dtype):
+    """Rows of one edge case of the nucleus (logits [R, V] and the row
+    arguments): top-p alone over Llama-3's vocabulary; a row of equal
+    logits; one dominant logit; top-p 1e-6 and 0.999999; top-k whose
+    k-th value is duplicated across the cut, with top-p on top; V = 13,
+    where some of a row's 8 blocks hold nothing."""
+    R = 8
+    V = {"top_p_alone": 128256, "near_one": 128256, "v13": 13}.get(case,
+                                                                    4000)
+    logits = 3.0 * _normal((R, V), 41, dev)
+    temps = torch.tensor([1.0, 0.7, 0.9, 1.3, 1.0, 0.8, 1.1, 0.6])
+    top_ks = torch.zeros(R, dtype=torch.int32)
+    top_ps = torch.tensor([0.5, 0.8, 0.9, 0.95, 0.99, 0.3, 0.7, 0.6])
+    if case == "equal":
+        logits[:] = 1.5
+        logits[4:, 17] = 1.5 + 1e-2     # one slightly above the rest
+        top_ks[2:4] = 50
+    elif case == "dominant":
+        logits[:, 123] = 40.0
+        logits[4:, 124] = 38.0          # a second one ~ e^-2 behind
+    elif case == "tiny_p":
+        top_ps[:] = 1e-6
+        top_ks[4:] = 20
+    elif case == "near_one":
+        top_ps[:] = 0.999999
+        top_ks[6:] = 1000
+    elif case == "dup_kth":
+        top_ks[:] = torch.tensor([10, 10, 25, 25, 40, 40, 5, 5])
+        srt = torch.sort(logits, dim=-1, descending=True)
+        for r in range(R):              # ranks k - 3 .. k + 2 share a value
+            k = int(top_ks[r])
+            logits[r, srt.indices[r, k - 3:k + 3]] = srt.values[r, k - 1]
+    elif case == "v13":
+        top_ks[4:] = torch.tensor([3, 7, 12, 13], dtype=torch.int32)
+    args = _sampling_rows(dev, R, V, 42)
+    return (logits.to(dtype), args[0], temps.to(dev), top_ks.to(dev),
+            top_ps.to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["top_p_alone", "equal", "dominant",
+                                  "tiny_p", "near_one", "dup_kth", "v13"])
+def test_nucleus_edge_cases_match_plain(dev, case, dtype):
+    """The radix select over mass, confirmed by the bisection's predicate,
+    at the nucleus's edges: tokens identical to the sort-based plain
+    version, as `test_sample_logits_matches_plain` holds its rows.  A
+    row is excused only where a drawn token's mass above lies within
+    1e-5 of top_p: there the plain version's cumulative sum and the
+    kernel's fixed-order sum (both fp32, in other orders) may round to
+    opposite sides of top_p.  Excused rows are counted, at most one of
+    eight; the draw gives the same bits twice."""
+    logits, words, temps, top_ks, top_ps = _nucleus_case(dev, case, dtype)
+    args = (words, temps, top_ks, top_ps)
+    out = tsample.sample_logits(logits, *args)
+    again = tsample.sample_logits(logits, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    plain = tsample.sample_plain(logits, *args)
+    above = _mass_above(logits.float(), temps, top_ks)
+    diff = (out != plain).nonzero()[:, 0].tolist()
+    for r in diff:
+        near = [abs(float(above[r, int(t)]) - float(top_ps[r])) <= 1e-5
+                for t in (out[r], plain[r])]
+        assert any(near), f"row {r}: {int(out[r])} vs {int(plain[r])}"
+    print(f"{case} {dtype}: {len(diff)} of {len(out)} rows excused "
+          f"(a drawn token's mass above within 1e-5 of top_p)")
+    assert len(diff) <= 1
 
 
 @pytest.mark.parametrize("opts", [

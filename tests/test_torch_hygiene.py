@@ -173,6 +173,19 @@ def test_no_library_norm_in_the_port():
     assert "F.layer_norm" in smoke and "F.rms_norm" in smoke
 
 
+def test_no_library_product_in_the_sampler():
+    """The sampler's LM-head product is its own kernel: no file of the
+    package calls `torch.mm` (chip_smoke.py times `torch.mm` with an
+    fp32 output beside the kernel as a yardstick, and only there)."""
+    named = [str(path.relative_to(ROOT))
+             for path in sorted((ROOT / "hetu_tpu_torch").rglob("*"))
+             if path.suffix in (".py", ".cu", ".cuh")
+             and "torch.mm(" in path.read_text()]
+    assert named == []
+    assert "torch.mm(x, w, out_dtype=torch.float32)" in (
+        ROOT / "chip_smoke.py").read_text()
+
+
 def test_cpu_gpt_training_and_serving_build_nothing(monkeypatch):
     """A GPT Trainer step and a GPT engine run on the CPU take every
     kernel's plain version (the LayerNorm arm's too) and never ask for a

@@ -192,6 +192,78 @@ def test_fused_sample_matches_pallas_kernel(pallas):
     np.testing.assert_array_equal(grid.numpy(), ref_grid)
 
 
+@pytest.mark.parametrize("V", [256, 1001])
+def test_fused_sample_over_a_tied_table_matches_the_reference(monkeypatch,
+                                                              V):
+    """The port's fused sampler over a tied head, the transposed view
+    `table.t()` of a [V, H] table (as `lm_head_weight()` returns GPT's
+    `wte`), against the reference's `sample_hidden` over the same head:
+    its Pallas `fused_sample` in interpret mode at V = 256; at the ragged
+    V = 1001, which the Pallas kernel refuses (V % 128), the route the
+    reference itself takes off the TPU (the fp32 product, then its
+    sampler).  The view and its contiguous copy give the same tokens."""
+    if V % 128 == 0:
+        monkeypatch.setenv("HETU_TPU_PALLAS", "1")
+        monkeypatch.setenv("HETU_TPU_PALLAS_KERNELS", _PALLAS)
+    _, seeds, positions, temps, top_ks, top_ps = _sampling_case()
+    rng = np.random.default_rng(11)
+    R, H = 12, 128
+    hidden = rng.standard_normal((R, H)).astype(np.float32)
+    table = (0.3 * rng.standard_normal((V, H))).astype(np.float32)
+    assert jpsample.compatible((R, H), (H, V)) == (V % 128 == 0)
+    ref = np.asarray(jsampling.sample_hidden(
+        jnp.asarray(hidden), jnp.asarray(table).T, jnp.asarray(seeds),
+        jnp.asarray(positions), jnp.asarray(temps), jnp.asarray(top_ks),
+        jnp.asarray(top_ps)))
+    words = _t(np.asarray(jsampling.key_words(
+        jnp.asarray(seeds), jnp.asarray(positions))).astype(np.int64))
+    head = _t(table).t()
+    assert head.shape == (H, V) and head.stride() == (1, H)
+    args = (words, _t(temps), _t(top_ks), _t(top_ps))
+    out = tsample.fused_sample(_t(hidden), head, *args, device="cpu")
+    np.testing.assert_array_equal(out.numpy(), ref)
+    dense = tsample.fused_sample(_t(hidden), head.contiguous(), *args,
+                                 device="cpu")
+    assert torch.equal(out, dense)
+
+
+def _head(layout, dtype=torch.bfloat16, H=64, V=1001):
+    """A head [H, V] in one of the layouts the product meets."""
+    if layout == "table_t":        # a tied [V, H] table's transposed view
+        return torch.zeros((V, H), dtype=dtype).t()
+    if layout == "dense":          # an untied [H, V] parameter
+        return torch.zeros((H, V), dtype=dtype)
+    if layout == "padded":         # rows of whole 16-byte runs, V ragged
+        return torch.zeros((H, (V + 7) // 8 * 8), dtype=dtype)[:, :V]
+    if layout == "col_strided":    # neither stride is 1
+        return torch.zeros((H, 2 * V), dtype=dtype)[:, ::2]
+    if layout == "off_16_bytes":   # a table view one element in
+        return torch.zeros(V * H + 1, dtype=dtype)[1:].view(V, H).t()
+    raise ValueError(layout)
+
+
+@pytest.mark.parametrize("layout,V,dtype,H,arm", [
+    ("table_t", 50257, torch.bfloat16, 1280, "k_major"),   # GPT's wte.t()
+    ("table_t", 1001, torch.bfloat16, 64, "k_major"),
+    ("dense", 128256, torch.bfloat16, 64, "n_major"),      # Llama's head
+    ("padded", 1001, torch.bfloat16, 64, "n_major"),
+    ("dense", 1001, torch.bfloat16, 64, "fma"),    # rows off 16-byte runs
+    ("col_strided", 1000, torch.bfloat16, 64, "fma"),
+    ("off_16_bytes", 1001, torch.bfloat16, 64, "fma"),
+    ("table_t", 1001, torch.bfloat16, 60, "fma"),  # H not a multiple of 8
+    ("table_t", 1001, torch.float32, 64, "fma"),
+    ("dense", 1000, torch.float32, 64, "fma")])
+def test_lm_head_route_by_layout(layout, V, dtype, H, arm):
+    """The product's arm follows dtype, strides and alignment alone: the
+    tensor cores take both layouts of a bf16 head that the port's models
+    pass (an untied [H, V] head, a tied table's `.t()`, ragged V), the
+    FMAs only fp32 and strides neither layout covers."""
+    head = _head(layout, dtype, H, V)
+    assert head.shape == (H, V)
+    hidden = torch.zeros((8, H), dtype=dtype)
+    assert tsample.lm_head_route(hidden, head) == arm
+
+
 def _words_with_infinite_noise(idx, w0=0x12345678):
     """Key words whose counter hash at `idx` has 0xFFFFFF in its 24 high
     bits (the murmur finalizer inverted): the uniform rounds to 1.0 and

@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero and nothing carries on:
  2. build: every CUDA kernel from hetu_tpu_torch/csrc, one nvcc per
     source, all at once; prints the ptxas report (registers, shared
     memory, spills) and the build time, then the bf16 dq kernel's, the
-    paged kernels' (split and merge), the SwiGLU forward's, RoPE's and
-    the four fused-norm kernels' registers and spills; a
+    paged kernels' (split and merge), the SwiGLU forward's, RoPE's,
+    the four fused-norm kernels', the quantize's and the page write's
+    (tokens and pages) registers and spills; a
     (C7520) warning (ptxas serialising wgmma) fails the run;
  3. kernels: each kernel at the shapes each path gives it for Llama-3-8B
     (serving: decode and a 256-token prefill chunk, checked here;
@@ -49,7 +50,9 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     (rtol 3e-7), its bf16 parameter one bf16 ulp; the flash kernels as
     `flash_kernel_phase` states; the second serving slice's kernels
     (int8/int4 paged attention, the verify kernel, the blockwise
-    quantize, the sampler) as `serving2_kernel_phase` states; the
+    quantize, the page write, the sampler) as `serving2_kernel_phase`
+    states (the page write beside the parent tree's quantize +
+    scatters, its pools byte for byte); the
     blockwise dequantize (the draft model's embedding [128256 x 2048]
     at blocks 128 and 64, payloads [4096, 64] and [4096, 128], bf16 and
     fp32 out) bit for bit (`serving3_kernel_phase`);
@@ -82,7 +85,9 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     kernels and the paged kernels' time and share of it; both again as
     they ran before RoPE read q and k in place from the fused projection
     (q and k copied first), which must cost exactly 2 x 32 more device
-    operations; then the same
+    operations, and the decode step again with the parent tree's page
+    writes (`parent_page_writes`: a scatter a tensor), at least one more
+    device operation a layer; then the same
     model and trace with half the requests at
     SamplingParams(temperature=0.8, top_k=50, top_p=0.95) on int8 pages,
     (b) without speculation, then (a) with n-gram speculation (spec_k
@@ -91,12 +96,14 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     length with 32 tokens, no page leaks, every launch count exact
     (verify: paged_verify layers a step, fused_sample once a step, its
     product on the N-major tensor-core arm, the
-    quantize twice a layer a step and twice a prefill, the draw over
+    page write once a layer a step and once a prefill, the draw over
     existing logits once a sampled request's first token; decode: the
     int8 arm layers a step and the draw once a step instead); TTFT, the
     decode gap, tokens/s, acceptance, tokens a verify step and peak
     memory; a sampled decode step of (b) and a verify step of (a)
-    profiled as phase 6 does, with their device operations a step;
+    profiled as phase 6 does, with their device operations a step,
+    and the decode forward and the verify step again with the parent's
+    page writes (a quantize of a copy and two scatters a tensor);
     then the third serving slice ("serving3", `serving3_phase`): a
     Llama-3.2-1B-width draft model resident in int8 drafting for the
     same target, verified by the stochastic rule on int8 pages with the
@@ -158,7 +165,9 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     heads of 64, pages of 16, 64 a slot), the verify kernel on int8
     pages (q [8, 5, 20, 64]), the blockwise quantize at block 64 (a
     decode step's K of one layer, [160, 64], and a prompt's K of every
-    layer, [552960, 64]), and the fused sampler over the tied head, a
+    layer, [552960, 64]), the page write (decode [8, 1, 20, 64] on exact
+    and int8 pages, a 768-token prefill over 36 layers), and the fused
+    sampler over the tied head, a
     transposed view of `wte` (the product's K-major arm, beside
     `product_yardstick`); AdamW over GPT-2-large's 436 leaves with
     a 1,001-element leaf and a view off a 16-byte boundary, one launch;
@@ -178,7 +187,8 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     page_size=16, max_len=1024, prefill_chunk=256), 8 Poisson requests
     at 10/s with 64-768-token prompts and 32 new tokens each: greedy on
     exact pages, then the odd requests sampled on int8 pages without
-    and with n-gram speculation; exact launch counts (the verify
+    and with n-gram speculation; exact launch counts (the page write
+    once a layer a step and once a prefill on every path; the verify
     step's `fused_sample` products all on the K-major tensor-core arm,
     none on the FMAs), TTFT, gap,
     tokens/s, peak memory; then one 256-token prefill chunk timed with
@@ -574,6 +584,228 @@ def serving_pages(seed, quant, C, copies, depths=SPEC_DEPTHS, *, nq=32,
     return q, pools, table, positions, nbytes, ops
 
 
+# ------------------------------------------------------ the page write
+def served_kv(g, S, C, n_kv, hd, layout):
+    """K and V [S, C, n_kv, hd] bf16 as the serving forwards hand them to
+    the page write: LLaMA's K out of RoPE (contiguous) and V a view of
+    the fused projection [S, C, n_kv, group + 2, hd] (group 4); GPT's K
+    and V views of [S, C, n_kv, 3, hd].  The projection's q columns then
+    hold NaN, so a write that read them would carry NaN into a page."""
+    from hetu_tpu_torch.ops.cuda import rotary as ro
+    if layout == "llama":
+        qkv = torch.randn((S, C, n_kv, 6, hd), generator=g,
+                          device="cuda").bfloat16()
+        cos_t, sin_t = (torch.randn((S, C, hd // 2), generator=g,
+                                    device="cuda") for _ in range(2))
+        _, k = ro.fused_rotary_qk(qkv[..., :4, :], qkv[..., 4, :], cos_t,
+                                  sin_t)
+        v = qkv[..., 5, :]
+        qkv[..., :4, :] = float("nan")
+    else:
+        qkv = torch.randn((S, C, n_kv, 3, hd), generator=g,
+                          device="cuda").bfloat16()
+        k, v = qkv[..., 1, :], qkv[..., 2, :]
+        qkv[..., 0, :] = float("nan")
+    return k, v
+
+
+def nan_pools(quant, shape, dtype=torch.bfloat16):
+    """Pools [..., P, ps, n_kv, hd] (and scales) holding what no write may
+    leave behind: NaN exact values, or payload bytes 0x5a under NaN
+    scales."""
+    if quant == "none":
+        k = torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+        return [k, k.clone(), None, None]
+    hd_p = shape[-1] // 2 if quant == "int4" else shape[-1]
+    pay = torch.full((*shape[:-1], hd_p), 0x5a, device="cuda",
+                     dtype=torch.uint8 if quant == "int4" else torch.int8)
+    sc = torch.full(shape[:-1], float("nan"), device="cuda")
+    return [pay, pay.clone(), sc, sc.clone()]
+
+
+def bytes_differing(pools, ref):
+    """The bytes in which two sets of pools (and scales) differ, NaN
+    payloads included."""
+    return sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+               for a, b in zip(pools, ref) if a is not None)
+
+
+def parent_token_write(pools, page, offset, k, v, quant):
+    """One layer's page write as the parent tree ran it
+    (`models/generation.py` `_paged_write_tokens(_q)`): for K and for V a
+    scatter of the cast values (exact pages), or `quantize_heads` of a
+    contiguous copy (the blockwise quantize kernel for int8, the plain
+    chain for int4) and a scatter of the payload and one of the scales;
+    `page` and `offset` were computed once a call."""
+    from hetu_tpu_torch.ops.quantization import quantize_heads
+    kp, vp, ks, vs = pools
+    for pool, scale, t in ((kp, ks, k), (vp, vs, v)):
+        if scale is None:
+            pool[page, offset] = t.to(pool.dtype)
+            continue
+        q, sc = quantize_heads(t, 4 if quant == "int4" else 8)
+        pool[page, offset] = q
+        scale[page, offset] = sc
+
+
+def parent_page_write(pools, dst, src, ks, vs, quant, paged):
+    """The parent tree's `PagePool.write_pages`: the whole K and V scratch
+    quantized (one quantize launch each for int8), then the real pages'
+    payloads and scales scattered; dst / src on the device."""
+    from hetu_tpu_torch.ops.quantization import quantize_heads
+    kp, vp, kscale, vscale = pools
+    for pool, scale, x in ((kp, kscale, ks), (vp, vscale, vs)):
+        x = x.reshape(paged)
+        if scale is None:
+            pool[:, dst] = x[:, src].to(pool.dtype)
+            continue
+        q, sc = quantize_heads(x, 4 if quant == "int4" else 8)
+        pool[:, dst] = q[:, src]
+        scale[:, dst] = sc[:, src]
+
+
+def page_write_result(label, sets, written, nbytes, ops, ms, plain_ms,
+                      parent_ms):
+    """Check a page-write case (the kernel's pools and the parent path's
+    equal to the plain version's byte for byte, `written` slots written
+    and no other) and print and return it as `case` does; the parent
+    path's time stands in `composition_ms`."""
+    for name in ("kernel", "parent"):
+        n = bytes_differing(sets[name], sets["plain"])
+        check(n == 0, f"{label}: the {name} pools differ from the plain "
+                      f"version's in {n} bytes")
+    kp, _, ksc, _ = sets["kernel"]
+    probe = kp.float().flatten(-2) if ksc is None else ksc   # [..., P, ps, .]
+    done = torch.isfinite(probe).all(-1)
+    check(torch.equal(done, written), f"{label}: slots written "
+                                      f"{int(done.sum())}, expected "
+                                      f"{int(written.sum())}")
+    b_ms, b_by = bound(nbytes, ops)
+    print(f"kernel {label}: identical to its plain version (bytes, NaN "
+          f"included), as is the parent's path; ms={ms:.5f} "
+          f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) "
+          f"parent_path_ms={parent_ms:.5f} "
+          f"(kernel / bound {ms / b_ms:.2f})")
+    return {"case": label, "max_abs_err": 0.0,
+            "tolerance": "identical (bytes, NaN included)", "excess": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "composition_ms": parent_ms,
+            "composition": "the parent's quantize + scatters"}
+
+
+def kv_token_cases(seed, modes, depths=SPEC_DEPTHS, *, n_kv=8, hd=128,
+                   mp=128, ps=16, layout="llama"):
+    """`write_kv_tokens` at a serving step's shape, one layer, bf16 K and
+    V as `served_kv` hands them over, a slot for each of `depths` (page
+    rows of `mp` pages of `ps`), in each (page mode, C) of `modes`: held
+    against its plain version (and the parent's path, `parent_token_write`)
+    byte for byte over pools that start as NaN, and timed beside both and
+    its bound (K and V read once, the payload and scales and the table
+    entries a token needs)."""
+    from hetu_tpu_torch.ops.cuda import kv_write as kw
+    S = len(depths)
+    P = S * mp + 1
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    positions = torch.tensor(depths, dtype=torch.int32, device="cuda")
+    out = []
+    for quant, C in modes:
+        k, v = served_kv(g, S, C, n_kv, hd, layout)
+        perm = torch.randperm(P - 1, generator=g, device="cuda") + 1
+        table = torch.zeros((S, mp), dtype=torch.int32, device="cuda")
+        written = torch.zeros((P, ps), dtype=torch.bool, device="cuda")
+        used = 0
+        for s_, d in enumerate(depths):
+            n = (d + C - 1) // ps + 1
+            table[s_, :n] = perm[used:used + n]
+            used += n
+            at = torch.arange(d, d + C, device="cuda")
+            written[table[s_, at // ps].long(), at % ps] = True
+        sets = {name: nan_pools(quant, (P, ps, n_kv, hd))
+                for name in ("kernel", "plain", "parent")}
+        page, offset = kw.token_block_pages(table, positions, C, ps)
+
+        def run(i, p=sets["kernel"], quant=quant, table=table, k=k, v=v):
+            kw.write_kv_tokens(p[0], p[1], table, positions, k, v,
+                               k_scale=p[2], v_scale=p[3], quant=quant)
+
+        def plain(i, p=sets["plain"], quant=quant, table=table, k=k, v=v):
+            kw.write_kv_tokens_plain(p[0], p[1], table, positions, k, v,
+                                     p[2], p[3], quant)
+
+        def parent(i, p=sets["parent"], quant=quant, page=page,
+                   offset=offset, k=k, v=v):
+            parent_token_write(p, page, offset, k, v, quant)
+        for fn in (run, plain, parent):
+            fn(0)
+        torch.cuda.synchronize()
+        heads = 2 * S * C * n_kv
+        hd_p = {"none": 2 * hd, "int8": hd + 4, "int4": hd // 2 + 4}[quant]
+        nbytes = heads * (2 * hd + hd_p) + S * C * 4 + S * 4
+        ops = 0 if quant == "none" else 4 * heads * hd
+        out.append(page_write_result(
+            f"kv_write_tokens {quant} pages [{S},{C},{n_kv},{hd}] "
+            f"{layout}'s K and V", sets, written, nbytes, ops,
+            device_ms(lambda: run(0)), device_ms(lambda: plain(0)),
+            device_ms(lambda: parent(0))))
+    return out
+
+
+def kv_pages_cases(seed, modes, *, layers, tokens, max_len, n_kv, hd,
+                   ps=16):
+    """`write_kv_pages` for a prefill of `tokens` positions: the scratch
+    [layers, 1, max_len, n_kv, hd] bf16 (the engine's dense cache, read
+    as `cache[:, 0]`), a page row of max_len / ps entries whose first
+    tokens / ps are real pages and the rest the null tail, in each page
+    mode of `modes`: byte for byte against its plain version and the
+    parent's path (`parent_page_write`: the whole scratch quantized, then
+    the real pages scattered), and timed beside both and its bound (the
+    real pages' rows read once, their payload and scales written once)."""
+    from hetu_tpu_torch.ops.cuda import kv_write as kw
+    mp, real = max_len // ps, tokens // ps
+    P = real + 1
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cache = [torch.randn((layers, 1, max_len, n_kv, hd), generator=g,
+                         device="cuda").bfloat16() for _ in range(2)]
+    ks, vs = cache[0][:, 0], cache[1][:, 0]
+    row = torch.zeros(mp, dtype=torch.int32, device="cuda")
+    row[:real] = torch.randperm(real, generator=g, device="cuda") + 1
+    dst = row[:real].long()
+    src = torch.arange(real, device="cuda")
+    written = torch.ones((layers, P, ps), dtype=torch.bool, device="cuda")
+    written[:, 0] = False
+    paged = (layers, mp, ps, n_kv, hd)
+    out = []
+    for quant in modes:
+        sets = {name: nan_pools(quant, (layers, P, ps, n_kv, hd))
+                for name in ("kernel", "plain", "parent")}
+
+        def run(p=sets["kernel"], quant=quant):
+            kw.write_kv_pages(p[0], p[1], row, ks, vs, k_scale=p[2],
+                              v_scale=p[3], quant=quant)
+
+        def plain(p=sets["plain"], quant=quant):
+            kw.write_kv_pages_plain(p[0], p[1], row, ks, vs, p[2], p[3],
+                                    quant)
+
+        def parent(p=sets["parent"], quant=quant):
+            parent_page_write(p, dst, src, ks, vs, quant, paged)
+        for fn in (run, plain, parent):
+            fn()
+        torch.cuda.synchronize()
+        heads = 2 * layers * tokens * n_kv
+        hd_p = {"none": 2 * hd, "int8": hd + 4, "int4": hd // 2 + 4}[quant]
+        nbytes = heads * (2 * hd + hd_p) + mp * 4
+        ops = 0 if quant == "none" else 4 * heads * hd
+        # the plain version finds the real entries on the host (a
+        # synchronize): timed between events, not in a graph
+        out.append(page_write_result(
+            f"kv_write_pages {quant} pages, {layers} layers x {tokens} of "
+            f"{max_len} positions x {n_kv} x {hd}", sets, written, nbytes,
+            ops, device_ms(run), event_ms(plain), device_ms(parent, 4)))
+        del sets
+    return out
+
+
 def _sampler_rows(seed, R, V):
     """Per-row sampling arguments of a verify step's 8 slots x 5 rows:
     greedy, temperature only, top-k 50, top-p 0.95, top-k + top-p."""
@@ -726,8 +958,12 @@ def serving2_kernel_phase(seed: int):
     `product_yardstick`, and the draw alone over bf16 logits [8,
     128256], [40, 128256] and [40, 50257] (a verify step's rows), each
     run twice for the same bits, with the clusters the card runs at
-    once.  Tolerances: the quantize payload bit for bit, scales
-    within one fp32 ulp; attention as the exact pages' (the plain
+    once; the page write (`kv_token_cases`: decode [8, 1, 8, 128] and
+    verify [8, 5, 8, 128] in the three page modes; `kv_pages_cases`: a
+    1,024-token prefill over 32 layers of a 2,048-position scratch) beside
+    the parent tree's quantize + scatters.  Tolerances: the quantize
+    payload bit for bit, scales within one fp32 ulp; the page write's
+    pools byte for byte; attention as the exact pages' (the plain
     version on the same quantized pool in fp32, half a bf16 ulp +
     1e-5); the draw alone token for token; the product within 1e-5 of
     the largest logit; the fused tokens identical on every row whose
@@ -754,6 +990,16 @@ def serving2_kernel_phase(seed: int):
             lambda i, x=x: qu.quantize_blockwise_plain(x, 128),
             n * 2 + n + rows * 4, 4 * n, inner=inner))
         del x
+    # the page write: a decode and a verify step's layer in each page
+    # mode, and a 1,024-token prefill's pages (32 layers)
+    out["kv_write_tokens"] = kv_token_cases(
+        seed + 30, [(quant, C) for C in (1, 5)
+                    for quant in ("none", "int8", "int4")])
+    out["kv_write_pages"] = kv_pages_cases(
+        seed + 31, ("none", "int8", "int4"), layers=32, tokens=1024,
+        max_len=2048, n_kv=8, hd=128)
+    gc.collect()
+    torch.cuda.empty_cache()
     # the sampler
     R, H, V = 40, 4096, 128256
     head = (0.02 * torch.randn((H, V), generator=g, device="cuda")).bfloat16()
@@ -960,6 +1206,60 @@ def rope_copy_drop(name, fn, layers: int, tries: int = 6) -> tuple:
           f"{name}: reading q and k in place removed {parent - now} "
           f"device operations, not 2 x {layers}")
     return now, parent
+
+
+@contextlib.contextmanager
+def parent_page_writes():
+    """The paged forwards as they wrote pages before the fused page
+    write: `write_kv_tokens` replaced by `parent_token_write` (a scatter,
+    or a quantize of a contiguous copy and two scatters, for K and for
+    V), its page ids and offsets computed once a call, as the parent's
+    `_token_block_pages` did; to count on the card what the fused write
+    removed."""
+    from hetu_tpu_torch.models import generation
+    from hetu_tpu_torch.ops.cuda import kv_write as kw
+    fused, last = generation.write_kv_tokens, {}
+
+    def parent(kp, vp, table, positions, k, v, *, k_scale=None,
+               v_scale=None, quant=None, device="cuda"):
+        key = last.get("key", (None, None))
+        if key[0] is not table or key[1] is not positions:
+            last["key"] = (table, positions)    # held: no id is reused
+            last["slots"] = kw.token_block_pages(table, positions,
+                                                 k.shape[1], kp.shape[1])
+        parent_token_write((kp, vp, k_scale, v_scale), *last["slots"], k,
+                           v, quant)
+    generation.write_kv_tokens = parent
+    try:
+        yield
+    finally:
+        generation.write_kv_tokens = fused
+
+
+def page_write_drop(name, fn, layers: int, tries: int = 6) -> tuple:
+    """The device operations of one call of `fn` with the fused page
+    write and as the parent's path ran it (`parent_page_writes`), each
+    the largest total of `tries` profiles (as `rope_copy_drop` counts);
+    checks that the fused write removed at least one operation a layer
+    and returns (this tree's, the parent path's)."""
+    ops = []
+    for parent in (False, True):
+        most = 0
+        with parent_page_writes() if parent else contextlib.nullcontext():
+            fn()
+            for _ in range(tries):
+                counts = {}
+                _profile(fn, 1, counts=counts)
+                most = max(most, round(sum(counts.values())))
+        ops.append(most)
+    now, before = ops
+    print(f"page write: {name} {before} -> {now} device operations a "
+          f"call ({before - now} fewer, {(before - now) / layers:.2f} a "
+          f"layer)")
+    check(before - now >= layers, f"{name}: the fused page write removed "
+                                  f"{before - now} device operations, "
+                                  f"fewer than one a layer ({layers})")
+    return now, before
 
 
 def training_kernel_phase(seed: int):
@@ -1191,9 +1491,11 @@ def gpt_kernel_phase(seed: int):
     their largest entry (sums over 8192 rows in another order).  Then
     the fused sampler at the GPT serving path's shape, hidden [40, 1280]
     x the tied head wte.t() [1280, 50257] (a transposed view: the
-    product's K-major tensor-core arm).  Then flash, the paged kernels and the quantize
-    at the GPT paths' shapes, at the tolerances of `flash_kernel_phase`
-    and `serving2_kernel_phase`."""
+    product's K-major tensor-core arm).  Then flash, the paged kernels,
+    the quantize and the page write (decode [8, 1, 20, 64] on exact and
+    int8 pages, a 768-token prefill over 36 layers) at the GPT paths'
+    shapes, at the tolerances of `flash_kernel_phase` and
+    `serving2_kernel_phase`."""
     import torch.nn.functional as F
     from hetu_tpu_torch.ops.cuda import fused_norm as fn
     from hetu_tpu_torch.ops.cuda import quant as qu
@@ -1305,6 +1607,14 @@ def gpt_kernel_phase(seed: int):
             lambda i, x=x: qu.quantize_blockwise_plain(x, 64),
             n * 2 + n + rows * 4, 4 * n, inner=inner))
         del x
+    # the page write at GPT's serving shapes: a decode step's layer on
+    # exact and int8 pages, a 768-token prefill over 36 layers
+    out.setdefault("kv_write_tokens", []).extend(kv_token_cases(
+        seed + 32, (("none", 1), ("int8", 1)), GPT_DEPTHS, n_kv=20, hd=64,
+        mp=64, layout="gpt"))
+    out.setdefault("kv_write_pages", []).extend(kv_pages_cases(
+        seed + 33, ("none", "int8"), layers=L, tokens=768, max_len=1024,
+        n_kv=20, hd=64))
     return out
 
 
@@ -1532,6 +1842,7 @@ def kernel_table():
     from hetu_tpu_torch.ops.cuda import adam as ad
     from hetu_tpu_torch.ops.cuda import flash_attention as fa
     from hetu_tpu_torch.ops.cuda import fused_norm as fn
+    from hetu_tpu_torch.ops.cuda import kv_write as kw
     from hetu_tpu_torch.ops.cuda import paged_attention as pa
     from hetu_tpu_torch.ops.cuda import quant as qu
     from hetu_tpu_torch.ops.cuda import rotary as ro
@@ -1570,6 +1881,10 @@ def kernel_table():
                          tpu + "paged_attention.py:345"),
         "quantize_blockwise": (qu, "launches", src + "quant.cu",
                                tpu + "quant.py:78"),
+        "kv_write_tokens": (kw, "launches", src + "kv_write.cu",
+                            tpu + "quant.py:78"),
+        "kv_write_pages": (kw, "pages_launches", src + "kv_write.cu",
+                           tpu + "quant.py:78"),
         "fused_sample": (sa, "launches", src + "sample.cu",
                          tpu + "sample.py:188"),
         "sample_logits": (sa, "logits_launches", src + "sample.cu",
@@ -1916,9 +2231,13 @@ def serving_phase(seed: int, kernels):
     check(launches["fused_rotary_qk"] == (steps + chunks) * L
           and launches["fused_swiglu"] == (steps + chunks) * L,
           "rotary/swiglu launches != (decode steps + chunks) x layers")
+    check(launches["kv_write_tokens"] == steps * L
+          and launches["kv_write_pages"] == len(reqs),
+          "page writes != decode steps x layers, and one a prefill")
     check(all(n == 0 for name, n in launches.items()
               if name not in ("paged_attention", "fused_rotary_qk",
-                              "fused_swiglu")),
+                              "fused_swiglu", "kv_write_tokens",
+                              "kv_write_pages")),
           f"a training kernel launched while serving: {launches}")
     ttft = sorted(r.stats.ttft_s for r in results)
     e2e = sorted(r.stats.e2e_s for r in results)
@@ -2021,12 +2340,12 @@ def serving2_phase(model, seed: int, kernels):
         steps = int(reg.counter_value("serve.decode_steps"))
         chunks = int(reg.counter_value("serve.prefill_chunks"))
         sampled = sum(not r.sampling.greedy for r in reqs)
-        # each layer of a step quantizes its K and V; each prefill's
-        # page write its whole K and V scratch
+        # each layer of a step writes its K and V in one launch, each
+        # prefill its pages in one; the quantize launches no more
         expect = {name: 0 for name in kernels}
         expect.update(fused_rotary_qk=(steps + chunks) * L,
                       fused_swiglu=(steps + chunks) * L,
-                      quantize_blockwise=2 * L * steps + 2 * len(reqs))
+                      kv_write_tokens=L * steps, kv_write_pages=len(reqs))
         if eng.spec:
             expect.update(paged_verify=steps * L, fused_sample=steps,
                           sample_logits=sampled)
@@ -2249,9 +2568,10 @@ def serving3_phase(model, seed: int, kernels):
     `shared_prompt_trace`.  Every launch count is exact: each draft
     forward dequantizes its 65 matrices and runs 16 layers (flash, the
     fused norm, RoPE, SwiGLU), each verify step 32 `paged_verify`
-    launches and one draw (the bonus token), each prefix hit's prime 2
-    dequantize launches (K and V of all layers), each prefill 2
-    quantize launches.  Then one propose and one verify step are
+    launches, 32 page writes and one draw (the bonus token), each prefix
+    hit's prime 2 dequantize launches (K and V of all layers), each
+    prefill one page write (the quantize launches only at the drafter's
+    load, before the run).  Then one propose and one verify step are
     profiled (where serving3's time goes, and the dequantize's share),
     and the same trace runs greedy on exact pages without speculation,
     with the prefix cache and without it (TTFT; tokens identical)."""
@@ -2318,7 +2638,7 @@ def serving3_phase(model, seed: int, kernels):
     expect = {name: 0 for name in kernels}
     expect.update(
         paged_verify=steps * L, sample_logits=steps + sampled,
-        quantize_blockwise=2 * L * steps + 2 * len(reqs),
+        kv_write_tokens=L * steps, kv_write_pages=len(reqs),
         dequantize_blockwise=n_mats * fwd + 2 * hits,
         flash_fwd=D * fwd, residual_rmsnorm_fwd=D * fwd,
         fused_rotary_qk=(steps + chunks) * L + D * fwd,
@@ -2660,12 +2980,18 @@ def serving_time_phase(eng, reqs):
             out[name]["ops_beyond_greedy_decode"] = sorted(
                 ((n[:60], c) for n, c in more.items() if c > 0),
                 key=lambda nc: -nc[1])
+    L = model.config.num_hidden_layers
     if "decode_step" in calls:
         # what reading q and k in place removed: two copies a layer
-        L = model.config.num_hidden_layers
         for name in ("decode_step", "prefill_chunk"):
             out[name]["device_ops_one_call_and_with_copies"] = \
                 rope_copy_drop(name, calls[name], L)
+    # what the fused page write removed: the exact decode step, the int8
+    # decode forward, the int8 verify step
+    for name in ("decode_step", "decode_forward", "verify_step"):
+        if name in calls:
+            out[name]["device_ops_now_and_parent_page_write"] = \
+                page_write_drop(name, calls[name], L)
     tag = eng.config.kv_quant + (", spec" if eng.spec else "")
     print(f"serving time ({tag}) " + json.dumps(out))
 
@@ -3039,10 +3365,10 @@ def gpt_serving_phase(seed: int, kernels):
         # GPT applies no RoPE, its MLP is GELU and its serving forwards
         # apply ln2 unfused: the page kernels and the sampler only
         expect = {name: 0 for name in kernels}
+        expect.update(kv_write_tokens=L * steps, kv_write_pages=len(reqs))
         if not serve.sampling:
             expect.update(paged_attention=steps * L)
         else:
-            expect.update(quantize_blockwise=2 * L * steps + 2 * len(reqs))
             if eng.spec:
                 expect.update(paged_verify=steps * L, fused_sample=steps,
                               sample_logits=sampled)
@@ -3154,6 +3480,9 @@ def main(argv=None) -> int:
     for kernel in ("rmsnorm_fwd_kernel", "rmsnorm_bwd_kernel",
                    "layernorm_fwd_kernel", "layernorm_bwd_kernel"):
         ptxas_check(reports["fused_norm"], kernel)
+    ptxas_check(reports["quant"], "quantize_kernel")
+    for kernel in ("write_kv_tokens_kernel", "write_kv_pages_kernel"):
+        ptxas_check(reports["kv_write"], kernel)
 
     # each path runs beside its own kernel checks: serving first, so
     # the training kernels' large buffers and CUDA graphs come after it

@@ -10,15 +10,20 @@
 // `quantize_blockwise_pallas` (arithmetic: comm/compress.py
 // `quantize_blockwise`).  Bound on an H100 by bytes: one read of x and
 // one write of the payload and scales, a max, a division and a rounding
-// an element.  Design: one warp a block (the KV pages' block is a head
-// vector of 128), the block's values held in registers between the
-// absmax and the quantize, so x is read from device memory once; bf16
-// input is widened in registers, which gives the values the reference's
-// astype(f32) gives without an fp32 copy of the buffer.  The scale and
-// x / scale are true IEEE divisions (__fdiv_rn, never a reciprocal) and
-// the rounding is rintf (round-half-to-even), so the payload is
-// bit-identical to the plain PyTorch version.  Block sizes 32, 64, 128
-// and 256 only (a block held in one warp's registers).
+// an element.  Design: the head-vector body of quant.cuh, a block of bs
+// values held by a group of bs * sizeof(T) / 16 lanes (16 for bf16 at
+// block 128, 8 at 64), one 16-byte load a lane and chunk, the absmax by
+// xor shuffles inside the group, the payload stored packed (8 bytes a
+// lane from a bf16 chunk), one lane of the group storing the scale;
+// over a grid that covers the buffer, a buffer of more than a wave of
+// blocks takes four a group at a time, their loads issued before any is
+// quantized (a smaller one one, so that a decode-sized buffer keeps its
+// launch latency).  The payload is bit-identical to the plain PyTorch
+// version: the scale is a true IEEE division and x / scale is rounded
+// half to even as rintf(__fdiv_rn) rounds it (quant.cuh
+// `quantize_lane`).  Block sizes 32, 64, 128 and 256 only.  The serving
+// path writes its KV pages through kv_write.cu, on the same body; this
+// flat form quantizes the draft model's matrices.
 //
 // Dequantize:
 //   q int8 [nb, bs], scales fp32 [nb] -> y [nb * bs], y = float(q) * scale
@@ -40,49 +45,69 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "quant.cuh"
 
-constexpr int QB_THREADS = 256;
+constexpr int QB_THREADS = 256;  // the dequantize's block
+constexpr int QZ_THREADS = 128;  // the quantize's
+// groups a lane holds at once in a buffer wider than a wave of threads
+// (132 SMs x 2,048)
+constexpr int QZ_UNROLL = 4;
+constexpr long long QZ_WAVE_THREADS = 132LL * 2048;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ int8_t quantize_one(float x, float scale,
-                                               float qmax) {
-  const float y = rintf(__fdiv_rn(x, scale));
-  return static_cast<int8_t>(fminf(fmaxf(y, -qmax), qmax));
-}
-
-// VPL values a lane, element lane + 32 * i of the block (coalesced).
-template <typename T, int VPL>
-__global__ void __launch_bounds__(QB_THREADS)
-    quantize_regs_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                         float* __restrict__ scales, long long nb,
-                         float qmax) {
-  constexpr int BS = 32 * VPL;
+// A warp's step takes UNROLL runs of 32 / LANES consecutive blocks of
+// the buffer (a group each), all loads issued before any block is
+// stored; the loop is warp-uniform (a group past nb holds zeros and
+// stores nothing), so every lane reaches the group's shuffles.
+template <typename T, int LANES, int CH, int UNROLL>
+__global__ void __launch_bounds__(QZ_THREADS)
+    quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                    float* __restrict__ scales, long long nb, int bs,
+                    float qmax) {
+  constexpr int PER_WARP = 32 / LANES;
+  constexpr int SPAN = PER_WARP * UNROLL;  // blocks a warp's step
   const int lane = threadIdx.x & 31;
+  const int l = lane % LANES;
+  const int chunks = bs * static_cast<int>(sizeof(T)) / 16;
   const long long warps = (static_cast<long long>(gridDim.x) * blockDim.x)
                           >> 5;
-  for (long long b = (static_cast<long long>(blockIdx.x) * blockDim.x +
+  for (long long w = (static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x) >> 5;
-       b < nb; b += warps) {
-    const T* xb = x + b * BS;
-    float v[VPL];
-    float amax = 0.0f;
+       w * SPAN < nb; w += warps) {
+    HeadVec<T, LANES, CH> hv[UNROLL];
 #pragma unroll
-    for (int i = 0; i < VPL; ++i) {
-      v[i] = to_f32(xb[lane + 32 * i]);
-      amax = fmaxf(amax, fabsf(v[i]));
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long b = w * SPAN + u * PER_WARP + lane / LANES;
+      hv[u].load(x + (b < nb ? b : 0) * bs, l, chunks, b < nb);
     }
-    const float scale = fmaxf(__fdiv_rn(warp_max(amax), qmax), 1e-12f);
-    int8_t* qb = q + b * BS;
 #pragma unroll
-    for (int i = 0; i < VPL; ++i) qb[lane + 32 * i] = quantize_one(v[i], scale,
-                                                                  qmax);
-    if (lane == 0) scales[b] = scale;
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long b = w * SPAN + u * PER_WARP + lane / LANES;
+      const HeadScale h =
+          head_scale(group_max<LANES>(hv[u].lane_absmax()), qmax);
+      if (b < nb) {
+        store_int8(hv[u], q + b * bs, l, chunks, h);
+        if (l == 0) scales[b] = h.scale;
+      }
+    }
+  }
+}
+
+// One launch over nb blocks, a group of LANES lanes each: a buffer with
+// more groups than a wave of threads holds takes QZ_UNROLL a group at a
+// time, a smaller one one.
+template <typename T, int LANES, int CH>
+static void run_quantize(const T* x, int8_t* q, float* scales, long long nb,
+                         int bs, float qmax, cudaStream_t st) {
+  if (nb * LANES > QZ_WAVE_THREADS) {
+    constexpr int span = 32 / LANES * QZ_UNROLL;
+    quantize_kernel<T, LANES, CH, QZ_UNROLL>
+        <<<grid_for((nb + span - 1) / span * 32, QZ_THREADS, 1 << 20),
+           QZ_THREADS, 0, st>>>(x, q, scales, nb, bs, qmax);
+  } else {
+    constexpr int span = 32 / LANES;
+    quantize_kernel<T, LANES, CH, 1>
+        <<<grid_for((nb + span - 1) / span * 32, QZ_THREADS, 1 << 20),
+           QZ_THREADS, 0, st>>>(x, q, scales, nb, bs, qmax);
   }
 }
 
@@ -91,22 +116,19 @@ static int launch(const void* x, void* q, void* scales, long long nb, int bs,
                   float qmax, void* stream) {
   if (nb < 0 || !(qmax == 127.0f || qmax == 7.0f))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (bs != 32 && bs != 64 && bs != 128 && bs != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nb == 0) return 0;
-  // a warp a block, QB_THREADS / 32 blocks a thread block, a few waves
-  const unsigned grid = grid_for(nb * 32, QB_THREADS, 132 * 16);
+  const int chunks = bs * static_cast<int>(sizeof(T)) / 16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* xt = static_cast<const T*>(x);
   int8_t* qt = static_cast<int8_t*>(q);
-  float* st_ = static_cast<float*>(scales);
-#define QB_REGS(V)                                                        \
-  quantize_regs_kernel<T, V><<<grid, QB_THREADS, 0, st>>>(xt, qt, st_, nb, \
-                                                          qmax)
-  if (bs == 32) QB_REGS(1);
-  else if (bs == 64) QB_REGS(2);
-  else if (bs == 128) QB_REGS(4);
-  else if (bs == 256) QB_REGS(8);
-  else return static_cast<int>(cudaErrorInvalidValue);
-#undef QB_REGS
+  float* sc = static_cast<float*>(scales);
+  if (chunks <= 4) run_quantize<T, 4, 1>(xt, qt, sc, nb, bs, qmax, st);
+  else if (chunks == 8) run_quantize<T, 8, 1>(xt, qt, sc, nb, bs, qmax, st);
+  else if (chunks == 16) run_quantize<T, 16, 1>(xt, qt, sc, nb, bs, qmax, st);
+  else if (chunks == 32) run_quantize<T, 32, 1>(xt, qt, sc, nb, bs, qmax, st);
+  else run_quantize<T, 32, 2>(xt, qt, sc, nb, bs, qmax, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,10 +19,13 @@ forward.  Three programs carry the serving engine's main path:
     them in one launch a layer (the `paged_verify` kernel).
 
 Both paged forwards take exact pools, or int8/int4 pools with their
-per-head-vector fp32 scales: this step's K/V are quantized on the way
-in (`ops/quantization.quantize_heads`: the blockwise kernel for int8)
-and the kernels dequantize pages in registers.  Positions of a token
-block past the slot's table row write into the null page.
+per-head-vector fp32 scales: each layer writes this step's K and V into
+its pages in one launch of the fused page write
+(`ops/cuda/kv_write.write_kv_tokens`: cast to the pool's type, or
+quantized on the way in), which reads K and V in place from the
+projection's views, and the attention kernels dequantize pages in
+registers.  Positions of a token block past the slot's table row write
+into the null page.
 
 They drive the model's modules layer by layer, because the KV cache is
 written between the projection and the attention: one loop for both
@@ -47,11 +50,11 @@ from __future__ import annotations
 
 import torch
 
+from hetu_tpu_torch.ops.cuda.kv_write import write_kv_tokens
 from hetu_tpu_torch.ops.cuda.paged_attention import (paged_attention,
                                                      paged_verify,
                                                      resolve_quant)
 from hetu_tpu_torch.ops.cuda.rotary import fused_rotary_qk
-from hetu_tpu_torch.ops.quantization import quantize_heads
 
 _NEG = -1e30
 
@@ -160,36 +163,6 @@ def extend_cache(model, tokens: torch.Tensor, cache, start):
     return model.logits(model.final_norm(x)), cache
 
 
-def _token_block_pages(table, positions, C: int, ps: int):
-    """Where a C-token block at positions[s] + i writes: (page ids,
-    offsets), each [S, C].  Positions past the slot's table row land in
-    the null page (id 0), and rows that are not decoding point there
-    already (their zeroed table rows, position 0): those writes touch no
-    real page."""
-    S, mp = table.shape
-    pos = positions.long()[:, None] + torch.arange(C, device=table.device)
-    pidx = pos // ps
-    rows = torch.arange(S, device=table.device)[:, None]
-    page = table[rows, pidx.clamp(max=mp - 1)].long()
-    return torch.where(pidx < mp, page, torch.zeros_like(page)), pos % ps
-
-
-def _paged_write_tokens(pool, page, offset, t):
-    """Write a token block's K (or V) [S, C, n_kv, hd] into ONE layer's
-    page array [P, ps, n_kv, hd] at `_token_block_pages`' slots, in
-    place."""
-    pool[page, offset] = t.to(pool.dtype)
-
-
-def _paged_write_tokens_q(pool, scale, page, offset, t, bits: int):
-    """The quantized form: payload and per-head-vector fp32 scale, by
-    the pool's own quantizer, so pool contents agree whichever program
-    wrote them."""
-    q, s = quantize_heads(t, bits)
-    pool[page, offset] = q
-    scale[page, offset] = s
-
-
 def _paged_forward(model, tokens, k_pool, v_pool, table, positions,
                    k_scale, v_scale, kv_quant, verify: bool):
     """The layers of a paged step over a token block tokens [S, C]:
@@ -208,21 +181,16 @@ def _paged_forward(model, tokens, k_pool, v_pool, table, positions,
     qpos = positions.long()[:, None] + torch.arange(C, device=table.device)
     x = model.embed_at(tokens, qpos)
     rope = model.rope_at(S, C, qpos)
-    page, offset = _token_block_pages(table, positions, C, k_pool.shape[2])
     scale = c.head_dim ** -0.5
     for li, layer in enumerate(model.layers):
         q, k, v = layer.serve_qkv(x)
         q, k = _rotate(rope, q, k)
         kp, vp = k_pool[li], v_pool[li]
         ksc = vsc = None
-        if kv_quant == "none":
-            _paged_write_tokens(kp, page, offset, k)
-            _paged_write_tokens(vp, page, offset, v)
-        else:
+        if kv_quant != "none":
             ksc, vsc = k_scale[li], v_scale[li]
-            bits = 4 if kv_quant == "int4" else 8
-            _paged_write_tokens_q(kp, ksc, page, offset, k, bits)
-            _paged_write_tokens_q(vp, vsc, page, offset, v, bits)
+        write_kv_tokens(kp, vp, table, positions, k, v, k_scale=ksc,
+                        v_scale=vsc, quant=kv_quant, device=q.device)
         kw = dict(softmax_scale=scale, k_scale=ksc, v_scale=vsc,
                   quant=kv_quant, device=q.device)
         if verify:

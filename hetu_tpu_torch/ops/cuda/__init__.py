@@ -16,6 +16,13 @@ launch counter:
   * flash_attention — flash attention forward, and its dq and dk/dv
                       backward kernels
                       (replaces ops/pallas/flash_attention.py)
+  * quant           — blockwise quantize and dequantize of a flat
+                      buffer (replaces ops/pallas/quant.py)
+  * kv_write        — the serving pool's page writes, quantized on the
+                      way (the quantize of ops/pallas/quant.py as the
+                      reference's serving/kv_pool.py writes pages)
+  * sample          — the fused LM head + sampling draw
+                      (replaces ops/pallas/sample.py)
 
 The routing rule is the device: each wrapper takes `device=` ("cuda"
 by default) and its tensors must lie there.  On CUDA it launches the

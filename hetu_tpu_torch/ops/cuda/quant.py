@@ -5,17 +5,20 @@ Replaces `hetu_tpu/ops/pallas/quant.py` `quantize_blockwise_pallas` and
 `dequantize_blockwise_pallas` (their arithmetic is
 `hetu_tpu/comm/compress.py` `quantize_blockwise` with deterministic
 rounding, and `dequantize_blockwise`).  Kernels: `csrc/quant.cu`, bound
-by bytes on the H100 (see its header).  The quantize runs a warp a
-block, one read of the input (bf16 widened in registers), one write of
-the int8 payload and fp32 scales; the payload is bit-identical to the
-plain version.  The dequantize runs a thread per 16 payload bytes and
+by bytes on the H100 (see its header).  The quantize runs the
+head-vector body of `csrc/quant.cuh` (a block held by bs * 2 / 16 lanes
+for bf16, bs * 4 / 16 for fp32, one 16-byte load a lane, the absmax by
+shuffles inside the group, the payload stored packed): one read of the
+input (bf16 widened in registers), one write of the int8 payload and
+fp32 scales; the payload is bit-identical to the plain version.  The dequantize runs a thread per 16 payload bytes and
 writes fp32, or bf16 rounded once (the bits of fp32-then-cast), so a
 caller that wants bf16 weights writes half the bytes; it is bit-identical
-to its plain version.  The serving engine quantizes int8 KV pages
-through the quantize (`ops/quantization.quantize_heads`), reads them
-back densely for the prefix cache's prime through the dequantize
-(`dequantize_heads`), and the model drafter keeps its weights resident
-in int8 and dequantizes a working copy every forward
+to its plain version.  The serving engine writes its KV pages through
+the fused page write on the same body (`ops/cuda/kv_write.py`), reads
+int8 pages back densely for the prefix cache's prime through the
+dequantize (`ops/quantization.dequantize_heads`), and the model drafter
+quantizes its matrices once at load through the quantize, keeps them
+resident in int8 and dequantizes a working copy every forward
 (`serving/spec_decode._dequantize_resident`).  Stochastic rounding
 feeds only the compressed collectives and arrives with them.
 """
@@ -78,8 +81,9 @@ def quantize_blockwise(x: torch.Tensor, block_size: int, *, bits: int = 8,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flat buffer (any shape, numel % block_size == 0) -> (q int8
     [n // bs, bs], scales fp32 [n // bs]).  `device` "cuda" launches
-    the kernel (fp32 or bf16 input, block sizes 32, 64, 128 or 256),
-    "cpu" runs the plain version; the tensor must lie there."""
+    the kernel (fp32 or bf16 input on a 16-byte boundary, block sizes
+    32, 64, 128 or 256), "cpu" runs the plain version; the tensor must
+    lie there."""
     if stochastic:
         raise NotImplementedError(
             "stochastic rounding feeds the compressed collectives; it "
@@ -98,8 +102,9 @@ def quantize_blockwise(x: torch.Tensor, block_size: int, *, bits: int = 8,
         raise ValueError(f"the CUDA kernel takes block sizes {_BLOCK_SIZES}"
                          f" (a block in one warp's registers), got "
                          f"{block_size}")
-    if not x.is_contiguous():
-        raise ValueError("quantize_blockwise needs a contiguous buffer")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("quantize_blockwise needs a contiguous buffer on "
+                         "a 16-byte boundary (the kernel's 16-byte loads)")
     nb = n // block_size
     q = torch.empty((nb, block_size), dtype=torch.int8, device=x.device)
     scales = torch.empty(nb, dtype=torch.float32, device=x.device)

@@ -8,7 +8,12 @@ EVEN index in the LOW nibble, values offset by +8.  The int4 KV pages of
 unpack it.  `quantize_heads` / `dequantize_heads` are the KV pages'
 per-head-vector quantization (the reference's `serving/kv_pool.py`
 pair): int8 through the blockwise kernels (quantize and dequantize),
-int4 through `quantize_int4` / `dequantize_int4`.
+int4 through `quantize_int4` / `dequantize_int4`.  The serving path
+writes its pages through the fused page write (`ops/cuda/kv_write.py`),
+which quantizes on the way with these bits; `quantize_heads` is that
+write's plain version on the CPU and builds quantized pools for tests
+and tools, and `dequantize_heads` reads pages back (`PagePool.gather`,
+the prefix cache's prime).
 """
 from __future__ import annotations
 
@@ -68,8 +73,10 @@ def dequantize_int4(packed: torch.Tensor, scale: torch.Tensor,
 def quantize_heads(x: torch.Tensor, bits: int = 8):
     """[..., hd] -> (payload, scales fp32 [...]): one absmax scale per
     head vector.  int8 payload [..., hd] through the blockwise kernel on
-    x's device (its plain version on the CPU); `bits=4` packs nibbles
-    into a uint8 [..., hd / 2] payload (plain PyTorch)."""
+    x's device (its plain version on the CPU; x is copied contiguous
+    first); `bits=4` packs nibbles into a uint8 [..., hd / 2] payload
+    (plain PyTorch).  The pages' own writer is the fused page write
+    (`ops/cuda/kv_write.py`), with the same bits."""
     hd = x.shape[-1]
     if bits == 4:
         q, s = quantize_int4(x, block_size=hd)

@@ -36,11 +36,14 @@ values plus one fp32 absmax scale per head vector (block = head_dim),
                         (int4: uint8 [..., hd / 2], two nibbles a byte)
     k_scale / v_scale : [L, num_pages + 1, page_size, n_kv]      fp32
 
-int8 quantizes through the blockwise kernel (`ops/cuda/quant.py`), int4
-through `ops/quantization.quantize_int4` (the reference's nibble
-layout: even index in the LOW nibble, +8 offset).  The paged-attention
-kernels dequantize in registers; `gather` dequantizes by the scales
-(int8 through the blockwise dequantize kernel).
+Pages of every mode are written by the fused page write
+(`ops/cuda/kv_write.py`: `write_pages` here, one launch a prefill;
+`models/generation`'s paged forwards, one launch a layer a step), which
+quantizes as it writes: int8 one byte a value, int4 the reference's
+nibble layout (even index in the LOW nibble, +8 offset), the bits of
+`ops/quantization.quantize_heads`.  The paged-attention kernels
+dequantize in registers; `gather` dequantizes by the scales (int8
+through the blockwise dequantize kernel).
 """
 from __future__ import annotations
 
@@ -50,7 +53,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from hetu_tpu_torch.ops.quantization import (dequantize_heads,
+from hetu_tpu_torch.ops.cuda.kv_write import write_kv_pages
+# quantize_heads: the reference's kv_pool holds the pair, and so does this
+# module (the tests quantize pools through it)
+from hetu_tpu_torch.ops.quantization import (dequantize_heads,  # noqa: F401
                                              quantize_heads)
 
 #: bytes an element of each exact page mode takes
@@ -202,32 +208,22 @@ class PagePool:
                     vs: torch.Tensor):
         """Bulk-write a prefilled sequence's K/V into its pages, in
         place.  pages_row: [mp] host page ids, null-padded; ks/vs:
-        [L, mp * page_size, n_kv, hd].  Only the real (non-null) entries
+        [L, mp * page_size, n_kv, hd] (views of the dense scratch are
+        read through their strides).  Only the real (non-null) entries
         are written: a scatter with repeated null-page indices would
         write page 0 several times in no defined order, and skipping
-        them keeps the write deterministic and page 0 untouched.
-        Quantized pools quantize the whole of ks/vs (one kernel launch
-        each in the int8 mode, as the reference quantizes its whole
-        scratch) and write the real pages' payloads and scales."""
+        them keeps the write deterministic and page 0 untouched.  One
+        launch of the fused page write (`ops/cuda/kv_write.py`) for K
+        and V of every layer; quantized pools quantize the real pages'
+        rows only, the bits the reference's quantize of the whole
+        scratch gives them."""
         pages_row = np.asarray(pages_row)
         mp = pages_row.shape[0]
         if ks.shape[1] != mp * self.page_size:
             raise ValueError(f"K/V hold {ks.shape[1]} positions, the row "
                              f"covers {mp} pages of {self.page_size}")
-        idx = np.flatnonzero(pages_row != self.NULL_PAGE)
-        if idx.size == 0:
-            return
-        dst = torch.as_tensor(pages_row[idx], dtype=torch.long,
+        row = torch.as_tensor(pages_row, dtype=torch.int32,
                               device=self.k.device)
-        src = torch.as_tensor(idx, dtype=torch.long, device=self.k.device)
-        paged = (self.num_layers, mp, self.page_size, self.num_kv_heads,
-                 self.head_dim)
-        for pool, scale, x in ((self.k, self.k_scale, ks),
-                               (self.v, self.v_scale, vs)):
-            x = x.reshape(paged)
-            if scale is None:
-                pool[:, dst] = x[:, src].to(pool.dtype)
-                continue
-            q, s = quantize_heads(x, self.quant_bits)
-            pool[:, dst] = q[:, src]
-            scale[:, dst] = s[:, src]
+        write_kv_pages(self.k, self.v, row, ks, vs, k_scale=self.k_scale,
+                       v_scale=self.v_scale, quant=self.quant,
+                       device=self.k.device)

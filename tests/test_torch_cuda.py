@@ -66,6 +66,18 @@ The third serving slice's: the blockwise dequantize bit for bit in both
 output arms, at block sizes whose rows end inside a 16-byte vector and
 on payload views off a 16-byte boundary; the model drafter with the
 prefix cache on int8 pages token for token against the CPU.
+
+The fused KV page write (`ops/cuda/kv_write.py`) bit for bit against
+its plain version in every page mode, fp32 and bf16, head dims 64 and
+128, decode (C = 1) and verify (C = 5) blocks: K and V as the serving
+forwards hand them over (RoPE's contiguous K and V a view of a LLaMA
+fused projection; K and V views of GPT's), NaN planted in the
+projection's q columns and in every page slot no write reaches (NaN
+exact values, NaN scales), a row that is not decoding and a block past
+its table row (the null page, compared only for having been written:
+several rows land there in no defined order), GPT's exact pages in the
+other type (the cast rounded once); the prefill write over a page row with null entries, untouched pages still NaN; and one launch
+a layer on the paged forwards, no quantize launch.
 """
 from __future__ import annotations
 
@@ -79,6 +91,7 @@ from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
 from hetu_tpu_torch.ops.cuda import adam as tadam
 from hetu_tpu_torch.ops.cuda import flash_attention as tflash
 from hetu_tpu_torch.ops.cuda import fused_norm as tfused_norm
+from hetu_tpu_torch.ops.cuda import kv_write as tkv_write
 from hetu_tpu_torch.ops import quantization as tquantization
 from hetu_tpu_torch.ops.cuda import paged_attention as tpaged
 from hetu_tpu_torch.ops.cuda import quant as tquant
@@ -1078,6 +1091,171 @@ def test_quantize_blockwise_refuses_other_block_sizes(dev):
         tquant.quantize_blockwise(x, 96)
     assert tquant.launches == before
     tquant.quantize_blockwise(x.cpu(), 96, device="cpu")
+
+
+def _nan_pools(dev, quant, dtype, shape):
+    """Pools [..., P, ps, n_kv, hd] holding what no write may leave
+    behind: NaN exact values, or payload bytes 0x5a under NaN scales."""
+    if quant == "none":
+        k = torch.full(shape, float("nan"), dtype=dtype, device=dev)
+        return [k, k.clone(), None, None]
+    hd_p = shape[-1] // 2 if quant == "int4" else shape[-1]
+    pay = torch.full((*shape[:-1], hd_p), 0x5a, device=dev,
+                     dtype=torch.uint8 if quant == "int4" else torch.int8)
+    sc = torch.full(shape[:-1], float("nan"), device=dev)
+    return [pay, pay.clone(), sc, sc.clone()]
+
+
+def _same_bytes(a, b):
+    """Equal bit for bit, NaN payloads included."""
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+def _served_kv(dev, dtype, S, C, n_kv, hd, layout, seed):
+    """K and V [S, C, n_kv, hd] as the serving forwards hand them over:
+    LLaMA's K out of RoPE (contiguous) and V a view of the fused
+    projection [S, C, n_kv, 2 + 2, hd]; GPT's K and V views of [S, C,
+    n_kv, 3, hd].  The projection's q columns then hold NaN: a write
+    that read them would carry NaN into the pages."""
+    if layout == "llama":
+        qkv = _normal((S, C, n_kv, 4, hd), seed, dev, dtype)
+        cos_t = _normal((S, C, hd // 2), seed + 1, dev)
+        sin_t = _normal((S, C, hd // 2), seed + 2, dev)
+        _, k = trotary.fused_rotary_qk(qkv[..., :2, :], qkv[..., 2, :],
+                                       cos_t, sin_t)
+        v = qkv[..., 3, :]
+        qkv[..., :2, :] = float("nan")
+    else:
+        qkv = _normal((S, C, n_kv, 3, hd), seed, dev, dtype)
+        k, v = qkv[..., 1, :], qkv[..., 2, :]
+        qkv[..., 0, :] = float("nan")
+    return k, v
+
+
+# slots at depths in their first, second and last page (the last one's
+# verify block runs past its 3-page row into the null page), and a row
+# that is not decoding (zeroed, at position 0)
+_KV_TABLE = [[1, 2, 3], [4, 5, 0], [6, 7, 8], [0, 0, 0]]
+_KV_POSITIONS = [20, 3, 46, 0]
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("C", [1, 5])
+@pytest.mark.parametrize("layout", ["llama", "gpt"])
+def test_write_kv_tokens_matches_plain(dev, quant, dtype, hd, C, layout):
+    S, n_kv, ps, P = 4, 2, 16, 9
+    table = torch.tensor(_KV_TABLE, dtype=torch.int32, device=dev)
+    pos = torch.tensor(_KV_POSITIONS, dtype=torch.int32, device=dev)
+    k, v = _served_kv(dev, dtype, S, C, n_kv, hd, layout, 40 + C)
+    # GPT's exact pages here in the other type: the cast, rounded once
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    out = _nan_pools(dev, quant, dtype if layout == "llama" else other,
+                     (P, ps, n_kv, hd))
+    ref = [None if t is None else t.clone() for t in out]
+    before = tkv_write.launches
+    tkv_write.write_kv_tokens(out[0], out[1], table, pos, k, v,
+                              k_scale=out[2], v_scale=out[3], quant=quant)
+    torch.cuda.synchronize()
+    assert tkv_write.launches == before + 1
+    tkv_write.write_kv_tokens_plain(ref[0], ref[1], table, pos, k, v,
+                                    ref[2], ref[3], quant)
+    for a, b in zip(out, ref):
+        if a is not None:
+            assert _same_bytes(a[1:], b[1:])        # every real page
+    # each live slot's C tokens (slot 2: two, then past its row) went to
+    # their slots and nowhere else; the null page took the rest (the
+    # inactive row's block, and the overflow: its slots 0..C-1)
+    probe = out[2] if quant != "none" else out[0]
+    done = torch.isfinite(probe.float().reshape(P, ps, -1)).all(-1)
+    assert int(done[1:].sum()) == 2 * C + min(C, 2)
+    assert bool(done[0, :C].all()) and not bool(done[0, C:].any())
+
+
+def _kv_pages_case(dev, quant, dtype, hd, L=3, n_kv=2, ps=16, P=10):
+    row = torch.tensor([0, 0, 7, 2, 9, 0], dtype=torch.int32, device=dev)
+    M = row.shape[0] * ps
+    scratch = [_normal((L, 1, M, n_kv, hd), 50 + i, dev, dtype)
+               for i in range(2)]
+    return row, scratch[0][:, 0], scratch[1][:, 0], _nan_pools(
+        dev, quant, dtype, (L, P, ps, n_kv, hd))
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_write_kv_pages_matches_plain(dev, quant, dtype, hd):
+    """The prefill's scratch (views of the dense cache) into a row with
+    shared (null) pages ahead and an unused tail: the real pages bit for
+    bit, every other page (page 0 too) still NaN."""
+    row, ks, vs, out = _kv_pages_case(dev, quant, dtype, hd)
+    ref = [None if t is None else t.clone() for t in out]
+    before = tkv_write.pages_launches
+    tkv_write.write_kv_pages(out[0], out[1], row, ks, vs, k_scale=out[2],
+                             v_scale=out[3], quant=quant)
+    torch.cuda.synchronize()
+    assert tkv_write.pages_launches == before + 1
+    tkv_write.write_kv_pages_plain(ref[0], ref[1], row, ks, vs, ref[2],
+                                   ref[3], quant)
+    for a, b in zip(out, ref):
+        if a is not None:
+            assert _same_bytes(a, b)
+    untouched = [p for p in range(out[0].shape[1]) if p not in (7, 2, 9)]
+    probe = out[2] if quant != "none" else out[0]
+    assert bool(torch.isnan(probe[:, untouched].float()).all())
+    assert bool(torch.isfinite(probe[:, [7, 2, 9]].float()).all())
+
+
+def test_write_kv_refuses_what_the_kernel_does_not_take(dev):
+    """fp16, head dims off the 16-byte grid or past 256, and K or V off a
+    16-byte boundary raise before a launch."""
+    table = torch.tensor(_KV_TABLE, dtype=torch.int32, device=dev)
+    pos = torch.tensor(_KV_POSITIONS, dtype=torch.int32, device=dev)
+    before = tkv_write.launches
+    for dtype, hd, off in ((torch.float16, 64, 0), (torch.bfloat16, 36, 0),
+                           (torch.float32, 512, 0), (torch.float32, 64, 1)):
+        pools = _nan_pools(dev, "int8", torch.float32, (9, 16, 2, hd))
+        flat = torch.zeros(4 * 2 * hd + off, dtype=dtype, device=dev)
+        k = flat[off:].view(4, 1, 2, hd)
+        with pytest.raises(ValueError):
+            tkv_write.write_kv_tokens(pools[0], pools[1], table, pos, k, k,
+                                      k_scale=pools[2], v_scale=pools[3])
+    assert tkv_write.launches == before
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+def test_paged_forwards_write_one_launch_a_layer(dev, quant):
+    """A decode and a verify step write their pages with one
+    `write_kv_tokens` launch a layer, a prefill's page write is one
+    `write_kv_pages` launch, and none launches the quantize."""
+    from hetu_tpu_torch.models.generation import (decode_step_paged,
+                                                  verify_step_paged)
+    from hetu_tpu_torch.serving.kv_pool import PagePool
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2, intermediate_size=512,
+                           compute_dtype=torch.float32)
+    L = cfg.num_hidden_layers
+    model = LlamaLMHeadModel(cfg, device=dev, seed=0)
+    pool = PagePool(num_layers=L, num_pages=4, page_size=8, num_kv_heads=2,
+                    head_dim=64, quant=quant, device=dev)
+    kw = {} if quant == "none" else dict(
+        k_scale=pool.k_scale, v_scale=pool.v_scale, kv_quant=quant)
+    table = torch.tensor([[1, 2], [3, 0], [0, 0]], dtype=torch.int32,
+                         device=dev)
+    pos = np.array([9, 4, 0], np.int32)
+    tok = torch.tensor([[5, 6, 7], [8, 9, 10], [0, 0, 0]], device=dev)
+    counts = lambda: (tkv_write.launches, tkv_write.pages_launches,  # noqa
+                      tquant.launches)
+    before = counts()
+    decode_step_paged(model, tok[:, 0], pool.k, pool.v, table, pos, **kw)
+    verify_step_paged(model, tok, pool.k, pool.v, table, pos + 1, **kw)
+    scratch = _normal((L, 1, 16, 2, 64), 60, dev)
+    pool.write_pages(np.array([4, 0], np.int32), scratch[:, 0],
+                     scratch[:, 0])
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2 * L, 1, 0)
 
 
 def _quant_pool(pool, quant):

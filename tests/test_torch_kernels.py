@@ -36,6 +36,7 @@ from hetu_tpu_torch.ops.activations import swiglu
 from hetu_tpu_torch.ops.cuda import adam as tadam
 from hetu_tpu_torch.ops.cuda import build
 from hetu_tpu_torch.ops.cuda import fused_norm as tfused_norm
+from hetu_tpu_torch.ops.cuda import kv_write as tkv_write
 from hetu_tpu_torch.ops.cuda import paged_attention as tpaged
 from hetu_tpu_torch.ops.cuda import quant as tquant
 from hetu_tpu_torch.ops.cuda import rotary as trotary
@@ -709,6 +710,24 @@ def _quant_pages():
                  v_scale=vs.reshape(vp.shape[:-1])))
 
 
+def _kv_write_args(pages: bool):
+    """A token block (or a prefill scratch) and int8 pools: L = 2,
+    S = 2, n_kv = 2, hd 64, pages of 4."""
+    pools = [torch.zeros((2, 5, 4, 2, 64), dtype=torch.int8)
+             for _ in range(2)]
+    scales = dict(k_scale=torch.zeros((2, 5, 4, 2)),
+                  v_scale=torch.zeros((2, 5, 4, 2)))
+    if pages:
+        x = torch.ones(2, 8, 2, 64)
+        return ([*pools, torch.tensor([3, 0], dtype=torch.int32), x, x],
+                scales)
+    x = torch.ones(2, 1, 2, 64)
+    table = torch.tensor([[1, 2], [0, 0]], dtype=torch.int32)
+    return ([pools[0][0], pools[1][0], table,
+             torch.tensor([5, 0], dtype=torch.int32), x, x],
+            {k: t[0] for k, t in scales.items()})
+
+
 def _sample_args(R=3, V=16):
     return (torch.zeros(R, 2, dtype=torch.long), torch.ones(R),
             torch.zeros(R, dtype=torch.int32), torch.zeros(R))
@@ -717,7 +736,8 @@ def _sample_args(R=3, V=16):
 @pytest.mark.parametrize("call", ["paged", "rotary", "swiglu", "norm",
                                   "norm_bwd", "swiglu_bwd", "rotary_bwd",
                                   "adam", "paged_int8", "verify", "quant",
-                                  "sample", "fused_sample", "ln", "ln_bwd"])
+                                  "sample", "fused_sample", "ln", "ln_bwd",
+                                  "kv_tokens", "kv_pages"])
 def test_wrappers_default_to_the_card(monkeypatch, call):
     """Default device is "cuda": with no card, CPU inputs without
     device="cpu" raise instead of quietly running the plain version,
@@ -762,6 +782,10 @@ def test_wrappers_default_to_the_card(monkeypatch, call):
         "fused_sample": (tsample, "launches", tsample.fused_sample,
                          (torch.ones(3, 8), torch.ones(8, 16),
                           *_sample_args()), {}),
+        "kv_tokens": (tkv_write, "launches", tkv_write.write_kv_tokens,
+                      *_kv_write_args(pages=False)),
+        "kv_pages": (tkv_write, "pages_launches", tkv_write.write_kv_pages,
+                     *_kv_write_args(pages=True)),
     }[call]
     with pytest.raises(RuntimeError):
         fn(*args, **kw)
@@ -777,7 +801,7 @@ def test_exported_symbols_match_the_wrappers():
     for mod, src in ((tpaged, "paged_attention"), (trotary, "rotary"),
                      (tswiglu, "swiglu"), (tfused_norm, "fused_norm"),
                      (tadam, "adam"), (tquant, "quant"),
-                     (tsample, "sample")):
+                     (tsample, "sample"), (tkv_write, "kv_write")):
         text = (build.CSRC / f"{src}.cu").read_text()
         for sym, argtypes in mod._SIGNATURES.items():
             m = re.search(rf"HETU_EXPORT int {sym}\(([^)]*)\)", text)

@@ -39,7 +39,9 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     the training shape one element off a 16-byte boundary, the vector
     arm's bits, and hidden 4092); AdamW through its
     multi-tensor launch, beside the rates PyTorch's copy and add reach
-    at the same size; dq and dk/dv run twice give the same bits, and
+    at the same size, its bf16 leaf again with the device-side skip
+    flag clear (the bits of a launch without it) and set (p, m and v
+    byte for byte as before); dq and dk/dv run twice give the same bits, and
     so does every paged case (its splits merged in a fixed order).
     Tolerances:
     one bf16 ulp where a kernel rounds once to bf16 (paged attention on
@@ -149,6 +151,10 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     Then the first training slice's path — the dense attention, whole
     blocks recomputed (policy "nothing") — at 2 layers for 2 steps, with
     its launch counts (every forward kernel twice, no flash kernel).
+    "dots_attn" keeps the reference's set (the projections' outputs and
+    the attention's, not the projections' inputs): the peak is printed
+    beside 60.84 GiB, the peak when the projections' inputs were kept
+    too (PERF.md).
  9. GPT kernels (`gpt_kernel_phase`): the fused norm's LayerNorm
     arm at GPT-2-large's training shape [8192, 1280], forward and
     backward, bf16 and fp32, with a bias, each timed beside its plain
@@ -198,10 +204,36 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     RoPE at q [1,256,32,64] / k [1,256,8,64] (contiguous, and read in
     place from the fused projection [1,256,8,4+2,64]), SwiGLU at [256,
     8192] and the RMS forward at [256, 2048], bf16, timed as phase 3
-    times them (the RMS forward beside `x + h` then `F.rms_norm`).
+    times them (the RMS forward beside `x + h` then `F.rms_norm`);
+14. the third training slice ("training3"): (a) GPT-2-large widths cut
+    to 2 layers, bf16 parameters, fp32 compute, `loss_scale="dynamic"`,
+    dropout 0.1 / 0.1 keyed by the step, 3 `Trainer` steps on the card
+    and on the CPU to phase 7's tolerances, every dropout mask of the
+    run equal on both; then a step at the largest fp32 scale on a batch
+    of one token: AdamW's launch writes nothing (p, m, v byte for byte),
+    its step count stays, the scale halves; (b) GPT-2-large as published
+    (36 layers, dropout 0.1 / 0.1, bf16 parameters, the dynamic scale,
+    policy "nothing", `TrainingConfig(16, 8, 1024, seed=1, ...)`,
+    checkpoints every 3 steps, 1 kept): 6 steps, then a fresh model and
+    trainer restored from the step-3 checkpoint (hard-linked aside as a
+    crash after step 3 leaves it) take steps 4-6 — losses, grad norms,
+    scales and every parameter bit for bit the uninterrupted run's;
+    exact launch counts (LayerNorm forward 144, backward 72, no flash:
+    attention dropout runs the dense attention, AdamW once on its bf16
+    arm), phase 8's loss checks, step p50, tokens/s, mfu, peak memory,
+    one step profiled (the dropout hash's int64 kernels) and the dropout
+    timed apart, checkpoint bytes, the host's time blocked in `save`,
+    the write's and the restore's; (c) Llama-3-8B widths cut to 8
+    layers, bf16 parameters, flash, `TrainingConfig(4, 2, 2048)`, 3
+    steps under "dots_attn" and under "offload" (exact launch counts:
+    the flash forward once a layer and micro-batch under "dots_attn",
+    twice under "offload", which keeps the "dots" set on the host), step
+    p50, tokens/s, mfu, peak memory and the bytes staged to the host a
+    step.  The phase prints its wall time.
 
 Prints the `kernels` JSON line, the nvidia-smi line, and last the
-`{"ok": true, "device": ...}` line.
+`{"ok": true, "device": ...}` line; the `kernels` line gives AdamW's
+launches by arm ("f32", "bf16") over the training paths.
 """
 from __future__ import annotations
 
@@ -210,6 +242,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1360,13 +1393,19 @@ def training_kernel_phase(seed: int):
         2 * (dq.numel() + dk.numel()) * 2 + 2 * cos_t.numel() * 4,
         6 * pairs, composition=rope_composition(dq, dk, cos_t, sin_t, -1.0))]
     del dq, dk
-    # AdamW on the largest leaf and a bf16 leaf, one launch each
-    adam = [adam_case(f"adam_update {label}", [numel], dtype, g)
-            for label, numel, dtype in (
+    # AdamW on the largest leaf and a bf16 leaf, one launch each; the
+    # bf16 leaf again with the skip flag clear (the dynamic scale's
+    # finite step) and set (a non-finite one)
+    adam = [adam_case(f"adam_update {label}", [numel], dtype, g, skip=skip)
+            for label, numel, dtype, skip in (
                 ("w_gate_up [4096,2,14336] fp32", hidden * 2 * inter,
-                 torch.float32),
+                 torch.float32, None),
                 ("wqkv [4096,8,6,128] bf16", hidden * 8 * 6 * 128,
-                 torch.bfloat16))]
+                 torch.bfloat16, None),
+                ("wqkv [4096,8,6,128] bf16, skip flag clear",
+                 hidden * 8 * 6 * 128, torch.bfloat16, 0),
+                ("wqkv [4096,8,6,128] bf16, skip flag set",
+                 hidden * 8 * 6 * 128, torch.bfloat16, 1))]
     # what the card's memory gives a plain stream at w_gate_up's size:
     # PyTorch's copy (read one, write one) and add (read two, write one),
     # beside AdamW's seven streams
@@ -1387,7 +1426,7 @@ def training_kernel_phase(seed: int):
             **flash_kernel_phase(seed)}
 
 
-def adam_case(label, numels, dtype, g, *, views=(), inner=20):
+def adam_case(label, numels, dtype, g, *, views=(), inner=20, skip=None):
     """AdamW over leaves of `numels` elements (p of `dtype`; g, m, v
     fp32), in place, through `adam_update_multi`: one launch a list.  The
     p, m and v of the kernel, of the plain version and of the library
@@ -1396,7 +1435,11 @@ def adam_case(label, numels, dtype, g, *, views=(), inner=20):
     the same traffic) each start from the same values and stay their
     own.  Leaves in `views` are views one element into a larger buffer:
     off a 16-byte boundary, the kernel's scalar path.  Tolerances: one
-    fp32 ulp (rtol 3e-7); a bf16 p one bf16 ulp."""
+    fp32 ulp (rtol 3e-7); a bf16 p one bf16 ulp.  `skip` (0 or 1): the
+    kernel and the plain version take the device-side skip flag with
+    that value; with 1 every launch must leave p, m and v byte for byte
+    as they were, with 0 a launch must write the bits of a launch
+    without the flag (checked on copies first)."""
     from hetu_tpu_torch.ops.cuda import adam as ad
     kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
     step, lr = 10, 3e-4
@@ -1423,6 +1466,20 @@ def adam_case(label, numels, dtype, g, *, views=(), inner=20):
                 out[-1].append(c.copy_(t))
         return out
     mine, ref, lib = copies(), copies(), copies()
+    flag = None
+    if skip is not None:
+        flag = torch.full((), skip, dtype=torch.int32, device="cuda")
+        with_flag, without = copies(), copies()
+        ad.adam_update_multi(*with_flag[:1], grad, *with_flag[1:], lr, c1, c2,
+                             skip=flag, **kw)
+        ad.adam_update_multi(*without[:1], grad, *without[1:], lr, c1, c2,
+                             **kw)
+        expect = (p0, m0, v0) if skip else without
+        check(all(torch.equal(a, b) for xs, ys in zip(with_flag, expect)
+                  for a, b in zip(xs, ys)),
+              f"{label}: the skip flag {skip} launch wrote other bytes")
+        del with_flag, without
+        kept = copies() if skip else None
     del p0, m0, v0
     library = None
     steps = [torch.full((), float(step), device="cuda") for _ in numels]
@@ -1439,18 +1496,25 @@ def adam_case(label, numels, dtype, g, *, views=(), inner=20):
               f"({str(e).splitlines()[0]}); library_ms stays null")
 
     def run(i):
-        ad.adam_update_multi(*mine[:1], grad, *mine[1:], lr, c1, c2, **kw)
+        ad.adam_update_multi(*mine[:1], grad, *mine[1:], lr, c1, c2,
+                             skip=flag, **kw)
         return tuple(t for ts in mine for t in ts)
 
     def plain(i):
         for p, gr, m, v in zip(ref[0], grad, ref[1], ref[2]):
-            ad.adam_plain(p, gr, m, v, lr, c1, c2, **kw)
+            ad.adam_plain(p, gr, m, v, lr, c1, c2, skip=flag, **kw)
         return tuple(t for ts in ref for t in ts)
     n, esize = sum(numels), torch.finfo(dtype).bits // 8
     p_tol = ulps(1) if dtype == torch.bfloat16 else rel(3e-7)
     tols = (p_tol,) * len(numels) + (rel(3e-7),) * (2 * len(numels))
     res = case(label, tols, run, plain, n * (2 * esize + 4 + 4 * 4),
                15 * n, library=library, inner=inner)
+    if skip:
+        check(all(torch.equal(a, b) for xs, ys in zip(mine, kept)
+                  for a, b in zip(xs, ys)),
+              f"{label}: launches with the skip flag set wrote p, m or v")
+        print(f"kernel {label}: p, m and v byte for byte as before")
+        del kept
     del mine, ref, lib, grad
     return res
 
@@ -1589,6 +1653,11 @@ def gpt_kernel_phase(seed: int):
         f"adam_update GPT-2-large's {len(numels) - 2} leaves + a 1001-element"
         f" leaf + an unaligned view, fp32", numels, torch.float32, g,
         views=(len(numels) - 1,), inner=5)]
+    # the same leaves in bf16 with the skip flag clear: phase 14's launch
+    numels = gpt_leaf_numels()
+    out["adam_update"].append(adam_case(
+        f"adam_update GPT-2-large's {len(numels)} leaves, bf16, skip flag "
+        "clear", numels, torch.bfloat16, g, inner=5, skip=0))
     # serving: decode on exact and int8 pages, verify on int8 pages
     shape = dict(nq=20, n_kv=20, hd=64, mp=64)
     for name, res in paged_cases(seed + 7, (("none", 1), ("int8", 1),
@@ -1899,12 +1968,31 @@ def kernel_table():
     }
 
 
+#: AdamW's launches by arm over the paths' runs (the `kernels` line)
+ADAM_ARMS = {"f32": 0, "bf16": 0}
+
+
 def zero_counts(kernels):
+    from hetu_tpu_torch.ops.cuda import adam as ad
     from hetu_tpu_torch.ops.cuda import sample as sa
     for mod, attr, *_ in kernels.values():
         setattr(mod, attr, 0)
     for arm in sa.lm_head_routes:
         sa.lm_head_routes[arm] = 0
+    for arm in ad.arm_launches:
+        ad.arm_launches[arm] = 0
+
+
+def check_adam_arm(label, per_step: int, arm: str):
+    """Since `zero_counts`, AdamW launched `per_step` times, all on
+    `arm`; adds them to ADAM_ARMS."""
+    from hetu_tpu_torch.ops.cuda import adam as ad
+    expect = dict.fromkeys(ad.arm_launches, 0)
+    expect[arm] = per_step
+    check(ad.arm_launches == expect, f"{label}: AdamW arms "
+          f"{ad.arm_launches}, expected {expect}")
+    for a, n in ad.arm_launches.items():
+        ADAM_ARMS[a] += n
 
 
 def check_product_arm(path, launches, arm):
@@ -3130,6 +3218,7 @@ def training_phase(seed: int, kernels, card: str, cfg, *, name: str,
             counts = read_counts(kernels)
             check(counts == per_step, f"step {i + 1} launches {counts}, "
                                       f"expected {per_step}")
+            check_adam_arm(f"step {i + 1}", per_step["adam_update"], "f32")
             for name_, n in counts.items():
                 launches[name_] += n
             zero_counts(kernels)
@@ -3167,6 +3256,10 @@ def training_phase(seed: int, kernels, card: str, cfg, *, name: str,
         "launches_per_step": per_step, "launches": launches, "card": card,
     }
     print("training " + json.dumps(out))
+    if name.startswith("Llama") and policy == "dots_attn":
+        print(f"training: remat policy 'dots_attn' keeps the reference's "
+              f"set: peak {peak:.2f} GiB; with the projections' inputs "
+              f"kept too (PERF.md) 60.84 GiB; {card}")
     if time_it:
         training_time_phase(tr, batch, p50 * 1e3, card)
     return launches
@@ -3445,6 +3538,399 @@ def prefill_chunk_times(model, seed: int, C: int = 256, start: int = 512,
           f"(wall p50 of {reps})")
 
 
+# ------------------------------------------------------------ training3
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each element of x (at zero, the smallest
+    normal's)."""
+    e = torch.floor(torch.log2(x.abs().float().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _adam_direction(m, v, step: int, opt) -> torch.Tensor:
+    """AdamW's direction m^ / (sqrt(v^) + eps) from the moments after
+    `step`."""
+    c1, c2 = 1.0 - opt.b1 ** step, 1.0 - opt.b2 ** step
+    return (m / c1) / (torch.sqrt(v / c2) + opt.eps)
+
+
+def _t3_masks_equal(keys_shapes):
+    """The counter-based dropout masks of `keys_shapes` [(key, shape)]
+    drawn on the card and on the CPU: equal element for element."""
+    from hetu_tpu_torch.ops import activations as act
+    for key, shape in keys_shapes:
+        n = int(np.prod(shape))
+        check(torch.equal(act.dropout_bits(n, key, "cuda").cpu(),
+                          act.dropout_bits(n, key, "cpu")),
+              f"dropout bits of {key} {shape} differ on the card")
+    return len(keys_shapes)
+
+
+def training3_reference_phase(seed: int, card: str):
+    """Phase 14 (a): GPT-2-large widths cut to 2 layers, bf16 parameters,
+    fp32 compute, the dynamic loss scale, dropout 0.1 / 0.1 keyed by the
+    step: 3 Trainer steps on the card and on the CPU, taken in turn, to
+    phase 7's tolerances, each parameter within one bf16 ulp a step plus
+    lr x the gap between the two sides' AdamW directions, the masks of
+    every (step, micro-batch, layer, site) equal on both; then a step at
+    the largest fp32 scale on a batch of one token (its row of the tied
+    head overflows): AdamW writes nothing, the step count stays, the
+    scale halves."""
+    from hetu_tpu_torch.engine import Trainer, TrainingConfig
+    from hetu_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.ops.activations import DropoutKey
+
+    cfg = GPTConfig.gpt2_large(num_hidden_layers=2,
+                               compute_dtype=torch.float32,
+                               param_dtype=torch.bfloat16,
+                               attention_dropout=0.1, hidden_dropout=0.1)
+    t0 = time.perf_counter()
+    cpu = GPTLMHeadModel(cfg, device="cpu", seed=seed)
+    gpu = GPTLMHeadModel(cfg, device="cuda", seed=seed)
+    gpu.load_state_dict(cpu.state_dict())
+    tc = TrainingConfig(global_batch_size=4, micro_batch_size=2, seq_len=64,
+                        warmup_steps=1, total_steps=10, log_every=100,
+                        seed=seed + 3, dropout_deterministic=False,
+                        loss_scale="dynamic")
+    batch = _train_batch(cfg.vocab_size, 4, 64, seed)
+    batch["labels"][1, :5] = -100
+    trainers = [Trainer(gpu, tc, device="cuda"),
+                Trainer(cpu, tc, device="cpu")]
+    on_card, on_cpu = [], []
+    opt = trainers[1].optimizer
+    # in the trainers' order (`Trainer.params` is `model.parameters()`)
+    bound = [torch.zeros(p.shape, device="cuda") for p in gpu.parameters()]
+    for step in range(1, 4):
+        for tr, out in zip(trainers, (on_card, on_cpu)):
+            out.append({k: float(v) for k, v in tr.train_step(batch).items()})
+        # each parameter within one bf16 ulp a step (at the larger value
+        # of the two after the step) plus lr x what the two AdamW
+        # directions differ by (computed on the card)
+        card_t, cpu_t = trainers
+        for i, (pg, pc, mg, vg, mc, vc) in enumerate(zip(
+                card_t.params, cpu_t.params, card_t.opt_state["m"],
+                card_t.opt_state["v"], cpu_t.opt_state["m"],
+                cpu_t.opt_state["v"])):
+            gap = (_adam_direction(mg, vg, step, opt) - _adam_direction(
+                mc.to("cuda"), vc.to("cuda"), step, opt)).abs()
+            bound[i] += opt._lr(step) * gap + _bf16_ulp(torch.maximum(
+                pg.detach().float().abs(),
+                pc.detach().to("cuda").float().abs()))
+    bound = [b.cpu() for b in bound]
+    card_p = [p.detach().cpu() for p in trainers[0].params]
+    cpu_p = [p.detach() for p in trainers[1].params]
+    masks = _t3_masks_equal([
+        (DropoutKey((tc.seed + 1, step, micro, layer, site)), shape)
+        for step in range(3) for micro in range(2) for layer in range(2)
+        for site, shape in ((1, (2, 20, 64, 64)), (2, (2, 64, 1280)),
+                            (3, (2, 64, 1280)))])
+    worst = {k: max(abs(g[k] - c[k]) / abs(c[k])
+                    for g, c in zip(on_card, on_cpu))
+             for k in ("loss", "grad_norm", "lr", "loss_scale")}
+    d = [(a.float() - b.float()).abs() for a, b in zip(card_p, cpu_p)]
+    over_bound = max((x / b).max().item() for x, b in zip(d, bound))
+    d = torch.cat([x.flatten() for x in d])
+    p_err, p_frac = d.max().item(), (d > 1e-5).float().mean().item()
+    check(all(m["amp_skipped"] == 0.0 for m in on_card + on_cpu),
+          "a finite step was skipped")
+    check(all(v <= 1e-5 for v in worst.values()),
+          f"card vs CPU training3 metrics differ: {worst}")
+    check(over_bound <= 1.0 and p_frac <= 1e-3,
+          f"card vs CPU bf16 parameters differ: max {p_err}, "
+          f"{over_bound} of the per-element bound, {p_frac} of elements "
+          f"past 1e-5")
+    # the forced overflow, on the card
+    tr = trainers[0]
+    big = float(np.finfo(np.float32).max)
+    tr.scaler_state["scale"].fill_(big)
+    before = tr.state()
+    saved = [t.clone() for t in tr.params + tr.opt_state["m"]
+             + tr.opt_state["v"]]
+    step = before["opt_state"]["step"]
+    ids = np.full((4, 64), 464, np.int32)
+    m = tr.train_step({"input_ids": ids, "labels": ids.copy()})
+    after = tr.state()
+    unchanged = all(torch.equal(a, b) for a, b in zip(
+        saved, tr.params + tr.opt_state["m"] + tr.opt_state["v"]))
+    check(float(m["amp_skipped"]) == 1.0, "the forced overflow did not "
+          "overflow")
+    check(unchanged, "the skipped step wrote p, m or v")
+    check(after["opt_state"]["step"] == step, "the skipped step counted")
+    check(float(tr.scaler_state["scale"]) == big * 0.5,
+          f"scale {float(tr.scaler_state['scale'])} is not {big} / 2")
+    print(f"training3 reference: GPT-2-large widths, 2 layers, bf16 params, "
+          f"fp32 compute, dynamic scale, dropout 0.1/0.1, 3 steps: card vs "
+          f"CPU worst relative diff {worst} (tol 1e-5); parameters max abs "
+          f"diff {p_err:.3g}, at most {over_bound:.3g} of the per-element "
+          f"bound (sum over steps of one bf16 ulp + lr x the AdamW "
+          f"directions' gap; tol 1), {p_frac:.3g} of elements "
+          f"past 1e-5 (tol 1e-3); {masks} dropout masks equal on card and "
+          f"CPU; losses {[x['loss'] for x in on_card]}; forced overflow at "
+          f"scale {big:.4g}: skipped, p/m/v byte for byte, AdamW step "
+          f"{step} kept, scale -> {float(tr.scaler_state['scale']):.4g} "
+          f"({time.perf_counter() - t0:.1f}s); {card}")
+    del trainers, tr, gpu, cpu
+
+
+def _t3_step_launches(kernels, per_step, label):
+    counts = read_counts(kernels)
+    check(counts == per_step, f"{label} launches {counts}, expected "
+                              f"{per_step}")
+    check_adam_arm(label, per_step["adam_update"], "bf16")
+    zero_counts(kernels)
+    return counts
+
+
+def _t3_run(kernels, per_step, tr, batch, steps, label, losses, times,
+            launches):
+    """`steps` Trainer steps through `train` (log_every=1: each reads its
+    loss), launch counts checked per step."""
+    for i in range(steps):
+        t0 = time.perf_counter()
+        metrics = tr.train([batch], num_steps=1)
+        times.append(time.perf_counter() - t0)
+        losses.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                       float(metrics["loss_scale"])))
+        for k, n in _t3_step_launches(kernels, per_step,
+                                      f"{label} step {tr.global_step}"
+                                      ).items():
+            launches[k] += n
+
+
+def _t3_dropout_ms(cfg, mbs, seq, calls_per_layer):
+    """The dropout's device time a step, timed apart: a mask and its
+    scaling at the probabilities' and the hidden state's shapes, times
+    the calls a step makes (forward, recompute, backward: 3 a site a
+    layer a micro-batch)."""
+    from hetu_tpu_torch.ops.activations import DropoutKey, dropout
+    key = DropoutKey((1, 2, 3))
+    out = {}
+    for name, shape, dtype in (
+            ("probs", (mbs, cfg.num_attention_heads, seq, seq),
+             torch.float32),
+            ("hidden", (mbs, seq, cfg.hidden_size), cfg.compute_dtype)):
+        x = torch.randn(shape, device="cuda").to(dtype)
+        out[name] = event_ms(lambda: dropout(x, 0.1, key,
+                                             deterministic=False))
+        del x
+    per_layer = calls_per_layer * (out["probs"] + 2 * out["hidden"])
+    return out, per_layer
+
+
+def training3_gpt_phase(seed: int, kernels, card: str):
+    """Phase 14 (b): GPT-2-large as published — 36 layers, attention and
+    hidden dropout 0.1, bf16 parameters, the dynamic loss scale — policy
+    "nothing", `TrainingConfig(16, 8, 1024, seed=1, ...)`, checkpoints
+    every 3 steps, 1 kept.  Run A takes 6 steps; once its step-3
+    checkpoint is committed, the step's files are hard-linked aside (the
+    directory a crash after step 3 leaves); a fresh model and trainer
+    `restore_latest_valid` from there (step 3) and take steps 4-6
+    (checkpointing every 1,000 steps, so it writes none): their
+    losses, grad norms, scales and every parameter equal run A's bit for
+    bit.  Launch counts exact each step; phase 8's loss checks; step
+    p50, tokens/s, mfu, peak memory; one step profiled (the sum of its
+    kernels on int64 data: the dropout hash's and any index or arange
+    work) and the dropout timed apart; checkpoint
+    bytes, the host's time blocked in `save`, the write (in the
+    background: steps 4-5 run beside step 3's, the profiled step beside
+    step 6's) and the restore."""
+    import shutil
+    import tempfile
+
+    from hetu_tpu_torch.engine import Trainer, TrainingConfig
+    from hetu_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.utils.checkpoint import manifest_path
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.gpt2_large(attention_dropout=0.1, hidden_dropout=0.1,
+                               param_dtype=torch.bfloat16)
+    L, gbs, mbs, seq = cfg.num_hidden_layers, 16, 8, 1024
+    root = tempfile.mkdtemp(prefix="training3-")
+    run_dir, crash_dir = os.path.join(root, "a"), os.path.join(root, "b")
+
+    def trainer(ckpt_dir, ckpt_every=3):
+        model = GPTLMHeadModel(cfg, device="cuda", seed=seed)
+        return Trainer(model, TrainingConfig(
+            global_batch_size=gbs, micro_batch_size=mbs, seq_len=seq,
+            lr=1e-3, warmup_steps=2, total_steps=1000, log_every=1, seed=1,
+            dropout_deterministic=False, loss_scale="dynamic",
+            ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, ckpt_keep=1),
+            device="cuda").build()
+    batch = _train_batch(cfg.vocab_size, gbs, seq, seed)
+    sigma = cfg.initializer_range * math.sqrt(cfg.hidden_size)
+    expect_first = math.log(cfg.vocab_size) + sigma ** 2 / 2
+    per_step = {name: 0 for name in kernels}
+    per_step.update(residual_layernorm_fwd=2 * L * (gbs // mbs),
+                    residual_layernorm_bwd=L * (gbs // mbs), adam_update=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = trainer(run_dir)
+    mgr = tr._manager()
+    n_params = sum(p.numel() for p in tr.params)
+    zero_counts(kernels)
+    losses, times, launches = [], [], {name: 0 for name in kernels}
+    # steps 4 and 5 run while step 3's checkpoint is written
+    _t3_run(kernels, per_step, tr, batch, 5, "training3 A", losses, times,
+            launches)
+    t0 = time.perf_counter()
+    mgr.wait()
+    wait_s = time.perf_counter() - t0
+    os.makedirs(crash_dir)
+    for name in (str(3), os.path.basename(manifest_path(run_dir, 3))):
+        src = os.path.join(run_dir, name)
+        if os.path.isdir(src):
+            shutil.copytree(src, os.path.join(crash_dir, name),
+                            copy_function=os.link)
+        else:
+            os.link(src, os.path.join(crash_dir, name))
+    _t3_run(kernels, per_step, tr, batch, 1, "training3 A", losses, times,
+            launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    final = [p.detach().clone() for p in tr.params]
+    # where the time goes: one step profiled, the dropout timed apart
+    busy, wall, by_name, top = _profile(lambda: tr.train_step(batch), 1,
+                                        top=8)
+    int64_ms = sum(t for n, t in by_name.items() if "long" in n)
+    drop_apart, drop_layer = _t3_dropout_ms(cfg, mbs, seq, 3)
+    drop_step = drop_layer * L * (gbs // mbs)
+    zero_counts(kernels)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    # run A's step-6 checkpoint, written beside the profiled step
+    t0 = time.perf_counter()
+    mgr.wait()
+    wait6_s = time.perf_counter() - t0
+    check(mgr.all_steps() == [6], f"ckpt_keep=1 kept {mgr.all_steps()}")
+    # the resume
+    t0 = time.perf_counter()
+    # (it saves no checkpoint of its own in its 3 steps)
+    re = trainer(crash_dir, ckpt_every=1000)
+    re.restore_latest_valid()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(re.global_step == 3, f"restored step {re.global_step}, not 3")
+    resumed = []
+    _t3_run(kernels, per_step, re, batch, 3, "training3 resumed", resumed,
+            [], launches)
+    check(resumed == losses[3:], f"resumed steps 4-6 {resumed} differ from "
+          f"the uninterrupted run's {losses[3:]}")
+    differ = [n for n, a, b in zip(re.names, final, re.params)
+              if not torch.equal(a, b.detach())]
+    check(not differ, f"resumed parameters differ: {differ[:5]}")
+    restore_ms = re.registry.histogram("ckpt.restore_s").summary()
+    reg = mgr.registry
+    ckpt = {"bytes": reg.gauge_value("ckpt.bytes"),
+            "save_blocked_s": reg.histogram("ckpt.save_blocked_s").summary(),
+            "write_s": reg.histogram("ckpt.write_s").summary(),
+            "wait_for_step_3_write_after_step_5_s": wait_s,
+            "wait_for_step_6_write_after_profiled_step_s": wait6_s}
+    del re, final, mgr
+    shutil.rmtree(root)
+    loss = [x[0] for x in losses]
+    check(all(math.isfinite(x) for x in loss), f"losses {loss}")
+    check(abs(loss[0] - expect_first) <= 0.5,
+          f"first loss {loss[0]} is not within 0.5 of {expect_first}")
+    check(loss[-1] < loss[0], f"loss did not fall: {loss}")
+    tokens = gbs * seq
+    p50 = float(np.median(times))
+    flops = cfg.flops_per_token(seq) * tokens
+    out = {
+        "model": "GPT-2-large", "layers": L, "params": n_params,
+        "param_dtype": "bf16", "dropout": [0.1, 0.1],
+        "attention": "dense (attention dropout)", "remat_policy": "nothing",
+        "micro_batch": mbs, "seq_len": seq, "tokens_per_step": tokens,
+        "losses_grad_norms_scales": losses, "step_s": times,
+        "step_s_p50": p50, "tokens_per_s": tokens / p50,
+        "mfu": flops / p50 / PEAK_OPS_PER_S[torch.bfloat16],
+        "peak_memory_gib": peak, "launches_per_step": per_step,
+        "resumed_from_step": 3, "resume_bit_identical": True,
+        "checkpoint": dict(ckpt, restore_s=restore_s,
+                           restore_copy_s=restore_ms),
+        "profiled_step": {"device_busy_ms": busy, "wall_ms": wall,
+                          "device_idle_share": 1.0 - busy / (p50 * 1e3),
+                          "int64_kernels_ms": int64_ms,
+                          "top_kernels_ms": top},
+        "dropout_apart_ms": drop_apart, "dropout_ms_per_step": drop_step,
+        "dropout_share_of_step": drop_step / (p50 * 1e3),
+        "phase_s": time.perf_counter() - t_phase, "card": card}
+    print("training3 gpt " + json.dumps(out))
+    return launches
+
+
+def training3_llama_phase(seed: int, kernels, card: str):
+    """Phase 14 (c): Llama-3-8B widths cut to 8 layers, bf16 parameters,
+    flash, `TrainingConfig(4, 2, 2048)`, 3 steps under "dots_attn" and
+    under "offload": exact launch counts per policy (the norm, RoPE and
+    SwiGLU forwards twice a layer and micro-batch under both; the flash
+    forward once under "dots_attn", twice under "offload", which keeps
+    the "dots" set), step p50, tokens/s, mfu, peak memory and the bytes
+    "offload" stages to the host a step.  Returns {path: launches}."""
+    from hetu_tpu_torch.engine import Trainer, TrainingConfig
+    from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
+    from hetu_tpu_torch.nn import remat
+
+    out = {}
+    gbs, mbs, seq = 4, 2, 2048
+    for policy in ("dots_attn", "offload"):
+        t_phase = time.perf_counter()
+        cfg = LlamaConfig.llama3_8b(num_hidden_layers=8,
+                                    param_dtype=torch.bfloat16,
+                                    remat_policy=policy)
+        L, n_micro = cfg.num_hidden_layers, gbs // mbs
+        fwd, bwd = 2 * L * n_micro, L * n_micro
+        per_step = {name: 0 for name in kernels}
+        per_step.update(fused_rotary_qk=fwd, fused_swiglu=fwd,
+                        residual_rmsnorm_fwd=fwd, residual_rmsnorm_bwd=bwd,
+                        swiglu_bwd=bwd, rotary_qk_bwd=bwd, adam_update=1,
+                        flash_fwd=bwd if policy == "dots_attn" else fwd,
+                        flash_bwd_dq=bwd, flash_bwd_dkv=bwd)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
+        tr = Trainer(model, TrainingConfig(
+            global_batch_size=gbs, micro_batch_size=mbs, seq_len=seq,
+            lr=1e-3, warmup_steps=2, total_steps=1000, log_every=1),
+            device="cuda").build()
+        batch = _train_batch(cfg.vocab_size, gbs, seq, seed)
+        zero_counts(kernels)
+        launches = {name: 0 for name in kernels}
+        losses, times, staged = [], [], []
+        for i in range(3):
+            host0 = remat.offloaded_bytes
+            t0 = time.perf_counter()
+            metrics = tr.train([batch], num_steps=1)
+            times.append(time.perf_counter() - t0)
+            staged.append(remat.offloaded_bytes - host0)
+            losses.append(float(metrics["loss"]))
+            for k, n in _t3_step_launches(kernels, per_step,
+                                          f"training3 {policy} step {i + 1}"
+                                          ).items():
+                launches[k] += n
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        check((policy == "offload") == (staged[0] > 0),
+              f"{policy} staged {staged} bytes")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tokens = gbs * seq
+        p50 = float(np.median(times))
+        flops = cfg.flops_per_token(seq) * tokens
+        print("training3 llama " + json.dumps({
+            "model": "Llama-3-8B widths", "layers": L,
+            "params": sum(p.numel() for p in tr.params),
+            "param_dtype": "bf16", "remat_policy": policy,
+            "micro_batch": mbs, "seq_len": seq, "losses": losses,
+            "step_s": times, "step_s_p50": p50,
+            "tokens_per_s": tokens / p50,
+            "mfu": flops / p50 / PEAK_OPS_PER_S[torch.bfloat16],
+            "peak_memory_gib": peak, "host_staged_bytes_per_step": staged,
+            "launches_per_step": per_step,
+            "phase_s": time.perf_counter() - t_phase, "card": card}))
+        out[f"training3_{policy}"] = launches
+        del tr, model
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3537,6 +4023,19 @@ def main(argv=None) -> int:
     # the draft forward's shapes, after each kernel's own paths' cases
     for name, more in draft_kernel_phase(args.seed).items():
         cases[name].extend(more)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the third training slice: bf16 parameters, the dynamic scale,
+    # dropout, checkpoints and the repaired and new recompute policies
+    t0 = time.perf_counter()
+    training3_reference_phase(args.seed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["training3_gpt"] = training3_gpt_phase(args.seed, kernels, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path.update(training3_llama_phase(args.seed, kernels, smi))
+    print(f"training3: {time.perf_counter() - t0:.1f}s; {smi}")
 
     line = []
     for name, (mod, attr, source, replaces) in kernels.items():
@@ -3547,6 +4046,8 @@ def main(argv=None) -> int:
             "replaces": replaces,
             "launches": next((n for n in counts.values() if n), 0),
             "launches_by_path": counts,
+            **({"launches_by_arm": dict(ADAM_ARMS)}
+               if name == "adam_update" else {}),
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": head["ms"], "kernel_ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

@@ -30,7 +30,11 @@
 //   * it reads p, g, m and v once and writes p, m and v IN PLACE: where
 //     the JAX package donates its old buffers to the jitted step, the
 //     port updates the tensors it owns, so no second copy of the
-//     optimizer state is ever allocated.
+//     optimizer state is ever allocated;
+//   * `skip`, when set, points at an int on the device: nonzero makes the
+//     launch write nothing (the dynamic loss scale's non-finite step, as
+//     the reference's where(finite, new, old) keeps p, m and v), so the
+//     host never reads the flag to decide whether to launch.
 // _rn intrinsics keep the compiler from contracting into FMAs, matching
 // the plain PyTorch version's rounding order.
 #include "common.cuh"
@@ -61,6 +65,7 @@ struct AdamLeaf {
 struct AdamTable {
   float b1, one_minus_b1, b2, one_minus_b2, lr, c1, c2, eps, wd;
   int leaves;
+  const int* skip;  // nullptr, or nonzero on the device: write nothing
   int chunk_start[ADAM_MAX_LEAVES + 1];
   AdamLeaf leaf[ADAM_MAX_LEAVES];
 };
@@ -112,6 +117,7 @@ __device__ __forceinline__ void store4(bf16* p, const float (&x)[4]) {
 template <typename P>
 __global__ void __launch_bounds__(ADAM_THREADS)
 adam_multi_kernel(const __grid_constant__ AdamTable t) {
+  if (t.skip != nullptr && *t.skip != 0) return;
   const Hyper h{t.b1, t.one_minus_b1, t.b2, t.one_minus_b2, t.lr,
                 t.c1, t.c2, t.eps, t.wd};
   const int chunks = t.chunk_start[t.leaves];

@@ -3,33 +3,58 @@
     trainer = Trainer(model, TrainingConfig(...), device="cuda")
     metrics = trainer.train(batches, num_steps)
 
-A step, as the reference's `_train_step_impl` with no scaler:
+A step, as the reference's `_train_step_impl`:
 
   * the host batch [global_batch, seq] splits into micro-batches
     (`prepare_batch`);
   * each micro-batch runs the model's training forward with the "sum"
-    loss and its backward; gradients accumulate in the fp32 parameters'
-    .grad, so the whole batch weighs every token alike, not a mean of
-    means;
-  * the accumulated gradients are divided by the batch's token count,
-    clipped by their global norm (`optim.clip_by_global_norm`) and
-    applied by AdamW with the cosine schedule (`optim.AdamW`, the fused
-    update kernel on every leaf), all in place.
+    loss — and, with `dropout_deterministic=False`, dropout keyed by
+    (seed + 1, step, micro-batch) — and its backward; under
+    `loss_scale="dynamic"` the fp32 loss sum is multiplied by scale /
+    slots first (slots = the batch's token slots), so the cotangents do
+    not grow with the batch;
+  * gradients accumulate in fp32: in the parameters' .grad when they
+    are fp32, else in fp32 accumulators beside them, each micro-batch's
+    gradient added in (the reference's `jnp.add` on an fp32 zero tree);
+    the whole batch weighs every token alike, not a mean of means;
+  * the sums are divided by the token count (times the scale: the
+    unscale folded in), clipped by their global norm
+    (`optim.clip_by_global_norm`) and applied by AdamW with the cosine
+    schedule (`optim.AdamW`, one launch of the fused kernel over every
+    leaf, the bf16 arm for bf16 parameters), all in place;
+  * under the dynamic scale, the global norm's finiteness — the one
+    reduction that already runs over every gradient — decides the step:
+    the AdamW launch reads it on the device and writes nothing when it
+    is not finite (p, m and v keep their bits), the `GradScaler` state
+    grows or backs off on the device, and the host learns of it one step
+    later: the flag and the scale are copied to pinned memory without
+    waiting, and read when the next update is enqueued (`settle`), which
+    takes the skipped step back from AdamW's step count, sets the
+    scaler.loss_scale gauge and counts scaler.growth / scaler.backoff.
+    Differs from the reference's element-wise check in one corner: a
+    finite gradient whose squares overflow fp32 (|g| past ~1.8e19)
+    counts as non-finite.
 
-`train_step` returns its metrics (loss, grad_norm, lr) as tensors and
-never waits for the card; `train` reads the loss, which waits, only
-every `log_every` steps, as the reference does.  The trainer writes
-trainer.steps / trainer.tokens counters and the trainer.step_time_s
-histogram into its own `MetricsRegistry` (`trainer.registry`).
+`train_step` returns its metrics (loss, grad_norm, lr, and with the
+scaler loss_scale and amp_skipped) as tensors and never waits for the
+card; `train` reads the loss, which waits, only every `log_every`
+steps, and saves a checkpoint every `ckpt_every` steps when `ckpt_dir`
+is set.  `state`, `save`, `restore` (retrying with the scaler's
+presence toggled, as the reference does), `restore_latest_valid` and
+`evaluate` (token-weighted cross-entropy and perplexity) are the
+reference's.  The trainer writes trainer.steps / trainer.tokens
+counters, the trainer.step_time_s histogram, the scaler and the
+checkpoint series into its own `MetricsRegistry` (`trainer.registry`).
 
 The reference's options that need a later slice raise
 NotImplementedError: those of `TrainingConfig`, `LlamaConfig` and
-`GPTConfig` where they are made; here a strategy or mesh, the run-log, health and
-numerics hooks, fp16 compute and parameters stored below fp32.
+`GPTConfig` where they are made; here a strategy or mesh, the run-log,
+health and numerics hooks, and fp16 compute.
 """
 from __future__ import annotations
 
 import logging
+import math
 import time
 from typing import Dict, Iterable, Optional
 
@@ -38,27 +63,32 @@ import torch
 
 from hetu_tpu_torch.engine.trainer_config import TrainingConfig
 from hetu_tpu_torch.obs.metrics import MetricsRegistry
+from hetu_tpu_torch.ops.activations import DropoutKey
+from hetu_tpu_torch.optim.grad_scaler import GradScaler, classify_transition
 from hetu_tpu_torch.optim.optimizer import (AdamW, clip_by_global_norm,
                                             cosine_schedule)
+from hetu_tpu_torch.utils.checkpoint import CheckpointManager
 from hetu_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("hetu_tpu_torch.trainer")
 
-_TRAINING_3 = "the third training slice (ROADMAP Queue A item 2)"
+_HOOKS = "the training hooks slice (ROADMAP Queue A item 2)"
+_FP16 = ("the fp16 slice (ROADMAP Queue A item 2: fp16 arms of the flash, "
+         "fused-norm, SwiGLU and RoPE kernels)")
 _MULTI_GPU = "the multi-GPU slice (ROADMAP Queue A item 5)"
 
 #: Trainer keyword arguments beyond this slice
 _LATER_ARGS = {"strategy": _MULTI_GPU, "mesh": _MULTI_GPU,
-               "run_log": _TRAINING_3, "health": _TRAINING_3,
-               "numerics": _TRAINING_3}
+               "run_log": _HOOKS, "health": _HOOKS, "numerics": _HOOKS}
 
 
 class Trainer:
     """Single-device training of a `LlamaLMHeadModel` or a
     `GPTLMHeadModel` that lives on `device` ("cuda" by default: the CUDA
     kernels; "cpu": their plain versions).  The model's training
-    forward takes (input_ids, labels, position_ids=, segment_ids=,
-    loss_reduction="sum") and returns (loss sum, token count)."""
+    forward takes (input_ids, labels, position_ids=, segment_ids=, rng=,
+    deterministic=, loss_reduction="sum") and returns (loss sum, token
+    count)."""
 
     def __init__(self, model, config: TrainingConfig, *, device="cuda",
                  **later):
@@ -73,16 +103,10 @@ class Trainer:
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device}, the "
                              f"trainer was asked for {self.device}")
-        if (config.loss_scale == "auto"
-                and model.config.compute_dtype == torch.float16):
+        if model.config.compute_dtype == torch.float16:
             raise NotImplementedError(
-                "fp16 compute needs the dynamic GradScaler, which is not "
-                f"in the port yet; it arrives with {_TRAINING_3}")
-        if model.config.param_dtype != torch.float32:
-            raise NotImplementedError(
-                f"param_dtype={model.config.param_dtype} needs fp32 gradient "
-                f"accumulators beside the parameters, which are not in the "
-                f"port yet; it arrives with {_TRAINING_3}")
+                "fp16 compute (with the dynamic GradScaler the reference "
+                f"turns on for it) arrives with {_FP16}")
         self.model = model
         self.config = c = config
         self.n_micro = c.num_micro_batches(1)
@@ -92,17 +116,34 @@ class Trainer:
             b1=c.beta1, b2=c.beta2, eps=c.eps, weight_decay=c.weight_decay,
             device=self.device)
         self.registry = MetricsRegistry()
+        self._scaler = GradScaler() if c.loss_scale == "dynamic" else None
+        self.scaler_state = None
+        self._ckpt = (CheckpointManager(c.ckpt_dir, c.ckpt_keep,
+                                        registry=self.registry)
+                      if c.ckpt_dir else None)
         self.params = None
         self.opt_state = None
+        self._accum = None
+        self._pending = None
+        self._last_loss_scale = None
         self.global_step = 0
 
     def build(self):
         """Turn gradients on for the model's parameters and create the
-        optimizer state (fp32 moments) beside them."""
+        optimizer state (fp32 moments) beside them, fp32 gradient
+        accumulators for parameters stored below fp32, and the scaler's
+        state."""
+        self.names = [n for n, _ in self.model.named_parameters()]
         self.params = list(self.model.parameters())
         for p in self.params:
             p.requires_grad_(True)
         self.opt_state = self.optimizer.init(self.params)
+        if any(p.dtype != torch.float32 for p in self.params):
+            self._accum = [torch.zeros(p.shape, dtype=torch.float32,
+                                       device=p.device)
+                           for p in self.params]
+        if self._scaler is not None:
+            self.scaler_state = self._scaler.init(self.device)
         return self
 
     def prepare_batch(self, host_batch: Dict[str, np.ndarray]):
@@ -123,35 +164,122 @@ class Trainer:
             out[k] = t
         return out
 
-    def train_step(self, host_batch: Dict[str, np.ndarray]):
-        """One optimizer step over the global batch.  Returns {"loss",
-        "grad_norm", "lr"} as 0-d tensors, without waiting for the card."""
-        if self.params is None:
-            self.build()
-        batches = self.prepare_batch(host_batch)
+    def _micro_grads(self, batches, rng, scale):
+        """Each micro-batch's forward and backward, its gradients summed
+        in fp32; returns (loss sum, token count)."""
+        c = self.config
         lsum = csum = None
         for i in range(self.n_micro):
             mb = {k: v[i] for k, v in batches.items()}
             loss, count = self.model(
                 mb["input_ids"], mb["labels"],
                 position_ids=mb.get("position_ids"),
-                segment_ids=mb.get("segment_ids"), loss_reduction="sum")
-            loss.backward()
+                segment_ids=mb.get("segment_ids"),
+                rng=None if rng is None else rng.fold(i),
+                deterministic=c.dropout_deterministic, loss_reduction="sum")
+            (loss if scale is None else loss.float() * scale).backward()
+            if self._accum is not None:
+                with torch.no_grad():
+                    for acc, p in zip(self._accum, self.params):
+                        if i == 0:
+                            acc.copy_(p.grad)
+                        else:
+                            acc.add_(p.grad)
+                        p.grad = None
             lsum = loss.detach() if lsum is None else lsum + loss.detach()
             csum = count if csum is None else csum + count
+        return lsum, csum
+
+    def train_step(self, host_batch: Dict[str, np.ndarray]):
+        """One optimizer step over the global batch.  Returns {"loss",
+        "grad_norm", "lr"} (and with the scaler "loss_scale",
+        "amp_skipped") as 0-d tensors, without waiting for the card."""
+        if self.params is None:
+            self.build()
+        c = self.config
+        batches = self.prepare_batch(host_batch)
+        scale = None
+        if self._scaler is not None:
+            ids = batches["input_ids"]
+            slots = float(ids.shape[0] * ids.shape[1]
+                          * max(ids.shape[2] - 1, 1))
+            scale = self.scaler_state["scale"] / slots
+        rng = None if c.dropout_deterministic else DropoutKey(
+            (c.seed + 1, self.global_step))
+        lsum, csum = self._micro_grads(batches, rng, scale)
         denom = torch.clamp(csum, min=1.0)
         with torch.no_grad():
-            grads = [p.grad for p in self.params]
+            grads = self._accum or [p.grad for p in self.params]
+            div = denom if scale is None else denom * scale
             for g in grads:
-                g.div_(denom)
-            grads, gnorm = clip_by_global_norm(grads, self.config.grad_clip)
-            self.optimizer.update(grads, self.opt_state, self.params)
+                g.div_(div)
+            grads, gnorm = clip_by_global_norm(grads, c.grad_clip)
+            if self._ckpt is not None:
+                self._ckpt.fence()
+            metrics = {"loss": lsum / denom}
+            if self._scaler is None:
+                self.optimizer.update(grads, self.opt_state, self.params)
+                metrics["grad_norm"] = gnorm
+                lr = torch.tensor(self.optimizer._lr(self.opt_state["step"]),
+                                  dtype=torch.float32)
+            else:
+                lr = self._scaled_update(grads, gnorm, metrics)
+            metrics["lr"] = lr
         for p in self.params:
             p.grad = None
         self.global_step += 1
-        lr = self.optimizer._lr(self.opt_state["step"])
-        return {"loss": lsum / denom, "grad_norm": gnorm,
-                "lr": torch.tensor(lr, dtype=torch.float32)}
+        return metrics
+
+    def _scaled_update(self, grads, gnorm, metrics):
+        """The dynamic-scale update (module docstring); fills metrics and
+        returns the lr tensor."""
+        finite = torch.isfinite(gnorm)
+        self.settle()
+        step = self.opt_state["step"]
+        self.optimizer.update(grads, self.opt_state, self.params,
+                              skip=(~finite).to(torch.int32))
+        self.scaler_state = self._scaler.update(self.scaler_state, finite)
+        flag_and_scale = torch.stack([finite.float(),
+                                      self.scaler_state["scale"]])
+        if self.device.type == "cuda":
+            host = torch.empty(2, dtype=torch.float32, pin_memory=True)
+            host.copy_(flag_and_scale, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host, event = flag_and_scale.clone(), None
+        self._pending = (host, event)
+        metrics["grad_norm"] = torch.where(
+            finite, gnorm, torch.full_like(gnorm, math.nan))
+        metrics["loss_scale"] = self.scaler_state["scale"]
+        metrics["amp_skipped"] = 1.0 - finite.float()
+        # filled on the device: a host tensor copied there would wait
+        lr_new, lr_old = (torch.full((), self.optimizer._lr(s),
+                                     dtype=torch.float32,
+                                     device=finite.device)
+                          for s in (step + 1, step))
+        return torch.where(finite, lr_new, lr_old)
+
+    def settle(self):
+        """Read the last scaled step's finite flag and scale (a wait for
+        that step alone): take a skipped update back from AdamW's step
+        count, set the scaler.loss_scale gauge and count a
+        scaler.growth / scaler.backoff transition.  A no-op when
+        nothing is pending."""
+        if self._pending is None:
+            return
+        host, event = self._pending
+        self._pending = None
+        if event is not None:
+            event.synchronize()
+        finite, scale = (float(v) for v in host.tolist())
+        if not finite:
+            self.opt_state["step"] -= 1
+        self.registry.set_gauge("scaler.loss_scale", scale)
+        event_name = classify_transition(self._last_loss_scale, scale)
+        if event_name is not None:
+            self.registry.inc(f"scaler.{event_name}")
+        self._last_loss_scale = scale
 
     def train(self, batches: Iterable[Dict[str, np.ndarray]],
               num_steps: Optional[int] = None):
@@ -187,4 +315,88 @@ class Trainer:
                     f"grad_norm {float(metrics['grad_norm']):.3f} "
                     f"tokens/s {tokens / max(dt, 1e-9):,.0f}")
                 t0, tokens = time.perf_counter(), 0
+            if self._ckpt is not None and self.global_step % c.ckpt_every == 0:
+                self.save()
+        self.settle()
         return metrics
+
+    # ------------------------------------------------------------------
+    def evaluate(self, batches: Iterable[Dict[str, np.ndarray]],
+                 max_batches: Optional[int] = None) -> Dict[str, float]:
+        """Token-weighted cross-entropy over whole batches [rows, seq]
+        (no dropout, no graph) and its perplexity."""
+        if self.params is None:
+            self.build()
+        total, count = 0.0, 0.0
+        for i, host_batch in enumerate(batches):
+            if max_batches is not None and i >= max_batches:
+                break
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.device) for k, v in host_batch.items()}
+            with torch.no_grad():
+                lsum, csum = self.model(
+                    batch["input_ids"], batch["labels"],
+                    position_ids=batch.get("position_ids"),
+                    segment_ids=batch.get("segment_ids"),
+                    loss_reduction="sum")
+            total += float(lsum)
+            count += float(csum)
+        loss = total / max(count, 1.0)
+        return {"loss": loss, "perplexity": float(np.exp(min(loss, 30.0))),
+                "tokens": count}
+
+    # ------------------------------------------------------------------
+    def state(self):
+        """The resumable state: the step, the parameters and AdamW's fp32
+        moments by parameter name, and the scaler's state when it is on
+        (live tensors: a save copies them)."""
+        if self.params is None:
+            self.build()
+        self.settle()
+        s = {"params": dict(zip(self.names, self.params)),
+             "opt_state": {"step": self.opt_state["step"],
+                           "m": dict(zip(self.names, self.opt_state["m"])),
+                           "v": dict(zip(self.names, self.opt_state["v"]))},
+             "step": self.global_step}
+        if self.scaler_state is not None:
+            s["scaler"] = self.scaler_state
+        return s
+
+    def _manager(self) -> CheckpointManager:
+        if self._ckpt is None:
+            raise ValueError("no ckpt_dir configured")
+        return self._ckpt
+
+    def save(self, wait: bool = False):
+        """Checkpoint `state()` as the current step; in the background
+        unless `wait`."""
+        self._manager().save(self.global_step, self.state(), wait=wait)
+
+    def restore(self, step: Optional[int] = None):
+        """Resume from checkpoint `step` (the latest by default), into
+        the live tensors.  When the scaler's presence differs between
+        the checkpoint and this trainer, retry with it toggled: a
+        missing scaler keeps its fresh state."""
+        mgr = self._manager()
+        target = self.state()
+        try:
+            restored = mgr.restore(step, target=target)
+        except ValueError:
+            if "scaler" in target:
+                target = {k: v for k, v in target.items() if k != "scaler"}
+            else:
+                target = dict(target, scaler=GradScaler().init(self.device))
+            restored = mgr.restore(step, target=target)
+        self.opt_state["step"] = int(restored["opt_state"]["step"])
+        self.global_step = int(restored["step"])
+        self._last_loss_scale = None
+        return self
+
+    def restore_latest_valid(self):
+        """Resume from the newest checkpoint that verifies, walking back
+        past corrupt or torn saves (each counts ckpt.fallbacks; checksum
+        failures are quarantined), through `restore`.  FileNotFoundError
+        when there is none, `CheckpointCorruptError` when none
+        restores."""
+        self._manager().restore_latest_valid(restore_fn=self.restore)
+        return self

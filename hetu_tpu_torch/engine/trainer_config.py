@@ -4,14 +4,19 @@ JAX package).
 
 The reference's fields keep their names and defaults.  Those whose
 non-default values need a later slice of the port raise
-NotImplementedError naming it; none is accepted and ignored.
+NotImplementedError naming it; none is accepted and ignored.  `seed`
+seeds the dropout masks (keyed as the reference's `fold_in(key(seed +
+1), step)`); the weights are drawn by the model
+(`LlamaLMHeadModel(seed=...)`, `GPTLMHeadModel(seed=...)`), where the
+reference's `Trainer.build` draws them from `seed` too.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-_TRAINING_3 = "the third training slice (ROADMAP Queue A item 2)"
+_PACKING = ("the packing and data slice (ROADMAP Queue A item 2, after "
+            "the third training slice)")
 _MULTI_GPU = "the multi-GPU slice (ROADMAP Queue A item 5)"
 
 
@@ -40,9 +45,8 @@ class TrainingConfig:
     ckpt_every: int = 1000
     ckpt_keep: int = 3
 
-    # the reference draws its params from it in Trainer.build; the
-    # port's model draws its own (LlamaLMHeadModel(seed=...),
-    # GPTLMHeadModel(seed=...)), and a step without dropout draws nothing
+    # the dropout masks' seed; the port's model draws its own weights
+    # (LlamaLMHeadModel(seed=...), GPTLMHeadModel(seed=...))
     seed: int = 0
     dropout_deterministic: bool = True  # pretraining default: no dropout
 
@@ -61,11 +65,7 @@ class TrainingConfig:
             raise ValueError(f"loss_scale must be auto|dynamic|none, got "
                              f"{self.loss_scale!r}")
         later = {
-            "packing": (self.packing, _TRAINING_3),
-            "ckpt_dir": (self.ckpt_dir is not None, _TRAINING_3),
-            "dropout_deterministic": (not self.dropout_deterministic,
-                                      _TRAINING_3),
-            "loss_scale": (self.loss_scale == "dynamic", _TRAINING_3),
+            "packing": (self.packing, _PACKING),
             "pp_schedule": (self.pp_schedule == "1f1b", _MULTI_GPU),
         }
         for name, (refused, slice_) in later.items():
@@ -73,11 +73,9 @@ class TrainingConfig:
                 raise NotImplementedError(
                     f"TrainingConfig.{name}={getattr(self, name)!r} is not "
                     f"in the port yet; it arrives with {slice_}")
-        if self.seed != 0:
-            raise ValueError(
-                "TrainingConfig.seed: the port's Trainer draws nothing; "
-                "draw the weights with LlamaLMHeadModel(seed=...) or "
-                "GPTLMHeadModel(seed=...)")
+        if isinstance(self.seed, bool) or not isinstance(self.seed, int):
+            raise ValueError(f"TrainingConfig.seed must be an int, got "
+                             f"{self.seed!r}")
 
     def num_micro_batches(self, dp: int) -> int:
         denom = self.micro_batch_size * dp

@@ -6,10 +6,10 @@ dtypes.  The blocks are always an `nn.ModuleList`: `use_scan` picks
 only the layout of the reference tree `load_jax_params` expects (its
 stacked `model.blocks` when True, its per-layer `model.block_<i>` when
 False).  `use_flash_attention` routes the attention to the flash
-kernels on the card; `remat_policy` is "nothing", "dots" or
-"dots_attn" (`nn/remat.py`).  Dropout, pipeline stages and the
-"offload" policy raise NotImplementedError naming the slice that brings
-them; the reference's `supports_hetero_tp` flag belongs to its
+kernels on the card; `remat_policy` is "nothing", "dots", "dots_attn"
+or "offload" (`nn/remat.py`); dropout as in `LlamaConfig`.  Pipeline
+stages raise NotImplementedError naming the slice that brings them;
+the reference's `supports_hetero_tp` flag belongs to its
 heterogeneous pipeline and has no counterpart here.
 """
 from __future__ import annotations
@@ -18,9 +18,9 @@ import dataclasses
 
 import torch
 
+from hetu_tpu_torch.models.llama.config import check_dropout_rates
 from hetu_tpu_torch.nn.remat import validate_remat_policy
 
-_TRAINING_3 = "the third training slice (ROADMAP Queue A item 2)"
 _MULTI_GPU = "the multi-GPU slice (ROADMAP Queue A item 5)"
 
 
@@ -45,12 +45,7 @@ class GPTConfig:
     use_flash_attention: bool = True
 
     def __post_init__(self):
-        for name in ("attention_dropout", "hidden_dropout"):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)} is not in the port yet "
-                    f"(the reference's dropout bits cannot be matched); it "
-                    f"arrives with {_TRAINING_3}")
+        check_dropout_rates(self)
         if self.pipeline_stage_layers is not None:
             raise NotImplementedError(
                 "pipeline_stage_layers is not in the port yet; pipelines "

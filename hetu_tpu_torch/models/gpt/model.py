@@ -20,7 +20,7 @@ block recomputed in the backward as `config.remat_policy` says
 (`nn/remat.py`).  The serving forwards live in `models/generation.py`;
 they reach a block through `serve_qkv` / `serve_tail`, which add the
 residual and apply `ln2` unfused, as the reference's serving forwards
-do.
+do.  Dropout, given a key, at the reference's sites (`LlamaBlock`'s).
 """
 from __future__ import annotations
 
@@ -31,9 +31,10 @@ from torch import nn
 
 from hetu_tpu_torch.models.gpt.config import GPTConfig
 from hetu_tpu_torch.nn.layers import Embedding, LayerNorm, Linear, _param
-from hetu_tpu_torch.nn.remat import remat
-from hetu_tpu_torch.ops.activations import gelu
-from hetu_tpu_torch.ops.attention import flash_attention
+from hetu_tpu_torch.nn.remat import project, recompute, run_blocks
+from hetu_tpu_torch.ops.activations import dropout, gelu
+from hetu_tpu_torch.ops.attention import (attention_keeping_output,
+                                          self_attention)
 from hetu_tpu_torch.ops.losses import softmax_cross_entropy_sparse
 from hetu_tpu_torch.utils.device import resolve_device
 
@@ -48,6 +49,7 @@ class GPTAttention(nn.Module):
         c = config
         self.n_heads, self.head_dim = c.num_attention_heads, c.head_dim
         self.init_std = c.initializer_range
+        self.dropout = c.attention_dropout
         # the dispatcher's route, as LlamaAttention's
         self.use_pallas = None if c.use_flash_attention else False
         self.wqkv = _param((c.hidden_size, self.n_heads, 3, self.head_dim),
@@ -66,7 +68,7 @@ class GPTAttention(nn.Module):
     def qkv(self, x: torch.Tensor) -> torch.Tensor:
         """The fused product alone: x [b, s, h] -> [b, s, heads, 3, hd]
         (the "dots" policies keep it)."""
-        return torch.einsum("bsh,hngd->bsngd", x, self.wqkv.to(x.dtype))
+        return project(x, self.wqkv)
 
     def heads(self, qkv: torch.Tensor):
         """The product plus its bias -> q, k, v, each [b, s, heads, hd]."""
@@ -76,14 +78,21 @@ class GPTAttention(nn.Module):
     def project_qkv(self, x: torch.Tensor):
         return self.heads(self.qkv(x))
 
-    def attend(self, q, k, v, segment_ids=None) -> torch.Tensor:
-        """Causal self-attention, heads merged: [b, s, h]."""
-        attn = flash_attention(q, k, v, causal=True, segment_ids=segment_ids,
-                               use_pallas=self.use_pallas, device=q.device)
-        return attn.reshape(*q.shape[:2], -1)
+    def attention_kw(self, segment_ids, rng):
+        """The attention's route and dropout (`ops.attention`)."""
+        return dict(segment_ids=segment_ids, use_pallas=self.use_pallas,
+                    dropout_rate=self.dropout,
+                    dropout_key=None if rng is None else rng.fold(1))
 
-    def forward(self, x: torch.Tensor, segment_ids=None) -> torch.Tensor:
-        return self.o_proj(self.attend(*self.project_qkv(x), segment_ids))
+    def attend(self, q, k, v, segment_ids=None, rng=None) -> torch.Tensor:
+        """Causal self-attention, heads merged: [b, s, h]."""
+        return self_attention(q, k, v, device=q.device,
+                              **self.attention_kw(segment_ids, rng))
+
+    def forward(self, x: torch.Tensor, segment_ids=None,
+                rng=None) -> torch.Tensor:
+        return self.o_proj(self.attend(*self.project_qkv(x), segment_ids,
+                                       rng))
 
 
 class GPTMLP(nn.Module):
@@ -105,7 +114,7 @@ class GPTMLP(nn.Module):
 
     def up(self, x: torch.Tensor) -> torch.Tensor:
         """The up product alone (the "dots" policies keep it)."""
-        return x @ self.w_up.to(x.dtype)
+        return project(x, self.w_up)
 
     def act(self, u: torch.Tensor) -> torch.Tensor:
         return gelu(u + self.b_up.to(u.dtype))
@@ -125,6 +134,7 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(c, device)
         self.ln2 = LayerNorm(c.hidden_size, **kw)
         self.mlp = GPTMLP(c, device)
+        self.hidden_dropout = c.hidden_dropout
 
     def reset_parameters(self, generator: torch.Generator):
         self.ln1.reset_parameters()
@@ -132,26 +142,44 @@ class GPTBlock(nn.Module):
         self.ln2.reset_parameters()
         self.mlp.reset_parameters(generator)
 
-    def forward(self, x, segment_ids=None):
-        h = self.attn(self.ln1(x), segment_ids)
-        # the residual add + ln2 pair: one fused kernel
-        normed, x = self.ln2.residual(x, h)
-        return x + self.mlp(normed)
+    def drop(self, h, rng, site: int):
+        """The hidden dropout at `site` (as `LlamaBlock.drop`)."""
+        return dropout(h, self.hidden_dropout,
+                       None if rng is None else rng.fold(site),
+                       deterministic=False)
 
-    def forward_saving_dots(self, x, segment_ids=None, *, save_attn: bool):
-        """`forward` under "dots" (`save_attn` off) and "dots_attn" (on),
-        as `LlamaBlock.forward_saving_dots`: the four products (`wqkv`,
-        `o_proj`, `w_up`, `down`) run outside any checkpoint and the
-        segments between them are recomputed; under "dots_attn" the
-        attention runs outside too."""
+    def forward(self, x, segment_ids=None, rng=None):
+        h = self.attn(self.ln1(x), segment_ids, rng)
+        # the residual add + ln2 pair: one fused kernel
+        normed, x = self.ln2.residual(x, self.drop(h, rng, 2))
+        return x + self.drop(self.mlp(normed), rng, 3)
+
+    def forward_remat(self, x, segment_ids=None, rng=None, *, policy: str):
+        """`forward`, recomputed in the backward as `policy` says, in
+        the segments of `LlamaBlock.forward_remat`: ln1 -> qkv (the
+        product before its bias); the bias, attention -> o; o's bias,
+        residual add + ln2 -> up; up's bias, GELU -> down."""
+        if policy == "nothing":
+            return recompute(lambda x, seg: self(x, seg, rng), x,
+                             segment_ids)
         a, m = self.attn, self.mlp
-        qkv = a.qkv(remat(self.ln1, x))
-        if save_attn:
-            attn = a.attend(*remat(a.heads, qkv), segment_ids)
+        qkv = recompute(self.ln1, x, weight=a.wqkv)
+        kw = a.attention_kw(segment_ids, rng)
+        if policy == "dots_attn":
+            attn = attention_keeping_output(a.heads, qkv, device=qkv.device,
+                                            **kw)
+            o = recompute(lambda t: t, attn, weight=a.o_proj.weight)
         else:
-            attn = remat(lambda t: a.attend(*a.heads(t), segment_ids), qkv)
-        normed, x = remat(self.ln2.residual, x, a.o_proj(attn))
-        return x + m.down(remat(m.act, m.up(normed)))
+            o = recompute(
+                lambda t: self_attention(*a.heads(t), device=t.device, **kw),
+                qkv, weight=a.o_proj.weight)
+        bias = a.o_proj.bias
+        up, x = recompute(
+            lambda x, o: self.ln2.residual(
+                x, self.drop(o + bias.to(o.dtype), rng, 2)),
+            x, o, weight=m.w_up)
+        down = recompute(m.act, up, weight=m.down.weight)
+        return x + self.drop(down + m.down.bias.to(down.dtype), rng, 3)
 
     # -- the serving forwards' two halves (models/generation.py) ----------
     def serve_qkv(self, x: torch.Tensor):
@@ -225,15 +253,21 @@ class GPTLMHeadModel(nn.Module):
 
     def embed_at(self, ids: torch.Tensor,
                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """wte[ids] + wpe[positions] in the compute dtype (positions
-        default to 0..s-1).  The callers check the positions against
-        max_position_embeddings first (`hidden`, and the serving
-        forwards' context guard): the reference's `jnp.take` would clamp
-        one past the end to the last row."""
+        """wte[ids] + wpe[positions] in the compute dtype, added in the
+        wider of the parameter and compute dtypes and rounded once (the
+        reference adds in the parameter dtype and casts; its compiled
+        step keeps the sum of two bf16 tables in fp32 when fp32
+        follows).  Positions default to 0..s-1.  The callers check the
+        positions against max_position_embeddings first (`hidden`, and
+        the serving forwards' context guard): the reference's `jnp.take`
+        would clamp one past the end to the last row."""
         if positions is None:
             positions = torch.arange(ids.shape[-1], device=ids.device)
-        x = self.model.wte(ids.long()) + self.model.wpe[positions.long()]
-        return x.to(self.config.compute_dtype)
+        c = self.config
+        acc = torch.promote_types(c.param_dtype, c.compute_dtype)
+        x = (self.model.wte(ids.long()).to(acc)
+             + self.model.wpe[positions.long()].to(acc))
+        return x.to(c.compute_dtype)
 
     def rope_at(self, b: int, s: int, positions=None):
         """GPT has learned positions and applies no RoPE."""
@@ -253,10 +287,12 @@ class GPTLMHeadModel(nn.Module):
         return hidden @ self.lm_head_weight().to(hidden.dtype)
 
     def hidden(self, input_ids: torch.Tensor, *, position_ids=None,
-               segment_ids=None) -> torch.Tensor:
+               segment_ids=None, rng=None,
+               deterministic: bool = True) -> torch.Tensor:
         """The final-norm hidden states [b, s, hidden] of the training
         forward; each block recomputed in the backward by
-        `config.remat_policy` when gradients are on."""
+        `config.remat_policy` when gradients are on; dropout with a key
+        and `deterministic=False`."""
         c = self.config
         n = input_ids.shape[1] if position_ids is None \
             else int(position_ids.max()) + 1
@@ -265,28 +301,24 @@ class GPTLMHeadModel(nn.Module):
                              f"max_position_embeddings "
                              f"{c.max_position_embeddings}")
         x = self.embed_at(input_ids, position_ids)
-        for block in self.model.blocks:
-            if not (c.remat and torch.is_grad_enabled()):
-                x = block(x, segment_ids)
-            elif c.remat_policy == "nothing":
-                x = remat(block, x, segment_ids)
-            else:
-                x = block.forward_saving_dots(
-                    x, segment_ids, save_attn=c.remat_policy == "dots_attn")
-        return self.final_norm(x)
+        return self.final_norm(run_blocks(
+            c, self.model.blocks, x, (segment_ids,),
+            None if deterministic else rng))
 
     def forward(self, input_ids: torch.Tensor, labels=None, *,
-                position_ids=None, segment_ids=None,
+                position_ids=None, segment_ids=None, rng=None,
+                deterministic: bool = True,
                 loss_reduction: str = "mean", labels_shifted: bool = False):
         """As `LlamaLMHeadModel.forward`: the logits [b, s, vocab], or
         with labels the next-token loss ("mean", or "sum" returning
-        (loss sum, token count))."""
+        (loss sum, token count)); dropout as there."""
         if loss_reduction not in ("mean", "sum"):
             raise ValueError(f"loss_reduction must be 'mean' or 'sum', got "
                              f"{loss_reduction!r}")
         logits = self.logits(self.hidden(input_ids,
                                          position_ids=position_ids,
-                                         segment_ids=segment_ids))
+                                         segment_ids=segment_ids, rng=rng,
+                                         deterministic=deterministic))
         if labels is None:
             return logits
         if labels_shifted:

@@ -5,9 +5,10 @@ dtypes; the policy is the reference's: parameters stored in
 `param_dtype`, activations computed in `compute_dtype`.  The layers are
 always an `nn.ModuleList` (the reference's `use_scan` has no
 counterpart).  `use_flash_attention` routes the attention to the flash
-kernels on the card; `remat_policy` is "nothing", "dots" or "dots_attn"
-(`nn/remat.py`).  Dropout and the "offload" policy raise
-NotImplementedError naming the slice that brings them.
+kernels on the card; `remat_policy` is "nothing", "dots", "dots_attn" or
+"offload" (`nn/remat.py`).  `attention_dropout` and `hidden_dropout` act
+when the training forward is given a dropout key and
+`deterministic=False` (the Trainer's `dropout_deterministic=False`).
 """
 from __future__ import annotations
 
@@ -18,7 +19,13 @@ import torch
 
 from hetu_tpu_torch.nn.remat import validate_remat_policy
 
-_TRAINING_3 = "the third training slice (ROADMAP Queue A item 2)"
+
+def check_dropout_rates(config):
+    """Dropout rates lie in [0, 1)."""
+    for name in ("attention_dropout", "hidden_dropout"):
+        rate = getattr(config, name)
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"{name} must lie in [0, 1), got {rate}")
 
 
 @dataclasses.dataclass
@@ -50,12 +57,7 @@ class LlamaConfig:
             raise NotImplementedError(
                 "MoE layers (num_experts > 0) are not in the serving slice; "
                 "they arrive with the multi-GPU slice (ROADMAP Queue A item 5)")
-        for name in ("attention_dropout", "hidden_dropout"):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)} is not in the port yet "
-                    f"(the reference's dropout bits cannot be matched); it "
-                    f"arrives with {_TRAINING_3}")
+        check_dropout_rates(self)
         validate_remat_policy(self.remat_policy)
         if self.num_attention_heads % self.num_key_value_heads:
             raise ValueError(

@@ -13,7 +13,12 @@ The reference stacks the layers for `lax.scan`; here they are an
 `nn.ModuleList`.  `LlamaLMHeadModel.forward` is the training forward
 (logits, or the next-token loss given labels); when `config.remat` is
 on, each block is recomputed in the backward as `config.remat_policy`
-says (`nn/remat.py`).  The serving forwards
+says (`nn/remat.py`).  Given a dropout key (`rng`, an
+`ops.activations.DropoutKey`) and `deterministic=False`, dropout runs at
+the reference's three sites a block: the attention probabilities
+(fold 1; the attention leaves the flash kernels for the composition),
+the attention's output (fold 2) and the MLP's (fold 3), each layer's key
+folded from the step's by its index.  The serving forwards
 (chunked prefill and paged decode) live in `models/generation.py`,
 which drives these modules layer by layer (`serve_qkv` / `serve_tail`)
 because the KV cache is written between the projection and the
@@ -26,9 +31,10 @@ from torch import nn
 
 from hetu_tpu_torch.models.llama.config import LlamaConfig
 from hetu_tpu_torch.nn.layers import Embedding, Linear, RMSNorm
-from hetu_tpu_torch.nn.remat import remat
-from hetu_tpu_torch.ops.activations import swiglu
-from hetu_tpu_torch.ops.attention import flash_attention
+from hetu_tpu_torch.nn.remat import project, recompute, run_blocks
+from hetu_tpu_torch.ops.activations import dropout, swiglu
+from hetu_tpu_torch.ops.attention import (attention_keeping_output,
+                                          self_attention)
 from hetu_tpu_torch.ops.cuda.rotary import fused_rotary_qk
 from hetu_tpu_torch.ops.losses import softmax_cross_entropy_sparse
 from hetu_tpu_torch.ops.rotary import build_rope_cache, rope_tables
@@ -43,6 +49,7 @@ class LlamaAttention(nn.Module):
         self.group = self.n_q // self.n_kv   # q heads per kv head
         self.head_dim = c.head_dim
         self.init_std = c.initializer_range
+        self.dropout = c.attention_dropout
         # the dispatcher's route: None = by device (flash kernels on the
         # card, dense attention on the CPU), False = dense everywhere;
         # a check may set True to run flash's plain version on the CPU
@@ -60,7 +67,7 @@ class LlamaAttention(nn.Module):
 
     def qkv(self, x: torch.Tensor) -> torch.Tensor:
         """The fused projection: x [b, s, h] -> [b, s, n_kv, group+2, hd]."""
-        return torch.einsum("bsh,hkgd->bskgd", x, self.wqkv.to(x.dtype))
+        return project(x, self.wqkv)
 
     def split(self, qkv: torch.Tensor):
         """qkv -> q [b, s, n_kv, group, hd], k and v [b, s, n_kv, hd]:
@@ -83,18 +90,23 @@ class LlamaAttention(nn.Module):
         q, k = fused_rotary_qk(q, k, cos_t, sin_t, device=qkv.device)
         return q, k, v
 
-    def attend(self, q, k, v, segment_ids=None) -> torch.Tensor:
+    def attention_kw(self, segment_ids, rng):
+        """The attention's route and dropout (`ops.attention`)."""
+        return dict(segment_ids=segment_ids, use_pallas=self.use_pallas,
+                    dropout_rate=self.dropout,
+                    dropout_key=None if rng is None else rng.fold(1))
+
+    def attend(self, q, k, v, segment_ids=None, rng=None) -> torch.Tensor:
         """Causal self-attention, heads merged: [b, s, nq * hd]."""
-        attn = flash_attention(q, k, v, causal=True, segment_ids=segment_ids,
-                               use_pallas=self.use_pallas,
-                               device=q.device)
-        return attn.reshape(*q.shape[:2], -1)
+        return self_attention(q, k, v, device=q.device,
+                              **self.attention_kw(segment_ids, rng))
 
     def forward(self, x: torch.Tensor, cos_t: torch.Tensor,
-                sin_t: torch.Tensor, segment_ids=None) -> torch.Tensor:
+                sin_t: torch.Tensor, segment_ids=None,
+                rng=None) -> torch.Tensor:
         """Causal self-attention over x [b, s, h]."""
         q, k, v = self.heads(self.qkv(x), cos_t, sin_t)
-        return self.o_proj(self.attend(q, k, v, segment_ids))
+        return self.o_proj(self.attend(q, k, v, segment_ids, rng))
 
 
 class LlamaMLP(nn.Module):
@@ -117,7 +129,7 @@ class LlamaMLP(nn.Module):
 
     def gate_up(self, x: torch.Tensor) -> torch.Tensor:
         """The fused projection: x [b, s, h] -> [b, s, 2, inter]."""
-        return torch.einsum("bsh,hci->bsci", x, self.w_gate_up.to(x.dtype))
+        return project(x, self.w_gate_up)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(swiglu(self.gate_up(x)))
@@ -135,6 +147,7 @@ class LlamaBlock(nn.Module):
         self.post_norm = RMSNorm(c.hidden_size, eps=c.rms_norm_eps,
                                  dtype=c.param_dtype, device=device)
         self.mlp = LlamaMLP(c, device)
+        self.hidden_dropout = c.hidden_dropout
 
     def reset_parameters(self, generator: torch.Generator):
         self.input_norm.reset_parameters()
@@ -142,33 +155,49 @@ class LlamaBlock(nn.Module):
         self.post_norm.reset_parameters()
         self.mlp.reset_parameters(generator)
 
-    def forward(self, x, cos_t, sin_t, segment_ids=None):
-        h = self.attn(self.input_norm(x), cos_t, sin_t, segment_ids)
-        # the residual add + post-norm pair: one fused kernel
-        normed, x = self.post_norm.residual(x, h)
-        return x + self.mlp(normed)
+    def drop(self, h, rng, site: int):
+        """The hidden dropout at `site` (2: after the attention, 3: after
+        the MLP); h unchanged without a key."""
+        return dropout(h, self.hidden_dropout,
+                       None if rng is None else rng.fold(site),
+                       deterministic=False)
 
-    def forward_saving_dots(self, x, cos_t, sin_t, segment_ids=None, *,
-                            save_attn: bool):
-        """`forward` under the recompute policies "dots" (`save_attn`
-        off) and "dots_attn" (on): the four projections run outside any
-        checkpoint, so autograd keeps their outputs, and only the
-        segments between them — input norm; RoPE (and, under "dots",
-        the attention); residual add + post norm; SwiGLU — are
-        recomputed in the backward.  Under "dots_attn" the attention
-        runs outside too, so its output and lse are kept and its
-        forward is not launched again."""
-        a = self.attn
-        qkv = a.qkv(remat(self.input_norm, x))
-        if save_attn:
-            attn = a.attend(*remat(a.heads, qkv, cos_t, sin_t), segment_ids)
+    def forward(self, x, cos_t, sin_t, segment_ids=None, rng=None):
+        h = self.attn(self.input_norm(x), cos_t, sin_t, segment_ids, rng)
+        # the residual add + post-norm pair: one fused kernel
+        normed, x = self.post_norm.residual(x, self.drop(h, rng, 2))
+        return x + self.drop(self.mlp(normed), rng, 3)
+
+    def forward_remat(self, x, cos_t, sin_t, segment_ids=None, rng=None, *,
+                      policy: str):
+        """`forward`, recomputed in the backward as `policy` says
+        (`nn/remat.py`).  "nothing": one segment, the block.  The "dots"
+        policies: a segment from each kept tensor to the next projection
+        — input norm -> qkv; RoPE and attention -> o (under "dots_attn"
+        the attention keeps its output); residual add + post norm ->
+        gate-up; SwiGLU -> down — so a projection's input is recomputed
+        and its output kept."""
+        if policy == "nothing":
+            return recompute(lambda x, c, s, seg: self(x, c, s, seg, rng),
+                             x, cos_t, sin_t, segment_ids)
+        a, m = self.attn, self.mlp
+        qkv = recompute(self.input_norm, x, weight=a.wqkv)
+        kw = a.attention_kw(segment_ids, rng)
+        if policy == "dots_attn":
+            attn = attention_keeping_output(
+                lambda t: a.heads(t, cos_t, sin_t), qkv, device=qkv.device,
+                **kw)
+            o = recompute(lambda t: t, attn, weight=a.o_proj.weight)
         else:
-            attn = remat(
-                lambda t: a.attend(*a.heads(t, cos_t, sin_t), segment_ids),
-                qkv)
-        normed, x = remat(self.post_norm.residual, x, a.o_proj(attn))
-        hidden = remat(swiglu, self.mlp.gate_up(normed))
-        return x + self.mlp.down_proj(hidden)
+            o = recompute(
+                lambda t, c, s: self_attention(*a.heads(t, c, s),
+                                               device=t.device, **kw),
+                qkv, cos_t, sin_t, weight=a.o_proj.weight)
+        gu, x = recompute(
+            lambda x, o: self.post_norm.residual(x, self.drop(o, rng, 2)),
+            x, o, weight=m.w_gate_up)
+        down = recompute(swiglu, gu, weight=m.down_proj.weight)
+        return x + self.drop(down, rng, 3)
 
     # -- the serving forwards' two halves (models/generation.py) ----------
     def serve_qkv(self, x: torch.Tensor):
@@ -263,40 +292,37 @@ class LlamaLMHeadModel(nn.Module):
         return hidden @ self.lm_head_weight().to(hidden.dtype)
 
     def hidden(self, input_ids: torch.Tensor, *, position_ids=None,
-               segment_ids=None) -> torch.Tensor:
+               segment_ids=None, rng=None,
+               deterministic: bool = True) -> torch.Tensor:
         """The final-norm hidden states [b, s, hidden] of the training
         forward; each block recomputed in the backward by
-        `config.remat_policy` when gradients are on."""
-        c = self.config
+        `config.remat_policy` when gradients are on; dropout with a key
+        and `deterministic=False`."""
         b, s = input_ids.shape
         x = self.embed_at(input_ids)
         cos_t, sin_t = self.rope_at(b, s, position_ids)
-        for layer in self.model.layers:
-            if not (c.remat and torch.is_grad_enabled()):
-                x = layer(x, cos_t, sin_t, segment_ids)
-            elif c.remat_policy == "nothing":
-                x = remat(layer, x, cos_t, sin_t, segment_ids)
-            else:
-                x = layer.forward_saving_dots(
-                    x, cos_t, sin_t, segment_ids,
-                    save_attn=c.remat_policy == "dots_attn")
-        return self.final_norm(x)
+        return self.final_norm(run_blocks(
+            self.config, self.model.layers, x, (cos_t, sin_t, segment_ids),
+            None if deterministic else rng))
 
     def forward(self, input_ids: torch.Tensor, labels=None, *,
-                position_ids=None, segment_ids=None,
+                position_ids=None, segment_ids=None, rng=None,
+                deterministic: bool = True,
                 loss_reduction: str = "mean", labels_shifted: bool = False):
         """The training forward over input_ids [b, s].  Without labels,
         the logits [b, s, vocab].  With labels, the next-token loss:
         logits[t] predicts labels[t + 1] (labels[t] when
         `labels_shifted`), positions labelled -100 ignored; "mean"
         returns the mean loss, "sum" returns (loss sum, token count) so
-        that micro-batches weigh by their true token counts."""
+        that micro-batches weigh by their true token counts.  `rng` (a
+        DropoutKey) and `deterministic=False` turn dropout on."""
         if loss_reduction not in ("mean", "sum"):
             raise ValueError(f"loss_reduction must be 'mean' or 'sum', got "
                              f"{loss_reduction!r}")
         logits = self.logits(self.hidden(input_ids,
                                          position_ids=position_ids,
-                                         segment_ids=segment_ids))
+                                         segment_ids=segment_ids, rng=rng,
+                                         deterministic=deterministic))
         if labels is None:
             return logits
         if labels_shifted:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from hetu_tpu_torch.nn.remat import project
 from hetu_tpu_torch.ops.norms import (layer_norm, residual_layer_norm,
                                       residual_rms_norm, rms_norm)
 
@@ -56,7 +57,7 @@ class Linear(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.weight.to(x.dtype)
+        y = project(x, self.weight)
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y

@@ -9,12 +9,15 @@ goes through it: the Pallas `% 128` gate is a TPU lane rule, and the
 CUDA kernel takes any element count (a scalar path takes the tail and
 views off a 16-byte boundary).  lr, c1 and c2 arrive as host floats (the
 optimizer computes them in fp32 from the step count, as JAX does in its
-graph), so the update never reads a value back from the card.
+graph), so the update never reads a value back from the card.  An
+optional `skip` flag, an int32 0-d tensor on the card, makes the launch
+write nothing when nonzero (a non-finite step under the dynamic loss
+scale): p, m and v keep their bits and the host never waits for it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +26,8 @@ from hetu_tpu_torch.ops.cuda import build
 
 #: kernel launches (the plain version never counts)
 launches = 0
+#: the same launches by the parameters' arm ("f32", "bf16")
+arm_launches = {"f32": 0, "bf16": 0}
 
 #: leaves a launch's table holds (`ADAM_MAX_LEAVES` in csrc/adam.cu)
 MAX_LEAVES = 512
@@ -31,6 +36,7 @@ CHUNK = 16384
 
 _SYMBOLS = {torch.float32: "hetu_adam_multi_f32",
             torch.bfloat16: "hetu_adam_multi_bf16"}
+_ARMS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 class _Leaf(ctypes.Structure):
@@ -45,7 +51,7 @@ class _Table(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_float) for n in (
         "b1", "one_minus_b1", "b2", "one_minus_b2", "lr", "c1", "c2", "eps",
         "wd")]
-        + [("leaves", ctypes.c_int),
+        + [("leaves", ctypes.c_int), ("skip", ctypes.c_void_p),
            ("chunk_start", ctypes.c_int * (MAX_LEAVES + 1)),
            ("leaf", _Leaf * MAX_LEAVES)])
 
@@ -69,9 +75,11 @@ def _scalars(lr, c1, c2, b1, b2, eps, weight_decay):
                                    eps, weight_decay))
 
 
-def adam_plain(p, g, m, v, lr, c1, c2, *, b1, b2, eps, weight_decay):
+def adam_plain(p, g, m, v, lr, c1, c2, *, b1, b2, eps, weight_decay,
+               skip=None):
     """The kernel's arithmetic in PyTorch ops, updating p, m and v in
-    place (fp32 math; p rounded once to its dtype)."""
+    place (fp32 math; p rounded once to its dtype); with a nonzero
+    `skip` (a 0-d tensor on p's device) each keeps its bits."""
     b1, omb1, b2, omb2, lr, c1, c2, eps, wd = _scalars(
         lr, c1, c2, b1, b2, eps, weight_decay)
     # the divisors as tensors: PyTorch's CUDA division by a Python
@@ -84,7 +92,12 @@ def adam_plain(p, g, m, v, lr, c1, c2, *, b1, b2, eps, weight_decay):
     v_new = v * b2 + (gf * gf) * omb2
     pf = p.float()
     upd = (m_new / c1) / (torch.sqrt(v_new / c2) + eps) + pf * wd
-    p.copy_(pf - upd * lr)
+    p_new = (pf - upd * lr).to(p.dtype)
+    if skip is not None:
+        keep = skip != 0
+        p_new, m_new, v_new = (torch.where(keep, old, new) for old, new in (
+            (p, p_new), (m, m_new), (v, v_new)))
+    p.copy_(p_new)
     m.copy_(m_new)
     v.copy_(v_new)
 
@@ -116,13 +129,15 @@ def vector_aligned(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def make_tables(params, grads, ms, vs, scalars) -> List[_Table]:
+def make_tables(params, grads, ms, vs, scalars, skip=None) -> List[_Table]:
     """The launches' tables for leaves of one p dtype (`plan_tables`),
-    with the nine fp32 scalars of `_scalars`."""
+    with the nine fp32 scalars of `_scalars` and the skip flag's
+    address (None: never skip)."""
     out = []
     for idx, starts in plan_tables([p.numel() for p in params]):
         t = _Table(*scalars)
         t.leaves = len(idx)
+        t.skip = None if skip is None else skip.data_ptr()
         t.chunk_start[:len(starts)] = starts
         for j, i in enumerate(idx):
             p, g, m, v = params[i], grads[i], ms[i], vs[i]
@@ -144,29 +159,39 @@ def _check_leaf(p, g, m, v):
                          f"got {p.dtype} {g.dtype} {m.dtype} {v.dtype}")
 
 
+def _check_skip(skip):
+    if skip is not None and (skip.dim() != 0 or skip.dtype != torch.int32):
+        raise ValueError(f"adam_update: skip must be a 0-d int32 tensor, "
+                         f"got {skip.dtype} of shape {tuple(skip.shape)}")
+
+
 def adam_update_multi(params, grads, ms, vs, lr, c1, c2, *, b1: float,
                       b2: float, eps: float, weight_decay: float,
+                      skip: Optional[torch.Tensor] = None,
                       device="cuda") -> None:
     """One AdamW step over lists of leaves, IN PLACE on each p (fp32 or
     bf16), m and v (fp32), from the fp32 gradients.  lr, c1 = 1 - b1^step
-    and c2 = 1 - b2^step are host numbers.  `device` "cuda" launches the
-    kernel once for each p dtype (or once for each `MAX_LEAVES` leaves of
-    it), "cpu" runs the plain version leaf by leaf; the tensors must lie
-    there."""
+    and c2 = 1 - b2^step are host numbers; `skip`, a 0-d int32 tensor
+    beside the leaves, nonzero leaves every p, m and v as it was.
+    `device` "cuda" launches the kernel once for each p dtype (or once
+    for each `MAX_LEAVES` leaves of it), "cpu" runs the plain version
+    leaf by leaf; the tensors must lie there."""
     global launches
     leaves = list(zip(params, grads, ms, vs))
     if not len(params) == len(grads) == len(ms) == len(vs):
         raise ValueError(f"{len(params)} params, {len(grads)} grads, "
                          f"{len(ms)} m, {len(vs)} v")
-    dev = build.check_device("adam_update", device,
-                             *(t for leaf in leaves for t in leaf))
+    dev = build.check_device(
+        "adam_update", device, *(t for leaf in leaves for t in leaf),
+        *([] if skip is None else [skip]))
     for leaf in leaves:
         _check_leaf(*leaf)
+    _check_skip(skip)
     with torch.no_grad():
         if dev.type == "cpu":
             for leaf in leaves:
                 adam_plain(*leaf, lr, c1, c2, b1=b1, b2=b2, eps=eps,
-                           weight_decay=weight_decay)
+                           weight_decay=weight_decay, skip=skip)
             return
         for leaf in leaves:
             for name, t in zip("pgmv", leaf):
@@ -181,16 +206,18 @@ def adam_update_multi(params, grads, ms, vs, lr, c1, c2, *, b1: float,
             with torch.cuda.device(device_):
                 fn = build.bind("adam", symbol, _ARGTYPES)
                 stream = torch.cuda.current_stream(device_).cuda_stream
-                for table in make_tables(*zip(*group), scalars):
+                for table in make_tables(*zip(*group), scalars, skip):
                     build.check_launch(fn(ctypes.byref(table), stream),
                                        "adam_update")
                     launches += 1
+                    arm_launches[_ARMS[dtype]] += 1
 
 
 def adam_update(p, g, m, v, lr, c1, c2, *, b1: float, b2: float,
-                eps: float, weight_decay: float, device="cuda") -> None:
+                eps: float, weight_decay: float, skip=None,
+                device="cuda") -> None:
     """One leaf's AdamW step, IN PLACE on p (fp32 or bf16), m and v
     (fp32), from the fp32 gradient g: `adam_update_multi` over a list of
     one leaf."""
     adam_update_multi([p], [g], [m], [v], lr, c1, c2, b1=b1, b2=b2, eps=eps,
-                      weight_decay=weight_decay, device=device)
+                      weight_decay=weight_decay, skip=skip, device=device)

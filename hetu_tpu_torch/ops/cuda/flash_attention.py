@@ -619,3 +619,25 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
                   q_seg, k_seg, scale=scale, causal=causal, block_q=block_q,
                   block_k=block_k, block_mask=block_mask, device=device)
     return o.transpose(1, 2), lse
+
+
+def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
+                             segment_ids=None,
+                             softmax_scale: Optional[float] = None,
+                             block_q: int = DEFAULT_BLOCK_Q,
+                             block_k: int = DEFAULT_BLOCK_K, device="cuda"):
+    """The backward of `flash_attention` from a kept forward: (dq, dk,
+    dv) in q, k and v's layout [b, s, h, d] and dtypes, given the
+    forward's o [b, sq, hq, d] and lse [b, hq, sq] (from
+    `flash_attention_with_lse`) and do, the cotangent of o.  The same
+    kernels and casts as `flash_attention`'s own backward, so the same
+    bits; the recompute policy "dots_attn" calls it (`ops.attention`)."""
+    q_pos, k_pos, q_seg, k_seg, scale, block_q, block_k, block_mask = \
+        _prepare(q, k, causal, segment_ids, None, None, None, softmax_scale,
+                 block_q, block_k, None)
+    qt, kt, vt, ot, dot = (t.transpose(1, 2) for t in (q, k, v, o, do))
+    dq, dk, dv = _bwd(qt, kt, vt, ot, lse, dot, q_pos, k_pos, q_seg, k_seg,
+                      scale=scale, causal=causal, block_q=block_q,
+                      block_k=block_k, block_mask=block_mask, device=device)
+    return tuple(d.to(t.dtype).transpose(1, 2)
+                 for d, t in ((dq, q), (dk, k), (dv, v)))

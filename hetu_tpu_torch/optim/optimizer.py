@@ -16,7 +16,10 @@ The step-dependent scalars — the schedule's lr and the bias
 corrections c1 = 1 - b1^step, c2 = 1 - b2^step — are computed on the
 host in fp32 with numpy, as the reference computes them in fp32 inside
 its graph.  The step count is a Python int, so nothing is read back
-from the card.
+from the card.  `update(..., skip=flag)` passes a device-side flag to
+the kernel: nonzero leaves p, m and v as they were.  The step count
+then advances on the host regardless; the caller that knows, a step
+later, that the update was skipped takes it back (`Trainer`).
 """
 from __future__ import annotations
 
@@ -68,16 +71,19 @@ class AdamW:
     def _lr(self, step: int) -> float:
         return float(self.lr(step) if callable(self.lr) else _f32(self.lr))
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, skip=None):
         """One step over every leaf, IN PLACE on params, state["m"] and
-        state["v"]; state["step"] advances.  Returns (params, state)."""
+        state["v"]; state["step"] advances.  `skip`: a 0-d int32 tensor
+        on the device, nonzero -> nothing is written.  Returns (params,
+        state)."""
         step = state["step"] + 1
         lr = self._lr(step)
         c1 = _f32(1.0) - _f32(self.b1) ** _f32(step)
         c2 = _f32(1.0) - _f32(self.b2) ** _f32(step)
         adam_update_multi(params, grads, state["m"], state["v"], lr, c1, c2,
                           b1=self.b1, b2=self.b2, eps=self.eps,
-                          weight_decay=self.weight_decay, device=self.device)
+                          weight_decay=self.weight_decay, skip=skip,
+                          device=self.device)
         state["step"] = step
         return params, state
 

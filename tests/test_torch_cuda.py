@@ -692,6 +692,58 @@ def test_adam_update_multi_matches_plain(dev, many):
                 torch.testing.assert_close(a, b, rtol=3e-7, atol=1e-10)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adam_skip_flag_writes_nothing(dev, dtype):
+    """The AdamW launch with its device-side skip flag set leaves p, m and
+    v byte for byte as they were (and still counts a launch); with the
+    flag clear it writes what a launch without the flag writes, and the
+    plain version takes the flag the same way."""
+    n = 4097
+    p0 = _normal((n,), 18, dev, dtype)
+    g = 0.1 * _normal((n,), 19, dev)
+    m0, v0 = 0.01 * _normal((n,), 20, dev), _normal((n,), 21, dev).abs()
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    c1 = np.float32(1) - np.float32(0.9) ** np.float32(3)
+    c2 = np.float32(1) - np.float32(0.95) ** np.float32(3)
+    for flag in (1, 0):
+        skip = torch.full((), flag, dtype=torch.int32, device=dev)
+        mine = [t.clone() for t in (p0, m0, v0)]
+        plain = [t.clone() for t in (p0, m0, v0)]
+        unflagged = [t.clone() for t in (p0, m0, v0)]
+        before = tadam.launches
+        tadam.adam_update(mine[0], g, *mine[1:], 1e-3, c1, c2, skip=skip,
+                          **kw)
+        tadam.adam_plain(plain[0], g, *plain[1:], 1e-3, c1, c2, skip=skip,
+                         **kw)
+        tadam.adam_update(unflagged[0], g, *unflagged[1:], 1e-3, c1, c2,
+                          **kw)
+        torch.cuda.synchronize()
+        assert tadam.launches == before + 2
+        expect = (p0, m0, v0) if flag else unflagged
+        for a, b in zip(mine, expect):
+            assert torch.equal(a, b)
+        if flag:
+            for a, b in zip(plain, expect):
+                assert torch.equal(a, b)
+
+
+def test_dropout_bits_equal_on_the_card_and_the_cpu(dev):
+    """The counter-based mask is integer arithmetic: the card and the
+    CPU draw the same bits, mask and kept values for the same key
+    (attention probabilities' shape and a hidden state's)."""
+    from hetu_tpu_torch.ops import activations as tact
+    key = tact.DropoutKey((2, 17, 1, 5, 1))
+    for shape, dtype in (((2, 20, 256, 256), torch.float32),
+                         ((2, 256, 1280), torch.bfloat16)):
+        n = int(np.prod(shape))
+        assert torch.equal(tact.dropout_bits(n, key, dev).cpu(),
+                           tact.dropout_bits(n, key, "cpu"))
+        x = _normal(shape, 22, "cpu", dtype)
+        on_card = tact.dropout(x.to(dev), 0.1, key, deterministic=False)
+        on_cpu = tact.dropout(x, 0.1, key, deterministic=False)
+        assert torch.equal(on_card.cpu(), on_cpu)
+
+
 # ------------------------------------------------------------ flash
 _DEAD_ROW = ((True, False, True, False), (False, False, False, False))
 #: name -> (sq, sk, block_q, block_k, what the case turns on)

@@ -213,7 +213,8 @@ def test_dense_path_gradients_match_without_recompute():
             atol=MODEL_TOL * float(ref[name].abs().max()), err_msg=name)
 
 
-@pytest.mark.parametrize("policy", ["nothing", "dots", "dots_attn"])
+@pytest.mark.parametrize("policy", ["nothing", "dots", "dots_attn",
+                                    "offload"])
 def test_every_block_runs_the_layernorm_kernel(monkeypatch, policy):
     """ln2's residual pair goes through the fused LayerNorm arm: its
     forward twice a block (forward and recompute) under every policy,
@@ -264,15 +265,58 @@ def test_positions_past_the_table_raise():
                                np.array([P], np.int32))
 
 
+@pytest.mark.parametrize("param_dtype,compute_dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_embeddings_round_once_into_the_compute_dtype(param_dtype,
+                                                      compute_dtype):
+    """wte[ids] + wpe[pos] is added in the wider dtype and rounded once,
+    bit for bit: fp32 tables with bf16 compute as the reference's
+    `(wte + wpe).astype(bf16)`; bf16 tables with fp32 compute summed in
+    fp32, as the reference's compiled step keeps them."""
+    model = GPTLMHeadModel(GPTConfig.tiny(param_dtype=param_dtype,
+                                          compute_dtype=compute_dtype),
+                           device="cpu", seed=3)
+    with torch.no_grad():
+        model.model.wpe.normal_(0.0, 0.02)
+    ids = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 16)))
+    wte = model.model.wte.weight.detach()[ids]
+    wpe = model.model.wpe.detach()[:16]
+    got = model.embed_at(ids)
+    assert got.dtype == compute_dtype
+    acc = torch.float32 if torch.float32 in (param_dtype, compute_dtype) \
+        else torch.bfloat16
+    want = (wte.to(acc) + wpe.to(acc)).to(compute_dtype)
+    assert torch.equal(got, want)
+    if param_dtype == torch.float32:
+        ref = (jnp.asarray(wte.numpy()) + jnp.asarray(wpe.numpy())).astype(
+            jnp.bfloat16)
+        assert torch.equal(got.float(),
+                           torch.from_numpy(np.asarray(ref, np.float32)))
+
+
 @pytest.mark.parametrize("field,value,exc", [
-    ("attention_dropout", 0.1, NotImplementedError),
-    ("hidden_dropout", 0.1, NotImplementedError),
     ("pipeline_stage_layers", (1, 1), NotImplementedError),
-    ("remat_policy", "offload", NotImplementedError),
+    ("attention_dropout", 1.0, ValueError),
     ("remat_policy", "everything", ValueError)])
 def test_config_refuses_options_of_later_slices(field, value, exc):
     with pytest.raises(exc):
         GPTConfig.tiny(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("attention_dropout", 0.1), ("hidden_dropout", 0.1),
+    ("remat_policy", "offload")])
+def test_config_accepts_options_of_this_slice(field, value):
+    """Dropout and the "offload" policy build and train (dropout on):
+    one Trainer step with finite metrics."""
+    model = GPTLMHeadModel(GPTConfig.tiny(**{field: value}), device="cpu")
+    tr = Trainer(model, TrainingConfig(**dict(_TRAIN,
+                                              dropout_deterministic=False)),
+                 device="cpu")
+    ids, labels = _batch(256, 9, b=4)
+    metrics = tr.train_step({"input_ids": ids, "labels": labels})
+    assert all(np.isfinite(float(v)) for v in metrics.values())
 
 
 def test_model_refuses_a_strategy():

@@ -298,13 +298,14 @@ def test_flash_loss_and_gradients_match_under_each_policy(
 
 
 @pytest.mark.parametrize("policy,flash_forwards", [
-    ("nothing", 2), ("dots", 2), ("dots_attn", 1)])
+    ("nothing", 2), ("dots", 2), ("dots_attn", 1), ("offload", 2)])
 def test_policies_recompute_what_they_say(monkeypatch, policy,
                                           flash_forwards):
     """Per block and micro-batch: the flash forward runs twice under
-    "nothing" and "dots" and once under "dots_attn" (its output and lse
-    are kept); the norm, RoPE and SwiGLU forwards twice under all
-    three; every backward once."""
+    "nothing", "dots" and "offload" and once under "dots_attn" (its
+    output and lse are kept); the norm, RoPE and SwiGLU forwards twice
+    under all four (the policies keep the projections' outputs, not
+    their inputs); every backward once."""
     from hetu_tpu_torch.ops.cuda import flash_attention as tflash
     from hetu_tpu_torch.ops.cuda import fused_norm, rotary, swiglu
     calls = {}
@@ -505,30 +506,68 @@ def test_trainer_steps_with_flash_and_dots_attn_match_the_reference(
 
 # ------------------------------------------------------------- refusals
 @pytest.mark.parametrize("field,value", [
-    ("packing", True), ("ckpt_dir", "/nonexistent"),
-    ("dropout_deterministic", False), ("loss_scale", "dynamic"),
-    ("pp_schedule", "1f1b")])
+    ("packing", True), ("pp_schedule", "1f1b")])
 def test_training_config_refuses_options_of_later_slices(field, value):
     with pytest.raises(NotImplementedError, match="arrives with"):
         TrainingConfig(**{field: value})
 
 
+def _one_step(model, tc):
+    """One Trainer step of `model` on the CPU under `tc`: finite metrics."""
+    tr = Trainer(model, tc, device="cpu")
+    ids, labels = _batch(model.config.vocab_size, 41, b=tc.global_batch_size)
+    metrics = tr.train_step({"input_ids": ids, "labels": labels})
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    return tr, metrics
+
+
 @pytest.mark.parametrize("field,value", [
-    ("pp_schedule", "zigzag"), ("loss_scale", "sometimes"), ("seed", 1)])
+    ("ckpt_dir", None), ("dropout_deterministic", False),
+    ("loss_scale", "dynamic")])
+def test_training_config_accepts_options_of_this_slice(tmp_path, field,
+                                                       value):
+    """The options the third training slice brings build and train: a
+    checkpoint directory (saved and read back), dropout keyed by the
+    step, the dynamic loss scale (its metrics)."""
+    if field == "ckpt_dir":
+        value = str(tmp_path)
+    tc = TrainingConfig(**dict(_TRAIN, **{field: value}))
+    model = LlamaLMHeadModel(LlamaConfig.tiny(hidden_dropout=0.1),
+                             device="cpu")
+    tr, metrics = _one_step(model, tc)
+    if field == "ckpt_dir":
+        tr.save(wait=True)
+        assert tr.restore().global_step == 1
+    if field == "loss_scale":
+        assert float(metrics["loss_scale"]) == 2.0 ** 16
+        assert float(metrics["amp_skipped"]) == 0.0
+
+
+@pytest.mark.parametrize("field,value", [
+    ("pp_schedule", "zigzag"), ("loss_scale", "sometimes"), ("seed", 1.5)])
 def test_training_config_rejects_bad_values(field, value):
     with pytest.raises(ValueError):
         TrainingConfig(**{field: value})
 
 
 @pytest.mark.parametrize("field,value,exc", [
-    ("attention_dropout", 0.1, NotImplementedError),
-    ("hidden_dropout", 0.1, NotImplementedError),
-    ("remat_policy", "offload", NotImplementedError),
+    ("attention_dropout", 1.0, ValueError),
+    ("hidden_dropout", -0.1, ValueError),
     ("remat_policy", "everything", ValueError)])
 def test_llama_config_refuses_options_of_later_slices(field, value, exc):
-    with pytest.raises(exc, match="third training slice"
-                       if exc is NotImplementedError else None):
+    with pytest.raises(exc):
         LlamaConfig.tiny(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("attention_dropout", 0.1), ("hidden_dropout", 0.1),
+    ("remat_policy", "offload")])
+def test_llama_config_accepts_options_of_this_slice(field, value):
+    """Dropout and the "offload" policy build and train (dropout on)."""
+    model = LlamaLMHeadModel(LlamaConfig.tiny(**{field: value}),
+                             device="cpu")
+    _one_step(model, TrainingConfig(**dict(_TRAIN,
+                                           dropout_deterministic=False)))
 
 
 @pytest.mark.parametrize("arg", ["strategy", "mesh", "run_log", "health",
@@ -548,11 +587,16 @@ def test_trainer_refuses_fp16_compute_without_the_grad_scaler():
         Trainer(model, TrainingConfig(), device="cpu")
 
 
-def test_trainer_refuses_parameters_stored_below_fp32():
+def test_trainer_trains_parameters_stored_in_bf16():
+    """bf16 parameters train with fp32 accumulators beside them (the
+    parameters stay bf16, the moments fp32); tests/test_torch_train3.py
+    holds them against the reference."""
     model = LlamaLMHeadModel(LlamaConfig.tiny(param_dtype=torch.bfloat16),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="param_dtype"):
-        Trainer(model, TrainingConfig(), device="cpu")
+    tr, _ = _one_step(model, TrainingConfig(**_TRAIN))
+    assert {p.dtype for p in tr.params} == {torch.bfloat16}
+    assert {a.dtype for a in tr._accum} == {torch.float32}
+    assert {m.dtype for m in tr.opt_state["m"]} == {torch.float32}
 
 
 def test_default_device_trainer_raises_without_a_card(monkeypatch):

@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     (no CUDA device -> exit 1 before anything else runs);
  2. build: every CUDA kernel from hetu_tpu_torch/csrc, one nvcc per
     source, all at once; prints the ptxas report (registers, shared
-    memory, spills) and the build time, then the bf16 dq kernel's, the
+    memory, spills) and the build time, then the 16-bit flash kernels'
+    (dq, forward, dk/dv; bf16 and fp16 instantiations), the
     paged kernels' (split and merge), the SwiGLU forward's, RoPE's,
     the four fused-norm kernels', the quantize's and the page write's
     (tokens and pages) registers and spills; a
@@ -230,10 +231,31 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     twice under "offload", which keeps the "dots" set on the host), step
     p50, tokens/s, mfu, peak memory and the bytes staged to the host a
     step.  The phase prints its wall time.
+15. the fourth training slice ("training4"): (a) every fp16 arm (the
+    flash forward, dq and dk/dv; the fused RMS and LayerNorm forward and
+    backward; SwiGLU and RoPE forward and backward) against its plain
+    version at the training shapes of the bf16 rows — flash also over a
+    packed batch's segments — timed beside its bound, its plain version
+    and its yardstick (`training4_kernel_phase`); (b) a narrow Llama in
+    fp16 over fp32 parameters, card vs CPU, 3 `Trainer` steps on packed
+    batches with the scale on "auto", then a forced overflow: both
+    sides skip and halve alike (`training4_reference_phase`); (c) each
+    sequence of two packed rows scored as alone, on the card
+    (`training4_packed_phase`); (d) Llama-3-8B widths cut to 8 layers in
+    fp16, "dots_attn", 6 steps on packed rows made by the collator
+    (`TrainingConfig(4, 2, 2048, packing=True)`, at least 85% of the
+    slots real tokens): exact launch counts on the fp16 arms, the loss
+    falls, step p50, tokens/s over slots and real tokens, mfu, peak
+    memory, the scale's course, one step profiled; (e) GPT-2-large in
+    fp16, 3 steps through `Trainer.train` over the padded prefetching
+    `build_data_loader` (`training4_gpt_phase`).  The phase prints its
+    wall time.
 
 Prints the `kernels` JSON line, the nvidia-smi line, and last the
 `{"ok": true, "device": ...}` line; the `kernels` line gives AdamW's
-launches by arm ("f32", "bf16") over the training paths.
+launches by arm ("f32", "bf16") over the training paths, and each fp16
+arm as an entry of its own (`flash_fwd_f16`, ..., `rotary_qk_bwd_f16`),
+whose launches are also in its kernel's entry.
 """
 from __future__ import annotations
 
@@ -252,8 +274,11 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12                 # H100 SXM HBM3
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense tensor-core bf16
+                  torch.float16: 989e12,   # and fp16
                   torch.float32: 67e12}    # fp32 outside the tensor cores
 TRAIN_PEAK_GIB = 70.0
+_DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16",
+                torch.float16: "fp16"}
 
 
 def check(cond: bool, msg: str):
@@ -333,15 +358,20 @@ def event_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def ulps(n: float, atol: float = 0.0):
-    """Tolerance: |a - b| <= n bf16 ulps of the larger of the two + atol;
-    returns how far the worst element goes past it (<= 0: within)."""
+def ulps(n: float, atol: float = 0.0, dtype=torch.bfloat16):
+    """Tolerance: |a - b| <= n ulps of `dtype` (bf16: 8 significant bits,
+    fp16: 11, and its smallest subnormal below its normal range) at the
+    larger of the two + atol; returns how far the worst element goes past
+    it (<= 0: within)."""
+    fi = torch.finfo(dtype)
+
     def excess(a, b):
         a, b = a.float(), b.float()
         _, exp = torch.frexp(torch.maximum(a.abs(), b.abs()))
-        ulp = torch.ldexp(torch.ones_like(a), exp - 8)  # 8 significant bits
+        ulp = torch.maximum(torch.ldexp(torch.full_like(a, fi.eps), exp - 1),
+                            torch.full_like(a, fi.tiny * fi.eps))
         return ((a - b).abs() - n * ulp - atol).max().item()
-    excess.text = f"{n} bf16 ulp + {atol}"
+    excess.text = f"{n} {_DTYPE_NAMES[dtype]} ulp + {atol}"
     return excess
 
 
@@ -1175,19 +1205,20 @@ def swiglu_composition(gu):
     return lambda i: F.silu(gu[:, 0]) * gu[:, 1]
 
 
-def rope_qkv_case(label, qkv, group, cos_t, sin_t):
+def rope_qkv_case(label, qkv, group, cos_t, sin_t, tol=None):
     """RoPE as the LLaMA attention calls it: q (the grouped view [b, s,
     n_kv, group, hd]) and k read in place from the fused projection qkv
     [b, s, n_kv, group+2, hd], held against the plain version on
-    contiguous copies and timed beside the composition on the same
-    views."""
+    contiguous copies (one bf16 ulp, or `tol`) and timed beside the
+    composition on the same views."""
     from hetu_tpu_torch.ops.cuda import rotary as ro
     b, s, n_kv, _, hd = qkv.shape
     q, k = qkv[..., :group, :], qkv[..., group, :]
     q4, k4 = q.reshape(b, s, n_kv * group, hd), k.contiguous()
     n = q4.numel() + k4.numel()
     return case(
-        label, ulps(1), lambda i: ro.fused_rotary_qk(q, k, cos_t, sin_t),
+        label, tol or ulps(1),
+        lambda i: ro.fused_rotary_qk(q, k, cos_t, sin_t),
         lambda i: ro.rotary_qk_plain(q4, k4, cos_t, sin_t),
         2 * n * qkv.element_size() + 2 * cos_t.numel() * 4, 6 * n // 2,
         composition=rope_composition(q, k, cos_t, sin_t))
@@ -1704,7 +1735,9 @@ def _flash_setup(fa, b, sq, sk, hq, hkv, d, dtype, g, *, block=128,
     k_pos = (torch.arange(sk, dtype=torch.int32, device="cuda")
              + (k_offset or 0)).expand(b, sk)
     q_seg = k_seg = None
-    if segments:            # two packed sequences, cut at a third
+    if torch.is_tensor(segments):   # a packed batch's [b, s] segment ids
+        q_seg = k_seg = segments.int().contiguous()
+    elif segments:          # two packed sequences, cut at a third
         q_seg = (q_pos >= sk // 3).int().contiguous()
         k_seg = (k_pos >= sk // 3).int().contiguous()
     bq, bk = fa.fit_block(block, sq), fa.fit_block(block, sk)
@@ -1719,60 +1752,79 @@ def _flash_setup(fa, b, sq, sk, hq, hkv, d, dtype, g, *, block=128,
 
 
 def flash_tolerances(dtype, v):
-    """(o, lse), then one for the gradients (`flash_kernel_phase`)."""
+    """(o, lse), then one for the gradients (`flash_kernel_phase`; the
+    fp16 arm: `training4_kernel_phase`)."""
     if dtype == torch.float32:
         of_max = rel(1e-5, 1e-6, of_max=True)
         return (of_max, rel(1e-5, 1e-5)), of_max
+    if dtype == torch.float16:
+        o_tol = ulps(0.5, 1e-5 + 2.0 ** -10 * v.abs().max().item(), dtype)
+        return (o_tol, rel(1e-5, 1e-5)), rel(2.0 ** -10, 1e-6, of_max=True)
     o_tol = ulps(0.5, 1e-5 + 2.0 ** -9 * v.abs().max().item())
     return (o_tol, rel(1e-5, 1e-5)), rel(2.0 ** -8, 1e-6, of_max=True)
 
 
-def flash_timed(g, b, s, hq, hkv, d):
+def flash_timed(g, b, s, hq, hkv, d, dtype=torch.bfloat16, segments=None,
+                layout=""):
     """The three flash kernels at q [b, s, hq, d] over k/v [b, s, hkv, d],
-    bf16, causal, held against the plain version on the same values in
-    fp32 (`flash_tolerances`) and timed beside it, their bounds (two,
-    three and four products of 2 x d operations a live element, over
-    the bf16 tensor-core peak) and `scaled_dot_product_attention`
-    (forward; for the two backward kernels its whole backward, forward +
-    backward less forward — one call computes dq, dk and dv there).
-    Returns {kernel: [case]}."""
+    causal, `dtype` (bf16 or fp16), and with `segments` ([b, s] segment
+    ids of a packed batch) the segment mask, held against the plain
+    version on the same values in fp32 (`flash_tolerances`) and timed
+    beside it, their bounds (two, three and four products of 2 x d
+    operations a live element — causal and, with segments, inside one
+    segment: what this data needs — over the 16-bit tensor-core peak)
+    and `scaled_dot_product_attention` (forward, with segments on an
+    explicit boolean mask made before the timing; for the two backward
+    kernels its whole backward, forward + backward less forward — one
+    call computes dq, dk and dv there).  Returns {kernel: [case]}."""
     import torch.nn.functional as F
     from hetu_tpu_torch.ops.cuda import flash_attention as fa
 
     tensors, masks, kw, block_mask, live = _flash_setup(
-        fa, b, s, s, hq, hkv, d, torch.bfloat16, g)
+        fa, b, s, s, hq, hkv, d, dtype, g,
+        segments=False if segments is None else segments)
     q, k, v, do = tensors
     o, lse = fa._fwd(q, k, v, *masks, block_mask=block_mask, **kw)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, lse, do, delta, *masks)
-    live_elems = s * (s + 1) // 2 * b * hq
-    qo, kv = q.numel() * 2, k.numel() * 2          # bytes, bf16
+    if segments is None:
+        live_elems = s * (s + 1) // 2 * b * hq
+        sdpa_kw = dict(is_causal=True)
+    else:
+        runs = [torch.unique_consecutive(row, return_counts=True)[1]
+                for row in segments.cpu()]
+        live_elems = hq * sum(int((n * (n + 1) // 2).sum()) for n in runs)
+        same = segments[:, :, None] == segments[:, None, :]
+        sdpa_kw = dict(attn_mask=(same & torch.ones(
+            s, s, dtype=torch.bool, device="cuda").tril())[:, None])
+    qo, kv = q.numel() * 2, k.numel() * 2          # bytes, 16-bit
     stats = lse.numel() * 4
 
     def sdpa():
         return F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=hq != hkv)
+            q, k, v, enable_gqa=hq != hkv, **sdpa_kw)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
 
     def sdpa_fwd_bwd():     # no .grad to accumulate into: the call alone
         torch.autograd.grad(F.scaled_dot_product_attention(
-            *leaves, is_causal=True, enable_gqa=hq != hkv), leaves, do)
+            *leaves, enable_gqa=hq != hkv, **sdpa_kw), leaves, do)
     with torch.no_grad():
         lib_f = device_ms(sdpa)
     # in a CUDA graph, like the kernels: timed through autograd on the
     # host's clock, a call this short follows the host's load instead
     lib_fb = device_ms(sdpa_fwd_bwd)
     del leaves
-    shape = f"q=[{b},{s},{hq},{d}] kv=[{b},{s},{hkv},{d}] bf16 causal"
+    shape = (f"q=[{b},{s},{hq},{d}] kv=[{b},{s},{hkv},{d}] "
+             f"{_DTYPE_NAMES[dtype]} causal{layout}")
     f32 = [t.float() for t in (q, k, v)]
-    fwd_tols, grad_tol = flash_tolerances(torch.bfloat16, v)
+    fwd_tols, grad_tol = flash_tolerances(dtype, v)
     fwd = case(
         f"flash_fwd {shape}", fwd_tols,
         lambda i: fa._fwd(q, k, v, *masks, block_mask=block_mask, **kw),
         lambda i: fa.flash_fwd_plain(q, k, v, *masks, live=live, **kw),
         2 * qo + 2 * kv + stats, 4 * d * live_elems,
         exact=lambda i: fa.flash_fwd_plain(*f32, *masks, live=live, **kw),
-        library_ms=lib_f, op_dtype=torch.bfloat16)
+        library_ms=lib_f, op_dtype=dtype)
 
     def plain_bwd(i):
         return fa.flash_bwd_plain(*args, live=live, **kw)
@@ -1783,13 +1835,13 @@ def flash_timed(g, b, s, hq, hkv, d):
         lambda i: fa.flash_bwd_dq(*args, block_mask=block_mask, **kw),
         lambda i: plain_bwd(i)[0], 2 * qo + 2 * kv + 2 * stats + 2 * qo,
         6 * d * live_elems, exact=lambda i: ref[0],
-        library_ms=lib_fb - lib_f, op_dtype=torch.bfloat16)
+        library_ms=lib_fb - lib_f, op_dtype=dtype)
     dkv = case(
         f"flash_bwd_dkv {shape}", grad_tol,
         lambda i: fa.flash_bwd_dkv(*args, block_mask=block_mask, **kw),
         lambda i: plain_bwd(i)[1:], 2 * qo + 2 * kv + 2 * stats + 4 * kv,
         8 * d * live_elems, exact=lambda i: ref[1:],
-        library_ms=lib_fb - lib_f, op_dtype=torch.bfloat16)
+        library_ms=lib_fb - lib_f, op_dtype=dtype)
     for name, fn in (("dq", fa.flash_bwd_dq), ("dkv", fa.flash_bwd_dkv)):
         runs = [fn(*args, block_mask=block_mask, **kw) for _ in range(2)]
         runs = [r if isinstance(r, tuple) else (r,) for r in runs]
@@ -1907,7 +1959,8 @@ def flash_kernel_phase(seed: int):
 
 def kernel_table():
     """{kernel: (wrapper module, its launch counter, source, the TPU
-    kernel it replaces)} for every ported kernel."""
+    kernel it replaces)} for every ported kernel; a counter (name, arm)
+    is that arm's share of the module's `arm_launches[name]`."""
     from hetu_tpu_torch.ops.cuda import adam as ad
     from hetu_tpu_torch.ops.cuda import flash_attention as fa
     from hetu_tpu_torch.ops.cuda import fused_norm as fn
@@ -1965,33 +2018,63 @@ def kernel_table():
         "residual_layernorm_bwd": (fn, "ln_bwd_launches",
                                    src + "fused_norm.cu",
                                    tpu + "fused_norm.py:208"),
+        # the fp16 arms, each read from its counter's launches by arm
+        # (`arm_launches`; the launches are in the totals above too)
+        "flash_fwd_f16": (fa, ("launches", "f16"), src + "flash_attention.cu",
+                          tpu + "flash_attention.py:246"),
+        "flash_bwd_dq_f16": (fa, ("dq_launches", "f16"),
+                             src + "flash_attention.cu",
+                             tpu + "flash_attention.py:328"),
+        "flash_bwd_dkv_f16": (fa, ("dkv_launches", "f16"),
+                              src + "flash_attention.cu",
+                              tpu + "flash_attention.py:368"),
+        "residual_rmsnorm_fwd_f16": (fn, ("launches", "f16"),
+                                     src + "fused_norm.cu",
+                                     tpu + "fused_norm.py:138"),
+        "residual_rmsnorm_bwd_f16": (fn, ("bwd_launches", "f16"),
+                                     src + "fused_norm.cu",
+                                     tpu + "fused_norm.py:157"),
+        "residual_layernorm_fwd_f16": (fn, ("ln_launches", "f16"),
+                                       src + "fused_norm.cu",
+                                       tpu + "fused_norm.py:235"),
+        "residual_layernorm_bwd_f16": (fn, ("ln_bwd_launches", "f16"),
+                                       src + "fused_norm.cu",
+                                       tpu + "fused_norm.py:208"),
+        "fused_swiglu_f16": (sw, ("launches", "f16"), src + "swiglu.cu",
+                             tpu + "swiglu.py:74"),
+        "swiglu_bwd_f16": (sw, ("bwd_launches", "f16"), src + "swiglu.cu",
+                           tpu + "swiglu.py:103"),
+        "fused_rotary_qk_f16": (ro, ("launches", "f16"), src + "rotary.cu",
+                                tpu + "rotary.py:82"),
+        "rotary_qk_bwd_f16": (ro, ("bwd_launches", "f16"), src + "rotary.cu",
+                              tpu + "rotary.py:112"),
     }
 
 
 #: AdamW's launches by arm over the paths' runs (the `kernels` line)
-ADAM_ARMS = {"f32": 0, "bf16": 0}
+ADAM_ARMS = {"f32": 0, "bf16": 0, "f16": 0}
 
 
 def zero_counts(kernels):
-    from hetu_tpu_torch.ops.cuda import adam as ad
     from hetu_tpu_torch.ops.cuda import sample as sa
     for mod, attr, *_ in kernels.values():
-        setattr(mod, attr, 0)
+        if isinstance(attr, str):
+            setattr(mod, attr, 0)
+        for arms in getattr(mod, "arm_launches", {}).values():
+            arms.update(dict.fromkeys(arms, 0))
     for arm in sa.lm_head_routes:
         sa.lm_head_routes[arm] = 0
-    for arm in ad.arm_launches:
-        ad.arm_launches[arm] = 0
 
 
 def check_adam_arm(label, per_step: int, arm: str):
     """Since `zero_counts`, AdamW launched `per_step` times, all on
     `arm`; adds them to ADAM_ARMS."""
     from hetu_tpu_torch.ops.cuda import adam as ad
-    expect = dict.fromkeys(ad.arm_launches, 0)
+    arms = ad.arm_launches["launches"]
+    expect = dict.fromkeys(arms, 0)
     expect[arm] = per_step
-    check(ad.arm_launches == expect, f"{label}: AdamW arms "
-          f"{ad.arm_launches}, expected {expect}")
-    for a, n in ad.arm_launches.items():
+    check(arms == expect, f"{label}: AdamW arms {arms}, expected {expect}")
+    for a, n in arms.items():
         ADAM_ARMS[a] += n
 
 
@@ -2006,8 +2089,17 @@ def check_product_arm(path, launches, arm):
     print(f"{path}: product arms {sa.lm_head_routes}")
 
 
+def launch_count(mod, attr) -> int:
+    """A kernel table counter's launches: the module's total `attr`, or
+    for (name, arm) that arm's launches of `name`."""
+    if isinstance(attr, str):
+        return getattr(mod, attr)
+    name, arm = attr
+    return mod.arm_launches[name][arm]
+
+
 def read_counts(kernels):
-    return {name: getattr(mod, attr)
+    return {name: launch_count(mod, attr)
             for name, (mod, attr, *_) in kernels.items()}
 
 
@@ -3931,6 +4023,572 @@ def training3_llama_phase(seed: int, kernels, card: str):
     return out
 
 
+# ------------------------------------------------------------ training4
+def packed_rows(dataset, rows: int, seq: int, start: int = 0, fill=0.95):
+    """A packed batch of `rows` rows of `seq` slots from `dataset`, taken
+    in order from index `start`: each next sequence joins if
+    `pack_sequences(..., num_packed=rows, on_overflow="error")` still
+    packs it (one that does not waits for the next batch), until `fill`
+    of the slots hold tokens or 64 sequences in a row do not fit; then
+    the collator `DataCollatorForLanguageModel(seq, packing=True)` makes
+    the batch with `num_rows=rows`, which must equal that packing.
+    Returns (batch, the index after the last sequence looked at)."""
+    from hetu_tpu_torch.data import DataCollatorForLanguageModel
+    from hetu_tpu_torch.data.bucket import pack_sequences
+    chosen, used, misses, i = [], 0, 0, start
+    while i < len(dataset) and used < fill * rows * seq and misses < 64:
+        s = dataset[i]
+        i += 1
+        try:
+            pack_sequences(chosen + [s], seq, num_packed=rows,
+                           on_overflow="error")
+        except ValueError:
+            misses += 1
+            continue
+        chosen.append(s)
+        used += len(s)
+        misses = 0
+    batch = DataCollatorForLanguageModel(seq, packing=True)(chosen,
+                                                            num_rows=rows)
+    ref = pack_sequences(chosen, seq, num_packed=rows, on_overflow="error")
+    check(all(np.array_equal(batch[k], ref[k]) for k in ref),
+          "the collator's packing differs from pack_sequences'")
+    return batch, i
+
+
+def training4_kernel_phase(seed: int):
+    """Phase 15 (a): every fp16 arm against its plain version at the
+    training shapes of the bf16 rows, timed beside its bound, its plain
+    version and its yardstick: flash at q [2, 2048, 32, 128] over 8 kv
+    heads, causal, without segments and with a packed batch's (the data
+    stack's packing of 128-1,024-token sequences), and GPT's [8, 1024,
+    20, 64] (`scaled_dot_product_attention` in fp16); the RMS norm at
+    [4096, 4096], the LayerNorm (with a bias) at [8192, 1280], SwiGLU at
+    [4096, 14336] and RoPE from the fused projection [2, 2048, 8, 4+2,
+    128] and its backward at [2, 2048, 32+8, 128], forward and backward
+    (the compositions of the bf16 rows, in fp16, one CUDA graph each).
+    Tolerances: each output a kernel and its plain version round once to
+    fp16 from fp32 values within one fp16 ulp (+1e-6 where the norms'
+    centred sums cancel); dw and db 1e-5 of their largest entry; flash:
+    o half an fp16 ulp + 1e-5 + 2^-10 max|v| (P rounded to fp16 for the
+    product, 2^-11 relative, or 2^-25 absolute below fp16's normal
+    range), lse 1e-5, the fp32 gradients 2^-10 of their largest entry
+    (the bf16 arm's 2^-8, three bits finer)."""
+    import torch.nn.functional as F
+    from hetu_tpu_torch.data import TokenizedDataset
+    from hetu_tpu_torch.ops.cuda import fused_norm as fn
+    from hetu_tpu_torch.ops.cuda import rotary as ro
+    from hetu_tpu_torch.ops.cuda import swiglu as sw
+    from hetu_tpu_torch.ops.rotary import build_rope_cache, rope_tables
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 40)
+    f16, eps = torch.float16, 1e-5
+    tol = ulps(1, 1e-6, f16)
+    sums = rel(1e-5, of_max=True)
+    out = {}
+
+    def randn(*shape, std=1.0, dtype=f16):
+        return (std * torch.randn(shape, generator=g, device="cuda")).to(
+            dtype)
+
+    # flash: causal, then the packed layout's segments, then GPT's shape
+    for name, more in flash_timed(g, 2, 2048, 32, 8, 128, f16).items():
+        out[f"{name}_f16"] = more
+    ds = TokenizedDataset.synthetic(64, 128256, 128, 1024, seed=seed)
+    packed, _ = packed_rows(ds, 2, 2048)
+    segments = torch.from_numpy(packed["segment_ids"]).cuda()
+    for name, more in flash_timed(g, 2, 2048, 32, 8, 128, f16, segments,
+                                  " packed").items():
+        out[f"{name}_f16"] += more
+    for name, more in flash_timed(g, 8, 1024, 20, 20, 64, f16).items():
+        out[f"{name}_f16"] += more
+    # the fused RMS norm [4096, 4096]
+    rows, hidden = 4096, 4096
+    x, h, dy, dr = (randn(rows, hidden) for _ in range(4))
+    w = 1.0 + randn(hidden, std=0.1, dtype=torch.float32)
+    wh = w.to(f16)
+    n = rows * hidden
+    out["residual_rmsnorm_fwd_f16"] = [case(
+        f"residual_rmsnorm_fwd [{rows},{hidden}] fp16, w fp32", tol,
+        lambda i: fn.residual_rmsnorm_fwd(x, h, w, eps),
+        lambda i: fn.residual_rmsnorm_plain(x, h, w, eps),
+        4 * n * 2 + hidden * 4, 6 * n,
+        composition=lambda i: _add_then(F.rms_norm, x, h, (hidden,), wh,
+                                        eps))]
+    _, s = fn.residual_rmsnorm_fwd(x, h, w, eps)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (s, wh)]
+
+    def rms_fwd_bwd():
+        ds_, dw_ = torch.autograd.grad(
+            F.rms_norm(leaves[0], (hidden,), leaves[1], eps), leaves, dy)
+        return ds_ + dr, dw_
+    with torch.no_grad():
+        rms_f = device_ms(lambda: F.rms_norm(s, (hidden,), wh, eps))
+    rms_fb = device_ms(rms_fwd_bwd)
+    del leaves
+    out["residual_rmsnorm_bwd_f16"] = [case(
+        f"residual_rmsnorm_bwd [{rows},{hidden}] fp16, dw fp32",
+        (tol, sums), lambda i: fn.residual_rmsnorm_bwd(s, w, dy, dr, eps),
+        lambda i: fn.residual_rmsnorm_bwd_plain(s, w, dy, dr, eps),
+        4 * n * 2 + 2 * hidden * 4, 11 * n, composition_ms=rms_fb - rms_f)]
+    del x, h, dy, dr, s
+    # the fused LayerNorm with a bias [8192, 1280]
+    rows, hidden = 8192, 1280
+    x, h, dy, dr = (randn(rows, hidden) for _ in range(4))
+    w = 1.0 + randn(hidden, std=0.1, dtype=torch.float32)
+    b = randn(hidden, std=0.1, dtype=torch.float32)
+    wh, bh = w.to(f16), b.to(f16)
+    n = rows * hidden
+    out["residual_layernorm_fwd_f16"] = [case(
+        f"residual_layernorm_fwd [{rows},{hidden}] fp16, w, b fp32", tol,
+        lambda i: fn.residual_layernorm_fwd(x, h, w, b, eps),
+        lambda i: fn.residual_layernorm_plain(x, h, w, b, eps),
+        4 * n * 2 + 2 * hidden * 4, 8 * n,
+        composition=lambda i: _add_then(F.layer_norm, x, h, (hidden,), wh,
+                                        bh, eps))]
+    _, s = fn.residual_layernorm_fwd(x, h, w, b, eps)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(s, (hidden,), wh, bh,
+                                                     eps)
+
+    def ln_bwd_composition(i):
+        dx, dw_, db_ = torch.ops.aten.native_layer_norm_backward(
+            dy, s, (hidden,), mean, rstd, wh, bh, [True, True, True])
+        return dx + dr, dw_, db_
+    out["residual_layernorm_bwd_f16"] = [case(
+        f"residual_layernorm_bwd [{rows},{hidden}] fp16, dw, db fp32",
+        (tol, sums, sums),
+        lambda i: fn.residual_layernorm_bwd(s, w, dy, dr, eps),
+        lambda i: fn.residual_layernorm_bwd_plain(s, w, dy, dr, eps),
+        4 * n * 2 + 3 * hidden * 4, 18 * n, composition=ln_bwd_composition)]
+    del x, h, dy, dr, s, mean, rstd
+    # SwiGLU [4096, 14336]: forward from the strided halves, backward
+    tokens, inter = 4096, 14336
+    gu, dy = randn(tokens, 2, inter), randn(tokens, inter)
+    n = tokens * inter
+    out["fused_swiglu_f16"] = [case(
+        f"fused_swiglu [{tokens},{inter}] fp16", ulps(1, dtype=f16),
+        lambda i: sw.fused_swiglu(gu),
+        lambda i: sw.swiglu_plain(gu[:, 0], gu[:, 1]), 3 * n * 2, 5 * n,
+        composition=swiglu_composition(gu))]
+    out["swiglu_bwd_f16"] = [case(
+        f"swiglu_bwd [{tokens},{inter}] fp16", ulps(1, dtype=f16),
+        lambda i: sw.swiglu_bwd(gu, dy),
+        lambda i: torch.stack(sw.swiglu_bwd_plain(gu[:, 0], gu[:, 1], dy),
+                              dim=-2), 5 * n * 2, 12 * n)]
+    del gu, dy
+    # RoPE read in place from the fused projection, and its backward
+    cos, sin = build_rope_cache(8192, 128, 500000.0, device="cuda")
+    cos_t, sin_t = rope_tables(cos, sin, 2, 2048)
+    out["fused_rotary_qk_f16"] = [rope_qkv_case(
+        "fused_rotary_qk q,k views of qkv [2,2048,8,4+2,128] fp16",
+        randn(2, 2048, 8, 6, 128), 4, cos_t, sin_t, tol=ulps(1, dtype=f16))]
+    dq, dk = randn(2, 2048, 32, 128), randn(2, 2048, 8, 128)
+    pairs = (dq.numel() + dk.numel()) // 2
+    out["rotary_qk_bwd_f16"] = [case(
+        "rotary_qk_bwd q=[2,2048,32,128] k=[2,2048,8,128] fp16",
+        ulps(1, dtype=f16), lambda i: ro.rotary_qk_bwd(dq, dk, cos_t, sin_t),
+        lambda i: ro.rotary_qk_plain(dq, dk, cos_t, -sin_t),
+        2 * (dq.numel() + dk.numel()) * 2 + 2 * cos_t.numel() * 4,
+        6 * pairs, composition=rope_composition(dq, dk, cos_t, sin_t, -1.0))]
+    del dq, dk
+    return out
+
+
+def _t4_narrow_config():
+    """Phase 7's narrow Llama (hidden 512, 4 q / 2 kv heads of 128,
+    SwiGLU 1536, vocab 4096, 2 layers; positions to 2,048) computing in
+    fp16 over fp32 parameters, flash, "dots_attn"."""
+    from hetu_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig.tiny(hidden_size=512, num_attention_heads=4,
+                            num_key_value_heads=2, intermediate_size=1536,
+                            vocab_size=4096, num_hidden_layers=2,
+                            max_position_embeddings=2048,
+                            compute_dtype=torch.float16,
+                            use_flash_attention=True,
+                            remat_policy="dots_attn")
+
+
+def _t4_pair(seed):
+    """The narrow model on the CPU and on the card, one set of weights
+    (the CPU's draw), the CPU forced onto flash's plain version."""
+    from hetu_tpu_torch.models.llama import LlamaLMHeadModel
+    cfg = _t4_narrow_config()
+    cpu = LlamaLMHeadModel(cfg, device="cpu", seed=seed)
+    gpu = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
+    gpu.load_state_dict(cpu.state_dict())
+    for layer in cpu.model.layers:
+        layer.attn.use_pallas = True
+    return gpu, cpu
+
+
+def _t4_bound(bound, trainers, step, opt):
+    """Add step `step`'s share to each parameter's card-vs-CPU bound:
+    lr x what the two sides' AdamW directions differ by, each recomputed
+    in fp32 (2^-21 |u| for its own rounding), + 2^-21 |p| for each
+    side's fp32 update (phase 14 (a)'s bound, with fp32 parameters)."""
+    card_t, cpu_t = trainers
+    for i, (pg, pc, mg, vg, mc, vc) in enumerate(zip(
+            card_t.params, cpu_t.params, card_t.opt_state["m"],
+            card_t.opt_state["v"], cpu_t.opt_state["m"],
+            cpu_t.opt_state["v"])):
+        u = _adam_direction(mg, vg, step, opt)
+        u_ref = _adam_direction(mc.to("cuda"), vc.to("cuda"), step, opt)
+        bound[i] += opt._lr(step) * ((u - u_ref).abs() + 2.0 ** -21 * (
+            u.abs() + u_ref.abs())) + 2.0 ** -21 * torch.maximum(
+                pg.detach().abs(), pc.detach().to("cuda").abs())
+
+
+#: phase 15 (b)'s limits, card against CPU: the loss and the global
+#: grad norm relative, each moment leaf against its largest entry (set
+#: about 10x above what the card measured; PERF.md §6)
+T4_LOSS_TOL, T4_GRAD_NORM_TOL, T4_MOMENT_TOL = 1e-4, 3e-4, 2.0 ** -5
+
+
+def training4_reference_phase(seed: int, card: str):
+    """Phase 15 (b): the narrow Llama (`_t4_narrow_config`: fp32
+    parameters, fp16 compute, flash, "dots_attn", `loss_scale="auto"`,
+    `TrainingConfig(4, 2, 64, packing=True)`) on the card and on the
+    CPU from one set of weights, 3 steps on packed batches taken in
+    turn: the scaler on at both sides, loss_scale and amp_skipped equal
+    each step, loss within T4_LOSS_TOL and grad norm within
+    T4_GRAD_NORM_TOL relative (both sides round every activation to
+    fp16, cuBLAS's products and the CPU's in their own orders), every
+    leaf's m and v within T4_MOMENT_TOL of that leaf's largest entry on
+    the CPU (a wrong gradient of any leaf, however small its share of
+    the global norm, shows in its own moments), every parameter within
+    phase 14 (a)'s bound (`_t4_bound`: AdamW applied the moments just
+    held); then the scale set to 2^22 on both sides (this
+    batch's fp16 cotangents overflow at 2^21 and above): each step
+    overflows, is skipped and halves the scale until an update lands —
+    the two sequences of (amp_skipped, loss_scale) equal, the parameters
+    unchanged by the skipped steps."""
+    from hetu_tpu_torch.data import pack_sequences
+    from hetu_tpu_torch.engine import Trainer, TrainingConfig
+    t0 = time.perf_counter()
+    gpu, cpu = _t4_pair(seed)
+    tc = TrainingConfig(global_batch_size=4, micro_batch_size=2, seq_len=64,
+                        warmup_steps=1, total_steps=10, log_every=100,
+                        packing=True)
+    trainers = [Trainer(gpu, tc, device="cuda").build(),
+                Trainer(cpu, tc, device="cpu").build()]
+    check(all(t._scaler is not None for t in trainers),
+          "fp16 compute under loss_scale='auto' has no scaler")
+    rng = np.random.default_rng(seed + 41)
+    batches = []
+    for _ in range(3):
+        seqs = [rng.integers(1, 4096, int(n)) for n in
+                rng.integers(2, 64, 9)]
+        batches.append({k: v[:4] for k, v in pack_sequences(
+            seqs, 64, num_packed=6).items()})
+    opt = trainers[1].optimizer
+    bound = [torch.zeros(p.shape, device="cuda") for p in gpu.parameters()]
+    on_card, on_cpu = [], []
+    for step, batch in enumerate(batches, 1):
+        for tr, out in zip(trainers, (on_card, on_cpu)):
+            out.append({k: float(v) for k, v in tr.train_step(batch).items()})
+        _t4_bound(bound, trainers, step, opt)
+    for a, b in zip(on_card, on_cpu):
+        check(a["loss_scale"] == b["loss_scale"] and
+              a["amp_skipped"] == b["amp_skipped"] == 0.0,
+              f"card vs CPU scale or skips differ: {a} / {b}")
+    worst = {k: max(abs(a[k] - b[k]) / abs(b[k])
+                    for a, b in zip(on_card, on_cpu))
+             for k in ("loss", "grad_norm")}
+    check(worst["loss"] <= T4_LOSS_TOL
+          and worst["grad_norm"] <= T4_GRAD_NORM_TOL,
+          f"card vs CPU fp16 training differs: {worst}")
+    moments = {}
+    for key in ("m", "v"):
+        per_leaf = []
+        for name, a, b in zip(trainers[1].names, trainers[0].opt_state[key],
+                              trainers[1].opt_state[key]):
+            b = b.to("cuda")
+            scale = b.abs().max().item()
+            per_leaf.append(((a - b).abs().max().item() / scale
+                             if scale else (a - b).abs().max().item(), name))
+        moments[key] = max(per_leaf)
+        check(moments[key][0] <= T4_MOMENT_TOL,
+              f"card vs CPU {key} of {moments[key][1]}: "
+              f"{moments[key][0]:.3g} of its largest entry "
+              f"(tol {T4_MOMENT_TOL})")
+    over = max(((a.detach() - b.detach().to("cuda")).abs() / bnd).max().item()
+               for a, b, bnd in zip(trainers[0].params, trainers[1].params,
+                                    bound))
+    check(over <= 1.0, f"card vs CPU parameters past their bound: {over}")
+    # the forced overflow on both sides
+    for tr in trainers:
+        tr.settle()
+        tr.scaler_state["scale"].fill_(2.0 ** 22)
+    before = [p.detach().clone() for p in trainers[0].params]
+    seqs = {"cuda": [], "cpu": []}
+    batch = batches[0]
+    for _ in range(20):
+        for tr, dev in zip(trainers, ("cuda", "cpu")):
+            m = tr.train_step(batch)
+            seqs[dev].append((float(m["amp_skipped"]),
+                              float(m["loss_scale"])))
+        if seqs["cuda"][-1][0] == 0.0 or seqs["cpu"][-1][0] == 0.0:
+            break
+        check(all(torch.equal(a, b.detach()) for a, b in zip(
+            before, trainers[0].params)), "a skipped step wrote p")
+    check(seqs["cuda"] == seqs["cpu"],
+          f"card and CPU skip or scale differently: {seqs}")
+    check(seqs["cuda"][0][0] == 1.0 and seqs["cuda"][1][0] == 1.0
+          and seqs["cuda"][-1][0] == 0.0,
+          f"the overflow did not skip, or no update landed: {seqs['cuda']}")
+    print(f"training4 reference: narrow Llama, 2 layers, fp32 params, fp16 "
+          f"compute, flash + dots_attn, loss_scale auto, packed batches, 3 "
+          f"steps: card vs CPU worst relative diff {worst} (tol "
+          f"{T4_LOSS_TOL}, {T4_GRAD_NORM_TOL}); moments at most "
+          f"{moments} of their leaf's largest entry (tol {T4_MOMENT_TOL}); "
+          f"parameters at most {over:.6f} of their bound (tol 1); scales "
+          f"{[x['loss_scale'] for x in on_card]}, skips 0; losses "
+          f"{[x['loss'] for x in on_card]}; forced overflow from 2^22: "
+          f"(skipped, scale) {seqs['cuda']} on both "
+          f"({time.perf_counter() - t0:.1f}s); {card}")
+    del trainers, gpu, cpu
+
+
+def _t4_scores(lg, labels, keep):
+    """(loss sum, count) of the next-token targets labels[1:] where
+    `keep`, in fp64 from fp32 logits [s, V]."""
+    lg, tgt = lg[:-1].double(), torch.as_tensor(labels[1:], device=lg.device)
+    on = torch.as_tensor(keep[1:], device=lg.device) & (tgt != -100)
+    nll = torch.logsumexp(lg, -1) - lg.gather(
+        -1, torch.where(on, tgt, 0).long()[:, None])[:, 0]
+    return float(nll[on].sum()), int(on.sum())
+
+
+def training4_packed_phase(seed: int, card: str):
+    """Phase 15 (c): packed against alone on the card — the narrow Llama
+    (fp16, flash: the fp16 kernels with the segment mask) scores each of
+    seven sequences (1-300 tokens) inside two packed rows of 512 slots
+    and alone in a padded row of 512: the same token count, and the same
+    loss within 2e-3 relative (the packed and the alone forwards round
+    each fp16 product in their own tile order and GEMM shape)."""
+    from hetu_tpu_torch.data import pack_sequences, pad_batch
+    from hetu_tpu_torch.ops.cuda import flash_attention as fa
+    t0 = time.perf_counter()
+    gpu, _ = _t4_pair(seed)
+    rng = np.random.default_rng(seed + 42)
+    lengths = (300, 41, 129, 64, 1, 250, 190)
+    seqs = [rng.integers(1, 4096, n) for n in lengths]
+    packed = pack_sequences(seqs, 512, num_packed=2, on_overflow="error")
+    alone = pad_batch(seqs, 512)
+    before = fa.arm_launches["launches"]["f16"]
+    logits = {}
+    with torch.no_grad():
+        for name, batch in (("packed", packed), ("alone", alone)):
+            logits[name] = gpu(
+                torch.from_numpy(batch["input_ids"]).cuda(),
+                position_ids=torch.from_numpy(batch["position_ids"]).cuda(),
+                segment_ids=torch.from_numpy(batch["segment_ids"]).cuda()
+            ).float()
+    check(fa.arm_launches["launches"]["f16"] - before == 2 * 2,
+          "the forwards did not run the fp16 flash kernel a layer")
+    check(all(bool(torch.isfinite(t).all()) for t in logits.values()),
+          "non-finite logits")
+    # where each sequence landed: (row, segment) of its tokens
+    where = {}
+    for r in range(2):
+        for sg in range(1, int(packed["segment_ids"][r].max()) + 1):
+            ids = packed["input_ids"][r][packed["segment_ids"][r] == sg]
+            where[ids.tobytes()] = (r, sg)
+    worst = 0.0
+    for j, s in enumerate(seqs):
+        r, sg = where[s.astype(np.int32).tobytes()]
+        a = _t4_scores(logits["packed"][r], packed["labels"][r],
+                       packed["segment_ids"][r] == sg)
+        b = _t4_scores(logits["alone"][j], alone["labels"][j],
+                       alone["segment_ids"][j] == 1)
+        check(a[1] == b[1] == len(s) - 1, f"sequence {j}: counts {a[1]}, "
+              f"{b[1]}, expected {len(s) - 1}")
+        err = abs(a[0] - b[0]) / max(abs(b[0]), 1.0)
+        worst = max(worst, err)
+        check(err <= 2e-3, f"sequence {j}: packed {a[0]} vs alone {b[0]}")
+    print(f"training4 packed: {len(seqs)} sequences ({lengths}) in 2 packed "
+          f"rows of 512 vs alone, fp16, flash with segments: counts equal, "
+          f"losses worst relative diff {worst:.3g} (tol 2e-3) "
+          f"({time.perf_counter() - t0:.1f}s); {card}")
+    del gpu
+
+
+def _t4_per_step(kernels, cfg, n_micro, policy):
+    """Exact launches a step of a training path (phase 8's counts) on
+    the fp16 arms: each fp16 counter equal to its total's."""
+    from hetu_tpu_torch.models.gpt import GPTConfig
+    L = cfg.num_hidden_layers
+    fwd, bwd = 2 * L * n_micro, L * n_micro
+    per_step = {name: 0 for name in kernels}
+    gpt = isinstance(cfg, GPTConfig)
+    arms = ({"residual_layernorm_fwd": fwd, "residual_layernorm_bwd": bwd}
+            if gpt else
+            {"fused_rotary_qk": fwd, "fused_swiglu": fwd,
+             "residual_rmsnorm_fwd": fwd, "residual_rmsnorm_bwd": bwd,
+             "swiglu_bwd": bwd, "rotary_qk_bwd": bwd})
+    arms.update(flash_fwd=bwd if policy == "dots_attn" else fwd,
+                flash_bwd_dq=bwd, flash_bwd_dkv=bwd)
+    for name, n in arms.items():
+        per_step[name] = per_step[f"{name}_f16"] = n
+    per_step["adam_update"] = 1
+    return per_step
+
+
+def training4_llama_phase(seed: int, kernels, card: str):
+    """Phase 15 (d): Llama-3-8B widths cut to 8 layers, fp32 parameters,
+    fp16 compute (`loss_scale="auto"`), flash, "dots_attn",
+    `TrainingConfig(4, 2, 2048, packing=True)`, 6 steps on one packed
+    batch (`packed_rows`: sequences of 128-1,024 tokens from
+    `TokenizedDataset.synthetic`, `on_overflow="error"`, at least 85% of
+    the 8,192 slots real tokens): exact launch counts each step (every
+    fp16 arm its phase 8 count, AdamW's fp32 arm once), the losses
+    finite and the last below the first, no skipped step; step p50,
+    tokens/s over slots and over real tokens, mfu (over slots and over
+    real tokens), peak memory, the scale's course and the skips, one
+    step profiled (idle share, heaviest kernels).  Returns the run's
+    launches."""
+    from hetu_tpu_torch.data import TokenizedDataset
+    from hetu_tpu_torch.engine import Trainer, TrainingConfig
+    from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
+    t_phase = time.perf_counter()
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=8,
+                                compute_dtype=torch.float16,
+                                remat_policy="dots_attn")
+    gbs, mbs, seq = 4, 2, 2048
+    ds = TokenizedDataset.synthetic(256, cfg.vocab_size, 128, 1024,
+                                    seed=seed)
+    batch, _ = packed_rows(ds, gbs, seq)
+    real = int((batch["segment_ids"] > 0).sum())
+    check(real >= 0.85 * gbs * seq,
+          f"packed rows hold {real} tokens of {gbs * seq} slots")
+    per_step = _t4_per_step(kernels, cfg, gbs // mbs, "dots_attn")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
+    tr = Trainer(model, TrainingConfig(
+        global_batch_size=gbs, micro_batch_size=mbs, seq_len=seq, lr=1e-3,
+        warmup_steps=2, total_steps=1000, log_every=1, packing=True),
+        device="cuda").build()
+    check(tr._scaler is not None, "fp16 compute without the scaler")
+    zero_counts(kernels)
+    launches = {name: 0 for name in kernels}
+    losses, times = [], []
+    for i in range(6):
+        t0 = time.perf_counter()
+        metrics = tr.train([batch], num_steps=1)
+        times.append(time.perf_counter() - t0)
+        losses.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                       float(metrics["loss_scale"]),
+                       float(metrics["amp_skipped"])))
+        counts = read_counts(kernels)
+        check(counts == per_step, f"training4 llama step {i + 1} launches "
+              f"{counts}, expected {per_step}")
+        check_adam_arm(f"training4 llama step {i + 1}", 1, "f32")
+        for k, n in counts.items():
+            launches[k] += n
+        zero_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    applied = [x[0] for x in losses if x[3] == 0.0]
+    check(all(math.isfinite(x[0]) for x in losses), f"losses {losses}")
+    check(len(applied) >= 2 and applied[-1] < applied[0],
+          f"the loss did not fall over the applied steps: {losses}")
+    busy, wall, by_name, top = _profile(lambda: tr.train_step(batch), 1,
+                                        top=8)
+    zero_counts(kernels)
+    p50 = float(np.median(times))
+    slots = gbs * seq
+    flops = cfg.flops_per_token(seq)
+    print("training4 llama " + json.dumps({
+        "model": "Llama-3-8B widths", "layers": cfg.num_hidden_layers,
+        "params": sum(p.numel() for p in tr.params), "param_dtype": "fp32",
+        "compute_dtype": "fp16", "remat_policy": "dots_attn",
+        "micro_batch": mbs, "seq_len": seq, "packing": True,
+        "slots_per_step": slots, "real_tokens_per_step": real,
+        "real_share": real / slots,
+        "loss_grad_norm_scale_skipped": losses, "step_s": times,
+        "step_s_p50": p50, "tokens_per_s_slots": slots / p50,
+        "tokens_per_s_real": real / p50,
+        "mfu_slots": flops * slots / p50 / PEAK_OPS_PER_S[torch.float16],
+        "mfu_real": flops * real / p50 / PEAK_OPS_PER_S[torch.float16],
+        "skips": sum(x[3] for x in losses), "peak_memory_gib": peak,
+        "launches_per_step": {k: v for k, v in per_step.items() if v},
+        "profiled_step": {"device_busy_ms": busy, "wall_ms": wall,
+                          "device_idle_share": 1.0 - busy / (p50 * 1e3),
+                          "top_kernels_ms": top},
+        "phase_s": time.perf_counter() - t_phase, "card": card}))
+    del tr, model
+    return launches
+
+
+def training4_gpt_phase(seed: int, kernels, card: str):
+    """Phase 15 (e): GPT-2-large as published in depth and width, fp16
+    compute over fp32 parameters (`loss_scale="auto"`), flash at head dim
+    64, "nothing", `TrainingConfig(16, 8, 1024)`, 3 steps through
+    `Trainer.train` over `build_data_loader(TokenizedDataset.synthetic(
+    ...), 16, 1024, packing=False, prefetch=2)` (padded rows of 256-1,024
+    tokens, the prefetch thread): exact launch counts (the LayerNorm and
+    flash fp16 arms), finite losses, no skipped step; step p50 (each
+    step reads its loss), tokens/s over slots and real tokens, mfu, peak
+    memory.  Returns the run's launches."""
+    from hetu_tpu_torch.data import TokenizedDataset, build_data_loader
+    from hetu_tpu_torch.engine import Trainer, TrainingConfig
+    from hetu_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.gpt2_large(compute_dtype=torch.float16)
+    gbs, mbs, seq, steps = 16, 8, 1024, 3
+    loader = build_data_loader(
+        TokenizedDataset.synthetic(gbs * (steps + 1), cfg.vocab_size, 256,
+                                   seq, seed=seed), gbs, seq,
+        packing=False, seed=seed, prefetch=2)
+    per_step = _t4_per_step(kernels, cfg, gbs // mbs, "nothing")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTLMHeadModel(cfg, device="cuda", seed=seed)
+    tr = Trainer(model, TrainingConfig(
+        global_batch_size=gbs, micro_batch_size=mbs, seq_len=seq, lr=1e-3,
+        warmup_steps=2, total_steps=1000, log_every=1), device="cuda")
+    real = []
+
+    def batches():
+        for b in loader:
+            real.append(int((b["segment_ids"] > 0).sum()))
+            yield b
+    zero_counts(kernels)
+    metrics = tr.train(batches(), num_steps=steps)
+    counts = read_counts(kernels)
+    expect = {k: steps * v for k, v in per_step.items()}
+    check(counts == expect, f"training4 gpt launches {counts}, expected "
+          f"{expect}")
+    check_adam_arm("training4 gpt", steps, "f32")
+    zero_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = tr.registry.histogram("trainer.step_time_s")
+    loss = float(metrics["loss"])
+    check(math.isfinite(loss) and float(metrics["amp_skipped"]) == 0.0,
+          f"GPT fp16 step: {metrics}")
+    p50 = hist.percentile(50)
+    slots, real_mean = gbs * seq, float(np.mean(real[:steps]))
+    print("training4 gpt " + json.dumps({
+        "model": "GPT-2-large", "layers": cfg.num_hidden_layers,
+        "params": sum(p.numel() for p in tr.params), "param_dtype": "fp32",
+        "compute_dtype": "fp16", "remat_policy": "nothing",
+        "micro_batch": mbs, "seq_len": seq, "packing": False,
+        "steps": tr.registry.counter_value("trainer.steps"),
+        "last_loss": loss, "loss_scale": float(metrics["loss_scale"]),
+        "step_s_p50": p50, "tokens_per_s_slots": slots / p50,
+        "real_tokens_per_step": real[:steps],
+        "tokens_per_s_real": real_mean / p50,
+        "mfu_slots": cfg.flops_per_token(seq) * slots / p50
+        / PEAK_OPS_PER_S[torch.float16],
+        "peak_memory_gib": peak,
+        "launches_per_step": {k: v for k, v in per_step.items() if v},
+        "phase_s": time.perf_counter() - t_phase, "card": card}))
+    del tr, model
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3959,6 +4617,8 @@ def main(argv=None) -> int:
     print(f"build: {len(reports)} kernels in "
           f"{time.perf_counter() - t0:.2f}s")
     ptxas_check(reports["flash_attention"], "flash_bwd_dq_wgmma_kernel")
+    for kernel in ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel"):
+        ptxas_check(reports["flash_attention"], kernel)
     ptxas_check(reports["paged_attention"], "paged_split_kernel")
     ptxas_check(reports["paged_attention"], "paged_merge_kernel")
     ptxas_check(reports["swiglu"], "swiglu_fwd_kernel")
@@ -4036,6 +4696,23 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     by_path.update(training3_llama_phase(args.seed, kernels, smi))
     print(f"training3: {time.perf_counter() - t0:.1f}s; {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the fourth training slice: the fp16 arms, fp16 compute with the
+    # scale on "auto", and batches from the data stack
+    t0 = time.perf_counter()
+    for name, more in training4_kernel_phase(args.seed).items():
+        cases.setdefault(name, []).extend(more)
+    training4_reference_phase(args.seed, smi)
+    training4_packed_phase(args.seed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["training4_llama"] = training4_llama_phase(args.seed, kernels,
+                                                       smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["training4_gpt"] = training4_gpt_phase(args.seed, kernels, smi)
+    print(f"training4: {time.perf_counter() - t0:.1f}s; {smi}")
 
     line = []
     for name, (mod, attr, source, replaces) in kernels.items():

@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <initializer_list>
@@ -12,9 +13,11 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 // Round once from fp32 to the storage type (round-to-nearest-even, as
-// torch's .to(bfloat16) does).
+// torch's .to(bfloat16) and .to(float16) do; past fp16's largest finite
+// value, 65504, the rounding gives inf, as torch's does).
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -23,9 +26,14 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 // N values of T moved as one access of N * sizeof(T) bytes: 16 in a
-// kernel's vector arm (8 bf16 or 4 fp32), one element in its scalar arm.
+// kernel's vector arm (8 bf16 or fp16, 4 fp32), one element in its scalar
+// arm.
 template <typename T, int N>
 struct alignas(sizeof(T) * N) Vec {
   T v[N];

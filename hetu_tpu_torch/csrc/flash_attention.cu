@@ -23,7 +23,7 @@
 // balance; the dq kernel is 3 products, the dk/dv kernel 4 (both recompute
 // S and dP, as the TPU kernels do).  What the design does about it: scores
 // never touch device memory (a tile of S, P and dS lives in registers or
-// shared memory), the bf16 arm runs on the tensor cores, K and V are read
+// shared memory), the 16-bit arms run on the tensor cores, K and V are read
 // through the kv head's stride (no materialised GQA repeat), and dead tiles
 // of the block mask are skipped before anything is loaded.
 //
@@ -36,7 +36,7 @@
 // row that sees nothing gives p = 0 (never exp(0) = 1): o = 0, lse = -1e30,
 // and zero gradients.
 //
-// Arithmetic: two arms, the same three kernels in each.
+// Arithmetic: three arms, the same three kernels in each.
 //
 // fp32 inputs (first half of this file): every product in fp32 FMAs on
 // the CUDA cores, so the card agrees with the plain PyTorch version to
@@ -49,13 +49,22 @@
 // of both access patterns free of bank conflicts; P and dS pass through
 // shared memory once.
 //
-// bf16 inputs (second half): every product runs on the tensor cores with
-// fp32 accumulators; the softmax, lse, delta and all sums stay fp32, and P
-// and dS are rounded once to bf16 as the next product's operand (as
-// FlashAttention-2 does; the TPU kernel keeps them fp32).  o is rounded
-// once to bf16 on the way out; dq, dk, dv leave in fp32 in both arms.
+// bf16 and fp16 inputs (second half): every product runs on the tensor
+// cores with fp32 accumulators; the softmax, lse, delta and all sums stay
+// fp32, and P and dS are rounded once to the inputs' type as the next
+// product's operand (as FlashAttention-2 does; the TPU kernel keeps them
+// fp32).  o is rounded once to that type on the way out; dq, dk, dv leave
+// in fp32 in every arm.  The two 16-bit arms are one set of kernels,
+// templated on the element type T (`__nv_bfloat16` or `__half`): the
+// tile layout, the wgmma shapes and descriptors depend on its size alone,
+// and only the operand type of the products and the one rounding of P,
+// dS and o differ.  In fp16 P lies in [0, 1] and rounds 8x finer than in
+// bf16; dS = P (dP - delta) can pass fp16's 65504 under a large loss
+// scale, and then rounds to inf, which the trainer's finite check sees,
+// as it sees the plain version's inf where dq, dk and dv are cast to
+// fp16.
 //
-// The three bf16 kernels are built for Hopper (the section "bf16:
+// The three 16-bit kernels are built for Hopper (the section "16-bit:
 // Hopper" below): a producer warpgroup streams K/V (dk/dv: Q/dO) tiles
 // through a ring of shared-memory slots with cp.async and mbarriers,
 // consumer warpgroups of 64 rows (three a block in the forward, two in dq
@@ -69,8 +78,6 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
-
-using bf16 = __nv_bfloat16;
 
 namespace {
 
@@ -554,9 +561,10 @@ flash_bwd_dkv_kernel(const FlashArgs a) {
   }
 }
 
-// ==================================================== bf16: Hopper
+// ================================================== 16-bit: Hopper
 //
-// The three bf16 kernels are built for Hopper (sm_90a).  Block: NC
+// The three 16-bit kernels (T = __nv_bfloat16 or __half) are built for
+// Hopper (sm_90a).  Block: NC
 // consumer warpgroups (1 or 3 in the forward, 1 or 2 in dq and in
 // dk/dv) and one producer warpgroup, the last.  A consumer warpgroup
 // owns one 64-row tile of the block's side (q in the forward and dq, k
@@ -583,7 +591,7 @@ flash_bwd_dkv_kernel(const FlashArgs a) {
 // Products, on wgmma.mma_async with fp32 accumulators: S = Q K^T
 // (forward, dq), dP = dO V^T (dq), S^T = K Q^T and dP^T = V dO^T (dk/dv)
 // take both operands K-major from shared memory; P, dS, P^T and dS^T are
-// rounded once to bf16 in registers (`to_fragments`: the accumulators of
+// rounded once to T in registers (`to_fragments`: the accumulators of
 // two neighbouring 8-column tiles are exactly one A fragment) and are the
 // register A operand of O += P V, dQ += dS K, dV += P^T dO and
 // dK += dS^T Q, whose B operand is read MN-major from the same tile.
@@ -610,21 +618,30 @@ flash_bwd_dkv_kernel(const FlashArgs a) {
 // warp w, row 16 w + g + 8 (e >> 1) and column 8 nt + 2 tig + (e & 1),
 // g = lane >> 2, tig = lane & 3 (`hopper.cuh`).
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
+// Two fp32 values rounded once (to nearest even) to T and packed in one
+// 32-bit word, lo in the low half.
+template <typename T>
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<T, __half>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
+  }
 }
 
-// A warp's 16 x 64 slab of an accumulator tile, rounded once to bf16, as
-// the register A operand of the next product (k16 slices ks = 0 .. 3).
+// A warp's 16 x 64 slab of an accumulator tile, rounded once to T, as the
+// register A operand of the next product (k16 slices ks = 0 .. 3).
+template <typename T>
 __device__ __forceinline__ void to_fragments(const float (&c)[8][4],
                                              unsigned (&p)[4][4]) {
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
-    p[ks][0] = pack_bf16(c[2 * ks][0], c[2 * ks][1]);
-    p[ks][1] = pack_bf16(c[2 * ks][2], c[2 * ks][3]);
-    p[ks][2] = pack_bf16(c[2 * ks + 1][0], c[2 * ks + 1][1]);
-    p[ks][3] = pack_bf16(c[2 * ks + 1][2], c[2 * ks + 1][3]);
+    p[ks][0] = pack2<T>(c[2 * ks][0], c[2 * ks][1]);
+    p[ks][1] = pack2<T>(c[2 * ks][2], c[2 * ks][3]);
+    p[ks][2] = pack2<T>(c[2 * ks + 1][0], c[2 * ks + 1][1]);
+    p[ks][3] = pack2<T>(c[2 * ks + 1][2], c[2 * ks + 1][3]);
   }
 }
 
@@ -680,20 +697,21 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// Producer: `rows` rows of a [*, D] bf16 operand (row stride `stride`)
+// Producer: `rows` rows of a [*, D] 16-bit operand (row stride `stride`)
 // into the swizzled tile at shared address `dst`; rows past `rows` are
 // zero.  `tid` is the thread's index in the producer warpgroup: it copies
 // one 16-byte column of every STEP-th row, STEP a multiple of 8, so its
 // swizzle (row % 8) and its steps through both tensors stay fixed.
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+template <int D, typename T>
+__device__ __forceinline__ void load_tile(uint32_t dst, const T* src,
                                           long long stride, int rows,
                                           int tid) {
+  static_assert(sizeof(T) == 2, "the tile layout holds 16-bit elements");
   constexpr int CHUNKS = D / 8, STEP = WG / CHUNKS;
   const int c = (tid % CHUNKS) * 8;
   int r = tid / CHUNKS;
   dst += hopper::swizzled(r, c);
-  const bf16* from = src + r * stride + c;
+  const T* from = src + r * stride + c;
 #pragma unroll 1
   for (; r < TILE; r += STEP) {
     hopper::cp_async16(dst, r < rows ? from : src, r < rows);
@@ -709,14 +727,14 @@ __device__ __forceinline__ void load_word(uint32_t dst, const void* src,
                     i < rows);
 }
 
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 8][4],
                                          const unsigned (&a)[4],
                                          uint64_t desc_b) {
   if constexpr (D == 64)
-    hopper::wgmma_rs_n64(d, a, desc_b);
+    hopper::wgmma_rs_n64<T>(d, a, desc_b);
   else
-    hopper::wgmma_rs_n128(d, a, desc_b);
+    hopper::wgmma_rs_n128<T>(d, a, desc_b);
 }
 
 // A ring of STAGES slots: the current slot and the parity of its round.
@@ -826,7 +844,7 @@ __device__ __forceinline__ void release(uint64_t* empty) {
 // positions, segments and, for a tile of all 64 rows, its position range
 // (`tile_meta`), through the ring of the layout L (members k, v, kpos,
 // kseg, meta).  The consumers walk the same tiles with the same `Ring`.
-template <typename L, int D, int NC>
+template <typename T, typename L, int D, int NC>
 __device__ __forceinline__ void stream_kv(const FlashArgs& a,
                                           unsigned char* smem,
                                           uint64_t* full, uint64_t* empty,
@@ -836,8 +854,8 @@ __device__ __forceinline__ void stream_kv(const FlashArgs& a,
   int4* meta = reinterpret_cast<int4*>(smem + L::meta);
   const bool use_seg = a.q_seg != nullptr;
   const int per_k = (a.block_k + TILE - 1) / TILE;
-  const bf16* kbase = static_cast<const bf16*>(a.k) + bi * a.k_sb + hk * a.k_sh;
-  const bf16* vbase = static_cast<const bf16*>(a.v) + bi * a.v_sb + hk * a.v_sh;
+  const T* kbase = static_cast<const T*>(a.k) + bi * a.k_sb + hk * a.k_sh;
+  const T* vbase = static_cast<const T*>(a.v) + bi * a.v_sb + hk * a.v_sh;
   Ring<L::STAGES> ring;
   for (int kb = 0; kb < a.nk; ++kb) {
     if (!live_bits(a.live, qblock, a.nk, 1, kb)) continue;
@@ -885,7 +903,7 @@ struct FwdSmem {
   static constexpr int bytes = red + NC * 16 * 4 + 1024;      // + alignment
 };
 
-template <int D, int NC>
+template <typename T, int D, int NC>
 __global__ void __launch_bounds__(WG * (NC + 1), 1)
 flash_fwd_mma_kernel(const FlashArgs a) {
   using L = FwdSmem<D, NC>;
@@ -929,7 +947,7 @@ flash_fwd_mma_kernel(const FlashArgs a) {
     if constexpr (NC > 1)
       hopper::setmaxnreg_dec<producer_regs<D, FWD>()>();
     const int tid = threadIdx.x - NC * WG;
-    const bf16* qbase = static_cast<const bf16*>(a.q) + bi * a.q_sb + h * a.q_sh;
+    const T* qbase = static_cast<const T*>(a.q) + bi * a.q_sb + h * a.q_sh;
 #pragma unroll
     for (int w = 0; w < NC; ++w)
       if (qblock[w] >= 0) {
@@ -938,7 +956,7 @@ flash_fwd_mma_kernel(const FlashArgs a) {
                      qbase + qt.row0 * a.q_ss, a.q_ss, qt.rows, tid);
       }
     hopper::cp_async_arrive(qfull);
-    stream_kv<L, D, NC>(a, smem, full, empty, qblock, bi, hk, tid);
+    stream_kv<T, L, D, NC>(a, smem, full, empty, qblock, bi, hk, tid);
   } else {
     // ------------------------------------------------------ consumers
     if constexpr (NC > 1)
@@ -1019,8 +1037,8 @@ flash_fwd_mma_kernel(const FlashArgs a) {
           hopper::wgmma_fence();
 #pragma unroll
           for (int ks = 0; ks < D / 16; ++ks)
-            hopper::wgmma_ss_n64(sc, hopper::desc_k(q_tile, ks),
-                                 hopper::desc_k(k_tile, ks), ks > 0);
+            hopper::wgmma_ss_n64<T>(sc, hopper::desc_k(q_tile, ks),
+                                    hopper::desc_k(k_tile, ks), ks > 0);
           hopper::wgmma_commit();
           hopper::wgmma_wait<0>();
           hopper::fence_operands(sc);
@@ -1073,13 +1091,13 @@ flash_fwd_mma_kernel(const FlashArgs a) {
               sc[nt][e] = ex2(sc[nt][e] - m_exp[e >> 1]);
               l[e >> 1] += sc[nt][e];   // the sum is of the unrounded p
             }
-          to_fragments(sc, p);
+          to_fragments<T>(sc, p);
           const uint32_t v_tile = sbase + L::v + s * tile_bytes<D>();
           hopper::fence_operands(o);
           hopper::wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            wgmma_rs<D>(o, p[kk], hopper::desc_mn(v_tile, kk));
+            wgmma_rs<T, D>(o, p[kk], hopper::desc_mn(v_tile, kk));
           hopper::wgmma_commit();
           pending = s;
         } else {
@@ -1092,7 +1110,7 @@ flash_fwd_mma_kernel(const FlashArgs a) {
     if (pending >= 0) release(empty + pending);
 
     if (has) {
-      bf16* obase = static_cast<bf16*>(a.o) + bi * a.o_sb + h * a.o_sh;
+      T* obase = static_cast<T*>(a.o) + bi * a.o_sb + h * a.o_sh;
       float* lse = a.lse + (static_cast<long long>(bi) * a.hq + h) * a.sq;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
@@ -1103,10 +1121,9 @@ flash_fwd_mma_kernel(const FlashArgs a) {
         const float inv = 1.f / l_safe;
 #pragma unroll
         for (int nt = 0; nt < D / 8; ++nt)
-          *reinterpret_cast<__nv_bfloat162*>(
+          *reinterpret_cast<unsigned*>(
               obase + (qt.row0 + row) * a.o_ss + 8 * nt + 2 * tig) =
-              __floats2bfloat162_rn(o[nt][2 * hh] * inv,
-                                    o[nt][2 * hh + 1] * inv);
+              pack2<T>(o[nt][2 * hh] * inv, o[nt][2 * hh + 1] * inv);
         if (tig == 0)
           lse[qt.row0 + row] =
               lsum == 0.f ? NEG_INF : m[hh] * LN2 + logf(l_safe);
@@ -1138,7 +1155,7 @@ struct DqSmem {
 // lse log2(e)) and dS = P (dP - delta), and accumulating dQ += dS K in
 // registers; dq = scale dQ is written once, so two runs give the same
 // bits (no atomics).
-template <int D, int NC>
+template <typename T, int D, int NC>
 __global__ void __launch_bounds__(WG * (NC + 1), 1)
 flash_bwd_dq_wgmma_kernel(const FlashArgs a) {
   using L = DqSmem<D, NC>;
@@ -1182,9 +1199,9 @@ flash_bwd_dq_wgmma_kernel(const FlashArgs a) {
     if constexpr (NC > 1)
       hopper::setmaxnreg_dec<producer_regs<D, DQ>()>();
     const int tid = threadIdx.x - NC * WG;
-    const bf16* qbase = static_cast<const bf16*>(a.q) + bi * a.q_sb + h * a.q_sh;
-    const bf16* dobase =
-        static_cast<const bf16*>(a.dout) + bi * a.do_sb + h * a.do_sh;
+    const T* qbase = static_cast<const T*>(a.q) + bi * a.q_sb + h * a.q_sh;
+    const T* dobase =
+        static_cast<const T*>(a.dout) + bi * a.do_sb + h * a.do_sh;
 #pragma unroll
     for (int w = 0; w < NC; ++w)
       if (qblock[w] >= 0) {
@@ -1195,7 +1212,7 @@ flash_bwd_dq_wgmma_kernel(const FlashArgs a) {
                      dobase + qt.row0 * a.do_ss, a.do_ss, qt.rows, tid);
       }
     hopper::cp_async_arrive(qfull);
-    stream_kv<L, D, NC>(a, smem, full, empty, qblock, bi, hk, tid);
+    stream_kv<T, L, D, NC>(a, smem, full, empty, qblock, bi, hk, tid);
   } else {
     // ------------------------------------------------------ consumers
     if constexpr (NC > 1)
@@ -1284,10 +1301,10 @@ flash_bwd_dq_wgmma_kernel(const FlashArgs a) {
           hopper::wgmma_fence();
 #pragma unroll
           for (int ks = 0; ks < D / 16; ++ks) {
-            hopper::wgmma_ss_n64(sc, hopper::desc_k(q_tile, ks),
-                                 hopper::desc_k(k_tile, ks), ks > 0);
-            hopper::wgmma_ss_n64(dp, hopper::desc_k(do_tile, ks),
-                                 hopper::desc_k(v_tile, ks), ks > 0);
+            hopper::wgmma_ss_n64<T>(sc, hopper::desc_k(q_tile, ks),
+                                    hopper::desc_k(k_tile, ks), ks > 0);
+            hopper::wgmma_ss_n64<T>(dp, hopper::desc_k(do_tile, ks),
+                                    hopper::desc_k(v_tile, ks), ks > 0);
           }
           hopper::wgmma_commit();
           hopper::wgmma_wait<0>();
@@ -1313,12 +1330,12 @@ flash_bwd_dq_wgmma_kernel(const FlashArgs a) {
               const float pv = ok ? ex2(fmaf(sc[nt][e], c2, -lse2[hh])) : 0.f;
               sc[nt][e] = pv * (dp[nt][e] - dl[hh]);
             }
-          to_fragments(sc, ds);
+          to_fragments<T>(sc, ds);
           hopper::fence_operands(dq);
           hopper::wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            wgmma_rs<D>(dq, ds[kk], hopper::desc_mn(k_tile, kk));
+            wgmma_rs<T, D>(dq, ds[kk], hopper::desc_mn(k_tile, kk));
           hopper::wgmma_commit();
           pending = s;
         } else {
@@ -1366,7 +1383,7 @@ struct DkvSmem {
   static constexpr int bytes = red + NC * 16 * 4 + 1024;       // + alignment
 };
 
-template <int D, int NC>
+template <typename T, int D, int NC>
 __global__ void __launch_bounds__(WG * (NC + 1), 1)
 flash_bwd_dkv_mma_kernel(const FlashArgs a) {
   using L = DkvSmem<D, NC>;
@@ -1408,8 +1425,8 @@ flash_bwd_dkv_mma_kernel(const FlashArgs a) {
     if constexpr (NC > 1)
       hopper::setmaxnreg_dec<producer_regs<D, DKV>()>();
     const int tid = threadIdx.x - NC * WG;
-    const bf16* kbase = static_cast<const bf16*>(a.k) + bi * a.k_sb + hk * a.k_sh;
-    const bf16* vbase = static_cast<const bf16*>(a.v) + bi * a.v_sb + hk * a.v_sh;
+    const T* kbase = static_cast<const T*>(a.k) + bi * a.k_sb + hk * a.k_sh;
+    const T* vbase = static_cast<const T*>(a.v) + bi * a.v_sb + hk * a.v_sh;
 #pragma unroll
     for (int w = 0; w < NC; ++w)
       if (kblock[w] >= 0) {
@@ -1423,9 +1440,9 @@ flash_bwd_dkv_mma_kernel(const FlashArgs a) {
     Ring<STAGES> ring;
     for (int gi = 0; gi < group; ++gi) {
       const int h = hk * group + gi;
-      const bf16* qbase = static_cast<const bf16*>(a.q) + bi * a.q_sb + h * a.q_sh;
-      const bf16* dobase =
-          static_cast<const bf16*>(a.dout) + bi * a.do_sb + h * a.do_sh;
+      const T* qbase = static_cast<const T*>(a.q) + bi * a.q_sb + h * a.q_sh;
+      const T* dobase =
+          static_cast<const T*>(a.dout) + bi * a.do_sb + h * a.do_sh;
       const long long stat = (static_cast<long long>(bi) * a.hq + h) * a.sq;
       for (int qb = 0; qb < a.nq; ++qb) {
         if (!live_bits(a.live, kblock, 1, a.nk, qb)) continue;
@@ -1543,10 +1560,10 @@ flash_bwd_dkv_mma_kernel(const FlashArgs a) {
             hopper::wgmma_fence();
 #pragma unroll
             for (int ks = 0; ks < D / 16; ++ks) {
-              hopper::wgmma_ss_n64(st, hopper::desc_k(k_tile, ks),
-                                   hopper::desc_k(q_tile, ks), ks > 0);
-              hopper::wgmma_ss_n64(dpt, hopper::desc_k(v_tile, ks),
-                                   hopper::desc_k(do_tile, ks), ks > 0);
+              hopper::wgmma_ss_n64<T>(st, hopper::desc_k(k_tile, ks),
+                                      hopper::desc_k(q_tile, ks), ks > 0);
+              hopper::wgmma_ss_n64<T>(dpt, hopper::desc_k(v_tile, ks),
+                                      hopper::desc_k(do_tile, ks), ks > 0);
             }
             hopper::wgmma_commit();
             hopper::wgmma_wait<0>();
@@ -1576,15 +1593,15 @@ flash_bwd_dkv_mma_kernel(const FlashArgs a) {
               }
             }
             unsigned pf[4][4], dsf[4][4];
-            to_fragments(st, pf);
-            to_fragments(dpt, dsf);
+            to_fragments<T>(st, pf);
+            to_fragments<T>(dpt, dsf);
             hopper::fence_operands(dv);
             hopper::fence_operands(dk);
             hopper::wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk) {
-              wgmma_rs<D>(dv, pf[kk], hopper::desc_mn(do_tile, kk));
-              wgmma_rs<D>(dk, dsf[kk], hopper::desc_mn(q_tile, kk));
+              wgmma_rs<T, D>(dv, pf[kk], hopper::desc_mn(do_tile, kk));
+              wgmma_rs<T, D>(dk, dsf[kk], hopper::desc_mn(q_tile, kk));
             }
             hopper::wgmma_commit();
             hopper::wgmma_wait<0>();
@@ -1647,15 +1664,15 @@ int consumer_warpgroups(int tiles, int heads, int batch, int most) {
   return blocks >= sms ? most : 1;
 }
 
-template <int D, int NC>
+template <typename T, int D, int NC>
 int fwd_mma(const FlashArgs& a, int tiles, void* stream) {
-  return launch(flash_fwd_mma_kernel<D, NC>, a,
+  return launch(flash_fwd_mma_kernel<T, D, NC>, a,
                 dim3((tiles + NC - 1) / NC, a.hq, a.b), WG * (NC + 1),
                 FwdSmem<D, NC>::bytes, stream);
 }
 
-// T = float: the fp32 arm on the CUDA cores; T = bf16: the Hopper
-// kernels on the tensor cores (wgmma).
+// T = float: the fp32 arm on the CUDA cores; T = __nv_bfloat16 or
+// __half: the Hopper kernels on the tensor cores (wgmma).
 template <typename T, int D>
 int fwd(const FlashArgs& a, void* stream) {
   const int tiles = tiles_along(a.nq, a.block_q);
@@ -1664,8 +1681,8 @@ int fwd(const FlashArgs& a, void* stream) {
                   smem_bytes<D>(3, 1), stream);
   } else {
     return consumer_warpgroups(tiles, a.hq, a.b, 3) == 3
-               ? fwd_mma<D, 3>(a, tiles, stream)
-               : fwd_mma<D, 1>(a, tiles, stream);
+               ? fwd_mma<T, D, 3>(a, tiles, stream)
+               : fwd_mma<T, D, 1>(a, tiles, stream);
   }
 }
 template <typename T, int D>
@@ -1675,11 +1692,11 @@ int bwd_dq(const FlashArgs& a, void* stream) {
     return launch(flash_bwd_dq_kernel<D>, a, grid, THREADS,
                   smem_bytes<D>(4, 1), stream);
   else if (consumer_warpgroups(grid.x, a.hq, a.b, 2) == 2)
-    return launch(flash_bwd_dq_wgmma_kernel<D, 2>, a,
+    return launch(flash_bwd_dq_wgmma_kernel<T, D, 2>, a,
                   dim3((grid.x + 1) / 2, a.hq, a.b), 3 * WG,
                   DqSmem<D, 2>::bytes, stream);
   else
-    return launch(flash_bwd_dq_wgmma_kernel<D, 1>, a, grid, 2 * WG,
+    return launch(flash_bwd_dq_wgmma_kernel<T, D, 1>, a, grid, 2 * WG,
                   DqSmem<D, 1>::bytes, stream);
 }
 template <typename T, int D>
@@ -1689,11 +1706,11 @@ int bwd_dkv(const FlashArgs& a, void* stream) {
     return launch(flash_bwd_dkv_kernel<D>, a, dim3(tiles, a.hkv, a.b),
                   THREADS, smem_bytes<D>(4, 2), stream);
   else if (consumer_warpgroups(tiles, a.hkv, a.b, 2) == 2)
-    return launch(flash_bwd_dkv_mma_kernel<D, 2>, a,
+    return launch(flash_bwd_dkv_mma_kernel<T, D, 2>, a,
                   dim3((tiles + 1) / 2, a.hkv, a.b), 3 * WG,
                   DkvSmem<D, 2>::bytes, stream);
   else
-    return launch(flash_bwd_dkv_mma_kernel<D, 1>, a, dim3(tiles, a.hkv, a.b),
+    return launch(flash_bwd_dkv_mma_kernel<T, D, 1>, a, dim3(tiles, a.hkv, a.b),
                   2 * WG, DkvSmem<D, 1>::bytes, stream);
 }
 
@@ -1710,7 +1727,10 @@ int bwd_dkv(const FlashArgs& a, void* stream) {
 
 HETU_FLASH_ENTRY(hetu_flash_fwd_f32, fwd, float)
 HETU_FLASH_ENTRY(hetu_flash_fwd_bf16, fwd, __nv_bfloat16)
+HETU_FLASH_ENTRY(hetu_flash_fwd_f16, fwd, __half)
 HETU_FLASH_ENTRY(hetu_flash_bwd_dq_f32, bwd_dq, float)
 HETU_FLASH_ENTRY(hetu_flash_bwd_dq_bf16, bwd_dq, __nv_bfloat16)
+HETU_FLASH_ENTRY(hetu_flash_bwd_dq_f16, bwd_dq, __half)
 HETU_FLASH_ENTRY(hetu_flash_bwd_dkv_f32, bwd_dkv, float)
 HETU_FLASH_ENTRY(hetu_flash_bwd_dkv_bf16, bwd_dkv, __nv_bfloat16)
+HETU_FLASH_ENTRY(hetu_flash_bwd_dkv_f16, bwd_dkv, __half)

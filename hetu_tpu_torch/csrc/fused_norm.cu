@@ -29,7 +29,8 @@
 // Bound on an H100 by bytes: a handful of flops per element against 8
 // bytes per bf16 element, forward (x, h in; y, s out) and backward (s,
 // dy, dr in; dx out).  Design for Hopper, one row layout for all four
-// kernels: a row is cut into 16-byte chunks (8 bf16 or 4 fp32 values);
+// kernels: a row is cut into 16-byte chunks (8 bf16 or fp16, 4 fp32
+// values);
 // the blockDim.x threads of a row (a multiple of a warp) hold VPT chunks
 // each, chunk c = threadIdx.x + j * blockDim.x, so neighbouring threads
 // move neighbouring 16-byte vectors of every stream and chunks past the
@@ -88,6 +89,8 @@ template <typename T>
 constexpr int kMaxVpt = 4;
 template <>
 constexpr int kMaxVpt<__nv_bfloat16> = 2;
+template <>
+constexpr int kMaxVpt<__half> = 2;
 
 // Values in a 16-byte chunk.
 template <typename T>
@@ -771,6 +774,14 @@ HETU_EXPORT int hetu_rmsnorm_fwd_bf16(const void* x, const void* h,
                                    HETU_PLAN);
 }
 
+HETU_EXPORT int hetu_rmsnorm_fwd_f16(const void* x, const void* h,
+                                     const void* w, void* y, void* s,
+                                     long long rows, int hidden, float eps,
+                                     int vpt, int threads, int block_rows,
+                                     int grid, int scalar, void* stream) {
+  return launch_fwd<__half>(x, h, w, y, s, rows, hidden, eps, HETU_PLAN);
+}
+
 HETU_EXPORT int hetu_rmsnorm_bwd_f32(const void* s, const void* w,
                                      const void* dy, const void* dr,
                                      void* dx, void* dw_part, long long rows,
@@ -789,6 +800,16 @@ HETU_EXPORT int hetu_rmsnorm_bwd_bf16(const void* s, const void* w,
                                       int scalar, void* stream) {
   return launch_bwd<__nv_bfloat16>(s, w, dy, dr, dx, dw_part, rows, hidden,
                                    eps, HETU_PLAN);
+}
+
+HETU_EXPORT int hetu_rmsnorm_bwd_f16(const void* s, const void* w,
+                                     const void* dy, const void* dr,
+                                     void* dx, void* dw_part, long long rows,
+                                     int hidden, float eps, int vpt,
+                                     int threads, int block_rows, int grid,
+                                     int scalar, void* stream) {
+  return launch_bwd<__half>(s, w, dy, dr, dx, dw_part, rows, hidden, eps,
+                            HETU_PLAN);
 }
 
 HETU_EXPORT int hetu_layernorm_fwd_f32(const void* x, const void* h,
@@ -811,6 +832,15 @@ HETU_EXPORT int hetu_layernorm_fwd_bf16(const void* x, const void* h,
                                       HETU_PLAN);
 }
 
+HETU_EXPORT int hetu_layernorm_fwd_f16(const void* x, const void* h,
+                                       const void* w, const void* b, void* y,
+                                       void* s, long long rows, int hidden,
+                                       float eps, int vpt, int threads,
+                                       int block_rows, int grid, int scalar,
+                                       void* stream) {
+  return launch_ln_fwd<__half>(x, h, w, b, y, s, rows, hidden, eps, HETU_PLAN);
+}
+
 HETU_EXPORT int hetu_layernorm_bwd_f32(const void* s, const void* w,
                                        const void* dy, const void* dr,
                                        void* dx, void* dw_part, void* db_part,
@@ -830,6 +860,17 @@ HETU_EXPORT int hetu_layernorm_bwd_bf16(const void* s, const void* w,
                                         int scalar, void* stream) {
   return launch_ln_bwd<__nv_bfloat16>(s, w, dy, dr, dx, dw_part, db_part,
                                       rows, hidden, eps, HETU_PLAN);
+}
+
+HETU_EXPORT int hetu_layernorm_bwd_f16(const void* s, const void* w,
+                                       const void* dy, const void* dr,
+                                       void* dx, void* dw_part,
+                                       void* db_part, long long rows,
+                                       int hidden, float eps, int vpt,
+                                       int threads, int block_rows, int grid,
+                                       int scalar, void* stream) {
+  return launch_ln_bwd<__half>(s, w, dy, dr, dx, dw_part, db_part, rows,
+                               hidden, eps, HETU_PLAN);
 }
 
 #undef HETU_PLAN

@@ -28,11 +28,11 @@
 //     where every one fits.  A row's cos and sin come from device
 //     memory once: the slices' other reads of them hit in L1 / L2;
 //   * each thread moves 16-byte vectors: x[i : i+VEC] and x[i+hd/2 :
-//     i+hd/2+VEC] in, the same two out (VEC = 8 bf16 or 4 fp32 pairs).
-//     A half head dim that is not a multiple of VEC, or a base or stride
-//     off a 16-byte boundary, takes the scalar arm: the same kernel on
-//     one pair a chunk, the same instructions per element, so both arms
-//     give the same bits.
+//     i+hd/2+VEC] in, the same two out (VEC = 8 bf16 or fp16, 4 fp32
+//     pairs).  A half head dim that is not a multiple of VEC, or a
+//     base or stride off a 16-byte boundary, takes the scalar arm: the
+//     same kernel on one pair a chunk, the same instructions per
+//     element, so both arms give the same bits.
 #include "common.cuh"
 
 // A block's threads: at least this many, a whole number of heads.
@@ -204,4 +204,15 @@ HETU_EXPORT int hetu_rotary_qk_bf16(
   return launch<__nv_bfloat16>(q, k, cos_t, sin_t, q_out, k_out, batch, seq,
                                nq, nk, group, d2, q_sb, q_ss, q_sh, q_sg,
                                k_sb, k_ss, k_sh, sin_sign, stream);
+}
+
+HETU_EXPORT int hetu_rotary_qk_f16(
+    const void* q, const void* k, const void* cos_t, const void* sin_t,
+    void* q_out, void* k_out, long long batch, long long seq, int nq, int nk,
+    int group, int d2, long long q_sb, long long q_ss, long long q_sh,
+    long long q_sg, long long k_sb, long long k_ss, long long k_sh,
+    float sin_sign, void* stream) {
+  return launch<__half>(q, k, cos_t, sin_t, q_out, k_out, batch, seq, nq, nk,
+                        group, d2, q_sb, q_ss, q_sh, q_sg, k_sb, k_ss, k_sh,
+                        sin_sign, stream);
 }

@@ -19,8 +19,8 @@
 // The forward streams: HBM3 needs ~20 KB of loads in flight an SM to
 // reach its rate, and one 2-byte element a thread keeps ~8 KB.  So a
 // flat grid of at most one wave (every SM full) strides over (token,
-// vector column) in 16-byte vectors of gate, up and out (8 bf16 or 4
-// fp32 each).  Up to a few waves of vectors (a serving call's sizes),
+// vector column) in 16-byte vectors of gate, up and out (8 bf16 or
+// fp16, 4 fp32 each).  Up to a few waves of vectors (a serving call's sizes),
 // a thread takes one vector at a time in blocks of 256, with few
 // registers and so the most threads an SM; a larger call (a training
 // step's) takes two vectors a thread, one grid apart, both loaded
@@ -199,6 +199,14 @@ HETU_EXPORT int hetu_swiglu_fwd_bf16(const void* gate, const void* up,
                                u_stride, stream);
 }
 
+HETU_EXPORT int hetu_swiglu_fwd_f16(const void* gate, const void* up,
+                                    void* out, long long tokens,
+                                    long long inner, long long g_stride,
+                                    long long u_stride, void* stream) {
+  return launch<__half>(gate, up, out, tokens, inner, g_stride, u_stride,
+                        stream);
+}
+
 template <typename T>
 static int launch_bwd(const void* gate, const void* up, const void* dy,
                       void* dgate, void* dup, long long tokens,
@@ -236,4 +244,15 @@ HETU_EXPORT int hetu_swiglu_bwd_bf16(const void* gate, const void* up,
   return launch_bwd<__nv_bfloat16>(gate, up, dy, dgate, dup, tokens, inner,
                                    g_stride, u_stride, dy_stride, dg_stride,
                                    du_stride, stream);
+}
+
+HETU_EXPORT int hetu_swiglu_bwd_f16(const void* gate, const void* up,
+                                    const void* dy, void* dgate, void* dup,
+                                    long long tokens, long long inner,
+                                    long long g_stride, long long u_stride,
+                                    long long dy_stride, long long dg_stride,
+                                    long long du_stride, void* stream) {
+  return launch_bwd<__half>(gate, up, dy, dgate, dup, tokens, inner,
+                            g_stride, u_stride, dy_stride, dg_stride,
+                            du_stride, stream);
 }

@@ -9,10 +9,12 @@ A step, as the reference's `_train_step_impl`:
     (`prepare_batch`);
   * each micro-batch runs the model's training forward with the "sum"
     loss — and, with `dropout_deterministic=False`, dropout keyed by
-    (seed + 1, step, micro-batch) — and its backward; under
-    `loss_scale="dynamic"` the fp32 loss sum is multiplied by scale /
-    slots first (slots = the batch's token slots), so the cotangents do
-    not grow with the batch;
+    (seed + 1, step, micro-batch) — and its backward; with the dynamic
+    loss scale on the fp32 loss sum is multiplied by scale / slots first
+    (slots = the batch's token slots), so the cotangents do not grow
+    with the batch.  The scale is on under `loss_scale="dynamic"`, and
+    under "auto" (the default) iff the model computes in float16, as
+    the reference decides it;
   * gradients accumulate in fp32: in the parameters' .grad when they
     are fp32, else in fp32 accumulators beside them, each micro-batch's
     gradient added in (the reference's `jnp.add` on an fp32 zero tree);
@@ -22,7 +24,7 @@ A step, as the reference's `_train_step_impl`:
     (`optim.clip_by_global_norm`) and applied by AdamW with the cosine
     schedule (`optim.AdamW`, one launch of the fused kernel over every
     leaf, the bf16 arm for bf16 parameters), all in place;
-  * under the dynamic scale, the global norm's finiteness — the one
+  * under the scale, the global norm's finiteness — the one
     reduction that already runs over every gradient — decides the step:
     the AdamW launch reads it on the device and writes nothing when it
     is not finite (p, m and v keep their bits), the `GradScaler` state
@@ -46,10 +48,16 @@ reference's.  The trainer writes trainer.steps / trainer.tokens
 counters, the trainer.step_time_s histogram, the scaler and the
 checkpoint series into its own `MetricsRegistry` (`trainer.registry`).
 
+A batch may be padded or packed (`data.pad_batch`, `pack_sequences`,
+`DataCollatorForLanguageModel`): its `position_ids` and `segment_ids`
+go to the model, whose attention keeps each packed sequence to itself
+and whose positions restart with each.  A micro-batch may count zero
+tokens (rows of padding alone): the step divides by at least one.
+
 The reference's options that need a later slice raise
 NotImplementedError: those of `TrainingConfig`, `LlamaConfig` and
 `GPTConfig` where they are made; here a strategy or mesh, the run-log,
-health and numerics hooks, and fp16 compute.
+health and numerics hooks, and fp16 parameters.
 """
 from __future__ import annotations
 
@@ -73,8 +81,7 @@ from hetu_tpu_torch.utils.device import resolve_device
 logger = logging.getLogger("hetu_tpu_torch.trainer")
 
 _HOOKS = "the training hooks slice (ROADMAP Queue A item 2)"
-_FP16 = ("the fp16 slice (ROADMAP Queue A item 2: fp16 arms of the flash, "
-         "fused-norm, SwiGLU and RoPE kernels)")
+_FP16_PARAMS = "AdamW's fp16 parameter arm (ROADMAP Queue B1)"
 _MULTI_GPU = "the multi-GPU slice (ROADMAP Queue A item 5)"
 
 #: Trainer keyword arguments beyond this slice
@@ -103,10 +110,12 @@ class Trainer:
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device}, the "
                              f"trainer was asked for {self.device}")
-        if model.config.compute_dtype == torch.float16:
+        policy = model.config.policy
+        if policy.param_dtype == torch.float16:
             raise NotImplementedError(
-                "fp16 compute (with the dynamic GradScaler the reference "
-                f"turns on for it) arrives with {_FP16}")
+                "param_dtype=torch.float16 is not in the port yet (the AdamW "
+                f"kernel has fp32 and bf16 arms); it arrives with "
+                f"{_FP16_PARAMS}")
         self.model = model
         self.config = c = config
         self.n_micro = c.num_micro_batches(1)
@@ -116,7 +125,10 @@ class Trainer:
             b1=c.beta1, b2=c.beta2, eps=c.eps, weight_decay=c.weight_decay,
             device=self.device)
         self.registry = MetricsRegistry()
-        self._scaler = GradScaler() if c.loss_scale == "dynamic" else None
+        use_scaler = c.loss_scale == "dynamic" or (
+            c.loss_scale == "auto"
+            and policy.compute_dtype == torch.float16)
+        self._scaler = GradScaler() if use_scaler else None
         self.scaler_state = None
         self._ckpt = (CheckpointManager(c.ckpt_dir, c.ckpt_keep,
                                         registry=self.registry)

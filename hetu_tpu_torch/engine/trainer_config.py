@@ -4,7 +4,13 @@ JAX package).
 
 The reference's fields keep their names and defaults.  Those whose
 non-default values need a later slice of the port raise
-NotImplementedError naming it; none is accepted and ignored.  `seed`
+NotImplementedError naming it; none is accepted and ignored.
+`packing` is the reference's own flag, and the reference's trainer
+reads it nowhere either: a packed batch carries its packing in its
+`position_ids` (restarting at each packed sequence) and `segment_ids`
+(the sequence of each token, 0 for padding), which `data.pack_sequences`
+and `data.DataCollatorForLanguageModel(packing=True)` make and the
+`Trainer` hands to the model with every micro-batch.  `seed`
 seeds the dropout masks (keyed as the reference's `fold_in(key(seed +
 1), step)`); the weights are drawn by the model
 (`LlamaLMHeadModel(seed=...)`, `GPTLMHeadModel(seed=...)`), where the
@@ -15,8 +21,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-_PACKING = ("the packing and data slice (ROADMAP Queue A item 2, after "
-            "the third training slice)")
 _MULTI_GPU = "the multi-GPU slice (ROADMAP Queue A item 5)"
 
 
@@ -26,7 +30,7 @@ class TrainingConfig:
     global_batch_size: int = 32
     micro_batch_size: int = 4          # per-dp-replica micro batch
     seq_len: int = 1024
-    packing: bool = False
+    packing: bool = False              # batches packed (module docstring)
 
     # optimization
     lr: float = 3e-4
@@ -64,15 +68,10 @@ class TrainingConfig:
         if self.loss_scale not in ("auto", "dynamic", "none"):
             raise ValueError(f"loss_scale must be auto|dynamic|none, got "
                              f"{self.loss_scale!r}")
-        later = {
-            "packing": (self.packing, _PACKING),
-            "pp_schedule": (self.pp_schedule == "1f1b", _MULTI_GPU),
-        }
-        for name, (refused, slice_) in later.items():
-            if refused:
-                raise NotImplementedError(
-                    f"TrainingConfig.{name}={getattr(self, name)!r} is not "
-                    f"in the port yet; it arrives with {slice_}")
+        if self.pp_schedule == "1f1b":
+            raise NotImplementedError(
+                f"TrainingConfig.pp_schedule={self.pp_schedule!r} is not in "
+                f"the port yet; it arrives with {_MULTI_GPU}")
         if isinstance(self.seed, bool) or not isinstance(self.seed, int):
             raise ValueError(f"TrainingConfig.seed must be an int, got "
                              f"{self.seed!r}")

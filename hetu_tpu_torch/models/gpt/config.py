@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from hetu_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from hetu_tpu_torch.models.llama.config import check_dropout_rates
 from hetu_tpu_torch.nn.remat import validate_remat_policy
 
@@ -37,8 +38,8 @@ class GPTConfig:
     attention_dropout: float = 0.0
     hidden_dropout: float = 0.0
     pipeline_stage_layers: object = None
-    param_dtype: torch.dtype = torch.float32
-    compute_dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = DEFAULT_POLICY.param_dtype
+    compute_dtype: torch.dtype = DEFAULT_POLICY.compute_dtype
     use_scan: bool = True
     remat: bool = True             # recompute each block in the backward
     remat_policy: str = "nothing"  # what a block saves (nn/remat.py)
@@ -55,6 +56,11 @@ class GPTConfig:
             raise ValueError(
                 f"hidden_size {self.hidden_size} must divide by "
                 f"num_attention_heads {self.num_attention_heads}")
+
+    @property
+    def policy(self) -> DTypePolicy:
+        """The dtype policy of `param_dtype` and `compute_dtype`."""
+        return DTypePolicy(self.param_dtype, self.compute_dtype)
 
     @property
     def head_dim(self) -> int:

@@ -267,7 +267,7 @@ class GPTLMHeadModel(nn.Module):
         acc = torch.promote_types(c.param_dtype, c.compute_dtype)
         x = (self.model.wte(ids.long()).to(acc)
              + self.model.wpe[positions.long()].to(acc))
-        return x.to(c.compute_dtype)
+        return c.policy.cast_to_compute(x)
 
     def rope_at(self, b: int, s: int, positions=None):
         """GPT has learned positions and applies no RoPE."""

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from hetu_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from hetu_tpu_torch.nn.remat import validate_remat_policy
 
 
@@ -44,8 +45,8 @@ class LlamaConfig:
     attention_dropout: float = 0.0
     hidden_dropout: float = 0.0
     num_experts: int = 0
-    param_dtype: torch.dtype = torch.float32
-    compute_dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = DEFAULT_POLICY.param_dtype
+    compute_dtype: torch.dtype = DEFAULT_POLICY.compute_dtype
     remat: bool = True             # recompute each block in the backward
     remat_policy: str = "nothing"  # what a block saves (nn/remat.py)
     use_flash_attention: bool = True
@@ -63,6 +64,11 @@ class LlamaConfig:
             raise ValueError(
                 f"num_attention_heads {self.num_attention_heads} must divide "
                 f"by num_key_value_heads {self.num_key_value_heads}")
+
+    @property
+    def policy(self) -> DTypePolicy:
+        """The dtype policy of `param_dtype` and `compute_dtype`."""
+        return DTypePolicy(self.param_dtype, self.compute_dtype)
 
     @property
     def head_dim(self) -> int:

@@ -270,7 +270,7 @@ class LlamaLMHeadModel(nn.Module):
     def embed_at(self, ids: torch.Tensor, positions=None) -> torch.Tensor:
         """The token embeddings in the compute dtype (positions enter
         through RoPE, `rope_at`)."""
-        return self.model.embed(ids.long()).to(self.config.compute_dtype)
+        return self.config.policy.cast_to_compute(self.model.embed(ids.long()))
 
     def rope_at(self, b: int, s: int, positions=None):
         """The RoPE rows (cos_t, sin_t) of positions [b, s] (default

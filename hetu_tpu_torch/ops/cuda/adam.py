@@ -26,8 +26,9 @@ from hetu_tpu_torch.ops.cuda import build
 
 #: kernel launches (the plain version never counts)
 launches = 0
-#: the same launches by the parameters' arm ("f32", "bf16")
-arm_launches = {"f32": 0, "bf16": 0}
+#: the same launches by the parameters' arm (`build.arm_counts`; the
+#: kernel has f32 and bf16 arms)
+arm_launches = build.arm_counts("launches")
 
 #: leaves a launch's table holds (`ADAM_MAX_LEAVES` in csrc/adam.cu)
 MAX_LEAVES = 512
@@ -36,7 +37,6 @@ CHUNK = 16384
 
 _SYMBOLS = {torch.float32: "hetu_adam_multi_f32",
             torch.bfloat16: "hetu_adam_multi_bf16"}
-_ARMS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 class _Leaf(ctypes.Structure):
@@ -176,7 +176,6 @@ def adam_update_multi(params, grads, ms, vs, lr, c1, c2, *, b1: float,
     `device` "cuda" launches the kernel once for each p dtype (or once
     for each `MAX_LEAVES` leaves of it), "cpu" runs the plain version
     leaf by leaf; the tensors must lie there."""
-    global launches
     leaves = list(zip(params, grads, ms, vs))
     if not len(params) == len(grads) == len(ms) == len(vs):
         raise ValueError(f"{len(params)} params, {len(grads)} grads, "
@@ -209,8 +208,7 @@ def adam_update_multi(params, grads, ms, vs, lr, c1, c2, *, b1: float,
                 for table in make_tables(*zip(*group), scalars, skip):
                     build.check_launch(fn(ctypes.byref(table), stream),
                                        "adam_update")
-                    launches += 1
-                    arm_launches[_ARMS[dtype]] += 1
+                    build.count(globals(), "launches", dtype)
 
 
 def adam_update(p, g, m, v, lr, c1, c2, *, b1: float, b2: float,

@@ -139,6 +139,25 @@ def check_device(kernel: str, device, *tensors) -> torch.device:
     return dev
 
 
+#: the arm a launch counts under, by its tensors' dtype
+ARMS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def arm_counts(*counters: str) -> dict:
+    """A wrapper module's `arm_launches`: for each of its launch
+    counters, its launches by arm ({counter: {"f32": 0, "bf16": 0,
+    "f16": 0}})."""
+    return {c: dict.fromkeys(ARMS.values(), 0) for c in counters}
+
+
+def count(namespace: dict, counter: str, dtype: torch.dtype):
+    """Add one launch to a wrapper module's `counter` and to its arm in
+    the module's `arm_launches[counter]`, so a run shows which arm its
+    path went through."""
+    namespace[counter] += 1
+    namespace["arm_launches"][counter][ARMS[dtype]] += 1
+
+
 def check_launch(err: int, kernel: str):
     """Raise on a nonzero cudaGetLastError() returned by a launch (a
     refused launch never runs, and a later synchronize does not report

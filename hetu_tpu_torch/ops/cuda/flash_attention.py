@@ -29,8 +29,9 @@ What does not carry over is the TPU's geometry: the 1024 x 1024 default
 blocks and the lane rules (head dim % 128, the 128 ladder of
 `check_default_shapes`).  Here the default block is 128, the kernels'
 own tile is 64 x 64 whatever the block, and the kernels take head dim 64
-or 128, fp32 or bf16, hq a multiple of hkv; anything else raises.  The
-three bf16 kernels (forward, dq, dk/dv) class each pair of tiles dead,
+or 128, fp32, bf16 or fp16, hq a multiple of hkv; anything else raises.
+The bf16 and fp16 kernels (forward, dq, dk/dv: one set of Hopper
+kernels over the 16-bit element type) class each pair of tiles dead,
 empty, full or partial (`tile_classes`): they compute neither a dead nor
 an empty one, skip the element mask on a full one, and run one or more
 64-row tiles a block (the launchers' rule in the CUDA source).
@@ -64,6 +65,8 @@ launches = 0
 dq_launches = 0
 #: dk/dv kernel launches
 dkv_launches = 0
+#: each counter's launches by arm (`build.arm_counts`)
+arm_launches = build.arm_counts("launches", "dq_launches", "dkv_launches")
 
 HEAD_DIMS = (64, 128)
 
@@ -275,7 +278,8 @@ class _FlashArgs(ctypes.Structure):
 
 
 _ARGTYPES = [ctypes.POINTER(_FlashArgs), ctypes.c_int, ctypes.c_void_p]
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
 #: every exported symbol -> its ctypes argtypes
 _SIGNATURES = {f"hetu_flash_{kernel}_{suffix}": _ARGTYPES
                for kernel in ("fwd", "bwd_dq", "bwd_dkv")
@@ -296,8 +300,8 @@ def _check(name, q, k, v, q_pos, k_pos, q_seg, k_seg, block_q, block_k,
                          f"{tuple(k.shape)} do not match (hq must divide "
                          f"by hkv)")
     if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"{name} takes q, k, v of one dtype, fp32 or bf16, "
-                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError(f"{name} takes q, k, v of one dtype, fp32, bf16 or "
+                         f"fp16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if sq % block_q or sk % block_k:
         raise ValueError(f"seq lens ({sq},{sk}) must divide by blocks "
                          f"({block_q},{block_k})")
@@ -364,7 +368,7 @@ def _launch(kernel: str, counter: str, d: int, dtype, device, tensors,
             ctypes.byref(args), d,
             torch.cuda.current_stream(device).cuda_stream)
     build.check_launch(err, f"flash_{kernel}")
-    globals()[counter] += 1
+    build.count(globals(), counter, dtype)
 
 
 def _kernel_inputs(name, q, k, v, q_pos, k_pos, q_seg, k_seg, block_q,

@@ -31,15 +31,16 @@ bwd_launches = 0
 ln_launches = 0
 #: LayerNorm backward kernel launches
 ln_bwd_launches = 0
+#: each counter's launches by arm (`build.arm_counts`)
+arm_launches = build.arm_counts("launches", "bwd_launches", "ln_launches",
+                                "ln_bwd_launches")
 
-_FWD = {torch.float32: "hetu_rmsnorm_fwd_f32",
-        torch.bfloat16: "hetu_rmsnorm_fwd_bf16"}
-_BWD = {torch.float32: "hetu_rmsnorm_bwd_f32",
-        torch.bfloat16: "hetu_rmsnorm_bwd_bf16"}
-_LN_FWD = {torch.float32: "hetu_layernorm_fwd_f32",
-           torch.bfloat16: "hetu_layernorm_fwd_bf16"}
-_LN_BWD = {torch.float32: "hetu_layernorm_bwd_f32",
-           torch.bfloat16: "hetu_layernorm_bwd_bf16"}
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
+_FWD = {t: f"hetu_rmsnorm_fwd_{x}" for t, x in _SUFFIX.items()}
+_BWD = {t: f"hetu_rmsnorm_bwd_{x}" for t, x in _SUFFIX.items()}
+_LN_FWD = {t: f"hetu_layernorm_fwd_{x}" for t, x in _SUFFIX.items()}
+_LN_BWD = {t: f"hetu_layernorm_bwd_{x}" for t, x in _SUFFIX.items()}
 # every entry point ends in the plan (vpt, threads, block rows, grid,
 # scalar) and the stream
 _PLAN_ARGS = [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -58,7 +59,8 @@ _SIGNATURES = {**dict.fromkeys(_FWD.values(), _FWD_ARGS),
 #: 16-byte chunks a thread may hold, per storage type: the kernels'
 #: instantiations (`kMaxVpt` in csrc/fused_norm.cu), each in a vector
 #: and a scalar arm
-INSTANCES = {torch.float32: (1, 2, 4), torch.bfloat16: (1, 2)}
+INSTANCES = {torch.float32: (1, 2, 4), torch.bfloat16: (1, 2),
+             torch.float16: (1, 2)}
 #: threads a block at most (`kMaxThreads`): a block this large always
 #: fits an SM, two where a thread holds one chunk a row
 #: (`kBlocksPerSm`), so a backward grid of that many blocks an SM is one
@@ -191,8 +193,8 @@ def _check(name, a, b, weight, bias=None):
         raise ValueError(f"{name}: operands must share a [..., hidden] "
                          f"shape, got {tuple(a.shape)} / {tuple(b.shape)}")
     if a.dtype != b.dtype or a.dtype not in _FWD:
-        raise ValueError(f"{name} takes matching fp32/bf16 operands, got "
-                         f"{a.dtype} / {b.dtype}")
+        raise ValueError(f"{name} takes matching fp32/bf16/fp16 operands, "
+                         f"got {a.dtype} / {b.dtype}")
     if weight.shape != (a.shape[-1],) or weight.dtype != torch.float32:
         raise ValueError(f"{name}: weight must be fp32 [{a.shape[-1]}], "
                          f"got {weight.dtype} {tuple(weight.shape)}")
@@ -226,8 +228,7 @@ def residual_rmsnorm_fwd(x, h, weight, eps: float = 1e-5, *,
                            sms=_sms(x.device.index))
         _launch(_FWD[x.dtype], _FWD_ARGS, "residual_rmsnorm_fwd", ptrs,
                 rows, hidden, eps, plan, x.device)
-        global launches
-        launches += 1
+        build.count(globals(), "launches", x.dtype)
     return y, s
 
 
@@ -258,8 +259,7 @@ def residual_rmsnorm_bwd(s, weight, dy, dr, eps: float = 1e-5, *,
                 (s.data_ptr(), w.data_ptr(), dy.data_ptr(), dr.data_ptr(),
                  dx.data_ptr(), parts.data_ptr()), rows, hidden, eps, plan,
                 s.device)
-        global bwd_launches
-        bwd_launches += 1
+        build.count(globals(), "bwd_launches", s.dtype)
     return dx, parts.sum(dim=0)
 
 
@@ -316,8 +316,7 @@ def residual_layernorm_fwd(x, h, weight, bias, eps: float = 1e-5, *,
                            backward=False, sms=_sms(x.device.index))
         _launch(_LN_FWD[x.dtype], _LN_FWD_ARGS, "residual_layernorm_fwd",
                 ptrs, rows, hidden, eps, plan, x.device)
-        global ln_launches
-        ln_launches += 1
+        build.count(globals(), "ln_launches", x.dtype)
     return y, s
 
 
@@ -350,8 +349,7 @@ def residual_layernorm_bwd(s, weight, dy, dr, eps: float = 1e-5, *,
                  dx.data_ptr(), parts[0].data_ptr(),
                  parts[1].data_ptr() if has_bias else None), rows, hidden,
                 eps, plan, s.device)
-        global ln_bwd_launches
-        ln_bwd_launches += 1
+        build.count(globals(), "ln_bwd_launches", s.dtype)
     sums = parts.sum(dim=1)
     return dx, sums[0], sums[1] if has_bias else None
 

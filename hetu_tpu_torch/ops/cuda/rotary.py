@@ -29,9 +29,12 @@ from hetu_tpu_torch.ops.cuda import build
 launches = 0
 #: backward kernel launches (the same kernel, rotating by -theta)
 bwd_launches = 0
+#: each counter's launches by arm (`build.arm_counts`)
+arm_launches = build.arm_counts("launches", "bwd_launches")
 
 _SYMBOLS = {torch.float32: "hetu_rotary_qk_f32",
-            torch.bfloat16: "hetu_rotary_qk_bf16"}
+            torch.bfloat16: "hetu_rotary_qk_bf16",
+            torch.float16: "hetu_rotary_qk_f16"}
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
              + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 7
              + [ctypes.c_float, ctypes.c_void_p])
@@ -81,8 +84,8 @@ def _check(name, q, k, cos_t, sin_t):
         raise ValueError(f"{name}: head dim {hd} must be even and at most "
                          f"{MAX_HEAD_DIM} for the half-split rotation")
     if q.dtype != k.dtype or q.dtype not in _SYMBOLS:
-        raise ValueError(f"{name}: q/k must share an fp32/bf16 dtype, got "
-                         f"{q.dtype} / {k.dtype}")
+        raise ValueError(f"{name}: q/k must share an fp32/bf16/fp16 dtype, "
+                         f"got {q.dtype} / {k.dtype}")
     for arg, t in (("cos_t", cos_t), ("sin_t", sin_t)):
         if t.shape != (b, s, hd // 2) or t.dtype != torch.float32:
             raise ValueError(f"{name}: {arg} must be fp32 [b={b}, s={s}, "
@@ -131,8 +134,8 @@ def rotary_qk_fwd(q, k, cos_t, sin_t, *, device="cuda"):
     kernel, "cpu" runs the plain version; the tensors must lie there."""
     q_out, k_out, launched = _rotate(q, k, cos_t, sin_t, 1.0, device,
                                      "rotary_qk_fwd")
-    global launches
-    launches += launched
+    if launched:
+        build.count(globals(), "launches", q.dtype)
     return q_out, k_out
 
 
@@ -141,8 +144,8 @@ def rotary_qk_bwd(dq, dk, cos_t, sin_t, *, device="cuda"):
     rotation by -theta (the kernel with sin's sign flipped)."""
     dq_in, dk_in, launched = _rotate(dq, dk, cos_t, sin_t, -1.0, device,
                                      "rotary_qk_bwd")
-    global bwd_launches
-    bwd_launches += launched
+    if launched:
+        build.count(globals(), "bwd_launches", dq.dtype)
     return dq_in, dk_in
 
 

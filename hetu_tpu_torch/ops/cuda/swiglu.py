@@ -22,11 +22,15 @@ from hetu_tpu_torch.ops.cuda import build
 launches = 0
 #: backward kernel launches
 bwd_launches = 0
+#: each counter's launches by arm (`build.arm_counts`)
+arm_launches = build.arm_counts("launches", "bwd_launches")
 
 _FWD = {torch.float32: "hetu_swiglu_fwd_f32",
-        torch.bfloat16: "hetu_swiglu_fwd_bf16"}
+        torch.bfloat16: "hetu_swiglu_fwd_bf16",
+        torch.float16: "hetu_swiglu_fwd_f16"}
 _BWD = {torch.float32: "hetu_swiglu_bwd_f32",
-        torch.bfloat16: "hetu_swiglu_bwd_bf16"}
+        torch.bfloat16: "hetu_swiglu_bwd_bf16",
+        torch.float16: "hetu_swiglu_bwd_f16"}
 _FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 + [
     ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 7 + [
@@ -64,7 +68,7 @@ def _check(name, gu):
         raise ValueError(f"{name} takes the fused gate/up [..., 2, inner], "
                          f"got {tuple(gu.shape)}")
     if gu.dtype not in _FWD:
-        raise ValueError(f"{name} takes fp32/bf16, got {gu.dtype}")
+        raise ValueError(f"{name} takes fp32/bf16/fp16, got {gu.dtype}")
 
 
 def swiglu_fwd(gu: torch.Tensor, *, device="cuda") -> torch.Tensor:
@@ -87,8 +91,7 @@ def swiglu_fwd(gu: torch.Tensor, *, device="cuda") -> torch.Tensor:
             g2.stride(0), u2.stride(0),
             torch.cuda.current_stream(gu.device).cuda_stream)
     build.check_launch(err, "swiglu_fwd")
-    global launches
-    launches += 1
+    build.count(globals(), "launches", gu.dtype)
     return out
 
 
@@ -118,8 +121,7 @@ def swiglu_bwd(gu: torch.Tensor, dy: torch.Tensor, *,
             d2.stride(0), dg2.stride(0), du2.stride(0),
             torch.cuda.current_stream(gu.device).cuda_stream)
     build.check_launch(err, "swiglu_bwd")
-    global bwd_launches
-    bwd_launches += 1
+    build.count(globals(), "bwd_launches", gu.dtype)
     return dgu
 
 

@@ -67,6 +67,18 @@ output arms, at block sizes whose rows end inside a 16-byte vector and
 on payload views off a 16-byte boundary; the model drafter with the
 prefix cache on int8 pages token for token against the CPU.
 
+The fp16 arms (the fourth training slice): SwiGLU, RoPE (from the fused
+projection, positions restarting as in a packed row) and the fused RMS
+and LayerNorm, forward and backward, within one fp16 ulp of their plain
+versions (+1e-6 where the norms' sums cancel; dw, db 1e-5 of their
+largest entry), each fp16 launch counted apart; flash in fp16 through
+every case of the bf16 arm and over packed rows' segments: o within
+half an fp16 ulp + 2^-10 max|v| (P rounded to fp16: 2^-11 relative, or
+2^-25 absolute below fp16's normal range), the Function's fp16
+gradients 2^-10 of their largest entry; a narrow Llama trained in fp16
+on packed batches, card against CPU (the scale on "auto", the same
+scale and no skip each step, loss and grad norm within 2e-3).
+
 The fused KV page write (`ops/cuda/kv_write.py`) bit for bit against
 its plain version in every page mode, fp32 and bf16, head dims 64 and
 128, decode (C = 1) and verify (C = 5) blocks: K and V as the serving
@@ -149,6 +161,45 @@ def _rounded_once_to_bf16(out, ref_f32, atol=1e-5):
     assert bool((err <= half_ulp + atol).all()), \
         f"max diff {err.max().item()}, worst excess " \
         f"{(err - half_ulp).max().item()}"
+
+
+def _f16_ulp(x):
+    """One fp16 ulp at each element of x (11 significant bits; 2^-24 in
+    the subnormal range, below 2^-14)."""
+    _, exp = torch.frexp(x)
+    return torch.maximum(torch.ldexp(torch.ones_like(x), exp - 11),
+                         torch.full_like(x, 2.0 ** -24))
+
+
+def _f16_close(a, b, atol=0.0):
+    """Within one fp16 ulp of the larger of the two, elementwise, plus
+    `atol` (outputs the kernels and the plain versions each round once
+    to fp16 from fp32 values that differ by fp32 rounding)."""
+    a, b = a.float(), b.float()
+    ulp = _f16_ulp(torch.maximum(a.abs(), b.abs()))
+    assert bool(((a - b).abs() <= ulp + atol).all()), \
+        f"max diff {(a - b).abs().max().item()}"
+
+
+def _rounded_once_to_f16(out, ref_f32, atol=1e-5):
+    """`out` (fp16) is `ref_f32` rounded to nearest: within half an fp16
+    ulp of the larger of the two, plus `atol`."""
+    a = out.float()
+    half_ulp = _f16_ulp(torch.maximum(a.abs(), ref_f32.abs())) / 2
+    err = (a - ref_f32).abs()
+    assert bool((err <= half_ulp + atol).all()), \
+        f"max diff {err.max().item()}, worst excess " \
+        f"{(err - half_ulp).max().item()}"
+
+
+def _f16_p_atol(v):
+    """What rounding P to fp16 for the P V product adds to o: each p_j
+    (<= 1, the running max's row gives 1) carries at most 2^-11 of
+    itself, or 2^-25 absolute below fp16's normal range (2^-14), and
+    o = sum p_j v_j / l with l >= 1; over at most 2,048 keys that is
+    (2^-11 + 2^-14) max|v|, held here to 2^-10 max|v| + 1e-5 for fp32
+    summation order."""
+    return 1e-5 + 2.0 ** -10 * float(v.abs().max())
 
 
 def _paged_case(dev, dtype, S=4, P=9, ps=8, n_kv=2, nq=4, hd=128):
@@ -784,7 +835,8 @@ def _of_max(a, b, rtol=1e-5):
     assert err <= rtol * scale + 1e-6, f"max diff {err} of {scale}"
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("d,hq,hkv", [(128, 4, 1), (64, 2, 2), (128, 8, 2)])
 @pytest.mark.parametrize("case", sorted(_FLASH_CASES))
 def test_flash_matches_plain(dev, dtype, d, hq, hkv, case):
@@ -803,6 +855,12 @@ def test_flash_matches_plain(dev, dtype, d, hq, hkv, case):
         assert bool((dq[:, rows] == 0).all())
 
 
+def _f16_flash_launches():
+    """The flash forward, dq and dk/dv kernels' fp16 launches."""
+    return tuple(tflash.arm_launches[c]["f16"]
+                 for c in ("launches", "dq_launches", "dkv_launches"))
+
+
 def _check_flash(dev, q, k, v, kw):
     """The body of `test_flash_matches_plain`: forward and backward of
     `flash_attention(q, k, v, **kw)` against the plain versions in
@@ -810,6 +868,7 @@ def _check_flash(dev, q, k, v, kw):
     gradient of q)."""
     dtype = q.dtype
     before = tflash.launches, tflash.dq_launches, tflash.dkv_launches
+    f16_before = _f16_flash_launches()
     o, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
     torch.cuda.synchronize()
     ro, rlse = tflash.flash_attention_with_lse(
@@ -821,6 +880,8 @@ def _check_flash(dev, q, k, v, kw):
     torch.testing.assert_close(lse.cpu(), rlse, rtol=1e-5, atol=1e-5)
     if dtype == torch.float32:
         _of_max(o.cpu(), ro)
+    elif dtype == torch.float16:
+        _rounded_once_to_f16(o.cpu(), ro, atol=_f16_p_atol(v))
     else:   # + what rounding P to bf16 adds: at most 2^-9 of max|v|
         _rounded_once_to_bf16(
             o.cpu(), ro, atol=1e-5 + 2.0 ** -9 * float(v.abs().max()))
@@ -835,6 +896,10 @@ def _check_flash(dev, q, k, v, kw):
     torch.cuda.synchronize()
     assert (tflash.launches, tflash.dq_launches, tflash.dkv_launches) == (
         before[0] + 3, before[1] + 2, before[2] + 2)
+    f16 = 1 if dtype == torch.float16 else 0
+    assert _f16_flash_launches() == (f16_before[0] + 3 * f16,
+                                         f16_before[1] + 2 * f16,
+                                         f16_before[2] + 2 * f16)
     for a, b2 in zip(*grads):
         assert torch.equal(a, b2)
     ref = [t.float().cpu().requires_grad_(True) for t in (q, k, v)]
@@ -846,6 +911,8 @@ def _check_flash(dev, q, k, v, kw):
         assert mine.dtype == dtype
         if dtype == torch.float32:
             _of_max(mine.cpu(), r.grad)
+        elif dtype == torch.float16:    # the bf16 bound, 3 bits finer
+            _of_max(mine.cpu(), r.grad, rtol=2.0 ** -10)
         else:   # rounded once to bf16 by the Function (half an ulp),
             # and delta was taken from the o the kernel rounded
             _of_max(mine.cpu(), r.grad, rtol=2.0 ** -7)
@@ -890,6 +957,48 @@ def test_flash_bf16_block_shapes_match_plain(dev, d, case):
                                 opts, b=b)
     kw.update(block_q=bq, block_k=bq)
     _check_flash(dev, q, k, v, kw)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["segments", "packed", "causal_block_512",
+                                  "gap_of_7_blocks"])
+def test_flash_f16_block_shapes_match_plain(dev, d, case):
+    """The fp16 arm of the Hopper kernels (the bf16 kernels' template
+    over `__half`) at the block shapes of
+    `test_flash_bf16_block_shapes_match_plain` that decide their tile
+    classes and ring: segments cut inside a 64-row tile, a packed row
+    of five sequences (`_packed_segments`: boundaries inside tiles and
+    on them, a pad tail of segment 0), causal blocks of 512 and the
+    block mask with a gap of 7."""
+    b, sq, sk, hq, hkv, bq, opts = {
+        "segments": (2, 256, 256, 72, 36, 128, {"segments": True}),
+        "packed": (2, 512, 512, 32, 8, 128, {}),
+        "causal_block_512": (2, 1024, 1024, 16, 4, 512, {}),
+        "gap_of_7_blocks": (2, 192, 576, 72, 36, 64,
+                            {"causal": False, "block_mask": _GAP}),
+    }[case]
+    q, k, v, kw = _flash_inputs(dev, torch.float16, sq, sk, hq, hkv, d,
+                                opts, b=b)
+    if case == "packed":
+        kw["segment_ids"] = _packed_segments(b, sq, dev)
+    kw.update(block_q=bq, block_k=bq)
+    _check_flash(dev, q, k, v, kw)
+
+
+def _packed_segments(b, s, dev):
+    """[b, s] int32 segment ids of packed rows: sequences of uneven
+    lengths (1-indexed, some ending inside a 64-row tile, one on a tile
+    edge), then padding (segment 0), different in each row."""
+    rows = []
+    for r in range(b):
+        lengths = [64 + 37 * r, 1, 130 - r, 64, 100]
+        ids = np.zeros(s, np.int32)
+        at = 0
+        for j, n in enumerate(lengths):
+            ids[at:at + n] = j + 1
+            at += n
+        rows.append(ids)
+    return torch.from_numpy(np.stack(rows)).to(dev)
 
 
 def test_flash_block_of_two_skips_a_tile_dead_for_one_warpgroup(dev):
@@ -1031,7 +1140,7 @@ def test_flash_bwd_returns_fp32_and_takes_delta(dev):
 @pytest.mark.parametrize("fault", ["head_dim", "dtype", "heads", "blocks"])
 def test_flash_rejects_what_the_kernels_do_not_take(dev, fault):
     d = 96 if fault == "head_dim" else 128
-    dtype = torch.float16 if fault == "dtype" else torch.bfloat16
+    dtype = torch.float64 if fault == "dtype" else torch.bfloat16
     hkv = 3 if fault == "heads" else 2
     q = torch.zeros((1, 128, 4, d), dtype=dtype, device=dev)
     k = torch.zeros((1, 128, hkv, d), dtype=dtype, device=dev)
@@ -1984,3 +2093,150 @@ def test_paged_verify_many_rows_match_plain(dev, quant, hd, C):
     assert bool(torch.isfinite(out).all())
     _check_paged(out, _split_plain(q, pools, table, positions, quant),
                  torch.bfloat16)
+
+
+# ------------------------------------------------------- fp16 arms
+def _f16_counts():
+    def f16(mod, *counters):
+        return tuple(mod.arm_launches[c]["f16"] for c in counters)
+    return {"swiglu": f16(tswiglu, "launches", "bwd_launches"),
+            "rotary": f16(trotary, "launches", "bwd_launches"),
+            "rms": f16(tfused_norm, "launches", "bwd_launches"),
+            "ln": f16(tfused_norm, "ln_launches", "ln_bwd_launches"),
+            "flash": _f16_flash_launches()}
+
+
+def _f16_launched(before, **expect):
+    """Since `before`, each fp16 arm named in `expect` launched that
+    many times and every other fp16 arm none."""
+    after = _f16_counts()
+    for name, was in before.items():
+        got = tuple(a - b for a, b in zip(after[name], was))
+        assert got == expect.get(name, (0,) * len(was)), (name, got)
+
+
+@pytest.mark.parametrize("inner", [13, 1000, 14336])
+def test_f16_swiglu_matches_plain(dev, inner):
+    """The fp16 arm of SwiGLU, forward from the strided halves of the
+    fused projection (the vector arm; 13: the scalar arm) and backward
+    into one buffer, each output within one fp16 ulp of the plain
+    version (both round once from fp32)."""
+    gu = _normal((3, 7, 2, inner), 40, dev, torch.float16)
+    dy = _normal((3, 7, inner), 41, dev, torch.float16)
+    before = _f16_counts()
+    out = tswiglu.fused_swiglu(gu)
+    dgu = tswiglu.swiglu_bwd(gu, dy)
+    _f16_launched(before, swiglu=(1, 1))
+    assert out.dtype == dgu.dtype == torch.float16
+    _f16_close(out, tswiglu.swiglu_plain(gu[..., 0, :], gu[..., 1, :]))
+    dg, du = tswiglu.swiglu_bwd_plain(gu[..., 0, :], gu[..., 1, :], dy)
+    _f16_close(dgu[..., 0, :], dg)
+    _f16_close(dgu[..., 1, :], du)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_f16_rotary_matches_plain(dev, hd):
+    """The fp16 arm of RoPE read in place from the fused QKV projection
+    [b, s, n_kv, group + 2, hd] at per-token positions that restart (a
+    packed row), forward and the backward (sign -1), within one fp16
+    ulp of the plain version on contiguous copies."""
+    cos, sin = build_rope_cache(256, hd, 500000.0, device=dev)
+    pos = torch.cat([torch.arange(90), torch.arange(77)])[None].expand(
+        2, 167).to(dev)
+    cos_t, sin_t = cos[pos].contiguous(), sin[pos].contiguous()
+    qkv = _normal((2, 167, 2, 4 + 2, hd), 42, dev, torch.float16)
+    q, k = qkv[..., :4, :], qkv[..., 4, :]
+    before = _f16_counts()
+    oq, ok = trotary.fused_rotary_qk(q, k, cos_t, sin_t)
+    dq, dk = trotary.rotary_qk_bwd(oq, ok, cos_t, sin_t)
+    _f16_launched(before, rotary=(1, 1))
+    rq, rk = trotary.rotary_qk_plain(q.reshape(2, 167, 8, hd), k, cos_t,
+                                     sin_t)
+    _f16_close(oq, rq)
+    _f16_close(ok, rk)
+    bq, bk = trotary.rotary_qk_plain(oq, ok, cos_t, -sin_t)
+    _f16_close(dq, bq)
+    _f16_close(dk, bk)
+
+
+@pytest.mark.parametrize("kind", ["rms", "ln"])
+@pytest.mark.parametrize("hidden", [64, 1000, 1280, 4096])
+def test_f16_fused_norm_matches_plain(dev, kind, hidden):
+    """The fp16 arm of the fused residual norm, RMS and LayerNorm (with
+    a bias), forward (y, s) and backward (dx, dw, db): y, s and dx within
+    one fp16 ulp of the plain version, + 1e-6 where the centred sums
+    cancel (as the bf16 arm is held), dw and db (fp32 sums over the
+    rows, in another order) 1e-5 of their largest entry; the same bits
+    on a second backward."""
+    x = _normal((5, 9, hidden), 43, dev, torch.float16)
+    h = _normal((5, 9, hidden), 44, dev, torch.float16)
+    w = 1.0 + 0.1 * _normal((hidden,), 45, dev)
+    b = 0.1 * _normal((hidden,), 46, dev)
+    dy = _normal((5, 9, hidden), 47, dev, torch.float16)
+    dr = _normal((5, 9, hidden), 48, dev, torch.float16)
+    before = _f16_counts()
+    if kind == "rms":
+        y, s = tfused_norm.residual_rmsnorm_fwd(x, h, w)
+        grads = tfused_norm.residual_rmsnorm_bwd(s, w, dy, dr)
+        again = tfused_norm.residual_rmsnorm_bwd(s, w, dy, dr)
+        ry, rs = tfused_norm.residual_rmsnorm_plain(x, h, w, 1e-5)
+        rgrads = tfused_norm.residual_rmsnorm_bwd_plain(s, w, dy, dr, 1e-5)
+    else:
+        y, s = tfused_norm.residual_layernorm_fwd(x, h, w, b)
+        grads = tfused_norm.residual_layernorm_bwd(s, w, dy, dr)
+        again = tfused_norm.residual_layernorm_bwd(s, w, dy, dr)
+        ry, rs = tfused_norm.residual_layernorm_plain(x, h, w, b, 1e-5)
+        rgrads = tfused_norm.residual_layernorm_bwd_plain(s, w, dy, dr,
+                                                          1e-5)
+    _f16_launched(before, **{kind: (1, 2)})
+    for a, r in ((y, ry), (s, rs), (grads[0], rgrads[0])):
+        assert a.dtype == torch.float16
+        _f16_close(a, r, atol=1e-6)
+    for a, r, a2 in zip(grads[1:], rgrads[1:], again[1:]):
+        assert a.dtype == torch.float32 and torch.equal(a, a2)
+        _of_max(a, r)
+
+
+def test_f16_training_on_the_card_matches_the_cpu(dev):
+    """Three Trainer steps of a narrow Llama with fp32 parameters and
+    fp16 compute (flash, "dots_attn", `loss_scale="auto"`: the scaler
+    on) on packed batches, card against CPU from the same weights: the
+    fp16 arms launch their counts, the scale and the skip flags are the
+    same each step, losses and grad norms within 2e-3 relative (fp16
+    activations rounded in other places by cuBLAS's products and the
+    CPU's, one fp16 ulp being 2^-11 relative)."""
+    from hetu_tpu_torch.data import pack_sequences
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig.tiny(hidden_size=512, num_attention_heads=4,
+                           num_key_value_heads=2, intermediate_size=1536,
+                           vocab_size=4096, compute_dtype=torch.float16,
+                           use_flash_attention=True,
+                           remat_policy="dots_attn")
+    rng = np.random.default_rng(3)
+    seqs = [rng.integers(1, 4096, n) for n in (40, 9, 64, 31, 17, 55, 12)]
+    batch = pack_sequences(seqs, 64, num_packed=4)
+    tc = TrainingConfig(global_batch_size=4, micro_batch_size=2, seq_len=64,
+                        warmup_steps=1, total_steps=10, log_every=100,
+                        packing=True)
+    cpu_model = LlamaLMHeadModel(cfg, device="cpu", seed=0)
+    gpu_model = LlamaLMHeadModel(cfg, device=dev, seed=0)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    for layer in cpu_model.model.layers:
+        layer.attn.use_pallas = True
+    runs = []
+    for model, device in ((gpu_model, dev), (cpu_model, "cpu")):
+        tr = Trainer(model, tc, device=device)
+        before = _f16_counts()
+        runs.append([{k: float(v) for k, v in tr.train_step(batch).items()}
+                     for _ in range(3)])
+        if device != "cpu":
+            L, micro, steps = 2, 2, 3
+            fwd, bwd = 2 * L * micro * steps, L * micro * steps
+            _f16_launched(before, swiglu=(fwd, bwd), rotary=(fwd, bwd),
+                          rms=(fwd, bwd), flash=(bwd, bwd, bwd))
+    on_card, on_cpu = runs
+    for g, c in zip(on_card, on_cpu):
+        assert g["loss_scale"] == c["loss_scale"] == 2.0 ** 16
+        assert g["amp_skipped"] == c["amp_skipped"] == 0.0
+        for k in ("loss", "grad_norm"):
+            assert abs(g[k] - c[k]) <= 2e-3 * abs(c[k]), (k, g, c)

@@ -226,7 +226,7 @@ def test_wrong_block_mask_and_shapes_raise():
         tflash.flash_attention(tq, tk[:, :, :1].expand(-1, -1, 3, -1),
                                tv[:, :, :1].expand(-1, -1, 3, -1), **tkw)
     with pytest.raises(ValueError, match="one dtype"):
-        tflash.flash_attention(tq.half(), tk.half(), tv.half(), **tkw)
+        tflash.flash_attention(tq.double(), tk.double(), tv.double(), **tkw)
     pos = torch.zeros((2, 128), dtype=torch.int32)
     with pytest.raises(ValueError, match="must divide by blocks"):
         tflash._fwd(tq.transpose(1, 2), tk.transpose(1, 2),

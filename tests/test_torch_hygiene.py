@@ -2,7 +2,8 @@
 
 The port imports torch and numpy only: never jax, never the JAX package
 (importing any `hetu_tpu` module runs its package `__init__`, which
-loads JAX), never transformers (its HF converters take state dicts).
+loads JAX), never transformers (its HF converters take state dicts, and
+its `HFTokenizer` imports transformers in its constructor alone).
 Importing it builds nothing.  Its entry points run on the card unless
 the caller asks for the CPU, and raise where there is no card.
 """
@@ -62,7 +63,17 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
                  "hetu_tpu_torch.models.gpt.model",
                  "hetu_tpu_torch.models.gpt.convert",
                  "hetu_tpu_torch.models.llama.convert",
-                 "hetu_tpu_torch.models.from_jax"):
+                 "hetu_tpu_torch.models.from_jax",
+                 "hetu_tpu_torch.core.dtypes",
+                 "hetu_tpu_torch.data.bucket",
+                 "hetu_tpu_torch.data.data_collator",
+                 "hetu_tpu_torch.data.dataloader",
+                 "hetu_tpu_torch.data.dataset",
+                 "hetu_tpu_torch.data.messages",
+                 "hetu_tpu_torch.data.tokenizers.bpe",
+                 "hetu_tpu_torch.data.tokenizers.hf",
+                 "hetu_tpu_torch.data.tokenizers.sp_model",
+                 "hetu_tpu_torch.data.tokenizers.tiktoken_bpe"):
         assert name in probe["modules"]
 
 

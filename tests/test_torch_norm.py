@@ -109,9 +109,9 @@ def test_plan_backward_is_one_wave_and_forward_a_block_a_row_group():
 
 def test_norm_tables_mirror_the_source():
     """`INSTANCES` and `MAX_THREADS` are csrc/fused_norm.cu's `kMaxVpt`
-    (fp32, and its bf16 specialisation) and `kMaxThreads`; MAX_HIDDEN is
-    the widest row the widest instantiation covers; every entry point
-    takes the plan's five ints and the stream after eps."""
+    (fp32, and its bf16 and fp16 specialisations) and `kMaxThreads`;
+    MAX_HIDDEN is the widest row the widest instantiation covers; every
+    entry point takes the plan's five ints and the stream after eps."""
     text = (build.CSRC / "fused_norm.cu").read_text()
     threads = int(re.search(r"constexpr int kMaxThreads = (\d+);",
                             text).group(1))
@@ -119,10 +119,13 @@ def test_norm_tables_mirror_the_source():
                             text).group(1))
     vpt_bf16 = int(re.search(
         r"constexpr int kMaxVpt<__nv_bfloat16> = (\d+);", text).group(1))
+    vpt_f16 = int(re.search(
+        r"constexpr int kMaxVpt<__half> = (\d+);", text).group(1))
     assert threads == fn.MAX_THREADS
     powers = lambda top: tuple(1 << i for i in range(top.bit_length()))
     assert fn.INSTANCES == {torch.float32: powers(vpt_f32),
-                            torch.bfloat16: powers(vpt_bf16)}
+                            torch.bfloat16: powers(vpt_bf16),
+                            torch.float16: powers(vpt_f16)}
     assert re.search(r"constexpr int kBlocksPerSm = VPT == 1 \? 2 : 1;",
                      text)
     for dtype, vpts in fn.INSTANCES.items():

@@ -505,8 +505,7 @@ def test_trainer_steps_with_flash_and_dots_attn_match_the_reference(
 
 
 # ------------------------------------------------------------- refusals
-@pytest.mark.parametrize("field,value", [
-    ("packing", True), ("pp_schedule", "1f1b")])
+@pytest.mark.parametrize("field,value", [("pp_schedule", "1f1b")])
 def test_training_config_refuses_options_of_later_slices(field, value):
     with pytest.raises(NotImplementedError, match="arrives with"):
         TrainingConfig(**{field: value})
@@ -523,12 +522,14 @@ def _one_step(model, tc):
 
 @pytest.mark.parametrize("field,value", [
     ("ckpt_dir", None), ("dropout_deterministic", False),
-    ("loss_scale", "dynamic")])
+    ("loss_scale", "dynamic"), ("packing", True)])
 def test_training_config_accepts_options_of_this_slice(tmp_path, field,
                                                        value):
-    """The options the third training slice brings build and train: a
+    """The options the training slices bring build and train: a
     checkpoint directory (saved and read back), dropout keyed by the
-    step, the dynamic loss scale (its metrics)."""
+    step, the dynamic loss scale (its metrics), packing (the reference's
+    flag, which no trainer reads: the batch's positions and segments
+    carry it; tests/test_torch_fp16.py trains packed batches)."""
     if field == "ckpt_dir":
         value = str(tmp_path)
     tc = TrainingConfig(**dict(_TRAIN, **{field: value}))
@@ -581,10 +582,20 @@ def test_trainer_refuses_arguments_of_later_slices(arg):
 
 
 def test_trainer_refuses_fp16_compute_without_the_grad_scaler():
+    """fp16 compute trains (since the fp16 slice) and never without the
+    dynamic GradScaler under `loss_scale="auto"`, as the reference turns
+    it on; "none" is the caller's explicit choice; fp16 parameters are
+    refused by name (AdamW has no fp16 arm)."""
     model = LlamaLMHeadModel(LlamaConfig.tiny(compute_dtype=torch.float16),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="GradScaler"):
-        Trainer(model, TrainingConfig(), device="cpu")
+    assert Trainer(model, TrainingConfig(), device="cpu")._scaler is not None
+    assert Trainer(model, TrainingConfig(loss_scale="none"),
+                   device="cpu")._scaler is None
+    fp16_params = LlamaLMHeadModel(LlamaConfig.tiny(
+        compute_dtype=torch.float16, param_dtype=torch.float16),
+        device="cpu")
+    with pytest.raises(NotImplementedError, match="fp16 parameter arm"):
+        Trainer(fp16_params, TrainingConfig(), device="cpu")
 
 
 def test_trainer_trains_parameters_stored_in_bf16():

@@ -251,6 +251,30 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     `build_data_loader` (`training4_gpt_phase`).  The phase prints its
     wall time.
 
+16. LoRA fine-tuning ("lora") with the run-log, health and numerics
+    hooks: (a) a narrow Llama ("dots_attn": segments keep W, A and B and
+    merge again in the backward) and a narrow GPT ("nothing": whole
+    blocks rebind their adapters), bf16 base, fp32 compute, flash, LoRA
+    rank 4 on every reference target, 4 `SFTTrainer` steps on the card
+    and on the CPU from one base and one set of adapters, the numerics
+    collector on: phase 15's limits on losses, grad norms, moments and
+    the adapters' AdamW-direction bound, the last step's numerics record
+    key for key (`lora_reference_phase`); (b) Llama-3-8B at full width
+    and depth (32 layers, bf16 frozen base), `LoRAConfig(rank=16)`,
+    `TrainingConfig(8, 2, 2048)`, 4 steps on a chat batch through
+    `build_sft_example`, every hook flag on: exact launch counts by arm,
+    the loss falling, the base's fingerprint unchanged, peak memory at
+    most 70 GiB, step p50 and max, tokens/s over slots and loss tokens,
+    mfu, idle share, the run log's records and anomalies, the numerics'
+    device operations a record step (`lora_llama_phase`); (c) two
+    tasks' adapters through `schedule_micro_batches` and
+    `MultiTaskSFTEngine` on the card: each task's adapters change only
+    on its own rows (`lora_multitask_phase`); (d) phase 8's step cut to
+    2 layers with the flags unset: launches by arm and device operations
+    equal those with the hooks' call sites taken out
+    (`lora_identity_phase`).  Phase 3's SwiGLU backward rows (bf16 and
+    fp16) are timed beside autograd's backward of `F.silu(g) * u`.
+
 Prints the `kernels` JSON line, the nvidia-smi line, and last the
 `{"ok": true, "device": ...}` line; the `kernels` line gives AdamW's
 launches by arm ("f32", "bf16") over the training paths, and each fp16
@@ -1205,6 +1229,25 @@ def swiglu_composition(gu):
     return lambda i: F.silu(gu[:, 0]) * gu[:, 1]
 
 
+def swiglu_bwd_composition_ms(gu, dy):
+    """The SwiGLU backward's yardstick, ms: autograd's backward of
+    `F.silu(gate) * up` on gu's halves (in its dtype) for dy — its
+    forward + backward in one CUDA graph, less the forward alone, as
+    the RMS backward's composition is timed."""
+    import torch.nn.functional as F
+    leaves = [gu[:, j].detach().clone().requires_grad_(True)
+              for j in range(2)]
+
+    def fwd_bwd():
+        return torch.autograd.grad(F.silu(leaves[0]) * leaves[1], leaves, dy)
+    with torch.no_grad():
+        f = device_ms(lambda: F.silu(leaves[0]) * leaves[1])
+    fb = device_ms(fwd_bwd)
+    print(f"swiglu_bwd composition {gu.dtype}: silu * up forward + "
+          f"backward {fb:.5f} ms, forward {f:.5f} ms")
+    return fb - f
+
+
 def rope_qkv_case(label, qkv, group, cos_t, sin_t, tol=None):
     """RoPE as the LLaMA attention calls it: q (the grouped view [b, s,
     n_kv, group, hd]) and k read in place from the fused projection qkv
@@ -1401,7 +1444,8 @@ def training_kernel_phase(seed: int):
         lambda i: sw.swiglu_bwd(gu, dy),
         lambda i: torch.stack(sw.swiglu_bwd_plain(gu[:, 0], gu[:, 1], dy),
                               dim=-2),
-        5 * n * 2, 12 * n)]
+        5 * n * 2, 12 * n,
+        composition_ms=swiglu_bwd_composition_ms(gu, dy))]
     del gu, dy
     # RoPE backward: the forward kernel rotating by -theta
     cos, sin = build_rope_cache(8192, 128, 500000.0, device="cuda")
@@ -3032,17 +3076,27 @@ def reference_serving3_phase(seed: int, card, cpu):
               f"({time.perf_counter() - t0:.1f}s)")
 
 
-def _profile(fn, steps: int, top: int = 5, counts=None):
+#: the kernel `torch.cuda._sleep` launches: a marker that opens a
+#: profile's window ahead of a counted call (`device_ops`)
+MARKER = "spin_kernel"
+
+
+def _profile(fn, steps: int, top: int = 5, counts=None, lead: int = 0):
     """Summed device time (ms) per call of the kernels torch.profiler
     sees while `fn` runs `steps` times, the host wall per call around a
     synchronize, and the `top` heaviest kernels by name; `counts`, a
     dict, gets the device operations (kernels, copies, memsets) per call
-    by name."""
+    by name.  `lead` marker launches, synchronized, open the window
+    before the first call; their records stay out of the sums, and
+    `counts[MARKER]` gets how many of them the profiler kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(lead):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
@@ -3050,7 +3104,10 @@ def _profile(fn, steps: int, top: int = 5, counts=None):
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and MARKER in e.name:
+            if counts is not None:
+                counts[MARKER] = counts.get(MARKER, 0) + 1
+        elif e.device_type == DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / steps)
             if counts is not None:
@@ -4174,7 +4231,8 @@ def training4_kernel_phase(seed: int):
         f"swiglu_bwd [{tokens},{inter}] fp16", ulps(1, dtype=f16),
         lambda i: sw.swiglu_bwd(gu, dy),
         lambda i: torch.stack(sw.swiglu_bwd_plain(gu[:, 0], gu[:, 1], dy),
-                              dim=-2), 5 * n * 2, 12 * n)]
+                              dim=-2), 5 * n * 2, 12 * n,
+        composition_ms=swiglu_bwd_composition_ms(gu, dy))]
     del gu, dy
     # RoPE read in place from the fused projection, and its backward
     cos, sin = build_rope_cache(8192, 128, 500000.0, device="cuda")
@@ -4589,6 +4647,566 @@ def training4_gpt_phase(seed: int, kernels, card: str):
     return counts
 
 
+
+# --------------------------------------------------------------- lora
+#: phase 16 (a)'s limits on the last step's numerics record, card against
+#: CPU, beyond phase 15's: an underflow or overflow fraction absolute
+#: (one element in a thousand across a threshold; measured 0), an
+#: element's value (absmax) relative (about 10x the 2.8e-4 the card
+#: measured; PERF.md §6)
+LORA_FRAC_TOL, LORA_ABSMAX_TOL = 1e-3, 2.0 ** -8
+
+
+@contextlib.contextmanager
+def hook_flags(on: bool, runlog=None):
+    """The hooks' flags (HETU_TORCH_HEALTH, HETU_TORCH_NUMERICS and the
+    run log at `runlog`) set, or all unset, for what runs within;
+    restored after."""
+    names = ("HETU_TORCH_HEALTH", "HETU_TORCH_NUMERICS", "HETU_TORCH_RUNLOG")
+    saved = {k: os.environ.pop(k, None) for k in names}
+    if on:
+        os.environ.update(HETU_TORCH_HEALTH="1", HETU_TORCH_NUMERICS="1")
+        if runlog:
+            os.environ["HETU_TORCH_RUNLOG"] = runlog
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def hooks_absent():
+    """The training path as it ran before the hooks: every numerics
+    call a no-op and no adapter lookup (`weight_of` the weight itself),
+    to count on the card what the hooks add with their flags unset."""
+    import types
+    from unittest import mock
+    from hetu_tpu_torch.models.gpt import model as gpt
+    from hetu_tpu_torch.models.llama import model as llama
+    from hetu_tpu_torch.nn import remat
+    from hetu_tpu_torch.obs import numerics
+
+    @contextlib.contextmanager
+    def frame():
+        yield types.SimpleNamespace(stats={})
+    nothing = lambda *a, **k: None      # noqa: E731
+    with contextlib.ExitStack() as stack:
+        for mod, name, fn in (
+                (numerics, "tap_tree", nothing),
+                (numerics, "tap_stats", nothing),
+                (numerics, "merge", nothing),
+                (numerics, "frame", frame),
+                (numerics, "stack", lambda frames: {}),
+                (numerics, "reduce_stacked", lambda scopes: scopes),
+                (remat, "adapter_of", nothing),
+                (remat, "weight_of", lambda w: w),
+                (llama, "weight_of", lambda w: w),
+                (gpt, "weight_of", lambda w: w)):
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        yield
+
+
+def device_ops(fn, tries: int = 6, lead: int = 256) -> int:
+    """The device operations of one call of `fn`: the largest total of
+    `tries` one-call profiles after a warm call (`rope_copy_drop`'s
+    count: the profiler drops events now and then, never adds one).
+    Late in a long run the profiler loses the first few dozen device
+    records of nearly every profile (34 of a training step's 733, while
+    every launch call was recorded on the host), so each profile opens
+    with `lead` marker launches that take the loss, and only a profile
+    that kept some of its markers counts."""
+    fn()
+    most, whole = 0, 0
+    for _ in range(tries):
+        counts = {}
+        _profile(fn, 1, counts=counts, lead=lead)
+        if counts.pop(MARKER, 0):
+            whole += 1
+            most = max(most, round(sum(counts.values())))
+    check(whole > 0, f"device_ops: every profile lost all {lead} markers")
+    return most
+
+
+def arm_table():
+    """{counter: {arm: launches}} of every training wrapper with dtype
+    arms, since the last `zero_counts`."""
+    from hetu_tpu_torch.ops.cuda import adam as ad
+    from hetu_tpu_torch.ops.cuda import flash_attention as fa
+    from hetu_tpu_torch.ops.cuda import fused_norm as fn
+    from hetu_tpu_torch.ops.cuda import rotary as ro
+    from hetu_tpu_torch.ops.cuda import swiglu as sw
+    out = {}
+    for label, mod in (("flash", fa), ("norm", fn), ("swiglu", sw),
+                       ("rotary", ro), ("adam", ad)):
+        for counter, arms in mod.arm_launches.items():
+            if any(arms.values()):
+                out[f"{label}.{counter}"] = {a: n for a, n in arms.items()
+                                             if n}
+    return out
+
+
+def param_digest(params, chunk: int = 1 << 26):
+    """A fingerprint of the tensors' bits computed on the card: for each
+    tensor the sum and an index-weighted sum of its 16- or 32-bit words
+    (int64), a chunk at a time."""
+    out = []
+    for p in params:
+        flat = p.detach().reshape(-1).view(
+            torch.int16 if p.element_size() == 2 else torch.int32)
+        s = w = 0
+        for start in range(0, flat.numel(), chunk):
+            c = flat[start:start + chunk].long()
+            idx = torch.arange(start, start + c.numel(), device=c.device)
+            s += int(c.sum())
+            w += int((c * (idx % 1000003 + 1)).sum())
+        out.append((s, w))
+    return out
+
+
+def _lora_narrow(family: str):
+    """Phase 16 (a)'s narrow configs: Llama (phase 7's widths, flash,
+    "dots_attn": segments that keep W, A and B) and GPT (hidden 512, 8
+    heads of 64, flash, "nothing": whole blocks that rebind their
+    adapters), 2 layers, vocab 4096, a bf16 base (merged as W + (A B
+    scale) rounded to bf16) computing in fp32 (flash's fp32 arm)."""
+    from hetu_tpu_torch.models.gpt import GPTConfig
+    from hetu_tpu_torch.models.llama import LlamaConfig
+    common = dict(vocab_size=4096, num_hidden_layers=2,
+                  max_position_embeddings=2048, param_dtype=torch.bfloat16,
+                  compute_dtype=torch.float32, use_flash_attention=True)
+    if family == "llama":
+        return LlamaConfig.tiny(hidden_size=512, num_attention_heads=4,
+                                num_key_value_heads=2, intermediate_size=1536,
+                                remat_policy="dots_attn", **common)
+    return GPTConfig.tiny(hidden_size=512, num_attention_heads=8,
+                          remat_policy="nothing", **common)
+
+
+def _sft_rows(rng, vocab, rows, seq, prompt=(4, 24)):
+    """Prompt-masked rows [rows, seq]: random ids, a padded tail on some
+    rows, labels from `mask_prompt_labels` with each row's prompt
+    length and true length."""
+    from hetu_tpu_torch.engine import mask_prompt_labels
+    ids = rng.integers(1, vocab, (rows, seq)).astype(np.int32)
+    lens = rng.integers(seq // 2, seq + 1, rows)
+    for i, n in enumerate(lens):
+        ids[i, n:] = 0
+    prompts = rng.integers(*prompt, rows)
+    return {"input_ids": ids,
+            "labels": mask_prompt_labels(ids, prompts, seq_lens=lens)}
+
+
+def _numerics_gap(card_stats, cpu_stats):
+    """The last step's numerics records, card against CPU, key for key:
+    (worst relative gap of absmax, of the other stats; worst absolute
+    gap of a fraction); counts and names must be equal."""
+    check(list(card_stats) == list(cpu_stats),
+          f"numerics scopes {list(card_stats)} vs {list(cpu_stats)}")
+    gaps = {"absmax": 0.0, "other": 0.0, "frac": 0.0}
+    for scope, stats in cpu_stats.items():
+        check(list(card_stats[scope]) == list(stats),
+              f"numerics {scope}: stats {list(card_stats[scope])} vs "
+              f"{list(stats)}")
+        for k, v in stats.items():
+            a, b = float(card_stats[scope][k]), float(v)
+            if k == "nonfinite":
+                check(a == b, f"numerics {scope}.{k}: {a} vs {b}")
+            elif k.endswith("_frac"):
+                gaps["frac"] = max(gaps["frac"], abs(a - b))
+            else:
+                key = "absmax" if k == "absmax" else "other"
+                gaps[key] = max(gaps[key], abs(a - b) / max(abs(b), 1e-30))
+    return gaps
+
+
+def lora_reference_phase(seed: int, card: str):
+    """Phase 16 (a): LoRA SFT of a narrow Llama and a narrow GPT
+    (`_lora_narrow`), rank 4 on every reference target, on the card and
+    on the CPU from one base and one set of adapters (the CPU's draw),
+    4 `SFTTrainer` steps of prompt-masked batches [4 x 64] in two
+    micro-batches, HETU_TORCH_NUMERICS and HETU_TORCH_HEALTH on (fp32
+    compute, so phase 15's limits hold the LoRA arithmetic, not bf16's
+    rounding; the bf16 path is `tests/test_torch_cuda.py`'s): losses
+    within T4_LOSS_TOL and grad norms within T4_GRAD_NORM_TOL relative;
+    every adapter leaf's m and v within T4_MOMENT_TOL of its largest
+    entry on the CPU; every adapter element within phase 15's
+    AdamW-direction bound (`_t4_bound`); the last step's numerics
+    record scope for scope and stat for stat (counts equal, fractions
+    within LORA_FRAC_TOL, absmax within LORA_ABSMAX_TOL, the others
+    within T4_GRAD_NORM_TOL relative); the base untouched."""
+    from hetu_tpu_torch.engine import SFTTrainer, TrainingConfig
+    from hetu_tpu_torch.models.gpt import GPTLMHeadModel
+    from hetu_tpu_torch.models.llama import LlamaLMHeadModel
+    from hetu_tpu_torch.peft import LoRAConfig
+    t0 = time.perf_counter()
+    tc = TrainingConfig(global_batch_size=4, micro_batch_size=2, seq_len=64,
+                        warmup_steps=1, total_steps=10, log_every=100)
+    out = {}
+    for family in ("llama", "gpt"):
+        cfg = _lora_narrow(family)
+        cls = LlamaLMHeadModel if family == "llama" else GPTLMHeadModel
+        cpu = cls(cfg, device="cpu", seed=seed)
+        gpu = cls(cfg, device="cuda", seed=seed)
+        gpu.load_state_dict(cpu.state_dict())
+        for layer in cpu.layers:       # flash's plain version on the CPU
+            layer.attn.use_pallas = True
+        with hook_flags(True):
+            trainers = [SFTTrainer(gpu, tc, lora=LoRAConfig(rank=4),
+                                   device="cuda"),
+                        SFTTrainer(cpu, tc, lora=LoRAConfig(rank=4),
+                                   device="cpu")]
+        with torch.no_grad():
+            for a, b in zip(trainers[0].model.lora.values(),
+                            trainers[1].model.lora.values()):
+                a.copy_(b)
+        for tr in trainers:
+            tr.build()
+        before = param_digest(gpu.parameters())
+        rng = np.random.default_rng(seed + 61)
+        batches = [_sft_rows(rng, cfg.vocab_size, 4, 64) for _ in range(4)]
+        opt = trainers[1].optimizer
+        bound = [torch.zeros(p.shape, device="cuda")
+                 for p in trainers[0].params]
+        on_card, on_cpu, stats = [], [], []
+        for step, batch in enumerate(batches, 1):
+            for tr, rows in zip(trainers, (on_card, on_cpu)):
+                m = tr.train_step(batch)
+                stats.append(m.pop("numerics"))
+                rows.append({k: float(v) for k, v in m.items()})
+            _t4_bound(bound, trainers, step, opt)
+        worst = {k: max(abs(a[k] - b[k]) / abs(b[k])
+                        for a, b in zip(on_card, on_cpu))
+                 for k in ("loss", "grad_norm")}
+        check(worst["loss"] <= T4_LOSS_TOL
+              and worst["grad_norm"] <= T4_GRAD_NORM_TOL,
+              f"{family} LoRA card vs CPU differs: {worst}")
+        moments = {}
+        for key in ("m", "v"):
+            per_leaf = []
+            for name, a, b in zip(trainers[1].names,
+                                  trainers[0].opt_state[key],
+                                  trainers[1].opt_state[key]):
+                b = b.to("cuda")
+                scale = b.abs().max().item() or 1.0
+                per_leaf.append(((a - b).abs().max().item() / scale, name))
+            moments[key] = max(per_leaf)
+            check(moments[key][0] <= T4_MOMENT_TOL,
+                  f"{family} LoRA card vs CPU {key} of {moments[key][1]}: "
+                  f"{moments[key][0]:.3g} of its largest entry")
+        over = max(((a.detach() - b.detach().to("cuda")).abs()
+                    / bnd).max().item()
+                   for a, b, bnd in zip(trainers[0].params,
+                                        trainers[1].params, bound))
+        check(over <= 1.0, f"{family} LoRA adapters past their bound: {over}")
+        gaps = _numerics_gap(stats[-2], stats[-1])
+        check(gaps["frac"] <= LORA_FRAC_TOL
+              and gaps["absmax"] <= LORA_ABSMAX_TOL
+              and gaps["other"] <= T4_GRAD_NORM_TOL,
+              f"{family} LoRA numerics card vs CPU: {gaps}")
+        check(param_digest(gpu.parameters()) == before,
+              f"{family} LoRA: the frozen base changed")
+        check(all(p.grad is None for p in gpu.parameters()),
+              f"{family} LoRA: the base has gradients")
+        out[family] = {"worst": worst, "moments": moments,
+                       "adapters_of_bound": over, "numerics_gaps": gaps,
+                       "scopes": list(stats[-1]),
+                       "losses": [x["loss"] for x in on_card]}
+        del trainers, gpu, cpu
+    print("lora reference: card vs CPU, 4 SFT steps, rank 4, bf16 base, "
+          "fp32 compute, flash: " + json.dumps(out) + f" (tolerances loss "
+          f"{T4_LOSS_TOL}, grad norm {T4_GRAD_NORM_TOL}, moments "
+          f"{T4_MOMENT_TOL}, adapters 1 x their bound, numerics fractions "
+          f"{LORA_FRAC_TOL}, absmax {LORA_ABSMAX_TOL}, others "
+          f"{T4_GRAD_NORM_TOL}) ({time.perf_counter() - t0:.1f}s); {card}")
+
+
+def sft_chat_batch(seed: int, vocab: int, rows: int, seq: int):
+    """`rows` chat samples of `TokenizedDataset.synthetic`-sized texts
+    (prompts of 200-900 characters, answers of 200-1,000) through
+    `build_sft_example` (the in-tree byte-fallback SentencePiece model,
+    an instruction template, eos closing the answer), padded to `seq`;
+    labels from `mask_prompt_labels` (held equal to the template's own
+    mask).  Returns (batch, loss tokens)."""
+    from hetu_tpu_torch.data import (ChatFormat, InputOutputTemplate,
+                                     TokenizedDataset, build_sft_example)
+    from hetu_tpu_torch.data.tokenizers.sp_model import (
+        SentencePieceTokenizer, write_model_proto)
+    from hetu_tpu_torch.engine import mask_prompt_labels
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+    pieces += [(f"<0x{b:02X}>", 0.0, 6) for b in range(256)]
+    tok = SentencePieceTokenizer(model_bytes=write_model_proto(
+        pieces, 1, byte_fallback=True))
+    text = lambda s: "".join(chr(97 + int(c)) if c < 26 else " "  # noqa
+                             for c in s)
+    prompts = TokenizedDataset.synthetic(rows, 30, 200, 900, seed=seed)
+    answers = TokenizedDataset.synthetic(rows, 30, 200, 1000,
+                                         seed=seed + 1)
+    ids = np.zeros((rows, seq), np.int32)
+    labels = np.full((rows, seq), -100, np.int32)
+    plens, lens = [], []
+    for i in range(rows):
+        r_ids, r_lab = build_sft_example(
+            {"input": text(prompts[i]), "output": text(answers[i])},
+            InputOutputTemplate(), tok.encode, chat_format=ChatFormat(),
+            bos_id=tok.bos_id, eos_id=tok.eos_id, max_len=seq)
+        ids[i, :len(r_ids)] = r_ids
+        labels[i, :len(r_lab)] = r_lab
+        plens.append(int(np.argmax(np.asarray(r_lab) != -100)))
+        lens.append(len(r_ids))
+    masked = mask_prompt_labels(ids, plens, seq_lens=lens)
+    check(np.array_equal(masked, labels),
+          "mask_prompt_labels differs from the template's mask")
+    check(int(ids.max()) < vocab, "token ids past the vocabulary")
+    return {"input_ids": ids, "labels": masked}, int(
+        (masked[:, 1:] != -100).sum())
+
+
+def lora_llama_phase(seed: int, kernels, card: str):
+    """Phase 16 (b): LoRA SFT of Llama-3-8B at full width and depth (32
+    layers, bf16 frozen base drawn from `seed`, bf16 compute, flash,
+    "dots_attn"), `LoRAConfig(rank=16)` on the reference's Llama
+    targets, `SFTTrainer(..., TrainingConfig(global_batch_size=8,
+    micro_batch_size=2, seq_len=2048), device="cuda").train(...)`, 4
+    steps on one chat batch (`sft_chat_batch`), HETU_TORCH_RUNLOG,
+    HETU_TORCH_HEALTH and HETU_TORCH_NUMERICS on: exact launch counts
+    each step (phase 8's counts at 32 layers; AdamW once on its fp32
+    arm over the adapter leaves), the loss finite and falling, only the
+    adapters changed (the base's fingerprint before and after, no
+    gradient on it), peak memory at most 70 GiB (else the micro-batch
+    halves); step p50 and max, tokens/s over slots and over loss
+    tokens, mfu, the run log's records by kind and its anomalies, one
+    step profiled with the hooks on (idle share) and one with the
+    numerics collector off (the numerics' device operations a record
+    step).  Returns the run's launches."""
+    import tempfile
+    from hetu_tpu_torch.engine import SFTTrainer, TrainingConfig
+    from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
+    from hetu_tpu_torch.obs.runlog import RunLog
+    from hetu_tpu_torch.peft import LoRAConfig
+    from hetu_tpu_torch.peft.lora import target_parameters
+    t_phase = time.perf_counter()
+    cfg = LlamaConfig.llama3_8b(param_dtype=torch.bfloat16,
+                                remat_policy="dots_attn")
+    L, gbs, seq = cfg.num_hidden_layers, 8, 2048
+    lora = LoRAConfig(rank=16)
+    batch, loss_tokens = sft_chat_batch(seed, cfg.vocab_size, gbs, seq)
+    tmp = tempfile.mkdtemp(prefix="lora_runlog_")
+    log_path = os.path.join(tmp, "runlog.jsonl")
+    model = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
+    n_base = sum(p.numel() for p in model.parameters())
+    targets = [n for n, _ in target_parameters(model, lora)]
+    before = param_digest(model.parameters())
+    for mbs in (2, 1):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with hook_flags(True, runlog=log_path):
+            tr = SFTTrainer(model, TrainingConfig(
+                global_batch_size=gbs, micro_batch_size=mbs, seq_len=seq,
+                lr=1e-3, warmup_steps=1, total_steps=100, log_every=1),
+                lora=lora, device="cuda").build()
+        n_micro = gbs // mbs
+        per_step = {name: 0 for name in kernels}
+        per_step.update(_t4_per_step(kernels, cfg, n_micro, "dots_attn"))
+        for name in [k for k in per_step if k.endswith("_f16")]:
+            per_step[name] = 0
+        zero_counts(kernels)
+        losses, times, launches, arms = [], [], {k: 0 for k in kernels}, None
+        cut = False
+        for i in range(4):
+            t0 = time.perf_counter()
+            metrics = tr.train([batch], num_steps=1)
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            counts = read_counts(kernels)
+            check(counts == per_step, f"lora step {i + 1} launches {counts},"
+                                      f" expected {per_step}")
+            arms = arm_table()
+            check_adam_arm(f"lora step {i + 1}", 1, "f32")
+            for k, n in counts.items():
+                launches[k] += n
+            zero_counts(kernels)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if i == 0 and peak > TRAIN_PEAK_GIB and mbs > 1:
+                print(f"lora: CUT micro-batch {mbs} -> {mbs // 2}: peak "
+                      f"{peak:.1f} GiB > {TRAIN_PEAK_GIB} GiB")
+                cut = True
+                break
+        if not cut:
+            break
+        tr.close()
+        del tr
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(peak <= TRAIN_PEAK_GIB, f"lora peak {peak:.2f} GiB")
+    check(all(math.isfinite(x) for x in losses), f"lora losses {losses}")
+    check(losses[-1] < losses[0], f"lora loss did not fall: {losses}")
+    n_adapters = sum(p.numel() for p in tr.params)
+    t_prof = time.perf_counter()
+    with_numerics = {}
+    busy, wall, by_name, top = _profile(lambda: tr.train_step(batch), 1,
+                                        top=8, counts=with_numerics)
+    tr._numerics = False
+    without = {}
+    _profile(lambda: tr.train_step(batch), 1, counts=without)
+    tr._numerics = True
+    t_prof = time.perf_counter() - t_prof
+    zero_counts(kernels)
+    tr.close()
+    recs = RunLog.read(log_path)
+    kinds = {}
+    for r in recs:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    anomalies = [(r["anomaly"], r["step"]) for r in recs
+                 if r["kind"] == "anomaly"]
+    last = [r for r in recs if r["kind"] == "numerics"][-1]
+    del tr
+    gc.collect()
+    check(param_digest(model.parameters()) == before,
+          "lora: the frozen base changed")
+    check(all(p.grad is None and not p.requires_grad
+              for p in model.parameters()), "lora: the base has gradients")
+    p50 = float(np.median(times))
+    slots = gbs * seq
+    flops = cfg.flops_per_token(seq)
+    print("lora " + json.dumps({
+        "model": "Llama-3-8B", "layers": L, "base_params": n_base,
+        "base_dtype": "bf16", "compute_dtype": "bf16",
+        "remat_policy": "dots_attn", "attention": "flash",
+        "lora_rank": lora.rank, "lora_targets": len(targets),
+        "adapter_params": n_adapters, "micro_batch": mbs,
+        "micro_batches": n_micro, "seq_len": seq, "slots_per_step": slots,
+        "loss_tokens_per_step": loss_tokens, "losses": losses,
+        "step_s": times, "step_s_p50": p50, "step_s_max": max(times),
+        "tokens_per_s_slots": slots / p50,
+        "tokens_per_s_loss_tokens": loss_tokens / p50,
+        "mfu": flops * slots / p50 / PEAK_OPS_PER_S[torch.bfloat16],
+        "mfu_counts": "the model's training FLOPs per token over the "
+                      "slots (6 x parameters + attention, no recompute; "
+                      "the frozen base's weight gradients are taken for "
+                      "the adapted matrices, as the reference's merge "
+                      "does)",
+        "peak_memory_gib": peak,
+        "launches_per_step": {k: v for k, v in per_step.items() if v},
+        "launches_by_arm_per_step": arms,
+        "runlog_records": kinds, "anomalies": anomalies,
+        "numerics_scopes": list(last["scopes"]),
+        "profiled_step": {"device_busy_ms": busy, "wall_ms": wall,
+                          "device_idle_share": 1.0 - busy / (p50 * 1e3),
+                          "top_kernels_ms": top},
+        "device_ops_step": round(sum(with_numerics.values())),
+        "device_ops_step_numerics_off": round(sum(without.values())),
+        "numerics_ops_per_record_step": round(
+            sum(with_numerics.values()) - sum(without.values())),
+        "profiles_s": t_prof, "phase_s": time.perf_counter() - t_phase,
+        "card": card}))
+    del model
+    return launches
+
+
+def lora_multitask_phase(seed: int, card: str):
+    """Phase 16 (c): two tasks' adapters (rank 4) over phase 16 (a)'s
+    narrow Llama on the card, micro-batches from
+    `schedule_micro_batches` (fused leftovers included), one
+    `MultiTaskSFTEngine.train_micro` each: every task with rows in the
+    micro changes its adapters, the other keeps its bits; AdamW launches
+    once a task span; the base untouched."""
+    from hetu_tpu_torch.models.llama import LlamaLMHeadModel
+    from hetu_tpu_torch.ops.cuda import adam as ad
+    from hetu_tpu_torch.optim import AdamW
+    from hetu_tpu_torch.peft import LoRAConfig, MultiLoRAManager
+    from hetu_tpu_torch.peft.multi_task import (MultiTaskSFTEngine,
+                                                schedule_micro_batches)
+    t0 = time.perf_counter()
+    model = LlamaLMHeadModel(_lora_narrow("llama"), device="cuda",
+                             seed=seed)
+    base = param_digest(model.parameters())
+    mgr = MultiLoRAManager(model, LoRAConfig(rank=4), ["a", "b"], seed=seed)
+    eng = MultiTaskSFTEngine(mgr, AdamW(lr=1e-3, device="cuda"))
+    rng = np.random.default_rng(seed + 71)
+    samples = {t: [rng.integers(1, 4096, int(n)).astype(np.int32)
+                   for n in rng.integers(20, 60, k)]
+               for t, k in ((0, 9), (1, 5))}
+    micros = schedule_micro_batches(samples, max_tokens=256,
+                                    train_task_num=2, bucket_sizes=(32, 64))
+    spans, seen = 0, set()
+    for micro in micros:
+        before = {t: [p.clone() for p in mgr.parameters(t)] for t in "ab"}
+        ad.launches = 0
+        eng.train_micro(micro)
+        ran = {"ab"[t] for t in micro.task_ids()}
+        seen |= ran
+        spans += len(ran)
+        check(ad.launches == len(ran), f"multi-task: {ad.launches} AdamW "
+                                       f"launches for {len(ran)} spans")
+        for t in "ab":
+            same = all(torch.equal(x, y) for x, y in zip(
+                before[t], mgr.parameters(t)))
+            check(same == (t not in ran),
+                  f"multi-task: task {t} {'kept' if same else 'changed'} "
+                  f"its adapters in a micro of tasks {sorted(ran)}")
+    check(seen == {"a", "b"} and any(len(m.task_ids()) == 2 for m in micros),
+          "multi-task: no fused micro")
+    check(param_digest(model.parameters()) == base,
+          "multi-task: the base changed")
+    print(f"lora multi-task: {len(micros)} micro-batches, {spans} task "
+          f"spans, shapes {sorted({(m.batch_size, m.seq_length) for m in micros})}"
+          f"; each task's adapters changed only on its own rows "
+          f"({time.perf_counter() - t0:.1f}s); {card}")
+    del eng, mgr, model
+
+
+def lora_identity_phase(seed: int, kernels, card: str):
+    """Phase 16 (d): phase 8's step (Llama-3-8B widths, fp32 parameters,
+    bf16 compute, flash, "dots_attn", `TrainingConfig(4, 2, 2048)`) cut
+    to 2 layers with every hook flag unset: each kernel's launches by
+    arm and the device operations of one step (the largest of six
+    profiles) equal those with the hooks' call sites taken out
+    (`hooks_absent`)."""
+    from hetu_tpu_torch.engine import Trainer, TrainingConfig
+    from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
+    t0 = time.perf_counter()
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=2, remat_policy="dots_attn")
+    batch = _train_batch(cfg.vocab_size, 4, 2048, seed)
+    with hook_flags(False):
+        model = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
+        tr = Trainer(model, TrainingConfig(
+            global_batch_size=4, micro_batch_size=2, seq_len=2048, lr=1e-3,
+            warmup_steps=2, total_steps=1000, log_every=1),
+            device="cuda").build()
+        check(tr.run_log is None and tr._health is None and not tr._numerics,
+              "hooks on with their flags unset")
+        per_step = {name: 0 for name in kernels}
+        per_step.update(_t4_per_step(kernels, cfg, 2, "dots_attn"))
+        for name in [k for k in per_step if k.endswith("_f16")]:
+            per_step[name] = 0
+        result = {}
+        for absent in (False, True):
+            with hooks_absent() if absent else contextlib.nullcontext():
+                tr.train_step(batch)
+                torch.cuda.synchronize()
+                zero_counts(kernels)
+                tr.train_step(batch)
+                torch.cuda.synchronize()
+                counts, arms = read_counts(kernels), arm_table()
+                check(counts == per_step, f"phase 8's step (absent="
+                      f"{absent}) launches {counts}, expected {per_step}")
+                zero_counts(kernels)
+                ops = device_ops(lambda: tr.train_step(batch))
+                zero_counts(kernels)
+            result["hooks_absent" if absent else "flags_unset"] = {
+                "launches_by_arm": arms, "device_ops": ops}
+    check(result["flags_unset"] == result["hooks_absent"],
+          f"the hooks change phase 8's step with their flags unset: "
+          f"{result}")
+    print("lora identity: phase 8's step at 2 layers, flags unset vs the "
+          "hooks taken out: " + json.dumps(result)
+          + f" ({time.perf_counter() - t0:.1f}s); {card}")
+    del tr, model
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4713,6 +5331,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     by_path["training4_gpt"] = training4_gpt_phase(args.seed, kernels, smi)
     print(f"training4: {time.perf_counter() - t0:.1f}s; {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # LoRA fine-tuning with the run-log, health and numerics hooks
+    t0 = time.perf_counter()
+    lora_reference_phase(args.seed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["lora"] = lora_llama_phase(args.seed, kernels, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lora_multitask_phase(args.seed, smi)
+    lora_identity_phase(args.seed, kernels, smi)
+    print(f"lora: {time.perf_counter() - t0:.1f}s; {smi}")
 
     line = []
     for name, (mod, attr, source, replaces) in kernels.items():

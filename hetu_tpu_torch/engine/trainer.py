@@ -54,10 +54,42 @@ go to the model, whose attention keeps each packed sequence to itself
 and whose positions restart with each.  A micro-batch may count zero
 tokens (rows of padding alone): the step divides by at least one.
 
+The hooks are the reference's, driven by its flags (read once, when
+the trainer is made):
+
+  * the run log (`obs.runlog.RunLog`, at HETU_TORCH_RUNLOG or
+    `<ckpt_dir>/runlog.jsonl`): a `step` record every step, with the
+    loss when the loop read it (log boundaries; every step under
+    HETU_TORCH_HEALTH) and device memory (`torch.cuda.memory_allocated`)
+    on log boundaries only; a `scaler` record for each growth or
+    backoff of the scale (when `settle` reads it); a `fault` record for
+    each checkpoint `restore_latest_valid` walks past; a `summary` when
+    `train` ends;
+  * HETU_TORCH_HEALTH: `obs.health.HealthMonitor.observe_step` every
+    step (the loss and grad norm read each step: the one per-step wait
+    the flag opts into), and on a non-finite loss or grad norm an
+    emergency `save(wait=True)` when checkpoints are configured
+    (best-effort, never raising);
+  * HETU_TORCH_NUMERICS: a numerics collector around each step — the
+    model's "embed", "hidden" and "logits" taps per micro-batch, folded
+    by each stat's rule; "params" and "grads" (the token-divided
+    gradients, before the clip) and "scaler"; AdamW's "update" and
+    "adam_m" — recorded every HETU_TORCH_NUMERICS_EVERY steps (a wait
+    for the card) and fed to the numerics health monitor.
+
+With every flag unset none of them runs, and a step launches what it
+launched without them; only a `ckpt_dir` opens the run log beside the
+checkpoints, as the reference's does (host records: no wait, no device
+operation).  The trainable parameters are the model's
+(`_named_trainable`; `SFTTrainer` with LoRA: the adapters alone, the
+base frozen, with no `.grad`); the taps, the clip and the checkpoints
+cover them alone.
+
 The reference's options that need a later slice raise
 NotImplementedError: those of `TrainingConfig`, `LlamaConfig` and
-`GPTConfig` where they are made; here a strategy or mesh, the run-log,
-health and numerics hooks, and fp16 parameters.
+`GPTConfig` where they are made; here a strategy or mesh, and fp16
+parameters.  The reference's `Trainer` has no `run_log`, `health` or
+`numerics` keywords, and the port's none either.
 """
 from __future__ import annotations
 
@@ -70,7 +102,11 @@ import numpy as np
 import torch
 
 from hetu_tpu_torch.engine.trainer_config import TrainingConfig
+from hetu_tpu_torch.obs import numerics
+from hetu_tpu_torch.obs.health import (maybe_health_monitor,
+                                       maybe_numerics_health_monitor)
 from hetu_tpu_torch.obs.metrics import MetricsRegistry
+from hetu_tpu_torch.obs.runlog import RunLog, default_runlog_path
 from hetu_tpu_torch.ops.activations import DropoutKey
 from hetu_tpu_torch.optim.grad_scaler import GradScaler, classify_transition
 from hetu_tpu_torch.optim.optimizer import (AdamW, clip_by_global_norm,
@@ -80,13 +116,11 @@ from hetu_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("hetu_tpu_torch.trainer")
 
-_HOOKS = "the training hooks slice (ROADMAP Queue A item 2)"
 _FP16_PARAMS = "AdamW's fp16 parameter arm (ROADMAP Queue B1)"
 _MULTI_GPU = "the multi-GPU slice (ROADMAP Queue A item 5)"
 
 #: Trainer keyword arguments beyond this slice
-_LATER_ARGS = {"strategy": _MULTI_GPU, "mesh": _MULTI_GPU,
-               "run_log": _HOOKS, "health": _HOOKS, "numerics": _HOOKS}
+_LATER_ARGS = {"strategy": _MULTI_GPU, "mesh": _MULTI_GPU}
 
 
 class Trainer:
@@ -133,20 +167,38 @@ class Trainer:
         self._ckpt = (CheckpointManager(c.ckpt_dir, c.ckpt_keep,
                                         registry=self.registry)
                       if c.ckpt_dir else None)
+        path = default_runlog_path(c.ckpt_dir)
+        self.run_log = RunLog(path) if path else None
+        self._health = maybe_health_monitor(
+            runlog=self.run_log, registry=self.registry,
+            emergency_hook=(self._health_emergency_save
+                            if self._ckpt is not None else None))
+        self._numerics = numerics.numerics_enabled()
+        self._numerics_every = numerics.record_every()
+        self._num_health = (maybe_numerics_health_monitor(
+            runlog=self.run_log, registry=self.registry)
+            if self._numerics else None)
         self.params = None
         self.opt_state = None
         self._accum = None
         self._pending = None
+        self._pending_step = None
         self._last_loss_scale = None
         self.global_step = 0
 
+    def _named_trainable(self):
+        """(name, parameter) of what the trainer trains: every parameter
+        of the model."""
+        return list(self.model.named_parameters())
+
     def build(self):
-        """Turn gradients on for the model's parameters and create the
+        """Turn gradients on for the trainable parameters and create the
         optimizer state (fp32 moments) beside them, fp32 gradient
         accumulators for parameters stored below fp32, and the scaler's
         state."""
-        self.names = [n for n, _ in self.model.named_parameters()]
-        self.params = list(self.model.parameters())
+        named = self._named_trainable()
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
         for p in self.params:
             p.requires_grad_(True)
         self.opt_state = self.optimizer.init(self.params)
@@ -181,14 +233,18 @@ class Trainer:
         in fp32; returns (loss sum, token count)."""
         c = self.config
         lsum = csum = None
+        frames = []
         for i in range(self.n_micro):
             mb = {k: v[i] for k, v in batches.items()}
-            loss, count = self.model(
-                mb["input_ids"], mb["labels"],
-                position_ids=mb.get("position_ids"),
-                segment_ids=mb.get("segment_ids"),
-                rng=None if rng is None else rng.fold(i),
-                deterministic=c.dropout_deterministic, loss_reduction="sum")
+            with numerics.frame() as nf:
+                loss, count = self.model(
+                    mb["input_ids"], mb["labels"],
+                    position_ids=mb.get("position_ids"),
+                    segment_ids=mb.get("segment_ids"),
+                    rng=None if rng is None else rng.fold(i),
+                    deterministic=c.dropout_deterministic,
+                    loss_reduction="sum")
+            frames.append(nf.stats)
             (loss if scale is None else loss.float() * scale).backward()
             if self._accum is not None:
                 with torch.no_grad():
@@ -200,14 +256,28 @@ class Trainer:
                         p.grad = None
             lsum = loss.detach() if lsum is None else lsum + loss.detach()
             csum = count if csum is None else csum + count
+        # the model's taps, per micro-batch, folded by each stat's rule
+        numerics.merge(numerics.reduce_stacked(numerics.stack(frames)))
         return lsum, csum
 
     def train_step(self, host_batch: Dict[str, np.ndarray]):
         """One optimizer step over the global batch.  Returns {"loss",
         "grad_norm", "lr"} (and with the scaler "loss_scale",
-        "amp_skipped") as 0-d tensors, without waiting for the card."""
+        "amp_skipped"; under HETU_TORCH_NUMERICS "numerics", the step's
+        {scope: {stat: tensor}}) as 0-d tensors, without waiting for the
+        card."""
         if self.params is None:
             self.build()
+        if not self._numerics:
+            return self._train_step(host_batch)
+        with numerics.collecting() as col:
+            metrics = self._train_step(host_batch)
+            stats = col.finalize()
+        if stats:
+            metrics["numerics"] = stats
+        return metrics
+
+    def _train_step(self, host_batch):
         c = self.config
         batches = self.prepare_batch(host_batch)
         scale = None
@@ -225,6 +295,12 @@ class Trainer:
             div = denom if scale is None else denom * scale
             for g in grads:
                 g.div_(div)
+            if self._numerics:
+                numerics.tap_tree("params", self.params)
+                numerics.tap_tree("grads", grads)
+                if scale is not None:
+                    numerics.tap_stats("scaler",
+                                       scale=self.scaler_state["scale"])
             grads, gnorm = clip_by_global_norm(grads, c.grad_clip)
             if self._ckpt is not None:
                 self._ckpt.fence()
@@ -261,6 +337,7 @@ class Trainer:
         else:
             host, event = flag_and_scale.clone(), None
         self._pending = (host, event)
+        self._pending_step = self.global_step + 1
         metrics["grad_norm"] = torch.where(
             finite, gnorm, torch.full_like(gnorm, math.nan))
         metrics["loss_scale"] = self.scaler_state["scale"]
@@ -276,8 +353,8 @@ class Trainer:
         """Read the last scaled step's finite flag and scale (a wait for
         that step alone): take a skipped update back from AdamW's step
         count, set the scaler.loss_scale gauge and count a
-        scaler.growth / scaler.backoff transition.  A no-op when
-        nothing is pending."""
+        scaler.growth / scaler.backoff transition (and log it as a
+        `scaler` run-log record).  A no-op when nothing is pending."""
         if self._pending is None:
             return
         host, event = self._pending
@@ -291,14 +368,20 @@ class Trainer:
         event_name = classify_transition(self._last_loss_scale, scale)
         if event_name is not None:
             self.registry.inc(f"scaler.{event_name}")
+            if self.run_log is not None:
+                self.run_log.log("scaler", event=event_name, scale=scale,
+                                 prev=self._last_loss_scale,
+                                 step=self._pending_step)
         self._last_loss_scale = scale
 
     def train(self, batches: Iterable[Dict[str, np.ndarray]],
               num_steps: Optional[int] = None):
         """The step loop; returns the last step's metrics.  On a
-        `log_every` boundary it reads the loss (a wait for the card), so
-        that step's time in trainer.step_time_s includes the card's work;
-        between boundaries it is the host's time to enqueue the step."""
+        `log_every` boundary, and every step under HETU_TORCH_HEALTH, it
+        reads the loss (a wait for the card), so that step's time in
+        trainer.step_time_s includes the card's work; otherwise it is
+        the host's time to enqueue the step.  The hooks run after the
+        step (module docstring)."""
         c = self.config
         if self.params is None:
             self.build()
@@ -311,7 +394,8 @@ class Trainer:
             t_step = time.perf_counter()
             metrics = self.train_step(host_batch)
             log_boundary = self.global_step % c.log_every == 0
-            if log_boundary:
+            loss = None
+            if log_boundary or self._health is not None:
                 loss = float(metrics["loss"])
             step_s = time.perf_counter() - t_step
             batch_tokens = int(np.prod(np.shape(host_batch["input_ids"])))
@@ -319,6 +403,19 @@ class Trainer:
             self.registry.inc("trainer.steps")
             self.registry.inc("trainer.tokens", batch_tokens)
             self.registry.observe("trainer.step_time_s", step_s)
+            nstats = metrics.pop("numerics", None)
+            if (nstats is not None
+                    and self.global_step % self._numerics_every == 0):
+                rec = numerics.record(nstats, step=self.global_step,
+                                      registry=self.registry,
+                                      runlog=self.run_log)
+                if self._num_health is not None and rec is not None:
+                    self._num_health.observe(self.global_step,
+                                             rec["scopes"])
+            if self._health is not None:
+                self._health.observe_step(
+                    self.global_step, step_s, loss=loss,
+                    grad_norm=float(metrics["grad_norm"]))
             if log_boundary:
                 dt = time.perf_counter() - t0
                 logger.info(
@@ -327,10 +424,45 @@ class Trainer:
                     f"grad_norm {float(metrics['grad_norm']):.3f} "
                     f"tokens/s {tokens / max(dt, 1e-9):,.0f}")
                 t0, tokens = time.perf_counter(), 0
+            if self.run_log is not None:
+                self.run_log.step(
+                    self.global_step, step_s, loss=loss,
+                    tokens_per_s=batch_tokens / max(step_s, 1e-9),
+                    device_mem_bytes=(self._device_mem_bytes()
+                                      if log_boundary else None),
+                    plan=self._plan(host_batch))
             if self._ckpt is not None and self.global_step % c.ckpt_every == 0:
                 self.save()
         self.settle()
+        if self.run_log is not None:
+            self.run_log.log("summary", metrics=self.registry.snapshot())
         return metrics
+
+    def _device_mem_bytes(self) -> Optional[int]:
+        """Device memory allocated by PyTorch (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.memory_allocated(self.device)
+
+    @staticmethod
+    def _plan(host_batch) -> str:
+        """The step's plan, as the reference fingerprints it: the
+        strategy ("single": one device) and the batch shapes."""
+        shapes = ",".join(f"{k}:{'x'.join(map(str, np.shape(v)))}"
+                          for k, v in sorted(host_batch.items()))
+        return f"single|{shapes}"
+
+    def _health_emergency_save(self):
+        """The health monitor's emergency hook on a non-finite loss or
+        grad norm: a checkpoint now, written before returning."""
+        self.save(wait=True)
+
+    def close(self):
+        """Write a `summary` record and close the run log.  Safe to call
+        more than once; training after it leaves no run events."""
+        if self.run_log is not None:
+            self.run_log.log("summary", metrics=self.registry.snapshot())
+            self.run_log.close()
 
     # ------------------------------------------------------------------
     def evaluate(self, batches: Iterable[Dict[str, np.ndarray]],
@@ -406,9 +538,16 @@ class Trainer:
 
     def restore_latest_valid(self):
         """Resume from the newest checkpoint that verifies, walking back
-        past corrupt or torn saves (each counts ckpt.fallbacks; checksum
-        failures are quarantined), through `restore`.  FileNotFoundError
-        when there is none, `CheckpointCorruptError` when none
-        restores."""
-        self._manager().restore_latest_valid(restore_fn=self.restore)
+        past corrupt or torn saves (each counts ckpt.fallbacks and leaves
+        a `fault` run-log record; checksum failures are quarantined),
+        through `restore`.  FileNotFoundError when there is none,
+        `CheckpointCorruptError` when none restores."""
+
+        def note_fallback(step, why):
+            if self.run_log is not None:
+                self.run_log.log("fault", fault="ckpt_corrupt", step=step,
+                                 detail=why)
+
+        self._manager().restore_latest_valid(restore_fn=self.restore,
+                                             on_fallback=note_fallback)
         return self

@@ -16,9 +16,13 @@ mechanical; the model names its family's prefixes in `jax_layers`:
     anything else                         ->  the same dotted name
 
 A config with a `use_scan` field (GPT's) names the layout it expects,
-and the other raises.  A key the port lacks, a port parameter the tree
-lacks, or any shape that differs raises ValueError naming it; nothing
-is filled partially before the whole tree has been checked.
+and the other raises.  `load_jax_lora(model, tree)` maps the
+reference's LoRA tree (`init_lora_params`: {"A", "B"} under each target
+leaf's path, [L, in, r] / [L, r, out] under a stacked prefix) the same
+way onto the port's per-layer adapters.  A key the port lacks, a port
+parameter the tree lacks, or any shape that differs raises ValueError
+naming it; nothing is filled partially before the whole tree has been
+checked.
 """
 from __future__ import annotations
 
@@ -37,6 +41,61 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
             out.update(_flatten(v, name + "."))
         else:
             out[name] = np.asarray(v)
+    return out
+
+
+def _port_names(model, key: str):
+    """The reference's dotted leaf path -> [(port name, layer index or
+    None)] (one entry a layer for a stacked leaf), by the model's
+    `jax_layers`."""
+    port, stacked_prefix, per_layer = model.jax_layers
+    if key.startswith(stacked_prefix):
+        rest = key[len(stacked_prefix):]
+        return [(f"{port}.{i}.{rest}", i)
+                for i in range(model.config.num_hidden_layers)]
+    head, tail = per_layer.split("{}")
+    m = re.match(rf"^{re.escape(head)}(\d+){re.escape(tail)}(.+)$", key)
+    if m:
+        return [(f"{port}.{m.group(1)}.{m.group(2)}", None)]
+    return [(key, None)]
+
+
+def load_jax_lora(model: torch.nn.Module,
+                  tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The reference's LoRA tree (numpy leaves) -> {port weight name:
+    {"A", "B"}} fp32 on the model's device, stacked factors split per
+    layer.  A leaf other than A or B, a weight the port lacks, or
+    factors that do not fit their weight raise ValueError."""
+    flat = _flatten(tree)
+    odd = sorted(k for k in flat if not k.endswith((".A", ".B")))
+    if odd:
+        raise ValueError(f"LoRA leaves must be A or B, got {odd}")
+    params = dict(model.named_parameters())
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key in sorted({k[:-2] for k in flat}):
+        if key + ".A" not in flat or key + ".B" not in flat:
+            raise ValueError(f"{key}: a LoRA leaf holds both A and B")
+        a, b = flat[key + ".A"], flat[key + ".B"]
+        names = _port_names(model, key)
+        if names[0][1] is not None and not (
+                a.shape[0] == b.shape[0] == len(names)):
+            raise ValueError(f"{key}: stacked factors {a.shape} x "
+                             f"{b.shape} do not lead with the port's "
+                             f"{len(names)} layers")
+        for name, index in names:
+            if name not in params:
+                raise ValueError(f"{key}: the port has no weight {name}")
+            w = params[name]
+            ai, bi = (a, b) if index is None else (a[index], b[index])
+            want = ((w.shape[0], ai.shape[-1]),
+                    (ai.shape[-1], int(np.prod(w.shape[1:]))))
+            if (tuple(ai.shape), tuple(bi.shape)) != want:
+                raise ValueError(f"{name}: LoRA factors {tuple(ai.shape)} x "
+                                 f"{tuple(bi.shape)} do not fit its weight "
+                                 f"{tuple(w.shape)}")
+            out[name] = {f: torch.from_numpy(np.array(t, dtype=np.float32)
+                                             ).to(w.device)
+                         for f, t in (("A", ai), ("B", bi))}
     return out
 
 

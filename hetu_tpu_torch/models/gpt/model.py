@@ -31,7 +31,8 @@ from torch import nn
 
 from hetu_tpu_torch.models.gpt.config import GPTConfig
 from hetu_tpu_torch.nn.layers import Embedding, LayerNorm, Linear, _param
-from hetu_tpu_torch.nn.remat import project, recompute, run_blocks
+from hetu_tpu_torch.nn.remat import (project, recompute, run_blocks,
+                                     weight_of)
 from hetu_tpu_torch.ops.activations import dropout, gelu
 from hetu_tpu_torch.ops.attention import (attention_keeping_output,
                                           self_attention)
@@ -161,7 +162,7 @@ class GPTBlock(nn.Module):
         residual add + ln2 -> up; up's bias, GELU -> down."""
         if policy == "nothing":
             return recompute(lambda x, seg: self(x, seg, rng), x,
-                             segment_ids)
+                             segment_ids, adapted=self.parameters())
         a, m = self.attn, self.mlp
         qkv = recompute(self.ln1, x, weight=a.wqkv)
         kw = a.attention_kw(segment_ids, rng)
@@ -284,7 +285,7 @@ class GPTLMHeadModel(nn.Module):
         return self.lm_head
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        return hidden @ self.lm_head_weight().to(hidden.dtype)
+        return hidden @ weight_of(self.lm_head_weight()).to(hidden.dtype)
 
     def hidden(self, input_ids: torch.Tensor, *, position_ids=None,
                segment_ids=None, rng=None,

@@ -31,7 +31,9 @@ from torch import nn
 
 from hetu_tpu_torch.models.llama.config import LlamaConfig
 from hetu_tpu_torch.nn.layers import Embedding, Linear, RMSNorm
-from hetu_tpu_torch.nn.remat import project, recompute, run_blocks
+from hetu_tpu_torch.nn.remat import (project, recompute, run_blocks,
+                                     weight_of)
+from hetu_tpu_torch.obs import numerics
 from hetu_tpu_torch.ops.activations import dropout, swiglu
 from hetu_tpu_torch.ops.attention import (attention_keeping_output,
                                           self_attention)
@@ -179,7 +181,8 @@ class LlamaBlock(nn.Module):
         and its output kept."""
         if policy == "nothing":
             return recompute(lambda x, c, s, seg: self(x, c, s, seg, rng),
-                             x, cos_t, sin_t, segment_ids)
+                             x, cos_t, sin_t, segment_ids,
+                             adapted=self.parameters())
         a, m = self.attn, self.mlp
         qkv = recompute(self.input_norm, x, weight=a.wqkv)
         kw = a.attention_kw(segment_ids, rng)
@@ -289,7 +292,9 @@ class LlamaLMHeadModel(nn.Module):
         return self.lm_head
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        return hidden @ self.lm_head_weight().to(hidden.dtype)
+        logits = hidden @ weight_of(self.lm_head_weight()).to(hidden.dtype)
+        numerics.tap_tree("logits", logits)
+        return logits
 
     def hidden(self, input_ids: torch.Tensor, *, position_ids=None,
                segment_ids=None, rng=None,
@@ -297,13 +302,18 @@ class LlamaLMHeadModel(nn.Module):
         """The final-norm hidden states [b, s, hidden] of the training
         forward; each block recomputed in the backward by
         `config.remat_policy` when gradients are on; dropout with a key
-        and `deterministic=False`."""
+        and `deterministic=False`.  The numerics taps "embed" and
+        "hidden" (and "logits" in `logits`) sit where the reference's
+        do, at the model's boundaries."""
         b, s = input_ids.shape
         x = self.embed_at(input_ids)
+        numerics.tap_tree("embed", x)
         cos_t, sin_t = self.rope_at(b, s, position_ids)
-        return self.final_norm(run_blocks(
+        hidden = self.final_norm(run_blocks(
             self.config, self.model.layers, x, (cos_t, sin_t, segment_ids),
             None if deterministic else rng))
+        numerics.tap_tree("hidden", hidden)
+        return hidden
 
     def forward(self, input_ids: torch.Tensor, labels=None, *,
                 position_ids=None, segment_ids=None, rng=None,

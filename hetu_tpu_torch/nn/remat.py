@@ -38,15 +38,29 @@ a block's forward in the hooks that stage its kept tensors on the host.
 Gradients are the same under every policy.  A segment differentiates
 through its tensor inputs and its weight, as PyTorch's reentrant
 checkpoint does: were all of them frozen, the parameters used inside
-it would get no gradient (the Trainer trains every parameter; a PEFT
-slice must pass its trainable ones in).
+it would get no gradient.
+
+LoRA (`peft/lora.py`) binds adapters to frozen weights for a forward
+(`adapters_bound`): `project` and `weight_of` then use the merged
+weight W + ((A @ B).reshape(W.shape) * scale).to(W.dtype), the
+reference's arithmetic.  A segment whose weight has an adapter keeps W,
+A and B, not the merged weight (which would keep a second copy of every
+adapted matrix until the backward: ~7.0B elements at Llama-3-8B), merges
+again in the backward and returns A's and B's gradients; a block
+recomputed whole ("nothing") takes its adapters as inputs
+(`adapted=`) and rebinds them for its recompute.  The bits are those of
+a merge before the forward.  A numerics tap made while a segment
+recomputes is skipped (`obs.numerics.suspended`): the forward made it.
 """
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional
+import contextlib
+import threading
+from typing import Callable, Iterable, NamedTuple, Optional
 
 import torch
 
+from hetu_tpu_torch.obs import numerics
 from hetu_tpu_torch.ops.activations import DropoutKey
 
 REMAT_POLICIES = ("nothing", "dots", "dots_attn", "offload")
@@ -61,10 +75,61 @@ def validate_remat_policy(name: str):
                          f"{REMAT_POLICIES}")
 
 
+class Adapter(NamedTuple):
+    """A LoRA adapter of a weight W [in, *out]: a [in, r] and b [r, out]
+    in fp32, and the scale alpha / r."""
+    a: torch.Tensor
+    b: torch.Tensor
+    scale: float
+
+
+def merge_weight(w: torch.Tensor, adapter: Adapter) -> torch.Tensor:
+    """The reference's merge: delta = (A @ B).reshape(w.shape) * scale
+    in fp32, then w + delta in w's dtype."""
+    delta = (adapter.a @ adapter.b).reshape(w.shape) * adapter.scale
+    return w + delta.to(w.dtype)
+
+
+_bound = threading.local()
+
+
+@contextlib.contextmanager
+def adapters_bound(pairs):
+    """Within it, each (weight, Adapter) of `pairs` is merged wherever
+    the weight is projected (`project`, `weight_of`) on this thread."""
+    prev = getattr(_bound, "map", None)
+    _bound.map = {id(w): (w, ad) for w, ad in pairs}
+    try:
+        yield
+    finally:
+        _bound.map = prev
+
+
+def adapter_of(w: torch.Tensor) -> Optional[Adapter]:
+    """The adapter bound to `w` (the same tensor object), or None."""
+    bound = getattr(_bound, "map", None)
+    hit = bound.get(id(w)) if bound else None
+    return hit[1] if hit is not None and hit[0] is w else None
+
+
+def weight_of(w: torch.Tensor) -> torch.Tensor:
+    """`w`, merged with its bound adapter if it has one."""
+    ad = adapter_of(w)
+    return w if ad is None else merge_weight(w, ad)
+
+
+def bound_factors(params: Iterable[torch.Tensor]):
+    """The A and B of the adapters bound to `params`."""
+    return [t for p in params if (ad := adapter_of(p)) is not None
+            for t in (ad.a, ad.b)]
+
+
 def project(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """A projection without batch dimensions: h [..., K] times w [K, *out]
     (the reference's einsums "bsh,hkgd->bskgd", "bsh,hci->bsci" and
-    `x @ W`), w cast to h's dtype; one matrix product."""
+    `x @ W`), w (merged with its bound adapter) cast to h's dtype; one
+    matrix product."""
+    w = weight_of(w)
     k = w.shape[0]
     y = h.reshape(-1, k) @ w.reshape(k, -1).to(h.dtype)
     return y.view(*h.shape[:-1], *w.shape[1:])
@@ -82,43 +147,57 @@ def _project_backward(h, w, g):
 
 class _Recompute(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, pre, weight, *inputs):
-        outs = pre(*inputs)
+    def forward(ctx, pre, weight, adapted, n, *tensors):
+        # tensors: pre's n inputs, then A and B of each adapted weight
+        outs = pre(*tensors[:n])
         single = not isinstance(outs, tuple)
         outs = (outs,) if single else outs
         if weight is not None:
             outs = (project(outs[0], weight),) + outs[1:]
-        ctx.pre, ctx.single = pre, single
-        ctx.save_for_backward(weight, *inputs)
+        ctx.pre, ctx.single, ctx.adapted, ctx.n = pre, single, adapted, n
+        ctx.save_for_backward(weight, *tensors)
         return outs[0] if single else outs
 
     @staticmethod
     def backward(ctx, *grads):
-        weight, *inputs = ctx.saved_tensors
-        args = [t.detach().requires_grad_(need) if t is not None else None
-                for t, need in zip(inputs, ctx.needs_input_grad[2:])]
-        with torch.enable_grad():
-            outs = ctx.pre(*args)
+        weight, *tensors = ctx.saved_tensors
+        need = ctx.needs_input_grad[4:]
+        args = [t.detach().requires_grad_(g) if t is not None else None
+                for t, g in zip(tensors, need)]
+        inputs, factors = args[:ctx.n], args[ctx.n:]
+        rebound = [(w, Adapter(factors[2 * i], factors[2 * i + 1], scale))
+                   for i, (w, scale) in enumerate(ctx.adapted)]
+        with torch.enable_grad(), adapters_bound(rebound), \
+                numerics.suspended():
+            outs = ctx.pre(*inputs)
+            w_eff = None if weight is None else weight_of(weight)
         outs = (outs,) if ctx.single else outs
         grads = list(grads)
-        dweight = None
+        dweight, merged = None, []
         if weight is not None:
-            grads[0], dweight = _project_backward(outs[0], weight, grads[0])
+            grads[0], dweight = _project_backward(outs[0], w_eff.detach(),
+                                                  grads[0])
+            if w_eff is not weight:     # merged: d(A, B) through the merge
+                merged = [(w_eff, dweight)]
+                if not ctx.needs_input_grad[1]:
+                    dweight = None
         pairs = [(o, g) for o, g in zip(outs, grads)
-                 if g is not None and o.requires_grad]
+                 if g is not None and o.requires_grad] + merged
         if pairs:
             torch.autograd.backward([o for o, _ in pairs],
                                     [g for _, g in pairs])
-        return (None, dweight) + tuple(
+        return (None, dweight, None, None) + tuple(
             a.grad if a is not None and a.requires_grad else None
             for a in args)
 
 
-def recompute(pre: Callable, *inputs, weight: Optional[torch.Tensor] = None):
+def recompute(pre: Callable, *inputs, weight: Optional[torch.Tensor] = None,
+              adapted: Iterable[torch.Tensor] = ()):
     """pre(*inputs) (a tensor or a tuple; with `weight`, its first
     output projected by `project`), keeping only `inputs` and `weight`
-    for the backward, which runs pre again.  Outside a graph it is a
-    plain call."""
+    (and the adapter factors of `weight` and of `adapted`, the weights
+    pre itself projects with) for the backward, which runs pre again.
+    Outside a graph it is a plain call."""
     if not torch.is_grad_enabled():
         outs = pre(*inputs)
         if weight is None:
@@ -126,7 +205,15 @@ def recompute(pre: Callable, *inputs, weight: Optional[torch.Tensor] = None):
         if isinstance(outs, tuple):
             return (project(outs[0], weight),) + outs[1:]
         return project(outs, weight)
-    return _Recompute.apply(pre, weight, *inputs)
+    seen, bound = set(), []
+    for w in ((weight,) if weight is not None else ()) + tuple(adapted):
+        ad = adapter_of(w)
+        if ad is not None and id(w) not in seen:
+            seen.add(id(w))
+            bound.append((w, ad))
+    return _Recompute.apply(pre, weight, [(w, ad.scale) for w, ad in bound],
+                            len(inputs), *inputs,
+                            *(t for _, ad in bound for t in (ad.a, ad.b)))
 
 
 def _shares_storage(t: torch.Tensor, others: Iterable[torch.Tensor]):
@@ -172,7 +259,7 @@ def run_blocks(config, blocks, x, args, rng):
     dropout without `rng`), recomputed in the backward as
     `config.remat_policy` says when gradients are on; under "offload"
     each block's kept tensors are staged on the host, all but its input,
-    its arguments and its parameters."""
+    its arguments, its parameters and their bound adapters."""
     remat = config.remat and torch.is_grad_enabled()
     policy = config.remat_policy
     for i, block in enumerate(blocks):
@@ -180,7 +267,9 @@ def run_blocks(config, blocks, x, args, rng):
         if not remat:
             x = block(x, *args, key)
         elif policy == "offload":
-            with offloading(keep=(x, *args, *block.parameters())):
+            params = list(block.parameters())
+            with offloading(keep=(x, *args, *params,
+                                  *bound_factors(params))):
                 x = block.forward_remat(x, *args, key, policy="dots")
         else:
             x = block.forward_remat(x, *args, key, policy=policy)

@@ -1,2 +1,3 @@
 """Observability of the port (`hetu_tpu/obs` counterparts): the metrics
-registry the serving engine writes into."""
+registry, the run log, the numerics observatory and the health
+monitors."""

@@ -20,6 +20,16 @@ from the card.  `update(..., skip=flag)` passes a device-side flag to
 the kernel: nonzero leaves p, m and v as they were.  The step count
 then advances on the host regardless; the caller that knows, a step
 later, that the update was skipped takes it back (`Trainer`).
+
+Under a numerics collector (`obs.numerics`, HETU_TORCH_NUMERICS) the
+update taps the reference's "update" (new p - old p in fp32) and
+"adam_m" scopes.  The kernel writes p in place, so the old values are
+copied a group of leaves at a time — at most `SNAPSHOT_BYTES` a group,
+or one leaf past it alone — each group launched and its deltas reduced
+before the next is copied: the copies never hold more than the larger
+of 1 GiB and the largest leaf (not every parameter again).  A skipped
+step's update reads 0 there (the kernel wrote nothing), where the
+reference's reads the update it discarded.
 """
 from __future__ import annotations
 
@@ -29,9 +39,30 @@ from typing import Callable, List, Union
 import numpy as np
 import torch
 
+from hetu_tpu_torch.obs import numerics
 from hetu_tpu_torch.ops.cuda.adam import adam_update_multi
 
 _f32 = np.float32
+
+#: bytes of parameters copied at once for the "update" stats
+SNAPSHOT_BYTES = 1 << 30
+
+
+def snapshot_groups(params: List[torch.Tensor],
+                    budget: int = SNAPSHOT_BYTES) -> List[List[int]]:
+    """Leaf indices cut in order into groups of at most `budget` bytes
+    (a leaf larger than that alone)."""
+    groups, cur, size = [], [], 0
+    for i, p in enumerate(params):
+        nbytes = p.numel() * p.element_size()
+        if cur and size + nbytes > budget:
+            groups.append(cur)
+            cur, size = [], 0
+        cur.append(i)
+        size += nbytes
+    if cur:
+        groups.append(cur)
+    return groups
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
@@ -80,10 +111,25 @@ class AdamW:
         lr = self._lr(step)
         c1 = _f32(1.0) - _f32(self.b1) ** _f32(step)
         c2 = _f32(1.0) - _f32(self.b2) ** _f32(step)
-        adam_update_multi(params, grads, state["m"], state["v"], lr, c1, c2,
-                          b1=self.b1, b2=self.b2, eps=self.eps,
-                          weight_decay=self.weight_decay, skip=skip,
-                          device=self.device)
+        kw = dict(b1=self.b1, b2=self.b2, eps=self.eps,
+                  weight_decay=self.weight_decay, skip=skip,
+                  device=self.device)
+        if not numerics.active():
+            adam_update_multi(params, grads, state["m"], state["v"], lr,
+                              c1, c2, **kw)
+        else:
+            parts = []
+            for idx in snapshot_groups(params, SNAPSHOT_BYTES):
+                old = [params[i].detach().clone() for i in idx]
+                adam_update_multi(*([t[i] for i in idx] for t in (
+                    params, grads, state["m"], state["v"])), lr, c1, c2,
+                    **kw)
+                parts += [numerics.leaf_parts(params[i].detach().float()
+                                              - o.float())
+                          for i, o in zip(idx, old)]
+                del old
+            numerics.tap_stats("update", **numerics.stats_of_parts(parts))
+            numerics.tap_tree("adam_m", state["m"])
         state["step"] = step
         return params, state
 

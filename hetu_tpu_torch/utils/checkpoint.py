@@ -385,11 +385,13 @@ class CheckpointManager:
         return out
 
     def restore_latest_valid(self, target=None,
-                             restore_fn: Optional[Callable] = None):
+                             restore_fn: Optional[Callable] = None,
+                             on_fallback: Optional[Callable] = None):
         """(step, restored): the newest checkpoint that verifies and
         restores, walking back past corrupt and torn saves.
         restore_fn(step) replaces the per-step restore (the Trainer's,
-        with its scaler-presence retry)."""
+        with its scaler-presence retry); on_fallback(step, why) observes
+        each step walked past (the Trainer's `fault` records)."""
         self._finalize_pending()
         reg = self.registry
         steps = sorted(self.all_steps(), reverse=True)
@@ -412,6 +414,8 @@ class CheckpointManager:
                 logger.warning(f"checkpoint step {step} failed "
                                f"verification ({why}); falling back")
                 self.quarantine(step, why)
+                if on_fallback is not None:
+                    on_fallback(step, why)
                 continue
             try:
                 if restore_fn is not None:
@@ -424,6 +428,8 @@ class CheckpointManager:
                 reg.inc("ckpt.fallbacks")
                 logger.warning(f"restore of step {step} raised {e!r}; "
                                "falling back")
+                if on_fallback is not None:
+                    on_fallback(step, repr(e))
         raise CheckpointCorruptError(
             f"no restorable checkpoint among steps {steps} in "
             f"{self.directory}"

@@ -90,6 +90,15 @@ its table row (the null page, compared only for having been written:
 several rows land there in no defined order), GPT's exact pages in the
 other type (the cast rounded once); the prefill write over a page row with null entries, untouched pages still NaN; and one launch
 a layer on the paged forwards, no quantize launch.
+
+LoRA (the `peft` slice): a narrow Llama and GPT with a bf16 frozen base
+fine-tuned by `SFTTrainer` card against CPU (loss and grad norm within
+2e-3 relative, the base unchanged and without gradients);
+the adapters' gradients under every recompute policy equal, bit for
+bit, those without recompute on the card (the in-segment merge, flash);
+the numerics stats of card tensors those of the same values on the CPU
+within 1e-6; AdamW's "update" stats taken a group of leaves at a time,
+one launch a group.
 """
 from __future__ import annotations
 
@@ -2240,3 +2249,140 @@ def test_f16_training_on_the_card_matches_the_cpu(dev):
         assert g["amp_skipped"] == c["amp_skipped"] == 0.0
         for k in ("loss", "grad_norm"):
             assert abs(g[k] - c[k]) <= 2e-3 * abs(c[k]), (k, g, c)
+
+
+# ------------------------------------------------------------------ LoRA
+def _lora_config(family, **kw):
+    from hetu_tpu_torch.models.gpt import GPTConfig
+    common = dict(vocab_size=1024, num_hidden_layers=2,
+                  param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                  use_flash_attention=True)
+    common.update(kw)
+    if family == "llama":
+        return LlamaConfig.tiny(hidden_size=256, num_attention_heads=2,
+                                num_key_value_heads=1, intermediate_size=512,
+                                **common)
+    return GPTConfig.tiny(hidden_size=256, num_attention_heads=4, **common)
+
+
+def _lora_model(family, cfg, device, seed=0):
+    from hetu_tpu_torch.models.gpt import GPTLMHeadModel
+    cls = LlamaLMHeadModel if family == "llama" else GPTLMHeadModel
+    return cls(cfg, device=device, seed=seed)
+
+
+@pytest.mark.parametrize("family", ["llama", "gpt"])
+def test_lora_sft_on_the_card_matches_the_cpu(dev, family):
+    """Three LoRA SFT steps (rank 4, every target, prompt-masked rows)
+    of a bf16 base computing in bf16 on the card and on the CPU from one
+    base and one set of adapters: losses and grad norms within 2e-3
+    relative (as the fp16 training test: bf16 activations rounded in
+    other places by cuBLAS's products and the CPU's, one bf16 ulp being
+    2^-8 relative), the base bit for bit and without a gradient on
+    both."""
+    from hetu_tpu_torch.engine import SFTTrainer, mask_prompt_labels
+    from hetu_tpu_torch.peft import LoRAConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lora_config(family)
+    cpu_model = _lora_model(family, cfg, "cpu")
+    gpu_model = _lora_model(family, cfg, dev)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    for layer in cpu_model.layers:
+        layer.attn.use_pallas = True
+    base = [p.detach().cpu().clone() for p in gpu_model.parameters()]
+    tc = TrainingConfig(global_batch_size=4, micro_batch_size=2, seq_len=64,
+                        warmup_steps=1, total_steps=10, log_every=100)
+    trainers = [SFTTrainer(m, tc, lora=LoRAConfig(rank=4), device=d)
+                for m, d in ((gpu_model, dev), (cpu_model, "cpu"))]
+    with torch.no_grad():
+        for a, b in zip(trainers[0].model.lora.values(),
+                        trainers[1].model.lora.values()):
+            a.copy_(b)
+    rng = np.random.default_rng(8)
+    for _ in range(3):
+        ids = rng.integers(1, 1024, (4, 64)).astype(np.int32)
+        batch = {"input_ids": ids,
+                 "labels": mask_prompt_labels(ids, rng.integers(3, 20, 4))}
+        g, c = ({k: float(v) for k, v in tr.train_step(batch).items()}
+                for tr in trainers)
+        for k in ("loss", "grad_norm"):
+            assert abs(g[k] - c[k]) <= 2e-3 * abs(c[k]), (k, g, c)
+    for p, b in zip(gpu_model.parameters(), base):
+        assert p.grad is None and torch.equal(p.detach().cpu(), b)
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots", "dots_attn",
+                                    "offload"])
+@pytest.mark.parametrize("family", ["llama", "gpt"])
+def test_lora_policies_give_the_same_gradients_on_the_card(dev, family,
+                                                           policy):
+    """The adapters' gradients under each recompute policy equal those
+    without recompute bit for bit on the card (flash, bf16): a segment
+    merges W + A B again in its backward with the bits of the forward's
+    merge."""
+    from hetu_tpu_torch.peft import LoRAConfig, LoRAWrappedModel
+    grads = []
+    for remat, pol in ((False, "dots"), (True, policy)):
+        model = _lora_model(family, _lora_config(
+            family, remat=remat, remat_policy=pol), dev, seed=2)
+        wrapped = LoRAWrappedModel(model, LoRAConfig(rank=4), seed=3)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        with torch.no_grad():
+            for p in wrapped.lora.values():
+                p.normal_(0.0, 0.05, generator=gen)
+        ids = torch.from_numpy(np.random.default_rng(6).integers(
+            0, 1024, (2, 128)).astype(np.int32)).to(dev)
+        loss, _ = wrapped(ids, ids, loss_reduction="sum")
+        loss.backward()
+        grads.append([p.grad.clone() for p in wrapped.lora.values()])
+        assert all(p.grad is None for p in model.parameters())
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_numerics_stats_on_the_card_match_the_cpu(dev):
+    """`tree_stats` of card tensors (fp32, bf16, fp16; zeros, the
+    underflow band, overflows, inf, nan) equals that of the same values
+    on the CPU within 1e-6 relative, counts exactly."""
+    from hetu_tpu_torch.obs import numerics
+    x = _normal((8192,), 5, "cpu")
+    x[:50] = 0.0
+    x[50:90] = 1e-37
+    x[90:95] = 1e5
+    x[95], x[96], x[97] = float("inf"), float("-inf"), float("nan")
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        tree = {"a": x.to(dtype), "b": [x[:1000].to(dtype) * 3]}
+        card = numerics.tree_stats({"a": tree["a"].to(dev),
+                                    "b": [tree["b"][0].to(dev)]})
+        host = numerics.tree_stats(tree)
+        for k, v in host.items():
+            a, b = float(card[k]), float(v)
+            assert (a == b or abs(a - b) <= 1e-6 * abs(b)
+                    or (np.isnan(a) and np.isnan(b))), (dtype, k, a, b)
+
+
+def test_update_stats_are_taken_a_group_at_a_time(dev):
+    """AdamW under a numerics collector on the card: one launch a
+    snapshot group (two here, by a small budget), the "update" stats
+    those of new - old over a full copy."""
+    from hetu_tpu_torch.obs import numerics
+    from hetu_tpu_torch.optim import optimizer as toptim
+    params = [_normal((n,), 20 + i, dev) for i, n in
+              enumerate((4096, 1000, 8192))]
+    grads = [_normal(p.shape, 30 + i, dev) for i, p in enumerate(params)]
+    opt = toptim.AdamW(lr=1e-2, weight_decay=0.1, device=dev)
+    state = opt.init(params)
+    old = [p.clone() for p in params]
+    budget, toptim.SNAPSHOT_BYTES = toptim.SNAPSHOT_BYTES, 4 * 6000
+    tadam.launches = 0
+    try:
+        with numerics.collecting() as col:
+            opt.update(grads, state, params)
+            stats = col.finalize()
+    finally:
+        toptim.SNAPSHOT_BYTES = budget
+    assert tadam.launches == 2
+    whole = numerics.tree_stats([p - o for p, o in zip(params, old)])
+    for k, v in whole.items():
+        assert abs(float(stats["update"][k]) - float(v)) <= \
+            1e-6 * abs(float(v)), k

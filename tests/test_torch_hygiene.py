@@ -73,7 +73,16 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
                  "hetu_tpu_torch.data.tokenizers.bpe",
                  "hetu_tpu_torch.data.tokenizers.hf",
                  "hetu_tpu_torch.data.tokenizers.sp_model",
-                 "hetu_tpu_torch.data.tokenizers.tiktoken_bpe"):
+                 "hetu_tpu_torch.data.tokenizers.tiktoken_bpe",
+                 "hetu_tpu_torch.utils.flags",
+                 "hetu_tpu_torch.utils.yaml_config",
+                 "hetu_tpu_torch.obs.runlog",
+                 "hetu_tpu_torch.obs.numerics",
+                 "hetu_tpu_torch.obs.health",
+                 "hetu_tpu_torch.nn.initializers",
+                 "hetu_tpu_torch.peft.lora",
+                 "hetu_tpu_torch.peft.multi_task",
+                 "hetu_tpu_torch.engine.sft_trainer"):
         assert name in probe["modules"]
 
 
@@ -271,3 +280,31 @@ def test_model_draws_its_weights_from_the_seed():
                                                  b.parameters()))
     assert not torch.equal(a.model.embed.weight, c.model.embed.weight)
     assert a.config.num_params() == sum(p.numel() for p in a.parameters())
+
+
+def test_lora_sft_defaults_to_the_card_and_builds_nothing_on_the_cpu(
+        monkeypatch):
+    """`SFTTrainer` and `load_experiment` run on the card unless asked
+    for the CPU, and raise without one; a LoRA SFT step with every hook
+    flag on, on the CPU, takes the plain versions and asks for no
+    build."""
+    from hetu_tpu_torch.engine import SFTTrainer
+    from hetu_tpu_torch.peft import LoRAConfig
+    from hetu_tpu_torch.utils.yaml_config import load_experiment
+    calls = []
+    monkeypatch.setattr(build, "build", lambda *a, **k: calls.append(a))
+    monkeypatch.setattr(build, "library", lambda *a, **k: calls.append(a))
+    for flag in ("HEALTH", "NUMERICS"):
+        monkeypatch.setenv(f"HETU_TORCH_{flag}", "1")
+    model = LlamaLMHeadModel(LlamaConfig.tiny(), device="cpu")
+    tr = SFTTrainer(model, TrainingConfig(global_batch_size=2,
+                                          micro_batch_size=1, seq_len=8),
+                    lora=LoRAConfig(rank=2), device="cpu")
+    ids = np.arange(16, dtype=np.int32).reshape(2, 8)
+    tr.train([{"input_ids": ids, "labels": ids}], num_steps=1)
+    assert tr.global_step == 1 and calls == []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SFTTrainer(model, TrainingConfig(), lora=LoRAConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_experiment({"model": {"family": "llama", "preset": "tiny"}})

@@ -274,6 +274,30 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     equal those with the hooks' call sites taken out
     (`lora_identity_phase`).  Phase 3's SwiGLU backward rows (bf16 and
     fp16) are timed beside autograd's backward of `F.silu(g) * u`.
+17. the serving host layers ("serving4", `serving4_phase`), Llama-3-8B
+    at full width and depth in bf16, one model shared by every engine,
+    `ServeConfig(8, page_size=16, max_len=2048, prefill_chunk=256)`, 24
+    requests in bursts of 8 at 20/s (prompts 64-1,024, 32 new; gold and
+    bulk classes, tenants acme and free, half sampled): (a) the
+    undisturbed run, then preemption, free capped at 3 slots, deadlines,
+    a retry budget of one, brownout, a run log, the tracer, health and a
+    cost model, and an `engine_kill` at step 40 through `run(on_step=)`
+    — every completed request's tokens equal the undisturbed run's,
+    preemptions and quota stalls happen, the kill requeues every live
+    slot, the scheduler's invariants hold before every step, the SLO
+    report reconciles every request's spans with zero residual and the
+    record keys equal a CPU run's; both again with n-gram speculation;
+    (b) a 2-slot `PrefillWorker` and a decode engine over the exact,
+    int8 and int4 wires (bytes a shipment as predicted, a real scratch
+    within each wire's grid, the exact wire's tokens the colocated
+    run's, the int8 wire's quantize and dequantize launches 2 a pack and
+    2 an unpack) and the exact wire under a shipment storm and a prefill
+    kill (survivors' tokens equal, invariants each coordinator step);
+    ship times (pack, adopt, pack to adopt) and TTFT against the
+    colocated run; (c) two replicas behind a `Frontend` (free capped at
+    3 live across both, hedging after 2 router steps, replica 0 killed
+    at step 12 for 6 steps), the single replica's tokens, then a drain
+    and a rejoin.  The phase prints its wall time and peak memory.
 
 Prints the `kernels` JSON line, the nvidia-smi line, and last the
 `{"ok": true, "device": ...}` line; the `kernels` line gives AdamW's
@@ -1287,26 +1311,46 @@ def parent_rope_copies():
         llama.fused_rotary_qk = generation.fused_rotary_qk = rotate
 
 
+def device_ops(fn, sides, tries: int = 6, lead: int = 256) -> tuple:
+    """The device operations of one call of `fn` under each of `sides`
+    (context-manager factories: this tree's path, the parent's, ...),
+    one total a side.  After a warm call under each side, each of
+    `tries` rounds profiles one call under every side in turn, and the
+    most common round counts (ties: the largest).  A library now and
+    then runs another kernel sequence for the same call for a stretch
+    of a run (a draft forward counted 443 or 448 operations by the
+    stretch, its parent path 475 or 480), so the sides are compared
+    within a round, never across rounds.  Each profile opens with
+    `lead` marker launches that take the profiler's loss of a window's
+    first records (late in a long run it lost a few dozen a profile),
+    and a round counts only if every profile in it kept some markers."""
+    for side in sides:
+        with side():
+            fn()
+    rounds = []
+    for _ in range(tries):
+        totals = []
+        for side in sides:
+            counts = {}
+            with side():
+                _profile(fn, 1, counts=counts, lead=lead)
+            if not counts.pop(MARKER, 0):
+                break
+            totals.append(round(sum(counts.values())))
+        else:
+            rounds.append(tuple(totals))
+    check(bool(rounds), f"device_ops: every round lost all {lead} markers "
+                        f"of a profile")
+    return max(rounds, key=lambda r: (rounds.count(r), sum(r)))
+
+
 def rope_copy_drop(name, fn, layers: int, tries: int = 6) -> tuple:
     """The device operations of one call of `fn` as this tree runs it
-    and as the parent's path runs it (`parent_rope_copies`); checks that
-    this tree runs 2 x layers fewer and returns (this tree's, the parent
-    path's).  The profiler now and then drops a call's events (never
-    adds one), so each side is profiled `tries` times, one call each
-    after a warm call, and keeps the largest total: a drop only lowers a
-    total, and a library that picks another kernel from call to call
-    does not raise one (a largest count kept per kernel name would)."""
-    ops = []
-    for copies in (False, True):
-        most = 0
-        with parent_rope_copies() if copies else contextlib.nullcontext():
-            fn()
-            for _ in range(tries):
-                counts = {}
-                _profile(fn, 1, counts=counts)
-                most = max(most, round(sum(counts.values())))
-        ops.append(most)
-    now, parent = ops
+    and as the parent's path runs it (`parent_rope_copies`), counted by
+    `device_ops`; checks that this tree runs 2 x layers fewer and
+    returns (this tree's, the parent path's)."""
+    now, parent = device_ops(fn, (contextlib.nullcontext,
+                                  parent_rope_copies), tries)
     print(f"rope in place: {name} {parent} -> {now} device operations "
           f"a call ({parent - now} fewer, 2 x {layers} layers expected)")
     check(parent - now == 2 * layers,
@@ -1345,21 +1389,12 @@ def parent_page_writes():
 
 def page_write_drop(name, fn, layers: int, tries: int = 6) -> tuple:
     """The device operations of one call of `fn` with the fused page
-    write and as the parent's path ran it (`parent_page_writes`), each
-    the largest total of `tries` profiles (as `rope_copy_drop` counts);
-    checks that the fused write removed at least one operation a layer
-    and returns (this tree's, the parent path's)."""
-    ops = []
-    for parent in (False, True):
-        most = 0
-        with parent_page_writes() if parent else contextlib.nullcontext():
-            fn()
-            for _ in range(tries):
-                counts = {}
-                _profile(fn, 1, counts=counts)
-                most = max(most, round(sum(counts.values())))
-        ops.append(most)
-    now, before = ops
+    write and as the parent's path ran it (`parent_page_writes`),
+    counted by `device_ops`; checks that the fused write removed at
+    least one operation a layer and returns (this tree's, the parent
+    path's)."""
+    now, before = device_ops(fn, (contextlib.nullcontext,
+                                  parent_page_writes), tries)
     print(f"page write: {name} {before} -> {now} device operations a "
           f"call ({before - now} fewer, {(before - now) / layers:.2f} a "
           f"layer)")
@@ -4709,27 +4744,6 @@ def hooks_absent():
         yield
 
 
-def device_ops(fn, tries: int = 6, lead: int = 256) -> int:
-    """The device operations of one call of `fn`: the largest total of
-    `tries` one-call profiles after a warm call (`rope_copy_drop`'s
-    count: the profiler drops events now and then, never adds one).
-    Late in a long run the profiler loses the first few dozen device
-    records of nearly every profile (34 of a training step's 733, while
-    every launch call was recorded on the host), so each profile opens
-    with `lead` marker launches that take the loss, and only a profile
-    that kept some of its markers counts."""
-    fn()
-    most, whole = 0, 0
-    for _ in range(tries):
-        counts = {}
-        _profile(fn, 1, counts=counts, lead=lead)
-        if counts.pop(MARKER, 0):
-            whole += 1
-            most = max(most, round(sum(counts.values())))
-    check(whole > 0, f"device_ops: every profile lost all {lead} markers")
-    return most
-
-
 def arm_table():
     """{counter: {arm: launches}} of every training wrapper with dtype
     arms, since the last `zero_counts`."""
@@ -5162,9 +5176,9 @@ def lora_identity_phase(seed: int, kernels, card: str):
     """Phase 16 (d): phase 8's step (Llama-3-8B widths, fp32 parameters,
     bf16 compute, flash, "dots_attn", `TrainingConfig(4, 2, 2048)`) cut
     to 2 layers with every hook flag unset: each kernel's launches by
-    arm and the device operations of one step (the largest of six
-    profiles) equal those with the hooks' call sites taken out
-    (`hooks_absent`)."""
+    arm and the device operations of one step (`device_ops`, the two
+    compared within a round) equal those with the hooks' call sites
+    taken out (`hooks_absent`)."""
     from hetu_tpu_torch.engine import Trainer, TrainingConfig
     from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
     t0 = time.perf_counter()
@@ -5194,10 +5208,13 @@ def lora_identity_phase(seed: int, kernels, card: str):
                 check(counts == per_step, f"phase 8's step (absent="
                       f"{absent}) launches {counts}, expected {per_step}")
                 zero_counts(kernels)
-                ops = device_ops(lambda: tr.train_step(batch))
-                zero_counts(kernels)
             result["hooks_absent" if absent else "flags_unset"] = {
-                "launches_by_arm": arms, "device_ops": ops}
+                "launches_by_arm": arms}
+        ops = device_ops(lambda: tr.train_step(batch),
+                         (contextlib.nullcontext, hooks_absent))
+        zero_counts(kernels)
+        for key, n in zip(("flags_unset", "hooks_absent"), ops):
+            result[key]["device_ops"] = n
     check(result["flags_unset"] == result["hooks_absent"],
           f"the hooks change phase 8's step with their flags unset: "
           f"{result}")
@@ -5205,6 +5222,508 @@ def lora_identity_phase(seed: int, kernels, card: str):
           "hooks taken out: " + json.dumps(result)
           + f" ({time.perf_counter() - t0:.1f}s); {card}")
     del tr, model
+
+
+# -------------------------------------------------------------- serving4
+#: the paths' serving kernels (phase 17 checks each launched, and no
+#: training kernel)
+SERVING4_KERNELS = ("paged_attention", "fused_rotary_qk", "fused_swiglu",
+                    "kv_write_tokens", "kv_write_pages", "sample_logits")
+
+
+def serving4_trace(vocab: int, seed: int, n: int = 24):
+    """Phase 17's trace: `n` requests in bursts of 8 at 20 a second (the
+    queue stays full), prompts 64-1,024 tokens, 32 new each; gold
+    (priority 2) and bulk (deadline 60 s) alternate by rid; rids 2 and 3
+    of every four (a gold and a bulk one) are the tenant free's, the
+    others acme's; the odd requests sampled (0.8, top-k 50, top-p 0.95).
+    The free tenant holds 4 of the first burst, so under (a)'s cap of 3
+    the burst's last request meets a quota stall with a slot free
+    whatever the card's step time (the virtual clock advances by the
+    steps' wall time; with one free request in four the cap bound only
+    when bursts and completions fell a certain way)."""
+    from hetu_tpu_torch.serving import (SamplingParams, SLOClass,
+                                        bursty_arrivals, synthetic_requests)
+    reqs = synthetic_requests(
+        n, vocab_size=vocab, prompt_lens=(64, 1024), max_new=(32, 32),
+        arrivals=bursty_arrivals(n, 20.0, burst=8, seed=seed),
+        slo_classes=[SLOClass("gold", priority=2),
+                     SLOClass("bulk", deadline_s=60.0)],
+        tenants=["acme", "acme", "free", "free"], seed=seed)
+    for r in reqs[1::2]:
+        r.sampling = SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                                    seed=seed + 100 + r.rid)
+    return reqs
+
+
+def _serving4_launches(path, launches):
+    check(all(launches[k] > 0 for k in SERVING4_KERNELS),
+          f"{path}: a serving kernel never launched: {launches}")
+    serving = set(SERVING4_KERNELS) | {"quantize_blockwise",
+                                       "dequantize_blockwise"}
+    check(all(n == 0 for k, n in launches.items() if k not in serving),
+          f"{path}: a kernel off the path launched: {launches}")
+
+
+def _pcts(vals):
+    vals = sorted(vals)
+    return {"p50": vals[len(vals) // 2], "max": vals[-1]} if vals else None
+
+
+def _record_keys(recs):
+    """{(kind, serve event or span kind): the union of the keys} of a
+    run log's serve, span and anomaly records."""
+    out = {}
+    for r in recs:
+        if r["kind"] in ("serve", "span", "anomaly"):
+            key = (r["kind"], r.get("event") or r.get("span")
+                   or r.get("anomaly"))
+            out.setdefault(key, set()).update(r)
+    return out
+
+
+def _serving4_policies(model, serve, seed, kill_at, run_log, *, opts):
+    """One run of (a)'s engine: preemption, the free tenant capped at 3
+    slots, deadlines, a retry budget of one, brownout, the tracer, the
+    health detectors and a cost model, and an engine kill at `kill_at`;
+    the scheduler's invariants checked before every step.  Returns the
+    engine, its results and the live slots at the kill."""
+    from hetu_tpu_torch.chaos.inject import maybe_chaos_serving
+    from hetu_tpu_torch.chaos.plan import FaultPlan, FaultSpec
+    from hetu_tpu_torch.obs.health import ServingHealthMonitor
+    from hetu_tpu_torch.serving import (CostModel, RequestTracer,
+                                        ServeConfig, ServingEngine,
+                                        parse_quotas)
+    c = model.config
+    cost = CostModel.from_model_dims(
+        num_params=c.num_params(), num_layers=c.num_hidden_layers,
+        hidden_size=c.hidden_size, num_kv_heads=c.num_key_value_heads,
+        head_dim=c.head_dim, page_size=serve["page_size"], kv_mode="bf16")
+    eng = ServingEngine(
+        model, ServeConfig(**serve, **opts, preempt=True, deadline=True,
+                           quotas=parse_quotas("free:3"), retry_budget=1,
+                           brownout=True),
+        device=model.device, run_log=run_log,
+        tracer=RequestTracer(run_log=run_log, keep=True),
+        health=ServingHealthMonitor(runlog=run_log), cost_model=cost)
+    if model.device.type == "cuda":
+        eng.warmup()
+    plan = FaultPlan([FaultSpec(kind="engine_kill", at_step=kill_at)])
+    at_kill = []
+
+    def on_step(i):
+        eng.scheduler.check_invariants()
+        if i == kill_at:
+            at_kill.append(len(eng.scheduler.active_slots()))
+        maybe_chaos_serving(plan, eng, i)
+    return eng, on_step, at_kill
+
+
+def serving4_cpu_records(tmp):
+    """(a)'s engine options on the CPU (a tiny Llama, every request at
+    once): the run log whose record keys the card run's must equal."""
+    from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
+    from hetu_tpu_torch.obs.runlog import RunLog
+    from hetu_tpu_torch.serving import (SamplingParams, SLOClass,
+                                        synthetic_requests)
+    model = LlamaLMHeadModel(LlamaConfig.tiny(), device="cpu", seed=0)
+    log = RunLog(os.path.join(tmp, "cpu.jsonl"))
+    serve = dict(num_slots=3, page_size=8, max_len=64, prefill_chunk=16)
+    eng, on_step, _ = _serving4_policies(model, serve, 0, 6, log,
+                                         opts={"sampling": True})
+    reqs = synthetic_requests(
+        10, vocab_size=256, prompt_lens=(5, 40), max_new=(4, 9),
+        arrivals=np.zeros(10), seed=9,
+        tenants=["acme", "acme", "acme", "free"],
+        slo_classes=[SLOClass("gold", priority=2),
+                     SLOClass("bulk", deadline_s=60.0)])
+    for r in reqs[1::2]:
+        r.sampling = SamplingParams(temperature=0.8, top_k=20, seed=r.rid)
+    eng.run(reqs, on_step=on_step)
+    log.close()
+    return RunLog.read(os.path.join(tmp, "cpu.jsonl"))
+
+
+def serving4_policies_phase(model, seed, kernels, card, tmp):
+    """(a): the undisturbed run of the trace, then the same trace
+    through every host layer with an engine kill at step 40 (tokens of
+    every completed request equal the undisturbed run's; preemptions and
+    quota stalls happened; the kill requeued every live slot; the
+    scheduler's invariants held before every step; deadline casualties
+    emitted nothing after; slo_report reconciles every request's spans
+    with zero residual; the record keys equal the CPU run's); then both
+    again with n-gram speculation."""
+    from hetu_tpu_torch.obs.runlog import RunLog
+    from hetu_tpu_torch.serving import (ServeConfig, ServingEngine,
+                                        serving_report)
+    vocab = model.config.vocab_size
+    serve = dict(num_slots=8, page_size=16, max_len=2048, prefill_chunk=256)
+    cpu_keys = _record_keys(serving4_cpu_records(tmp))
+    by_path, out, base_tokens = {}, {}, {}
+    for spec in ({}, {"spec_decode": "ngram", "spec_k": 4}):
+        tag = "ngram" if spec else "decode"
+        opts = dict(sampling=True, **spec)
+        gc.collect()
+        torch.cuda.empty_cache()
+        alone = ServingEngine(model, ServeConfig(**serve, **opts),
+                              device="cuda").warmup()
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        base = alone.run(serving4_trace(vocab, seed))
+        base_wall = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        if not spec:
+            _serving4_launches("serving4_colocated", launches)
+            by_path["serving4_colocated"] = launches
+            base_tokens["ttft"] = [r.stats.ttft_s for r in base]
+        want = {r.rid: r.tokens for r in base}
+        base_tokens[tag] = want
+        check(all(r.finished_reason == "length" and len(r.tokens) == 32
+                  for r in base), f"serving4 {tag}: an undisturbed "
+              "request did not finish by length")
+        del alone
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        path = os.path.join(tmp, f"card_{tag}.jsonl")
+        log = RunLog(path)
+        eng, on_step, at_kill = _serving4_policies(model, serve, seed, 40,
+                                                   log, opts=opts)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        res = eng.run(serving4_trace(vocab, seed), on_step=on_step)
+        wall = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        eng.scheduler.check_invariants()
+        log.close()
+        path_name = f"serving4_policies_{tag}"
+        if not spec:
+            _serving4_launches(path_name, launches)
+        by_path[path_name] = launches
+        reg = eng.registry
+        done = [r for r in res if r.finished_reason == "length"]
+        for r in done:
+            check(r.tokens == want[r.rid], f"{path_name}: request {r.rid} "
+                  "differs from the undisturbed run")
+        for r in res:
+            check(r.finished_reason in ("length", "deadline_exceeded"),
+                  f"{path_name}: request {r.rid} ended "
+                  f"{r.finished_reason}")
+            if r.finished_reason == "deadline_exceeded":
+                check(r.tokens == want[r.rid][:len(r.tokens)]
+                      and len(r.tokens) < 32, f"{path_name}: expired "
+                      f"request {r.rid} emitted past its deadline")
+        check(len(res) == 24 and len({r.rid for r in res}) == 24,
+              f"{path_name}: {len(res)} results")
+        preempt = reg.counter_value("serve.preemptions")
+        quota = reg.counter_value("serve.admission_stalls",
+                                  reason="quota_exceeded")
+        requeues = reg.counter_value("serve.replica_requeues")
+        check(preempt > 0 and quota > 0, f"{path_name}: preemptions "
+              f"{preempt}, quota stalls {quota}")
+        check(at_kill and requeues == at_kill[0] > 0,
+              f"{path_name}: {requeues} requeues, {at_kill} live at the "
+              "kill")
+        check(eng.pool.free_count == eng.pool.num_pages,
+              f"{path_name}: pages leaked")
+        recs = RunLog.read(path)
+        rep = serving_report(recs)
+        check(rep["reconciliation"]["max_residual_s"] < 1e-9,
+              f"{path_name}: spans do not tile e2e: "
+              f"{rep['reconciliation']}")
+        keys = _record_keys(recs)
+        for k, v in keys.items():
+            if k in cpu_keys:
+                check(v == cpu_keys[k], f"{path_name}: {k} keys "
+                      f"{sorted(v ^ cpu_keys[k])} differ from the CPU's")
+        check({("serve", e) for e in ("admit", "done", "preempt", "retry",
+                                      "failover", "report")}
+              <= set(keys) & set(cpu_keys),
+              f"{path_name}: record kinds {sorted(set(keys))}")
+        gap = reg.histogram("serve.token_latency_s")
+        ttft = [r.stats.ttft_s for r in done]
+        out[path_name] = {
+            "requests": len(res), "completed": len(done),
+            "deadline_exceeded": len(res) - len(done),
+            "preemptions": preempt, "quota_stalls": quota,
+            "replica_requeues": requeues, "live_at_kill": at_kill[0],
+            "ttft_s": _pcts(ttft),
+            "ttft_s_undisturbed": _pcts([r.stats.ttft_s for r in base]),
+            "decode_step_s_p50": gap.percentile(50),
+            "decode_step_s_max": gap.vmax,
+            "tokens_per_s": sum(len(r.tokens) for r in res) / wall,
+            "run_wall_s": wall, "undisturbed_wall_s": base_wall,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "records": len(recs), "record_types": len(keys),
+            "slo_attainment": rep["slo_attainment"],
+            "costs_total": (rep.get("costs") or {}).get("total")}
+        print(f"{path_name} " + json.dumps(out[path_name]))
+        del eng
+    return by_path, base_tokens
+
+
+def _ship_check(worker_out, quant):
+    """One real prefill scratch through a wire's pack and unpack: the
+    payload within the wire's grid of each head vector's absmax (the
+    reference's round-trip rule) and `wire_bytes` the predicted size.
+    On the int8 wire, whose pack and unpack launch the quantize and
+    dequantize kernels at the wire's shape ([L * max_len * n_kv, hd]),
+    the payload, the scales and the unpacked values also equal, bit for
+    bit, the plain versions' on the same scratch (on the host)."""
+    from hetu_tpu_torch.serving import pack_shipment, unpack_shipment
+    req, attempt, t1, ks, vs = worker_out
+    ship = pack_shipment(1, req, attempt, t1, ks, vs, quant=quant)
+    bk, bv = unpack_shipment(ship, ks.device)
+    grid = {"none": 0.0, "int8": 1.0 / 254.0, "int4": 1.0 / 14.0}[quant]
+    for back, x in ((bk, ks), (bv, vs)):
+        x = x.float()
+        err = (back.float() - x).abs()
+        lim = x.abs().amax(dim=-1, keepdim=True) * grid + 1e-6
+        check(bool((err <= lim).all()), f"{quant} wire: round trip past "
+              f"its grid by {float((err - lim).max())}")
+    if quant == "int8":
+        plain = pack_shipment(1, req, attempt, t1, ks.cpu(), vs.cpu(),
+                              quant=quant)
+        for part in ("ks", "vs", "k_scale", "v_scale"):
+            check(torch.equal(getattr(ship, part), getattr(plain, part)),
+                  f"int8 wire: the quantize kernel's {part} differs from "
+                  f"the plain version's at {tuple(ks.shape)}")
+        pk, pv = unpack_shipment(plain)
+        check(torch.equal(bk.cpu(), pk) and torch.equal(bv.cpu(), pv),
+              f"int8 wire: the dequantize kernel's unpack differs from "
+              f"the plain version's at {tuple(ks.shape)}")
+        print(f"int8 wire: payload, scales and unpack bit-equal to the "
+              f"plain versions at {tuple(ks.shape)} "
+              f"{str(ks.dtype).removeprefix('torch.')} a side")
+    return ship.wire_bytes
+
+
+def serving4_disagg_phase(model, seed, kernels, card, want, colocated_ttft):
+    """(b): a 2-slot prefill tier and a decode engine on the card share
+    the model; (a)'s trace over the three wires without faults — the
+    exact wire's tokens equal the colocated run's, the quantized wires
+    complete, every shipment's bytes are the predicted scratch size,
+    the int8 wire launches the quantize twice a pack and the dequantize
+    twice an unpack — then the exact wire under a shipment storm and a
+    prefill kill: the survivors' tokens equal the colocated run's and
+    the scheduler's invariants (no rid in two slots) hold before every
+    coordinator step."""
+    from hetu_tpu_torch.chaos.plan import FaultPlan, FaultSpec
+    from hetu_tpu_torch.serving import (DisaggCoordinator, PrefillWorker,
+                                        ServeConfig, ServingEngine)
+    c = model.config
+    vocab = c.vocab_size
+    serve = ServeConfig(num_slots=8, page_size=16, max_len=2048,
+                        prefill_chunk=256, sampling=True, retry_budget=2)
+    scratch = c.num_hidden_layers * serve.max_len * c.num_key_value_heads \
+        * c.head_dim                     # elements of one K (or V) scratch
+    predicted = {"none": 2 * 2 * scratch,
+                 "int8": 2 * (scratch + 4 * scratch // c.head_dim),
+                 "int4": 2 * (scratch // 2 + 4 * scratch // c.head_dim)}
+    worker = PrefillWorker(model, prefill_chunk=256, max_len=2048,
+                           num_slots=2, sampling=True, device="cuda")
+    probe = serving4_trace(vocab, seed)[0]
+    worker.submit(probe)
+    payload = []
+    while not payload:
+        payload = worker.step()
+    for quant, n in predicted.items():
+        got = _ship_check(payload[0], quant)
+        check(got == n, f"{quant} wire: {got} bytes a shipment, "
+              f"predicted {n}")
+    del payload
+    storm = [FaultSpec(kind="shipment_drop", op="ship", after_calls=2,
+                       count=2, prob=1.0),
+             FaultSpec(kind="shipment_dup", op="ship", after_calls=6,
+                       count=2, prob=1.0),
+             FaultSpec(kind="shipment_delay", op="ship", after_calls=10,
+                       count=2, prob=1.0, delay_s=2.0),
+             FaultSpec(kind="shipment_drop", op="ack", after_calls=3,
+                       count=1, prob=1.0),
+             FaultSpec(kind="prefill_kill", at_step=30)]
+    by_path, out = {}, {}
+    for wire, plan in (("none", None), ("int8", None), ("int4", None),
+                       ("storm", FaultPlan(storm, seed=0))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = ServingEngine(model, serve, device="cuda").warmup()
+        coord = DisaggCoordinator(
+            PrefillWorker(model, prefill_chunk=256, max_len=2048,
+                          num_slots=2, sampling=True, device="cuda"),
+            eng, plan=plan, ship_quant="none" if plan else wire)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        res = coord.run(serving4_trace(vocab, seed),
+                        on_step=lambda i: eng.scheduler.check_invariants())
+        wall = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        eng.scheduler.check_invariants()
+        path = f"serving4_disagg_{wire}"
+        _serving4_launches(path, launches)
+        by_path[path] = launches
+        s = coord.summary()
+        check(len(res) == 24 and len({r.rid for r in res}) == 24,
+              f"{path}: {len(res)} results")
+        for r in res:
+            if plan is None:
+                check(r.finished_reason == "length" and len(r.tokens) == 32,
+                      f"{path}: request {r.rid} {r.finished_reason}")
+            if (wire in ("none", "storm")
+                    and r.finished_reason == "length"):
+                check(r.tokens == want[r.rid], f"{path}: request {r.rid} "
+                      "differs from the colocated run")
+        check(eng.pool.free_count == eng.pool.num_pages,
+              f"{path}: pages leaked")
+        check(coord.prefill.idle and not coord.prefill._live,
+              f"{path}: the prefill tier kept a scratch")
+        if plan is None:
+            check(s["ship_sent"] == s["adoptions"] == coord.packs == 24
+                  and s["ship_bytes"] == 24 * predicted[wire],
+                  f"{path}: {s}, {coord.packs} packs")
+            quant = (2 * coord.packs, 2 * coord.unpacks) \
+                if wire == "int8" else (0, 0)
+            check((launches["quantize_blockwise"],
+                   launches["dequantize_blockwise"]) == quant,
+                  f"{path}: quantize / dequantize launches "
+                  f"{launches['quantize_blockwise']} / "
+                  f"{launches['dequantize_blockwise']}, expected {quant}")
+        else:
+            check(s["ship_dropped"] >= 2 and s["ship_duped"] >= 2
+                  and s["ship_dedups"] >= 1
+                  and eng.registry.counter_value(
+                      "serve.prefill_tier_kills") == 1,
+                  f"{path}: the storm did not fire: {s}")
+        ttft = [r.stats.ttft_s for r in res if r.stats.ttft_s is not None]
+        out[path] = {
+            "summary": s, "packs": coord.packs, "unpacks": coord.unpacks,
+            "wire_bytes_per_shipment": s["ship_bytes"] / max(
+                s["ship_sent"], 1),
+            "ship_pack_s": _pcts(coord.ship_pack_s),
+            "ship_adopt_s": _pcts(coord.ship_adopt_s),
+            "ship_pack_to_adopt_s": _pcts(coord.ship_wall_s),
+            "ttft_s": _pcts(ttft), "ttft_s_colocated": _pcts(
+                colocated_ttft),
+            "tokens_per_s": sum(len(r.tokens) for r in res) / wall,
+            "run_wall_s": wall,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches}
+        print(f"{path} " + json.dumps(out[path]))
+        del coord, eng
+    return by_path
+
+
+def serving4_frontend_phase(model, seed, kernels, want):
+    """(c): two replicas on the card share the model behind a
+    `Frontend` with the free tenant capped at 3 live requests across
+    both, hedging after 2 router steps, and replica 0 killed at router
+    step 12 for 6 steps: the single replica's tokens, the quota held
+    every step (over the requests not answered yet; the slots the
+    tenant holds, hedge losers of answered requests included, are
+    printed beside); then replica 0 drained (it serves nothing of 4
+    more requests) and rejoined."""
+    from hetu_tpu_torch.chaos.plan import FaultPlan, FaultSpec
+    from hetu_tpu_torch.serving import (Frontend, ServeConfig,
+                                        ServingEngine, parse_quotas)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vocab = model.config.vocab_size
+    serve = ServeConfig(num_slots=8, page_size=16, max_len=2048,
+                        prefill_chunk=256, sampling=True, retry_budget=2)
+    engines = [ServingEngine(model, serve, device="cuda").warmup()
+               for _ in range(2)]
+    plan = FaultPlan([FaultSpec(kind="engine_kill", rank=0, at_step=12,
+                                count=6)])
+    fe = Frontend(engines, plan=plan, hedge_after=2,
+                  quotas=parse_quotas("free:3"))
+    live_free, held_free = [], []
+    step = fe.step
+
+    def counted(now):
+        res = step(now)
+        # the tenant's requests live on either replica that the fleet
+        # has not answered yet: what the fleet quota bounds (a hedge's
+        # two copies are one request; the losing copy of an answered
+        # request runs on as discarded work, as the reference's does,
+        # and is counted apart, as slots the tenant holds)
+        rids = [st.request.rid for e in engines for st in e.scheduler.slots
+                if st is not None and st.request.tenant == "free"]
+        live_free.append(len({r for r in rids if r not in fe._finished}))
+        held_free.append(len(rids))
+        for e in engines:
+            e.scheduler.check_invariants()
+        return res
+    fe.step = counted
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    res = fe.run(serving4_trace(vocab, seed))
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    _serving4_launches("serving4_frontend", launches)
+    check(len(res) == 24 and len({r.rid for r in res}) == 24,
+          f"serving4_frontend: {len(res)} results")
+    for r in res:
+        check(r.finished_reason == "length" and r.tokens == want[r.rid],
+              f"serving4_frontend: request {r.rid} differs from the "
+              "single replica's run")
+    s = fe.summary()
+    check(s["reroutes"] > 0 and fe.replicas[0].kills == 1,
+          f"serving4_frontend: the kill rerouted nothing: {s}")
+    check(max(live_free) <= 3 and s["quota_holds"] > 0,
+          f"serving4_frontend: free tenant live {max(live_free)}, "
+          f"holds {s['quota_holds']}")
+    fe.step = step
+    fe.drain(0)
+    served0 = engines[0].registry.counter_value("serve.requests_done")
+    # four of the requests again under new rids (a rid answered once is
+    # never answered again)
+    import dataclasses
+    more = fe.run([dataclasses.replace(r, rid=r.rid + 100)
+                   for r in serving4_trace(vocab, seed)[:4]])
+    check(engines[0].registry.counter_value("serve.requests_done")
+          == served0, "serving4_frontend: the drained replica served")
+    check([r.tokens for r in more] == [want[r.rid - 100] for r in more],
+          "serving4_frontend: drained-fleet tokens differ")
+    fe.rejoin(0)
+    check(not fe.replicas[0].draining and not fe.replicas[0].down,
+          "serving4_frontend: replica 0 did not rejoin")
+    ttft = [r.stats.ttft_s for r in res]
+    print("serving4_frontend " + json.dumps({
+        "summary": s, "max_live_free": max(live_free),
+        "max_slots_held_free": max(held_free),
+        "ttft_s": _pcts(ttft), "tokens_per_s": sum(
+            len(r.tokens) for r in res) / wall, "run_wall_s": wall,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": launches}))
+    del fe, engines
+    return {"serving4_frontend": launches}
+
+
+def serving4_phase(seed: int, kernels, card: str):
+    """Phase 17 ("serving4"): the serving host layers on Llama-3-8B at
+    full width and depth (bf16 weights drawn from `seed`), one model
+    shared by every engine of the phase: (a) policies and failover, (b)
+    disaggregated prefill/decode, (c) the replica frontend.  Prints its
+    wall time and peak memory; returns the paths' launch counts."""
+    import tempfile
+    from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaLMHeadModel(LlamaConfig.llama3_8b(
+        param_dtype=torch.bfloat16), device="cuda", seed=seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path, base = serving4_policies_phase(model, seed, kernels, card,
+                                                tmp)
+    by_path.update(serving4_disagg_phase(model, seed, kernels, card,
+                                         base["decode"], base["ttft"]))
+    by_path.update(serving4_frontend_phase(model, seed, kernels,
+                                           base["decode"]))
+    del model
+    print(f"serving4: {time.perf_counter() - t_phase:.1f}s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; {card}")
+    return by_path
 
 
 def main(argv=None) -> int:
@@ -5344,6 +5863,11 @@ def main(argv=None) -> int:
     lora_multitask_phase(args.seed, smi)
     lora_identity_phase(args.seed, kernels, smi)
     print(f"lora: {time.perf_counter() - t0:.1f}s; {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the serving host layers: policies and failover, disaggregated
+    # prefill/decode, the replica frontend
+    by_path.update(serving4_phase(args.seed, kernels, smi))
 
     line = []
     for name, (mod, attr, source, replaces) in kernels.items():

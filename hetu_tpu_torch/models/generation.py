@@ -171,6 +171,9 @@ def _paged_forward(model, tokens, k_pool, v_pool, table, positions,
     `paged_verify`, else (C = 1) through `paged_attention`."""
     c = model.config
     kv_quant = resolve_quant(kv_quant, k_scale, v_scale)
+    if kv_quant != "none":
+        # here, not at the top: serving imports this module
+        from hetu_tpu_torch.serving.kv_pool import tap_kv_snr
     S, C = tokens.shape
     positions = torch.as_tensor(positions)
     if positions.numel():
@@ -189,6 +192,11 @@ def _paged_forward(model, tokens, k_pool, v_pool, table, positions,
         ksc = vsc = None
         if kv_quant != "none":
             ksc, vsc = k_scale[li], v_scale[li]
+            # the pool's numerics kv_pages SNR of the tokens this step
+            # writes (HETU_TORCH_NUMERICS; nothing without a collector)
+            bits = 4 if kv_quant == "int4" else 8
+            tap_kv_snr(k, bits)
+            tap_kv_snr(v, bits)
         write_kv_tokens(kp, vp, table, positions, k, v, k_scale=ksc,
                         v_scale=vsc, quant=kv_quant, device=q.device)
         kw = dict(softmax_scale=scale, k_scale=ksc, v_scale=vsc,

@@ -1,3 +1,4 @@
 """Observability of the port (`hetu_tpu/obs` counterparts): the metrics
-registry, the run log, the numerics observatory and the health
-monitors."""
+registry, the run log, the numerics observatory, the health monitors,
+and the serving traces' spans, critical paths and chrome-trace
+renders."""

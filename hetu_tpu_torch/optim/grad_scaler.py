@@ -19,6 +19,8 @@ from typing import Dict, Optional
 
 import torch
 
+from hetu_tpu_torch.utils.device import resolve_device
+
 
 @dataclasses.dataclass
 class GradScaler:
@@ -27,7 +29,10 @@ class GradScaler:
     backoff_factor: float = 0.5
     growth_interval: int = 2000
 
-    def init(self, device="cpu") -> Dict[str, torch.Tensor]:
+    def init(self, device="cuda") -> Dict[str, torch.Tensor]:
+        """The scale state on `device` (the card unless the caller asks
+        for the CPU; raises where there is no card)."""
+        device = resolve_device(device)
         return {"scale": torch.tensor(self.init_scale, dtype=torch.float32,
                                       device=device),
                 "growth_tracker": torch.zeros((), dtype=torch.int32,

@@ -53,11 +53,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from hetu_tpu_torch.obs import numerics as _numerics
 from hetu_tpu_torch.ops.cuda.kv_write import write_kv_pages
 # quantize_heads: the reference's kv_pool holds the pair, and so does this
 # module (the tests quantize pools through it)
-from hetu_tpu_torch.ops.quantization import (dequantize_heads,  # noqa: F401
-                                             quantize_heads)
+from hetu_tpu_torch.ops.quantization import dequantize_heads, quantize_heads
 
 #: bytes an element of each exact page mode takes
 _ELEM_BYTES = {"fp32": 4.0, "bf16": 2.0, "fp16": 2.0}
@@ -80,6 +80,24 @@ def kv_bytes_per_token(num_layers: int, num_kv_heads: int, head_dim: int,
                          f"known: {sorted(_ELEM_BYTES)} + ['int8', 'int4']")
 
 
+def tap_kv_snr(x: torch.Tensor, bits: int = 8):
+    """The numerics observatory's ``kv_pages`` tap (HETU_TORCH_NUMERICS)
+    at the quantized page writes (`PagePool.write_pages`, the paged
+    forwards' token writes): the quantize -> dequantize round trip of
+    the K (or V) head vectors a page write quantizes, signal and error
+    powers accumulated.  Nothing runs without a collector installed;
+    with one, the round trip runs `quantize_heads` / `dequantize_heads`
+    on x's device (int8: the quantize and dequantize kernels on the
+    card)."""
+    if not _numerics.active():
+        return
+    with torch.no_grad():
+        x32 = x.detach().float().contiguous()
+        q, s = quantize_heads(x32, bits)
+        _numerics.tap_quant_error("kv_pages", x32,
+                                  x32 - dequantize_heads(q, s, bits))
+
+
 class PagePool:
     """Host-side allocator + device-side page tensors.
 
@@ -90,7 +108,8 @@ class PagePool:
 
     def __init__(self, *, num_layers: int, num_pages: int, page_size: int,
                  num_kv_heads: int, head_dim: int, dtype=torch.float32,
-                 quant: str = "none", device="cuda"):
+                 quant: str = "none", device="cuda",
+                 device_arrays: bool = True):
         if quant not in ("none", "int8", "int4"):
             raise ValueError(f"kv quant mode {quant!r} invalid; "
                              "choices: ('none', 'int8', 'int4')")
@@ -111,7 +130,12 @@ class PagePool:
         shape = (num_layers, num_pages + 1, page_size, num_kv_heads,
                  head_dim)
         self.k_scale = self.v_scale = None
-        if quant == "none":
+        if not device_arrays:
+            # host-only pool (serving/fleet.py's simulator): the
+            # allocator and refcounts are the real thing, no tensor is
+            # ever made
+            self.k = self.v = None
+        elif quant == "none":
             self.k = torch.zeros(shape, dtype=dtype, device=device)
             self.v = torch.zeros(shape, dtype=dtype, device=device)
         else:
@@ -222,6 +246,10 @@ class PagePool:
         if ks.shape[1] != mp * self.page_size:
             raise ValueError(f"K/V hold {ks.shape[1]} positions, the row "
                              f"covers {mp} pages of {self.page_size}")
+        if self.quant != "none":
+            # the reference taps the whole scratch it quantizes
+            tap_kv_snr(ks, self.quant_bits)
+            tap_kv_snr(vs, self.quant_bits)
         row = torch.as_tensor(pages_row, dtype=torch.int32,
                               device=self.k.device)
         write_kv_pages(self.k, self.v, row, ks, vs, k_scale=self.k_scale,

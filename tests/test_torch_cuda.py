@@ -2386,3 +2386,197 @@ def test_update_stats_are_taken_a_group_at_a_time(dev):
     for k, v in whole.items():
         assert abs(float(stats["update"][k]) - float(v)) <= \
             1e-6 * abs(float(v)), k
+
+
+# ------------------------------------------------- the serving host layers
+def _host_config():
+    return LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                            num_key_value_heads=2, intermediate_size=512,
+                            compute_dtype=torch.float32,
+                            initializer_range=0.1)
+
+
+def _host_trace(cfg, n=10, sampled=True):
+    """Every request at once (admission order is the rid order); gold
+    (priority 2) and bulk alternate by rid and so do tenants acme and
+    free; the odd requests sampled."""
+    from hetu_tpu_torch.serving import SLOClass
+    reqs = synthetic_requests(
+        n, vocab_size=cfg.vocab_size, prompt_lens=(5, 40),
+        max_new=(4, 9), arrivals=np.zeros(n),
+        slo_classes=[SLOClass("gold", priority=2), SLOClass("bulk")],
+        tenants=["acme", "free"], seed=9)
+    if sampled:
+        for r in reqs[1::2]:
+            r.sampling = SamplingParams(temperature=0.8, top_k=20,
+                                        top_p=0.95, seed=50 + r.rid)
+    return reqs
+
+
+@pytest.mark.parametrize("path", ["policies", "disagg-none", "disagg-int8",
+                                  "disagg-int4", "storm", "frontend"])
+def test_serving_host_layers_on_the_card_match_the_cpu(dev, path):
+    """A narrow Llama in fp32 through the serving host layers on exact
+    pages, on the card against the CPU (the plain versions), same
+    weights and trace: preemption, a tenant quota and an engine kill
+    under a retry budget; the disaggregated pipeline over each wire (and
+    the exact wire under a shipment storm and a prefill kill); the
+    frontend with a replica kill and hedging.  The same tokens and
+    finish reasons, the same counters; on the card the wire is packed
+    and unpacked by the kernels."""
+    from hetu_tpu_torch.chaos.inject import maybe_chaos_serving
+    from hetu_tpu_torch.chaos.plan import FaultPlan, FaultSpec
+    from hetu_tpu_torch.serving import (DisaggCoordinator, Frontend,
+                                        PrefillWorker, parse_quotas)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _host_config()
+    weights = LlamaLMHeadModel(cfg, device="cpu", seed=0).state_dict()
+    base = dict(num_slots=3, page_size=8, max_len=64, prefill_chunk=16,
+                sampling=True)
+
+    def run(device):
+        model = LlamaLMHeadModel(cfg, device=device, seed=0)
+        model.load_state_dict(weights)
+        checks = []
+        if path == "policies":
+            eng = ServingEngine(model, ServeConfig(
+                **base, preempt=True, retry_budget=1,
+                quotas=parse_quotas("free:1")), device=device)
+            plan = FaultPlan([FaultSpec(kind="engine_kill", at_step=7)])
+
+            def on_step(i):
+                maybe_chaos_serving(plan, eng, i)
+                eng.scheduler.check_invariants()
+            res = eng.run(_host_trace(cfg), on_step=on_step)
+            reg = eng.registry
+            counts = [reg.counter_value(n) for n in (
+                "serve.preemptions", "serve.replica_requeues")]
+            checks = counts + [reg.counter_value(
+                "serve.admission_stalls", reason="quota_exceeded")]
+            assert all(n > 0 for n in checks)
+        elif path == "frontend":
+            engines = [ServingEngine(model, ServeConfig(
+                **base, retry_budget=2), device=device) for _ in range(2)]
+            plan = FaultPlan([FaultSpec(kind="engine_kill", rank=0,
+                                        at_step=3, count=3)])
+            fe = Frontend(engines, plan=plan, hedge_after=2,
+                          quotas=parse_quotas("free:2"))
+            res = fe.run(_host_trace(cfg))
+            s = fe.summary()
+            checks = [s["reroutes"], s["hedges"], s["quota_holds"]]
+        else:
+            wire = "none" if path == "storm" else path.split("-")[1]
+            plan = None
+            if path == "storm":
+                plan = FaultPlan([
+                    FaultSpec(kind="shipment_drop", op="ship",
+                              after_calls=1, count=2, prob=1.0),
+                    FaultSpec(kind="shipment_dup", op="ship",
+                              after_calls=4, count=2, prob=1.0),
+                    FaultSpec(kind="shipment_delay", op="ship",
+                              after_calls=6, count=1, prob=1.0,
+                              delay_s=2.0),
+                    FaultSpec(kind="prefill_kill", at_step=5)])
+            eng = ServingEngine(model, ServeConfig(**base, retry_budget=2),
+                                device=device)
+            coord = DisaggCoordinator(
+                PrefillWorker(model, prefill_chunk=16, max_len=64,
+                              sampling=True, device=device),
+                eng, plan=plan, ship_quant=wire)
+            res = coord.run(_host_trace(cfg),
+                            on_step=lambda i: eng.scheduler
+                            .check_invariants())
+            s = coord.summary()
+            s.pop("degraded_s")
+            checks = sorted(s.items())
+        return [(r.rid, r.tokens, r.finished_reason) for r in res], checks
+
+    q0, d0 = tquant.launches, tquant.dequant_launches
+    on_card = run(dev)
+    moved = (tquant.launches - q0, tquant.dequant_launches - d0)
+    assert on_card == run("cpu")
+    if path == "disagg-int8":
+        assert moved[0] > 0 and moved[1] > 0
+    elif path != "disagg-int4":
+        assert moved == (0, 0)
+    if path in ("policies", "disagg-none", "storm", "frontend"):
+        # exact pages and an exact wire: the colocated run's tokens
+        model = LlamaLMHeadModel(cfg, device=dev, seed=0)
+        model.load_state_dict(weights)
+        alone = ServingEngine(model, ServeConfig(**base), device=dev).run(
+            _host_trace(cfg))
+        want = {r.rid: r.tokens for r in alone}
+        for rid, tokens, reason in on_card[0]:
+            if reason in ("length", "eos"):
+                assert tokens == want[rid], rid
+
+
+def test_int8_wire_launches_two_kernels_a_side_and_matches_plain(dev):
+    """An int8 shipment of a prefill's [L, max_len, n_kv, hd] scratch:
+    the pack launches the quantize twice (K and V), the unpack the
+    dequantize twice; payload, scales and the unpacked values equal the
+    plain versions' on the same values, bit for bit, and the payload
+    crossed to host memory."""
+    from hetu_tpu_torch.serving import pack_shipment, unpack_shipment
+    req = Request(rid=3, prompt=np.ones(5, np.int32), max_new_tokens=2)
+    for dtype in (torch.float32, torch.bfloat16):
+        ks = _normal((4, 64, 2, 128), 60, dev, dtype)
+        vs = _normal((4, 64, 2, 128), 61, dev, dtype)
+        q0, d0 = tquant.launches, tquant.dequant_launches
+        ship = pack_shipment(1, req, 0, 7, ks, vs, quant="int8")
+        assert (tquant.launches - q0, tquant.dequant_launches - d0) == (2, 0)
+        assert ship.ks.device.type == "cpu" and ship.k_scale.dtype == \
+            torch.float32
+        bk, bv = unpack_shipment(ship, dev)
+        assert (tquant.launches - q0, tquant.dequant_launches - d0) == (2, 2)
+        plain = pack_shipment(1, req, 0, 7, ks.cpu(), vs.cpu(), quant="int8")
+        for a, b in ((ship.ks, plain.ks), (ship.vs, plain.vs),
+                     (ship.k_scale, plain.k_scale),
+                     (ship.v_scale, plain.v_scale)):
+            assert torch.equal(a, b), dtype
+        pk, pv = unpack_shipment(plain)
+        assert torch.equal(bk.cpu(), pk) and torch.equal(bv.cpu(), pv)
+        assert ship.wire_bytes == 2 * (ks.numel() + 4 * ks.numel() // 128)
+
+
+def test_numerics_kv_pages_snr_on_the_card_matches_the_cpu(dev,
+                                                           monkeypatch,
+                                                           tmp_path):
+    """HETU_TORCH_NUMERICS on int8 pages: the engine's numerics records
+    on the card (the SNR taps on the quantize and dequantize kernels)
+    against the CPU's: the same steps and scopes, logits stats within
+    2e-3, err_pow within 5% and snr_db within 0.25 dB (the K and V of
+    the two devices' products differ by rounding); without the flag the
+    taps launch nothing."""
+    from hetu_tpu_torch.obs.runlog import RunLog
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _host_config()
+    weights = LlamaLMHeadModel(cfg, device="cpu", seed=0).state_dict()
+    serve = ServeConfig(num_slots=3, page_size=8, max_len=64,
+                        prefill_chunk=16, kv_quant="int8")
+
+    def run(device, tag):
+        model = LlamaLMHeadModel(cfg, device=device, seed=0)
+        model.load_state_dict(weights)
+        log = RunLog(str(tmp_path / f"{tag}.jsonl"))
+        ServingEngine(model, serve, device=device, run_log=log).run(
+            _host_trace(cfg, n=4, sampled=False))
+        log.close()
+        return [r for r in RunLog.read(str(tmp_path / f"{tag}.jsonl"))
+                if r["kind"] == "numerics"]
+
+    q0 = tquant.launches
+    assert run(dev, "off") == [] and tquant.launches == q0
+    monkeypatch.setenv("HETU_TORCH_NUMERICS", "1")
+    card, host = run(dev, "card"), run("cpu", "cpu")
+    assert tquant.launches > q0 and len(card) == len(host) > 0
+    for t, c in zip(card, host):
+        assert t["step"] == c["step"]
+        assert set(t["scopes"]) == set(c["scopes"]) >= {"kv_pages", "logits"}
+        for scope, stats in c["scopes"].items():
+            for name, v in stats.items():
+                tol = {"err_pow": dict(rtol=5e-2),
+                       "snr_db": dict(atol=0.25)}.get(
+                           name, dict(rtol=2e-3, atol=1e-5))
+                np.testing.assert_allclose(t["scopes"][scope][name], v,
+                                           err_msg=f"{scope}.{name}", **tol)

@@ -426,7 +426,7 @@ def test_overflow_skips_and_halves_as_the_reference():
 
 def test_scale_grows_on_finite_streak():
     s = GradScaler(init_scale=2.0 ** 10, growth_interval=3)
-    st = s.init()
+    st = s.init(device="cpu")
     for _ in range(3):
         st = s.update(st, torch.tensor(True))
     assert float(st["scale"]) == 2.0 ** 11

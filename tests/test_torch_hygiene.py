@@ -82,7 +82,18 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
                  "hetu_tpu_torch.nn.initializers",
                  "hetu_tpu_torch.peft.lora",
                  "hetu_tpu_torch.peft.multi_task",
-                 "hetu_tpu_torch.engine.sft_trainer"):
+                 "hetu_tpu_torch.engine.sft_trainer",
+                 "hetu_tpu_torch.serving.disagg",
+                 "hetu_tpu_torch.serving.frontend",
+                 "hetu_tpu_torch.serving.fleet",
+                 "hetu_tpu_torch.serving.slo_report",
+                 "hetu_tpu_torch.serving.tracing",
+                 "hetu_tpu_torch.serving.costs",
+                 "hetu_tpu_torch.obs.spans",
+                 "hetu_tpu_torch.obs.critpath",
+                 "hetu_tpu_torch.obs.trace",
+                 "hetu_tpu_torch.chaos.plan",
+                 "hetu_tpu_torch.chaos.inject"):
         assert name in probe["modules"]
 
 
@@ -308,3 +319,43 @@ def test_lora_sft_defaults_to_the_card_and_builds_nothing_on_the_cpu(
         SFTTrainer(model, TrainingConfig(), lora=LoRAConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_experiment({"model": {"family": "llama", "preset": "tiny"}})
+
+
+def test_grad_scaler_defaults_to_the_card(monkeypatch):
+    """`GradScaler.init()` puts the scale state on the card unless the
+    caller asks for the CPU, and raises where there is no card."""
+    from hetu_tpu_torch.optim.grad_scaler import GradScaler
+    assert GradScaler().init(device="cpu")["scale"].device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GradScaler().init()
+
+
+def test_serving_host_entry_points_default_to_the_card(monkeypatch):
+    """The disaggregated prefill tier runs on the card unless asked for
+    the CPU, and every serving host path on the CPU (the two-tier
+    pipeline on every wire, the frontend) builds nothing."""
+    from hetu_tpu_torch.serving import (DisaggCoordinator, Frontend,
+                                        PrefillWorker)
+    calls = []
+    monkeypatch.setattr(build, "build", lambda *a, **k: calls.append(a))
+    monkeypatch.setattr(build, "library", lambda *a, **k: calls.append(a))
+    model = LlamaLMHeadModel(LlamaConfig.tiny(), device="cpu")
+    cfg = ServeConfig(num_slots=2, max_len=32, prefill_chunk=8,
+                      kv_quant="int8", preempt=True, retry_budget=1)
+    prompt = np.arange(1, 12, dtype=np.int32)
+    for wire in ("none", "int8", "int4"):
+        eng = ServingEngine(model, cfg, device="cpu")
+        coord = DisaggCoordinator(
+            PrefillWorker(model, prefill_chunk=8, max_len=32, device="cpu"),
+            eng, ship_quant=wire)
+        assert len(coord.run([Request(rid=0, prompt=prompt,
+                                      max_new_tokens=3)])) == 1
+    fe = Frontend([ServingEngine(model, cfg, device="cpu")
+                   for _ in range(2)])
+    assert len(fe.run([Request(rid=i, prompt=prompt, max_new_tokens=2)
+                       for i in range(3)])) == 3
+    assert calls == []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PrefillWorker(model, prefill_chunk=8, max_len=32)

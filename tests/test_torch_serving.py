@@ -11,6 +11,8 @@ decoding, and `write_pages` touching only real pages).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -216,10 +218,7 @@ def test_write_pages_writes_real_pages_exactly():
 # ----------------------------------------------------- what waits
 @pytest.mark.parametrize("field", sorted(_LATER_FIELDS))
 def test_serve_config_refuses_options_of_later_slices(field):
-    value = {"quotas": {"acme": None}, "moe_dispatch": "int8",
-             "prefix_cache_pages": 4, "serve_sample": 2,
-             "retry_budget": 1, "brownout_page_high": 0.5,
-             "brownout_queue_min": 2, "brownout_streak": 1}.get(field, True)
+    value = {"moe_dispatch": "int8"}.get(field, True)
     with pytest.raises(NotImplementedError, match=field):
         tserving.ServeConfig(**{field: value})
 
@@ -262,28 +261,127 @@ def test_model_drafter_waits_for_its_slice(tiny_pair, how):
 
 
 _SLICE_OF = {"moe_dispatch": "multi-GPU", "kv_repage": "multi-GPU",
-             "reshard": "multi-GPU"}
+             "reshard": "multi-GPU", "telemetry": "item 6"}
 
 
 @pytest.mark.parametrize("name", sorted(set(_LATER_FIELDS)
                                         | set(_LATER_ENGINE_ARGS)))
 def test_deferred_options_name_their_slice(tiny_pair, name):
-    """Every option the port defers names the slice that brings it: the
-    serving host layers (run_log, tracer, health, serve_sample and the
-    scheduler's policies), or multi-GPU."""
+    """Every option the port defers names the slice that brings it:
+    multi-GPU (MoE dispatch, KV re-paging, the reshard hook) or the
+    cluster telemetry push (ROADMAP Queue A item 6)."""
     _, _, tmodel = tiny_pair
-    want = _SLICE_OF.get(name, "serving host-layer slice")
+    want = _SLICE_OF[name]
     with pytest.raises(NotImplementedError, match=want):
         if name in _LATER_FIELDS:
-            value = {"quotas": {"acme": None}, "serve_sample": 2,
-                     "retry_budget": 1, "brownout_page_high": 0.5,
-                     "brownout_queue_min": 2,
-                     "brownout_streak": 1}.get(name, True)
-            tserving.ServeConfig(**{name: value})
+            tserving.ServeConfig(**{name: {"moe_dispatch": "int8"}.get(
+                name, True)})
         else:
             tserving.ServingEngine(tmodel, device="cpu", **{name: object()})
     assert "prefix_cache" not in _LATER_FIELDS
     assert "draft_model" not in _LATER_ENGINE_ARGS
+
+
+#: the serving host layer's options: name -> (the flag both packages
+#: read it from, a value, an invalid value); None = no flag
+_HOST_FIELDS = {
+    "preempt": ("SERVE_PREEMPT", "1", "maybe"),
+    "quotas": ("SERVE_QUOTAS", "acme:2:16,free:1", "acme:x"),
+    "serve_sample": ("RUNLOG_SERVE_SAMPLE", "4", "0"),
+    "retry_budget": ("SERVE_RETRY", "2", "-1"),
+    "deadline": ("SERVE_DEADLINE", "on", "sometimes"),
+    "brownout": ("SERVE_BROWNOUT", "true", "2"),
+    "brownout_page_high": (None, 0.5, 1.5),
+    "brownout_queue_min": (None, 3, 0),
+    "brownout_streak": (None, 2, 0),
+}
+_HOST_ARGS = ("run_log", "tracer", "health", "cost_model")
+
+
+def _config_view(cfg):
+    out = dataclasses.asdict(cfg)
+    out["quotas"] = {t: q.to_dict() for t, q in cfg.quotas.items()}
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(set(_HOST_FIELDS) | set(_HOST_ARGS)))
+def test_host_layer_option_behaves_like_the_reference(tiny_pair, name,
+                                                      monkeypatch,
+                                                      tmp_path):
+    """Each option the serving host layer brings is taken the
+    reference's way: a config field parses from its flag (HETU_TORCH_*
+    in the port, HETU_TPU_* in the reference) into an equal ServeConfig
+    and refuses the values the reference refuses; an engine keyword is
+    wired where the reference wires it, explicitly or through the flag
+    that turns it on."""
+    jmodel, jparams, tmodel = tiny_pair
+    if name in _HOST_FIELDS:
+        flag, value, bad = _HOST_FIELDS[name]
+        if flag is None:
+            kw = {name: value}
+            assert _config_view(tserving.ServeConfig(**kw)) == \
+                _config_view(jserving.ServeConfig(**kw))
+            for pkg in (tserving, jserving):
+                with pytest.raises(ValueError):
+                    pkg.ServeConfig(**{name: bad})
+            return
+        monkeypatch.setenv(f"HETU_TORCH_{flag}", value)
+        monkeypatch.setenv(f"HETU_TPU_{flag}", value)
+        got = tserving.ServeConfig.from_flags()
+        assert _config_view(got) == _config_view(
+            jserving.ServeConfig.from_flags())
+        assert _config_view(got) != _config_view(tserving.ServeConfig())
+        monkeypatch.setenv(f"HETU_TORCH_{flag}", bad)
+        monkeypatch.setenv(f"HETU_TPU_{flag}", bad)
+        for pkg in (tserving, jserving):
+            with pytest.raises(ValueError):
+                pkg.ServeConfig.from_flags()
+        return
+    from hetu_tpu.obs.health import ServingHealthMonitor as JHealth
+    from hetu_tpu.obs.runlog import RunLog as JRunLog
+    from hetu_tpu.serving.costs import CostModel as JCostModel
+    from hetu_tpu_torch.obs.health import ServingHealthMonitor
+    from hetu_tpu_torch.obs.runlog import RunLog
+    from hetu_tpu_torch.serving.costs import CostModel
+    cost = dict(num_params=1e6, num_layers=2, hidden_size=64,
+                num_kv_heads=2, head_dim=16, page_size=8)
+    explicit = {
+        "run_log": (lambda: RunLog(str(tmp_path / "t.jsonl")),
+                    lambda: JRunLog(str(tmp_path / "j.jsonl"))),
+        "tracer": (tserving.RequestTracer, jserving.RequestTracer),
+        "health": (ServingHealthMonitor, JHealth),
+        "cost_model": (lambda: CostModel.from_model_dims(**cost),
+                       lambda: JCostModel.from_model_dims(**cost)),
+    }[name]
+    attr = {"cost_model": "ledger"}.get(name, name)
+    teng = tserving.ServingEngine(tmodel, tserving.ServeConfig(**ENGINE),
+                                  device="cpu", **{name: explicit[0]()})
+    jeng = jserving.ServingEngine(jmodel, jparams,
+                                  jserving.ServeConfig(**ENGINE),
+                                  registry=JMetricsRegistry(),
+                                  **{name: explicit[1]()})
+    assert (getattr(teng, attr) is None) == (getattr(jeng, attr) is None)
+    assert getattr(teng, attr) is not None
+    if name == "cost_model":
+        assert teng.ledger.model.to_dict() == jeng.ledger.model.to_dict()
+        return
+    # the flag gate: unset leaves it off on both sides, set turns it on
+    flag = {"run_log": ("RUNLOG", str(tmp_path / "flag.jsonl")),
+            "tracer": ("SERVE_TRACE", "1"),
+            "health": ("HEALTH", "1")}[name]
+    for on in (False, True):
+        if on:
+            monkeypatch.setenv(f"HETU_TORCH_{flag[0]}", flag[1])
+            monkeypatch.setenv(f"HETU_TPU_{flag[0]}", flag[1])
+        teng = tserving.ServingEngine(
+            tmodel, tserving.ServeConfig(**ENGINE), device="cpu")
+        jeng = jserving.ServingEngine(jmodel, jparams,
+                                      jserving.ServeConfig(**ENGINE),
+                                      registry=JMetricsRegistry())
+        assert (getattr(teng, name) is not None) == on
+        assert (getattr(jeng, name) is not None) == on
+        teng.close()
+        jeng.close()
 
 
 @pytest.mark.parametrize("field,value", [("kv_quant", "int2"),

@@ -204,7 +204,7 @@ def test_grad_scaler_updates_match_the_reference():
     steps, growth interval 3: scale and tracker equal at every step."""
     flags = [True, True, True, False, True, True, True, True, False, True]
     jsc, tsc = JGradScaler(growth_interval=3), GradScaler(growth_interval=3)
-    js, ts = jsc.init(), tsc.init()
+    js, ts = jsc.init(), tsc.init(device="cpu")
     for f in flags:
         js = jsc.update(js, jnp.asarray(f))
         ts = tsc.update(ts, torch.tensor(f))

@@ -59,7 +59,7 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     blockwise dequantize (the draft model's embedding [128256 x 2048]
     at blocks 128 and 64, payloads [4096, 64] and [4096, 128], bf16 and
     fp32 out) bit for bit (`serving3_kernel_phase`);
- 4. serving reference: Llama-3-8B widths cut to 2 layers, in fp32 — the
+ 4. serving reference: Llama-3-8B widths cut to 1 layer, in fp32 — the
     serving engine on the card (the kernels) against the same engine on
     the CPU (the plain versions), same weights and trace: prefill logits
     within 1e-3 and identical greedy tokens; then, half the requests
@@ -260,7 +260,7 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     collector on: phase 15's limits on losses, grad norms, moments and
     the adapters' AdamW-direction bound, the last step's numerics record
     key for key (`lora_reference_phase`); (b) Llama-3-8B at full width
-    and depth (32 layers, bf16 frozen base), `LoRAConfig(rank=16)`,
+    cut to 16 layers (bf16 frozen base), `LoRAConfig(rank=16)`,
     `TrainingConfig(8, 2, 2048)`, 4 steps on a chat batch through
     `build_sft_example`, every hook flag on: exact launch counts by arm,
     the loss falling, the base's fingerprint unchanged, peak memory at
@@ -275,7 +275,7 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     (`lora_identity_phase`).  Phase 3's SwiGLU backward rows (bf16 and
     fp16) are timed beside autograd's backward of `F.silu(g) * u`.
 17. the serving host layers ("serving4", `serving4_phase`), Llama-3-8B
-    at full width and depth in bf16, one model shared by every engine,
+    at full width, 16 layers, in bf16, one model shared by every engine,
     `ServeConfig(8, page_size=16, max_len=2048, prefill_chunk=256)`, 24
     requests in bursts of 8 at 20/s (prompts 64-1,024, 32 new; gold and
     bulk classes, tenants acme and free, half sampled): (a) the
@@ -298,6 +298,29 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     3 live across both, hedging after 2 router steps, replica 0 killed
     at step 12 for 6 steps), the single replica's tokens, then a drain
     and a rejoin.  The phase prints its wall time and peak memory.
+18. Mixture-of-Experts ("moe", `moe_phase`): (a) a narrow MoE Llama
+    (2 layers, hidden 256, 8 experts, top-2, fp32, capacity factor 0.5)
+    card vs CPU under each of the six gates: logits within 1e-4, every
+    layer's routing plan equal (a plan that differs must hold a counted
+    near-tie, a gate margin under 1e-6), greedy engine tokens equal;
+    (b) Mixtral-8x7B widths cut to 12 layers, bf16, phase 5's trace with
+    the odd requests sampled, served with the experts as they are,
+    resident in int8, resident in int4, and in int8 with n-gram
+    speculation: exact launch counts (quantize 2 x layers at build,
+    dequantize 2 x layers a forward, SwiGLU layers a forward), the int8
+    and int4 tokens equal to the dequantized weights' served as they
+    are, the speculative run's tokens equal to the int8 run's but where
+    a verify step's capacity dropped one of the request's pairs first,
+    TTFT, decode step, tokens/s, peak memory and a decode step's device
+    work against its host enqueue; (c) 2 layers trained in bf16 with
+    flash and "dots_attn", `TrainingConfig(8, 2, 2048)`, 4 steps: exact
+    launch counts, phase 8's loss checks, peak at most 70 GiB, `mfu`
+    over the active parameters beside the reference's `flops_per_token`
+    (all 8 experts); (d) SwiGLU forward at [64 / 640 / 10240, 14336]
+    and backward at [10240, 14336], the quantize (int8 and the int4
+    grid) and dequantize of a layer's expert leaves at block 256, each
+    against its plain version and timed, the dequantize beside
+    PyTorch's per-channel qint8 `dequantize`.
 
 Prints the `kernels` JSON line, the nvidia-smi line, and last the
 `{"ok": true, "device": ...}` line; the `kernels` line gives AdamW's
@@ -2184,7 +2207,7 @@ def read_counts(kernels):
 
 # ---------------------------------------------------------- reference
 def reference_phase(seed: int, kernels):
-    """Llama-3-8B widths at 2 layers, fp32: engine on the card vs the
+    """Llama-3-8B widths at 1 layer, fp32: engine on the card vs the
     same engine on the CPU, greedy on exact pages, then the second
     serving slice (`reference_spec_phase`) and the third
     (`reference_serving3_phase`)."""
@@ -2193,7 +2216,7 @@ def reference_phase(seed: int, kernels):
     from hetu_tpu_torch.serving import (ServeConfig, ServingEngine,
                                         poisson_arrivals, synthetic_requests)
 
-    cfg = LlamaConfig.llama3_8b(num_hidden_layers=2,
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=1,
                                 compute_dtype=torch.float32)
     t0 = time.perf_counter()
     card = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
@@ -2223,7 +2246,8 @@ def reference_phase(seed: int, kernels):
           f"logits shape {tuple(logits[0].shape)}")
     check(err <= 1e-3, f"card vs CPU prefill logits differ by {err}")
     check(tokens[0] == tokens[1], f"card vs CPU tokens differ: {tokens}")
-    print(f"reference: Llama-3-8B widths, 2 layers, fp32: card vs CPU "
+    print(f"reference: Llama-3-8B widths, {cfg.num_hidden_layers} layer, "
+          f"fp32: card vs CPU "
           f"prefill logits max_abs_err={err:.3g} (tol 1e-3); greedy tokens "
           f"identical {tokens[0]} ({time.perf_counter() - t0:.1f}s)")
     launches = reference_spec_phase(seed, card, cpu, kernels)
@@ -4979,14 +5003,15 @@ def sft_chat_batch(seed: int, vocab: int, rows: int, seq: int):
 
 
 def lora_llama_phase(seed: int, kernels, card: str):
-    """Phase 16 (b): LoRA SFT of Llama-3-8B at full width and depth (32
-    layers, bf16 frozen base drawn from `seed`, bf16 compute, flash,
+    """Phase 16 (b): LoRA SFT of Llama-3-8B at full width, depth cut to
+    16 layers (the whole smoke's time limit; bf16 frozen base drawn from
+    `seed`, bf16 compute, flash,
     "dots_attn"), `LoRAConfig(rank=16)` on the reference's Llama
     targets, `SFTTrainer(..., TrainingConfig(global_batch_size=8,
     micro_batch_size=2, seq_len=2048), device="cuda").train(...)`, 4
     steps on one chat batch (`sft_chat_batch`), HETU_TORCH_RUNLOG,
     HETU_TORCH_HEALTH and HETU_TORCH_NUMERICS on: exact launch counts
-    each step (phase 8's counts at 32 layers; AdamW once on its fp32
+    each step (phase 8's counts at 16 layers; AdamW once on its fp32
     arm over the adapter leaves), the loss finite and falling, only the
     adapters changed (the base's fingerprint before and after, no
     gradient on it), peak memory at most 70 GiB (else the micro-batch
@@ -5002,7 +5027,8 @@ def lora_llama_phase(seed: int, kernels, card: str):
     from hetu_tpu_torch.peft import LoRAConfig
     from hetu_tpu_torch.peft.lora import target_parameters
     t_phase = time.perf_counter()
-    cfg = LlamaConfig.llama3_8b(param_dtype=torch.bfloat16,
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=16,
+                                param_dtype=torch.bfloat16,
                                 remat_policy="dots_attn")
     L, gbs, seq = cfg.num_hidden_layers, 8, 2048
     lora = LoRAConfig(rank=16)
@@ -5703,7 +5729,8 @@ def serving4_frontend_phase(model, seed, kernels, want):
 
 def serving4_phase(seed: int, kernels, card: str):
     """Phase 17 ("serving4"): the serving host layers on Llama-3-8B at
-    full width and depth (bf16 weights drawn from `seed`), one model
+    full width, depth cut to 16 layers (bf16 weights drawn from `seed`;
+    the whole smoke's time limit), one model
     shared by every engine of the phase: (a) policies and failover, (b)
     disaggregated prefill/decode, (c) the replica frontend.  Prints its
     wall time and peak memory; returns the paths' launch counts."""
@@ -5712,7 +5739,8 @@ def serving4_phase(seed: int, kernels, card: str):
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     model = LlamaLMHeadModel(LlamaConfig.llama3_8b(
-        param_dtype=torch.bfloat16), device="cuda", seed=seed)
+        num_hidden_layers=16, param_dtype=torch.bfloat16), device="cuda",
+        seed=seed)
     with tempfile.TemporaryDirectory() as tmp:
         by_path, base = serving4_policies_phase(model, seed, kernels, card,
                                                 tmp)
@@ -5724,6 +5752,632 @@ def serving4_phase(seed: int, kernels, card: str):
     print(f"serving4: {time.perf_counter() - t_phase:.1f}s, peak "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; {card}")
     return by_path
+
+
+# ----------------------------------------------------------------- MoE
+def mixtral_config(**kw):
+    """Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1):
+    hidden 4096, 32 layers, 32 q / 8 kv heads of 128, 8 experts, top-2,
+    expert SwiGLU 14336, vocab 32000, rope_theta 1e6, 32,768 positions;
+    the reference's capacity factor (1.25) and sort dispatch."""
+    from hetu_tpu_torch.models.llama import LlamaConfig
+    d = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+             num_hidden_layers=32, num_attention_heads=32,
+             num_key_value_heads=8, max_position_embeddings=32768,
+             rope_theta=1e6, num_experts=8, moe_top_k=2)
+    d.update(kw)
+    return LlamaConfig(**d)
+
+
+def active_params(cfg) -> int:
+    """The parameters a token runs through: attention, norms, the router
+    and top-k of the E experts a layer, and the embedding and head (the
+    reference's `num_params` counts all E experts)."""
+    h, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    kvh = cfg.num_key_value_heads * cfg.head_dim
+    per_layer = (h * (h + 2 * kvh + h) + 2 * h + h * cfg.num_experts
+                 + 3 * h * i * cfg.moe_top_k)
+    emb = cfg.vocab_size * h * (1 if cfg.tie_word_embeddings else 2)
+    return L * per_layer + emb + h
+
+
+class RoutingProbe:
+    """Within it, each MoE layer call's router logits and routing plan
+    (`nn.moe.select_experts`, `nn.moe.sort_routing`) are kept, on the
+    host, in call order."""
+
+    def __enter__(self):
+        from hetu_tpu_torch.nn import moe
+        self.moe, self.calls = moe, []
+        self._sel, self._sort = moe.select_experts, moe.sort_routing
+
+        def select(logits, ids, cfg):
+            self.calls.append({"logits": logits.detach().float().cpu(),
+                               "cfg": cfg})
+            return self._sel(logits, ids, cfg)
+
+        def sort(*args):
+            plan = self._sort(*args)
+            self.calls[-1]["plan"] = {k: plan[k].cpu() for k in (
+                "dest", "tok", "keep", "load", "dropped")}
+            return plan
+        moe.select_experts, moe.sort_routing = select, sort
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.select_experts, self.moe.sort_routing = self._sel, \
+            self._sort
+
+
+def near_ties(logits, cfg, tol: float = 1e-6) -> int:
+    """Rows whose expert choice rests on a margin under `tol`: the gap
+    between the k-th and (k+1)-th of the score the gate ranks (the
+    router probabilities; the Sinkhorn plan for "balance"; the group
+    mass, then the in-group probabilities, for "sam"; "ktop1" ranks the
+    probabilities left after each pick, whose order is theirs)."""
+    from hetu_tpu_torch.nn import moe
+    if cfg.gate == "hash":
+        return 0
+    k = max(cfg.top_k, 1) if cfg.gate != "top1" else 1
+    probs = torch.softmax(logits.float(), dim=-1)
+
+    def gap(score, kk):
+        top = torch.topk(score, min(kk + 1, score.shape[-1]), dim=-1).values
+        return top[:, kk - 1] - top[:, kk]
+    if cfg.gate == "balance":
+        g = gap(moe._sinkhorn(logits.float(), cfg.sinkhorn_iters), k)
+    elif cfg.gate == "sam":
+        gs = cfg.resolved_sam_group_size()
+        grouped = probs.reshape(probs.shape[0], -1, gs)
+        g = torch.minimum(gap(grouped.sum(-1), 1), gap(grouped.amax(1), k))
+    else:
+        g = gap(probs, k)
+    return int((g.abs() < tol).sum())
+
+
+def moe_reference_phase(seed: int, card: str):
+    """Phase 18 (a): a narrow MoE Llama (2 layers, hidden 256, 2 q / 1
+    kv heads of 128, 8 experts, top-2, expert SwiGLU 512, vocab 32000,
+    fp32, capacity factor 0.5: pairs drop) on the card and on the CPU
+    from one set of weights, for each gate: the training forward's
+    logits within 1e-4 and every layer's routing plan (dest, tok, keep,
+    load, dropped) equal, the serving engine's greedy tokens equal
+    (requests queued at 0; chunks of 64 drop pairs).  A plan that
+    differs must hold a counted near-tie (a gate margin under 1e-6),
+    and then its gate's later checks are skipped and counted."""
+    from hetu_tpu_torch.models.llama import LlamaConfig, LlamaLMHeadModel
+    from hetu_tpu_torch.nn.moe import GATES
+    from hetu_tpu_torch.serving import (ServeConfig, ServingEngine,
+                                        synthetic_requests)
+    t0 = time.perf_counter()
+    out = {}
+    for gate in GATES:
+        cfg = LlamaConfig(
+            vocab_size=32000, hidden_size=256, intermediate_size=512,
+            num_hidden_layers=2, num_attention_heads=2,
+            num_key_value_heads=1, max_position_embeddings=512,
+            rope_theta=1e6, num_experts=8, moe_top_k=2,
+            moe_capacity_factor=0.5, moe_gate=gate,
+            moe_sam_group_size=4 if gate == "sam" else 0,
+            compute_dtype=torch.float32, use_flash_attention=False)
+        gcard = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
+        gcpu = LlamaLMHeadModel(cfg, device="cpu", seed=seed)
+        gcpu.load_state_dict({k: v.cpu()
+                              for k, v in gcard.state_dict().items()})
+        ids = np.random.default_rng(seed + 18).integers(0, 32000, (2, 64))
+        logits, probes = [], []
+        for model, dev in ((gcard, "cuda"), (gcpu, "cpu")):
+            with RoutingProbe() as probe, torch.no_grad():
+                logits.append(model(torch.as_tensor(ids, device=dev)).cpu())
+            probes.append(probe.calls)
+        diff_calls, ties = 0, 0
+        for c_card, c_cpu in zip(*probes):
+            ties += near_ties(c_cpu["logits"], c_cpu["cfg"])
+            if any(not torch.equal(c_card["plan"][k].long(),
+                                   c_cpu["plan"][k].long())
+                   for k in c_cpu["plan"]):
+                diff_calls += 1
+        check(len(probes[0]) == len(probes[1]) == cfg.num_hidden_layers,
+              f"{gate}: {len(probes[0])} routed calls")
+        dropped = sum(int(c["plan"]["dropped"]) for c in probes[1])
+        check(diff_calls == 0 or ties > 0,
+              f"moe reference {gate}: {diff_calls} plans differ without a "
+              "near-tie")
+        res = {"plans_equal": diff_calls == 0, "near_ties": ties,
+               "pairs_dropped": dropped}
+        if diff_calls == 0:
+            err = (logits[0] - logits[1]).abs().max().item()
+            check(bool(torch.isfinite(logits[0]).all()), "non-finite logits")
+            check(err <= 1e-4, f"moe reference {gate}: card vs CPU logits "
+                               f"differ by {err}")
+            tokens = []
+            for model, dev in ((gcard, "cuda"), (gcpu, "cpu")):
+                reqs = synthetic_requests(3, vocab_size=32000,
+                                          prompt_lens=(40, 120),
+                                          max_new=(6, 6), seed=seed)
+                eng = ServingEngine(model, ServeConfig(
+                    num_slots=3, page_size=16, max_len=256,
+                    prefill_chunk=64), device=dev)
+                tokens.append([r.tokens for r in eng.run(reqs)])
+            check(tokens[0] == tokens[1],
+                  f"moe reference {gate}: card vs CPU tokens {tokens}")
+            res.update(logits_max_abs_err=err, tokens_equal=True)
+        out[gate] = res
+        del gcard, gcpu
+    check(all(r["pairs_dropped"] > 0 for r in out.values()),
+          "the narrow check drops no pair")
+    print(f"moe reference: hidden 256, 2 layers, 8 experts top-2, fp32, "
+          f"capacity factor 0.5, card vs CPU per gate " + json.dumps(out)
+          + f" ({time.perf_counter() - t0:.1f}s); {card}")
+
+
+class VerifyDrops:
+    """On engine `eng`, each verify step's MoE layer calls: the slots
+    whose rows lost a (token, expert) pair to capacity, mapped to the
+    requests then decoding there and their tokens so far.  `first` maps
+    a rid to the fewest tokens it had emitted when a verify step first
+    dropped one of its pairs."""
+
+    def __init__(self, eng):
+        self.eng, self.records, self.first = eng, [], {}
+
+    def __enter__(self):
+        from hetu_tpu_torch.nn import moe
+        self.moe, self._sort = moe, moe.sort_routing
+        eng, verify = self.eng, self.eng._verify
+        state = {"slots": None}
+        C = eng.config.spec_k + 1
+
+        def traced_verify(table, tokens, positions, active, *a, **kw):
+            state["slots"] = {i: (eng.scheduler.slots[i].request.rid,
+                                  len(eng.scheduler.slots[i].generated))
+                              for i in active}
+            try:
+                return verify(table, tokens, positions, active, *a, **kw)
+            finally:
+                state["slots"] = None
+
+        def sort(*args):
+            plan = self._sort(*args)
+            if state["slots"] is not None:
+                self.records.append((state["slots"], plan["tok"],
+                                     plan["keep"]))
+            return plan
+        self._verify = verify
+        eng._verify, moe.sort_routing = traced_verify, sort
+        self.C = C
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.sort_routing = self._sort
+        del self.eng._verify
+        self.drops = 0
+        for slots, tok, keep in self.records:
+            rows = tok[~keep].cpu().tolist()
+            self.drops += len(rows)
+            for r in rows:
+                hit = slots.get(r // self.C)
+                if hit is not None:
+                    rid, n = hit
+                    self.first[rid] = min(self.first.get(rid, n), n)
+
+
+def _first_divergence(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def moe_step_times(eng, reqs):
+    """One decode step over 8 slots at the trace's depths with the
+    engine's experts bound: host enqueue, wall, the device's busy time
+    and idle share under torch.profiler, the dequantize kernel's share
+    of busy and the heaviest kernels."""
+    from hetu_tpu_torch.models.generation import decode_step_paged
+    model, S = eng.model, eng.config.num_slots
+    mp = eng.scheduler.max_pages
+    depths = [r.prompt_len + 16 for r in reqs][:S]
+    table = torch.zeros((S, mp), dtype=torch.int32, device="cuda")
+    for s, d in enumerate(depths):
+        n = d // eng.config.page_size + 1
+        table[s, :n] = torch.arange(1 + s * mp, 1 + s * mp + n)
+    pos = np.asarray(depths, np.int32)
+    tok = torch.zeros(S, dtype=torch.int32, device="cuda")
+
+    def step():
+        with eng._experts():
+            return decode_step_paged(model, tok, eng.pool.k, eng.pool.v,
+                                     table, pos)[0]
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    enqueue = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    counts = {}
+    busy, _, by_name, top = _profile(step, 3, counts=counts)
+    dq = sum(t for n, t in by_name.items() if "dequant" in n)
+    return {"host_enqueue_ms": enqueue * 1e3, "wall_ms": wall * 1e3,
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / (wall * 1e3),
+            "dequantize_ms": dq, "dequantize_share_of_busy": dq / busy,
+            "device_ops_per_step": round(sum(counts.values())),
+            "top_kernels_ms": top}
+
+
+def moe_serving_phase(seed: int, kernels, card: str):
+    """Phase 18 (b): Mixtral-8x7B widths cut to 12 layers, bf16 weights
+    drawn on the card, `ServeConfig(8, page_size=16, max_len=2048,
+    prefill_chunk=256, sampling=True)`, phase 5's trace with the odd
+    requests sampled (0.8, top-k 50, top-p 0.95): experts as they are
+    ("gspmd"), resident int8, resident int4, then int8 with n-gram
+    speculation (spec_k 4).  Exact launch counts per run (the quantize
+    2 x layers at build; the dequantize 2 x layers a forward under
+    int8/int4; SwiGLU layers a forward).  The int8 and int4 tokens must
+    equal those of the model whose experts hold the dequantized values
+    ("gspmd" on them: the reference's contract, generate() on the
+    dequantized weights); the speculative run's tokens equal the int8
+    run's, but where a verify step (40 rows, capacity 16) dropped one of
+    the request's pairs at or before its first difference.  TTFT,
+    decode step p50, tokens/s, peak memory, and a decode step's device
+    work against its host enqueue (gspmd, int8, int4).  Returns the
+    runs' launches."""
+    from hetu_tpu_torch.models.llama import LlamaLMHeadModel
+    from hetu_tpu_torch.serving import (SamplingParams, ServeConfig,
+                                        ServingEngine, poisson_arrivals,
+                                        synthetic_requests)
+    from hetu_tpu_torch.serving import experts as ex
+    cfg = mixtral_config(num_hidden_layers=12, param_dtype=torch.bfloat16)
+    L = cfg.num_hidden_layers
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.num_params() + L * cfg.hidden_size * 8,
+          f"parameter count {n_params}")
+    print(f"moe serving: Mixtral-8x7B widths, {L} layers, "
+          f"{n_params / 1e9:.3f}B params bf16 "
+          f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB), drawn in "
+          f"{time.perf_counter() - t_phase:.1f}s")
+
+    def trace():
+        reqs = synthetic_requests(
+            8, vocab_size=cfg.vocab_size, prompt_lens=(64, 1024),
+            max_new=(32, 32), arrivals=poisson_arrivals(8, 10.0, seed=seed),
+            seed=seed)
+        for r in reqs[1::2]:
+            r.sampling = SamplingParams(temperature=0.8, top_k=50,
+                                        top_p=0.95, seed=seed + 100 + r.rid)
+        return reqs
+
+    by_path, tokens, stores, times, peaks = {}, {}, {}, {}, []
+
+    def serve(path, dispatch, spec=False, timed=False, keep_store=False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        opts = dict(spec_decode="ngram", spec_k=4) if spec else {}
+        serve_cfg = ServeConfig(num_slots=8, page_size=16, max_len=2048,
+                                prefill_chunk=256, sampling=True,
+                                moe_dispatch=dispatch, **opts)
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        eng = ServingEngine(model, serve_cfg, device="cuda")
+        build_s = time.perf_counter() - t0
+        built = read_counts(kernels)
+        quantized = dispatch in ("int8", "int4")
+        check(built["quantize_blockwise"] == (2 * L if quantized else 0)
+              and sum(built.values()) == built["quantize_blockwise"],
+              f"{path}: build launches {built}")
+        if quantized:                   # the store's quantize, at build
+            by_path[f"{path}_build"] = built
+        eng.warmup()
+        reqs = trace()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        probe = VerifyDrops(eng) if spec else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with probe:
+            results = eng.run(reqs)
+        wall = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        peaks.append(peak)
+        for r in results:
+            check(r.finished_reason == "length" and len(r.tokens) == 32,
+                  f"{path}: request {r.rid}: {r.finished_reason}, "
+                  f"{len(r.tokens)} tokens")
+            check(all(0 <= t < cfg.vocab_size for t in r.tokens),
+                  f"{path}: request {r.rid}: token out of the vocabulary")
+        eng.scheduler.check_invariants()
+        check(eng.pool.free_count == eng.pool.num_pages,
+              f"{path}: pages leaked")
+        reg = eng.registry
+        steps = int(reg.counter_value("serve.decode_steps"))
+        chunks = int(reg.counter_value("serve.prefill_chunks"))
+        sampled = sum(not r.sampling.greedy for r in reqs)
+        fwd = steps + chunks
+        expect = {name: 0 for name in kernels}
+        expect.update(fused_rotary_qk=fwd * L, fused_swiglu=fwd * L,
+                      kv_write_tokens=steps * L, kv_write_pages=len(reqs),
+                      dequantize_blockwise=2 * L * fwd if quantized else 0)
+        if spec:
+            expect.update(paged_verify=steps * L, fused_sample=steps,
+                          sample_logits=sampled)
+        else:
+            expect.update(paged_attention=steps * L,
+                          sample_logits=steps + sampled)
+        check(launches == expect, f"{path}: launches {launches}, expected "
+                                  f"{expect}")
+        ttft = sorted(r.stats.ttft_s for r in results)
+        gap = reg.histogram("serve.token_latency_s")
+        tokens_out = sum(len(r.tokens) for r in results)
+        out = {"moe_dispatch": dispatch, "spec": spec,
+               "requests": len(results), "sampled_requests": sampled,
+               "decode_steps": steps, "prefill_chunks": chunks,
+               "ttft_s_p50": ttft[len(ttft) // 2], "ttft_s_max": ttft[-1],
+               "decode_step_s_p50": gap.percentile(50),
+               "decode_step_s_max": gap.vmax,
+               "tokens_per_s": tokens_out / wall, "run_wall_s": wall,
+               "build_s": build_s, "peak_memory_gib": peak,
+               "launches_at_build": {k: n for k, n in built.items() if n},
+               "launches": {k: n for k, n in launches.items() if n}}
+        if quantized:
+            out["expert_bytes"] = reg.gauge_value("serve.moe_expert_bytes")
+            out["expert_bytes_fp"] = reg.gauge_value(
+                "serve.moe_expert_bytes_fp")
+        if spec:
+            out.update(verify_pairs_dropped=probe.drops,
+                       requests_dropped_in_verify=len(probe.first))
+            out["first_drop"] = probe.first
+        tokens[path] = [r.tokens for r in results]
+        if timed:
+            times[path] = out["decode_step_device"] = moe_step_times(eng,
+                                                                     reqs)
+        if keep_store:
+            stores[dispatch] = (eng.moe_store, eng.moe_spec)
+        print(f"moe {path} " + json.dumps(out))
+        by_path[path] = launches
+        del eng
+        return out
+
+    serve("moe_serving", "gspmd", timed=True)
+    serve("moe_serving_int8", "int8", timed=True)
+    serve("moe_serving_int4", "int4", timed=True)
+    spec_out = serve("moe_serving_spec_int8", "int8", spec=True,
+                     keep_store=True)
+    # speculation leaves the tokens as they were, but where a verify
+    # step's capacity dropped one of the request's pairs first
+    parted = {}
+    for rid, (a, b) in enumerate(zip(tokens["moe_serving_spec_int8"],
+                                     tokens["moe_serving_int8"])):
+        d = _first_divergence(a, b)
+        if d is not None:
+            first = spec_out["first_drop"].get(rid)
+            check(first is not None and first <= d,
+                  f"speculation changed request {rid}'s tokens at {d} "
+                  f"without a verify-step capacity drop before it")
+            parted[rid] = (d, first)
+    print(f"moe speculation: {8 - len(parted)} of 8 requests' tokens equal "
+          f"to the int8 run's; parted after a verify step dropped their "
+          f"pairs (rid: (first difference, tokens out at the first drop)) "
+          f"{parted}")
+    # generate() on the dequantized weights: the model's experts take
+    # the dequantized values and serve as they are
+    stores["int4"] = ex.quantize_expert_tree(model, bits=4)
+    peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)  # both stores
+    for bits in ("int8", "int4"):
+        store, spec = stores.pop(bits)
+        with torch.no_grad():
+            for key, meta in spec.items():
+                model.get_parameter(key).copy_(
+                    ex.dequantize_leaf(store[key], meta))
+        del store
+        path = f"moe_serving_dequantized_{bits}"
+        serve(path, "gspmd")
+        check(tokens[path] == tokens[f"moe_serving_{bits}"],
+              f"{bits} experts: tokens differ from the dequantized model's")
+        print(f"moe {bits}: tokens equal to the dequantized weights' "
+              f"served as they are")
+    del model
+    b, q8, q4 = (times[p]["device_busy_ms"] for p in (
+        "moe_serving", "moe_serving_int8", "moe_serving_int4"))
+    print(f"moe serving: decode step device busy bf16 {b:.3f} ms, int8 "
+          f"{q8:.3f} ms ({q8 / b:.2f}x), int4 {q4:.3f} ms ({q4 / b:.2f}x); "
+          f"phase (b) {time.perf_counter() - t_phase:.1f}s, peak of the "
+          f"runs {max(peaks):.2f} GiB; {card}")
+    return by_path
+
+
+def moe_training_phase(seed: int, kernels, card: str):
+    """Phase 18 (c): Mixtral-8x7B widths cut to 2 layers, bf16 parameters
+    (fp32 accumulators and AdamW moments), flash, "dots_attn",
+    `TrainingConfig(8, 2, 2048)`, 4 steps: exact launch counts a step
+    (the post norm 4 times a layer and micro-batch — the router's
+    segment and the experts' each run it and run it again in the
+    backward — its backward twice; RoPE and SwiGLU forwards twice, their
+    backwards and flash once; AdamW twice, once on its bf16 arm and once
+    on its fp32 arm for the routers, fp32 as the reference's), phase 8's loss
+    checks, peak memory at most 70 GiB, step p50, tokens/s, and mfu over
+    the active parameters (attention, router, top-2 of 8 experts; the
+    capacity padding not counted) beside the reference's
+    `flops_per_token`, which counts all 8 experts."""
+    from hetu_tpu_torch.engine import Trainer, TrainingConfig
+    from hetu_tpu_torch.models.llama import LlamaLMHeadModel
+    from hetu_tpu_torch.ops.cuda import adam as ad
+    t_phase = time.perf_counter()
+    gbs, mbs, seq, steps = 8, 2, 2048, 4
+    cfg = mixtral_config(num_hidden_layers=2, param_dtype=torch.bfloat16,
+                         remat_policy="dots_attn")
+    L, n_micro = cfg.num_hidden_layers, gbs // mbs
+    per = L * n_micro
+    per_step = {name: 0 for name in kernels}
+    per_step.update(residual_rmsnorm_fwd=4 * per,
+                    residual_rmsnorm_bwd=2 * per, fused_rotary_qk=2 * per,
+                    rotary_qk_bwd=per, fused_swiglu=2 * per, swiglu_bwd=per,
+                    flash_fwd=per, flash_bwd_dq=per, flash_bwd_dkv=per,
+                    adam_update=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
+    tr = Trainer(model, TrainingConfig(
+        global_batch_size=gbs, micro_batch_size=mbs, seq_len=seq, lr=1e-3,
+        warmup_steps=2, total_steps=1000, log_every=1),
+        device="cuda").build()
+    n_params = sum(p.numel() for p in tr.params)
+    batch = _train_batch(cfg.vocab_size, gbs, seq, seed)
+    zero_counts(kernels)
+    launches = {name: 0 for name in kernels}
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        metrics = tr.train([batch], num_steps=1)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        counts = read_counts(kernels)
+        check(counts == per_step, f"moe training step {i + 1} launches "
+                                  f"{counts}, expected {per_step}")
+        arms = ad.arm_launches["launches"]
+        check(arms == {"f32": 1, "bf16": 1, "f16": 0},
+              f"moe training step {i + 1}: AdamW arms {arms}")
+        for a, n in arms.items():
+            ADAM_ARMS[a] += n
+        for k, n in counts.items():
+            launches[k] += n
+        zero_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sigma = cfg.initializer_range * math.sqrt(cfg.hidden_size)
+    expect_first = math.log(cfg.vocab_size) + sigma ** 2 / 2
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(abs(losses[0] - expect_first) <= 0.5,
+          f"first loss {losses[0]} is not within 0.5 of {expect_first}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(peak <= TRAIN_PEAK_GIB, f"peak {peak:.2f} GiB past "
+                                  f"{TRAIN_PEAK_GIB} GiB")
+    tokens = gbs * seq
+    p50 = float(np.median(times))
+    attn = 12 * L * cfg.hidden_size * seq
+    active_flops = (6.0 * active_params(cfg) + attn) * tokens
+    print("moe training " + json.dumps({
+        "model": "Mixtral-8x7B widths", "layers": L, "params": n_params,
+        "active_params": active_params(cfg), "param_dtype": "bf16",
+        "remat_policy": "dots_attn", "micro_batch": mbs,
+        "micro_batches": n_micro, "seq_len": seq, "losses": losses,
+        "expected_first_loss": expect_first, "step_s": times,
+        "step_s_p50": p50, "tokens_per_s": tokens / p50,
+        "mfu_active": active_flops / p50 / PEAK_OPS_PER_S[torch.bfloat16],
+        # the reference's flops_per_token counts all 8 experts: it
+        # overstates an MoE step's work (here by its ratio to the above)
+        "mfu_reference_flops_per_token": cfg.flops_per_token(seq) * tokens
+        / p50 / PEAK_OPS_PER_S[torch.bfloat16],
+        "peak_memory_gib": peak, "launches_per_step": {
+            k: n for k, n in per_step.items() if n},
+        "phase_s": time.perf_counter() - t_phase, "card": card}))
+    del tr, model
+    return {"moe_training": launches}
+
+
+def moe_kernel_phase(seed: int):
+    """Phase 18 (d): each kernel the MoE paths launch, at its MoE shape,
+    bf16, against its plain version, timed as phase 3 times them:
+    SwiGLU over the expert buffers [E x C, 14336] (decode C = 8, a
+    256-token chunk C = 80, a training micro-batch of 2 x 2048 C = 1280)
+    and its backward at the training shape; the quantize of a layer's
+    expert leaves at block 256, w_gate_up [3,670,016, 256] and w_down
+    [1,835,008, 256], to int8 and to the int4 grid (payload bit for bit,
+    scales within one fp32 ulp); the dequantize of the same payloads to
+    bf16 (bit for bit; int4 values unpacked first), beside PyTorch's
+    per-channel qint8 `dequantize` (a yardstick, between CUDA events)."""
+    from hetu_tpu_torch.ops.cuda import quant as qu
+    from hetu_tpu_torch.ops.cuda import swiglu as sw
+    g = torch.Generator(device="cuda").manual_seed(seed + 180)
+    out = {"fused_swiglu": [], "swiglu_bwd": [], "quantize_blockwise": [],
+           "dequantize_blockwise": []}
+    inter = 14336
+    for rows, inner in ((64, 20), (640, 20), (10240, 4)):
+        gu = torch.randn((rows, 2, inter), generator=g,
+                         device="cuda").bfloat16()
+        n = rows * inter
+        out["fused_swiglu"].append(case(
+            f"fused_swiglu [{rows},{inter}] bf16 (MoE experts)", ulps(1),
+            lambda i, gu=gu: sw.fused_swiglu(gu),
+            lambda i, gu=gu: sw.swiglu_plain(gu[:, 0], gu[:, 1]),
+            3 * n * 2, 5 * n, composition=swiglu_composition(gu),
+            inner=inner))
+        if rows == 10240:
+            dy = torch.randn((rows, inter), generator=g,
+                             device="cuda").bfloat16()
+            out["swiglu_bwd"].append(case(
+                f"swiglu_bwd [{rows},{inter}] bf16 (MoE experts)", ulps(1),
+                lambda i: sw.swiglu_bwd(gu, dy),
+                lambda i: torch.stack(sw.swiglu_bwd_plain(
+                    gu[:, 0], gu[:, 1], dy), dim=-2),
+                5 * n * 2, 12 * n, inner=inner,
+                composition_ms=swiglu_bwd_composition_ms(gu, dy)))
+            del dy
+        del gu
+    for name, nb in (("w_gate_up", 3670016), ("w_down", 1835008)):
+        x = (0.02 * torch.randn((nb, 256), generator=g,
+                                device="cuda")).bfloat16()
+        n = x.numel()
+        payloads = {}
+        for bits in (8, 4):
+            out["quantize_blockwise"].append(case(
+                f"quantize_blockwise {name} [{nb},256] bf16 -> int{bits}",
+                (same(), fp32_ulps(1)),
+                lambda i, x=x, bits=bits: qu.quantize_blockwise(
+                    x, 256, bits=bits),
+                lambda i, x=x, bits=bits: qu.quantize_blockwise_plain(
+                    x, 256, bits),
+                n * 2 + n + nb * 4, 4 * n, inner=2))
+            payloads[bits] = qu.quantize_blockwise(x, 256, bits=bits)
+            gc.collect()
+            torch.cuda.empty_cache()
+        del x
+        for bits, (q, s) in payloads.items():
+            if bits == 4 and name == "w_down":
+                continue            # the kernel as at w_gate_up's
+            qt = torch._make_per_channel_quantized_tensor(
+                q, s.double(), torch.zeros(nb, dtype=torch.long,
+                                           device="cuda"), 0)
+            out["dequantize_blockwise"].append(case(
+                f"dequantize_blockwise {name} q [{nb},256] int{bits} "
+                f"values -> bf16", same(),
+                lambda i, q=q, s=s: qu.dequantize_blockwise(
+                    q, s, out_dtype=torch.bfloat16),
+                lambda i, q=q, s=s: qu.dequantize_blockwise_plain(
+                    q, s).bfloat16(),
+                n + 4 * nb + 2 * n, n, inner=2,
+                library_ms=event_ms(
+                    lambda qt=qt: qt.dequantize().bfloat16(), reps=5)))
+            del qt
+        del payloads
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(seed: int, kernels, card: str):
+    """Phase 18 ("moe"): (a) card vs CPU per gate, (b) serving and (c)
+    training at Mixtral-8x7B widths, (d) the kernels at the MoE shapes.
+    Returns ({path: launches}, {kernel: cases})."""
+    t0 = time.perf_counter()
+    moe_reference_phase(seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path = moe_serving_phase(seed, kernels, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path.update(moe_training_phase(seed, kernels, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    cases = moe_kernel_phase(seed)
+    print(f"moe: {time.perf_counter() - t0:.1f}s; {card}")
+    return by_path, cases
 
 
 def main(argv=None) -> int:
@@ -5868,6 +6522,14 @@ def main(argv=None) -> int:
     # the serving host layers: policies and failover, disaggregated
     # prefill/decode, the replica frontend
     by_path.update(serving4_phase(args.seed, kernels, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Mixture-of-Experts: card vs CPU, serving and training at
+    # Mixtral-8x7B widths, the kernels at the MoE shapes
+    moe_paths, moe_cases = moe_phase(args.seed, kernels, smi)
+    by_path.update(moe_paths)
+    for name, more in moe_cases.items():
+        cases[name].extend(more)
 
     line = []
     for name, (mod, attr, source, replaces) in kernels.items():

@@ -128,8 +128,9 @@ class Trainer:
     `GPTLMHeadModel` that lives on `device` ("cuda" by default: the CUDA
     kernels; "cpu": their plain versions).  The model's training
     forward takes (input_ids, labels, position_ids=, segment_ids=, rng=,
-    deterministic=, loss_reduction="sum") and returns (loss sum, token
-    count)."""
+    deterministic=, loss_reduction="sum"; `evaluate` also
+    include_aux_loss=False) and returns (loss sum, token count); an MoE
+    model's sum holds its router aux loss times the count."""
 
     def __init__(self, model, config: TrainingConfig, *, device="cuda",
                  **later):
@@ -468,7 +469,8 @@ class Trainer:
     def evaluate(self, batches: Iterable[Dict[str, np.ndarray]],
                  max_batches: Optional[int] = None) -> Dict[str, float]:
         """Token-weighted cross-entropy over whole batches [rows, seq]
-        (no dropout, no graph) and its perplexity."""
+        (no dropout, no graph; an MoE model's router aux loss left out,
+        as the reference's) and its perplexity."""
         if self.params is None:
             self.build()
         total, count = 0.0, 0.0
@@ -482,7 +484,7 @@ class Trainer:
                     batch["input_ids"], batch["labels"],
                     position_ids=batch.get("position_ids"),
                     segment_ids=batch.get("segment_ids"),
-                    loss_reduction="sum")
+                    loss_reduction="sum", include_aux_loss=False)
             total += float(lsum)
             count += float(csum)
         loss = total / max(count, 1.0)

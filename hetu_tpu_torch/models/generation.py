@@ -31,7 +31,9 @@ They drive the model's modules layer by layer, because the KV cache is
 written between the projection and the attention: one loop for both
 families, through the model's `embed_at` (GPT adds its learned `wpe`
 rows), `rope_at` (LLaMA's RoPE rows; GPT has none) and `final_norm`,
-and each block's `serve_qkv` / `serve_tail`.  What is the same for
+and each block's `serve_qkv` / `serve_tail` (an MoE block's layer
+routes every row of the call, as the reference's: a decode step's idle
+slots and a chunk's padded tail take capacity).  What is the same for
 every layer (the RoPE rows of the positions, the page slots the tokens
 write) is computed once per call.  A position past
 max_position_embeddings raises ValueError, checked on the host before
@@ -108,9 +110,12 @@ def last_logits(model, input_ids: torch.Tensor) -> torch.Tensor:
     block's training forward too, so its residual add + ln2 / post-norm
     is the fused norm kernel here as there; only the cache-writing
     forwards below apply the norm after the add, unfused, as the
-    reference's do."""
+    reference's do.  An MoE model's hash gate routes by row index here,
+    as the reference's `prefill` calls its blocks."""
     _check_context_length(model.config, input_ids.shape[1])
-    return model.logits(model.hidden(input_ids)[:, -1])
+    kw = {"route_by_ids": False} if getattr(model.config, "num_experts",
+                                            0) else {}
+    return model.logits(model.hidden(input_ids, **kw)[:, -1])
 
 
 @torch.no_grad()

@@ -302,17 +302,20 @@ class GPTLMHeadModel(nn.Module):
                              f"max_position_embeddings "
                              f"{c.max_position_embeddings}")
         x = self.embed_at(input_ids, position_ids)
-        return self.final_norm(run_blocks(
-            c, self.model.blocks, x, (segment_ids,),
-            None if deterministic else rng))
+        x, _ = run_blocks(c, self.model.blocks, x, (segment_ids,),
+                          None if deterministic else rng)
+        return self.final_norm(x)
 
     def forward(self, input_ids: torch.Tensor, labels=None, *,
                 position_ids=None, segment_ids=None, rng=None,
                 deterministic: bool = True,
-                loss_reduction: str = "mean", labels_shifted: bool = False):
+                loss_reduction: str = "mean", labels_shifted: bool = False,
+                include_aux_loss: bool = True):
         """As `LlamaLMHeadModel.forward`: the logits [b, s, vocab], or
         with labels the next-token loss ("mean", or "sum" returning
-        (loss sum, token count)); dropout as there."""
+        (loss sum, token count)); dropout as there.  `include_aux_loss`
+        is taken for the MoE-capable family's interface (GPT has no
+        router loss), as the reference's is."""
         if loss_reduction not in ("mean", "sum"):
             raise ValueError(f"loss_reduction must be 'mean' or 'sum', got "
                              f"{loss_reduction!r}")

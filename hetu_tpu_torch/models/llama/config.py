@@ -9,6 +9,9 @@ kernels on the card; `remat_policy` is "nothing", "dots", "dots_attn" or
 "offload" (`nn/remat.py`).  `attention_dropout` and `hidden_dropout` act
 when the training forward is given a dropout key and
 `deterministic=False` (the Trainer's `dropout_deterministic=False`).
+`num_experts > 0` makes every block's MLP a Mixture-of-Experts layer
+(`nn/moe.py`) with the reference's `moe_*` fields; `num_params` and
+`flops_per_token` are the reference's, which count all the experts.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Optional
 import torch
 
 from hetu_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
+from hetu_tpu_torch.nn.moe import MoEConfig
 from hetu_tpu_torch.nn.remat import validate_remat_policy
 
 
@@ -44,7 +48,13 @@ class LlamaConfig:
     initializer_range: float = 0.02
     attention_dropout: float = 0.0
     hidden_dropout: float = 0.0
+    # MoE (0 experts = dense): the reference's fields and defaults
     num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_gate: str = "topk"       # topk|top1|ktop1|balance|hash|sam
+    moe_dispatch: str = "sort"   # sort (O(T·k) indices) | dense ([T,E,C])
+    moe_sam_group_size: int = 0  # sam gate: experts per locality group
     param_dtype: torch.dtype = DEFAULT_POLICY.param_dtype
     compute_dtype: torch.dtype = DEFAULT_POLICY.compute_dtype
     remat: bool = True             # recompute each block in the backward
@@ -55,15 +65,20 @@ class LlamaConfig:
         if self.num_key_value_heads is None:
             self.num_key_value_heads = self.num_attention_heads
         if self.num_experts:
-            raise NotImplementedError(
-                "MoE layers (num_experts > 0) are not in the serving slice; "
-                "they arrive with the multi-GPU slice (ROADMAP Queue A item 5)")
+            self.moe_config()           # checks the gate and dispatch
         check_dropout_rates(self)
         validate_remat_policy(self.remat_policy)
         if self.num_attention_heads % self.num_key_value_heads:
             raise ValueError(
                 f"num_attention_heads {self.num_attention_heads} must divide "
                 f"by num_key_value_heads {self.num_key_value_heads}")
+
+    def moe_config(self) -> MoEConfig:
+        """The blocks' `MoEConfig` (num_experts > 0)."""
+        return MoEConfig(num_experts=self.num_experts, top_k=self.moe_top_k,
+                         capacity_factor=self.moe_capacity_factor,
+                         gate=self.moe_gate, dispatch=self.moe_dispatch,
+                         sam_group_size=self.moe_sam_group_size)
 
     @property
     def policy(self) -> DTypePolicy:
@@ -97,13 +112,14 @@ class LlamaConfig:
         h, i, v, L = (self.hidden_size, self.intermediate_size,
                       self.vocab_size, self.num_hidden_layers)
         kvh = self.num_key_value_heads * self.head_dim
-        ffn = 3 * h * i
+        ffn = 3 * h * i * max(self.num_experts, 1)
         per_layer = h * (h + 2 * kvh + h) + ffn + 2 * h  # attn + ffn + norms
         emb = v * h * (1 if self.tie_word_embeddings else 2)
         return L * per_layer + emb + h
 
     def flops_per_token(self, seq_len: int) -> float:
         """Approximate training FLOPs per token (forward and backward,
-        6 N plus the attention term), the reference's formula."""
+        6 N plus the attention term), the reference's formula; with
+        experts N counts them all, not the top-k a token runs."""
         attn = 12 * self.num_hidden_layers * self.hidden_size * seq_len
         return 6.0 * self.num_params() + attn

@@ -6,7 +6,11 @@ key (`from_jax.load_jax_params`):
 
   * attention: fused kv-group-aligned `wqkv` [h, n_kv, group+2, hd] —
     per kv head, its group of q heads, then k, then v — and `o_proj`;
-  * MLP: fused `w_gate_up` [h, 2, inter] and `down_proj`;
+  * MLP: fused `w_gate_up` [h, 2, inter] and `down_proj`; with
+    `num_experts > 0` an MoE layer (`nn/moe.py`: `router` [h, E],
+    `w_gate_up` [E, h, 2, inter], `w_down` [E, inter, h]) whose block
+    returns its aux loss beside x, summed over the layers into the
+    training loss;
   * `lm_head` [h, vocab] unless the embeddings are tied.
 
 The reference stacks the layers for `lax.scan`; here they are an
@@ -31,6 +35,7 @@ from torch import nn
 
 from hetu_tpu_torch.models.llama.config import LlamaConfig
 from hetu_tpu_torch.nn.layers import Embedding, Linear, RMSNorm
+from hetu_tpu_torch.nn.moe import MoELayer
 from hetu_tpu_torch.nn.remat import (project, recompute, run_blocks,
                                      weight_of)
 from hetu_tpu_torch.obs import numerics
@@ -148,7 +153,14 @@ class LlamaBlock(nn.Module):
         self.attn = LlamaAttention(c, device)
         self.post_norm = RMSNorm(c.hidden_size, eps=c.rms_norm_eps,
                                  dtype=c.param_dtype, device=device)
-        self.mlp = LlamaMLP(c, device)
+        self.moe = c.num_experts > 0
+        if self.moe:
+            self.mlp = MoELayer(c.hidden_size, c.intermediate_size,
+                                c.moe_config(), param_dtype=c.param_dtype,
+                                initializer_range=c.initializer_range,
+                                device=device)
+        else:
+            self.mlp = LlamaMLP(c, device)
         self.hidden_dropout = c.hidden_dropout
 
     def reset_parameters(self, generator: torch.Generator):
@@ -164,25 +176,38 @@ class LlamaBlock(nn.Module):
                        None if rng is None else rng.fold(site),
                        deterministic=False)
 
-    def forward(self, x, cos_t, sin_t, segment_ids=None, rng=None):
+    def forward(self, x, cos_t, sin_t, segment_ids=None, rng=None, *,
+                token_ids=None):
+        """The block over x [b, s, h]; an MoE block returns (x, its aux
+        loss), routing the hash gate by `token_ids` [b, s] (default: the
+        flat row index)."""
         h = self.attn(self.input_norm(x), cos_t, sin_t, segment_ids, rng)
         # the residual add + post-norm pair: one fused kernel
         normed, x = self.post_norm.residual(x, self.drop(h, rng, 2))
+        if self.moe:
+            y, aux = self.mlp(normed, token_ids)
+            return x + self.drop(y, rng, 3), aux
         return x + self.drop(self.mlp(normed), rng, 3)
 
     def forward_remat(self, x, cos_t, sin_t, segment_ids=None, rng=None, *,
-                      policy: str):
+                      policy: str, token_ids=None):
         """`forward`, recomputed in the backward as `policy` says
         (`nn/remat.py`).  "nothing": one segment, the block.  The "dots"
         policies: a segment from each kept tensor to the next projection
         — input norm -> qkv; RoPE and attention -> o (under "dots_attn"
         the attention keeps its output); residual add + post norm ->
         gate-up; SwiGLU -> down — so a projection's input is recomputed
-        and its output kept."""
+        and its output kept.  An MoE block keeps its router logits, the
+        one product of the layer without a batch dim (the experts'
+        carry the expert dim, which the reference's policy does not
+        save): residual add + post norm -> router; then the residual
+        add + post norm again, the routing, the experts and the combine
+        from (x, o, logits)."""
         if policy == "nothing":
-            return recompute(lambda x, c, s, seg: self(x, c, s, seg, rng),
-                             x, cos_t, sin_t, segment_ids,
-                             adapted=self.parameters())
+            return recompute(
+                lambda x, c, s, seg: self(x, c, s, seg, rng,
+                                          token_ids=token_ids),
+                x, cos_t, sin_t, segment_ids, adapted=self.parameters())
         a, m = self.attn, self.mlp
         qkv = recompute(self.input_norm, x, weight=a.wqkv)
         kw = a.attention_kw(segment_ids, rng)
@@ -196,9 +221,24 @@ class LlamaBlock(nn.Module):
                 lambda t, c, s: self_attention(*a.heads(t, c, s),
                                                device=t.device, **kw),
                 qkv, cos_t, sin_t, weight=a.o_proj.weight)
-        gu, x = recompute(
-            lambda x, o: self.post_norm.residual(x, self.drop(o, rng, 2)),
-            x, o, weight=m.w_gate_up)
+
+        def post(x, o):
+            return self.post_norm.residual(x, self.drop(o, rng, 2))
+
+        if self.moe:
+            logits = recompute(
+                lambda x, o: post(x, o)[0].reshape(-1, x.shape[-1]).float(),
+                x, o, weight=m.router)
+
+            def tail(x, o, logits):
+                normed, x = post(x, o)
+                b, s, h = normed.shape
+                y, aux = m.route(normed.reshape(b * s, h), logits,
+                                 token_ids)
+                return x + self.drop(y.view(b, s, h), rng, 3), aux
+            return recompute(tail, x, o, logits,
+                             adapted=(m.w_gate_up, m.w_down))
+        gu, x = recompute(post, x, o, weight=m.w_gate_up)
         down = recompute(swiglu, gu, weight=m.down_proj.weight)
         return x + self.drop(down, rng, 3)
 
@@ -209,9 +249,12 @@ class LlamaBlock(nn.Module):
         return self.attn.project_qkv(self.input_norm(x))
 
     def serve_tail(self, x: torch.Tensor, attn: torch.Tensor):
-        """o_proj + residual, then the MLP on the post-norm + residual."""
+        """o_proj + residual, then the MLP on the post-norm + residual
+        (an MoE layer's output without its aux loss, routed by row
+        index, as the reference's serving forwards call it)."""
         x = x + self.attn.o_proj(attn.reshape(*attn.shape[:2], -1))
-        return x + self.mlp(self.post_norm(x))
+        y = self.mlp(self.post_norm(x))
+        return x + (y[0] if self.moe else y)
 
 
 class LlamaModel(nn.Module):
@@ -296,50 +339,67 @@ class LlamaLMHeadModel(nn.Module):
         numerics.tap_tree("logits", logits)
         return logits
 
-    def hidden(self, input_ids: torch.Tensor, *, position_ids=None,
-               segment_ids=None, rng=None,
-               deterministic: bool = True) -> torch.Tensor:
-        """The final-norm hidden states [b, s, hidden] of the training
-        forward; each block recomputed in the backward by
+    def hidden_aux(self, input_ids: torch.Tensor, *, position_ids=None,
+                   segment_ids=None, rng=None, deterministic: bool = True,
+                   route_by_ids: bool = True):
+        """(hidden, aux): the final-norm hidden states [b, s, hidden] of
+        the training forward, and the MoE blocks' summed aux loss (None
+        for a dense model).  Each block is recomputed in the backward by
         `config.remat_policy` when gradients are on; dropout with a key
-        and `deterministic=False`.  The numerics taps "embed" and
-        "hidden" (and "logits" in `logits`) sit where the reference's
-        do, at the model's boundaries."""
+        and `deterministic=False`; the hash gate routes by input_ids,
+        or with `route_by_ids=False` by row index (the reference's
+        `prefill`).  The numerics taps "embed" and "hidden" (and
+        "logits" in `logits`) sit where the reference's do, at the
+        model's boundaries."""
         b, s = input_ids.shape
         x = self.embed_at(input_ids)
         numerics.tap_tree("embed", x)
         cos_t, sin_t = self.rope_at(b, s, position_ids)
-        hidden = self.final_norm(run_blocks(
+        x, aux = run_blocks(
             self.config, self.model.layers, x, (cos_t, sin_t, segment_ids),
-            None if deterministic else rng))
+            None if deterministic else rng,
+            input_ids if route_by_ids else None)
+        hidden = self.final_norm(x)
         numerics.tap_tree("hidden", hidden)
-        return hidden
+        return hidden, aux
+
+    def hidden(self, input_ids: torch.Tensor, **kw) -> torch.Tensor:
+        """The final-norm hidden states of `hidden_aux`."""
+        return self.hidden_aux(input_ids, **kw)[0]
 
     def forward(self, input_ids: torch.Tensor, labels=None, *,
                 position_ids=None, segment_ids=None, rng=None,
                 deterministic: bool = True,
-                loss_reduction: str = "mean", labels_shifted: bool = False):
+                loss_reduction: str = "mean", labels_shifted: bool = False,
+                include_aux_loss: bool = True):
         """The training forward over input_ids [b, s].  Without labels,
         the logits [b, s, vocab].  With labels, the next-token loss:
         logits[t] predicts labels[t + 1] (labels[t] when
         `labels_shifted`), positions labelled -100 ignored; "mean"
         returns the mean loss, "sum" returns (loss sum, token count) so
         that micro-batches weigh by their true token counts.  `rng` (a
-        DropoutKey) and `deterministic=False` turn dropout on."""
+        DropoutKey) and `deterministic=False` turn dropout on.  An MoE
+        model adds its aux loss (scaled by the token count under "sum",
+        so that sum / count is the mean loss + aux) unless
+        `include_aux_loss=False` (evaluation)."""
         if loss_reduction not in ("mean", "sum"):
             raise ValueError(f"loss_reduction must be 'mean' or 'sum', got "
                              f"{loss_reduction!r}")
-        logits = self.logits(self.hidden(input_ids,
-                                         position_ids=position_ids,
-                                         segment_ids=segment_ids, rng=rng,
-                                         deterministic=deterministic))
+        hidden, aux = self.hidden_aux(input_ids, position_ids=position_ids,
+                                      segment_ids=segment_ids, rng=rng,
+                                      deterministic=deterministic)
+        logits = self.logits(hidden)
         if labels is None:
             return logits
         if labels_shifted:
             lg, tgt = logits, labels
         else:
             lg, tgt = logits[:, :-1, :], labels[:, 1:]
+        if not include_aux_loss:
+            aux = None
         if loss_reduction == "sum":
             loss = softmax_cross_entropy_sparse(lg, tgt, reduction="sum")
-            return loss, (tgt != -100).float().sum()
-        return softmax_cross_entropy_sparse(lg, tgt)
+            count = (tgt != -100).float().sum()
+            return (loss if aux is None else loss + aux * count), count
+        loss = softmax_cross_entropy_sparse(lg, tgt)
+        return loss if aux is None else loss + aux

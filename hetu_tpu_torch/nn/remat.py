@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 from typing import Callable, Iterable, NamedTuple, Optional
 
 import torch
@@ -226,15 +227,21 @@ class offloading(torch.autograd.graph.saved_tensors_hooks):
     pinned host memory (on the CPU: to a separate host tensor) and its
     device copy dropped; the backward brings it back.  Tensors sharing
     storage with `keep` — the block's input, its parameters — pass
-    untouched.  Adds each staged tensor's bytes to `offloaded_bytes`."""
+    untouched.  A tensor two nodes keep (an MoE block's attention
+    output, kept by its router and its expert segments) is staged once.
+    Adds each staged tensor's bytes to `offloaded_bytes`."""
 
     def __init__(self, keep: Iterable[torch.Tensor]):
         kept = [t for t in keep if t is not None]
+        staged = {}     # id(t) -> (weakref to t, its version, packed)
 
         def pack(t):
             global offloaded_bytes
             if _shares_storage(t, kept):
                 return t
+            hit = staged.get(id(t))
+            if hit is not None and hit[0]() is t and hit[1] == t._version:
+                return hit[2]
             if t.device.type == "cuda":
                 host = torch.empty(t.shape, dtype=t.dtype, device="cpu",
                                    pin_memory=True)
@@ -242,6 +249,7 @@ class offloading(torch.autograd.graph.saved_tensors_hooks):
             else:
                 host = t.clone()
             offloaded_bytes += t.numel() * t.element_size()
+            staged[id(t)] = (weakref.ref(t), t._version, (t.device, host))
             return t.device, host
 
         def unpack(packed):
@@ -253,24 +261,32 @@ class offloading(torch.autograd.graph.saved_tensors_hooks):
         super().__init__(pack, unpack)
 
 
-def run_blocks(config, blocks, x, args, rng):
+def run_blocks(config, blocks, x, args, rng, token_ids=None):
     """x through `blocks` (LLaMA's or GPT's), each called with `args`
     and its layer's dropout key (`rng` folded by the layer index; no
     dropout without `rng`), recomputed in the backward as
     `config.remat_policy` says when gradients are on; under "offload"
     each block's kept tensors are staged on the host, all but its input,
-    its arguments, its parameters and their bound adapters."""
+    its arguments, its parameters and their bound adapters.  Returns
+    (x, aux): aux sums the MoE blocks' aux losses in layer order (their
+    hash gate routed by `token_ids`), None without MoE blocks."""
     remat = config.remat and torch.is_grad_enabled()
     policy = config.remat_policy
+    kw = {"token_ids": token_ids} if getattr(config, "num_experts", 0) \
+        else {}
+    aux = None
     for i, block in enumerate(blocks):
         key = None if rng is None else DropoutKey(rng).fold(i)
         if not remat:
-            x = block(x, *args, key)
+            x = block(x, *args, key, **kw)
         elif policy == "offload":
             params = list(block.parameters())
             with offloading(keep=(x, *args, *params,
                                   *bound_factors(params))):
-                x = block.forward_remat(x, *args, key, policy="dots")
+                x = block.forward_remat(x, *args, key, policy="dots", **kw)
         else:
-            x = block.forward_remat(x, *args, key, policy=policy)
-    return x
+            x = block.forward_remat(x, *args, key, policy=policy, **kw)
+        if isinstance(x, tuple):
+            x, a = x
+            aux = a if aux is None else aux + a
+    return x, aux

@@ -25,22 +25,28 @@ from hetu_tpu_torch.ops.cuda.quant import (dequantize_blockwise,
                                           quantize_blockwise)
 
 
-def pack_nibbles(u: torch.Tensor) -> torch.Tensor:
+def pack_nibbles(u: torch.Tensor, *, even_high: bool = False
+                 ) -> torch.Tensor:
     """Unsigned nibble values in [0, 15], even last dim -> uint8 [...,
-    n/2]: two adjacent values a byte, the even index in the low
-    nibble."""
+    n/2]: two adjacent values a byte, the even index in the low nibble
+    (the storage format), or with `even_high` in the high nibble (the
+    reference's `comm/compress.pack_int4` format, which its resident
+    experts use)."""
     if u.shape[-1] % 2:
         raise ValueError(f"int4 packing needs an even trailing dim, got "
                          f"{u.shape[-1]}")
     u = u.to(torch.uint8)
     even, odd = u[..., 0::2], u[..., 1::2]
-    return even | (odd << 4)
+    return ((even << 4) | odd) if even_high else (even | (odd << 4))
 
 
-def unpack_nibbles(p: torch.Tensor) -> torch.Tensor:
+def unpack_nibbles(p: torch.Tensor, *, even_high: bool = False
+                   ) -> torch.Tensor:
     """Inverse of `pack_nibbles`: uint8 [..., n] -> values [..., 2n] in
     [0, 15] (uint8)."""
-    return torch.stack([p & 0xF, (p >> 4) & 0xF], dim=-1).reshape(
+    lo, hi = p & 0xF, (p >> 4) & 0xF
+    even, odd = (hi, lo) if even_high else (lo, hi)
+    return torch.stack([even, odd], dim=-1).reshape(
         *p.shape[:-1], 2 * p.shape[-1])
 
 

@@ -60,6 +60,15 @@ quantization SNR of quantized pages.  A disaggregated prefill tier
 hands finished prompts over through `note_remote_submit` /
 `adopt_prefilled` (`serving/disagg.py`).
 
+An MoE model serves through the same steps; with
+`ServeConfig(moe_dispatch="int8"|"int4")` its experts are quantized
+once at build (`serving/experts.py`) and each MoE layer of a decode,
+verify or prefill forward dequantizes its own working copy.  Every row
+of a step routes and takes expert capacity, idle slots and a chunk's
+padded tail included, as in the reference; a decode step (one row a
+slot) can drop no pair, but a verify step can, so its tokens may
+depend on the requests that share it.
+
 Token identity under preemption and failover rests on a row's bits not
 depending on its neighbours: the decode GEMMs always run over all
 `num_slots` rows (and a prefill chunk over its fixed width), so a
@@ -82,12 +91,15 @@ from hetu_tpu_torch.models.generation import (_check_context_length,
                                               decode_step_paged,
                                               extend_cache,
                                               verify_step_paged)
+from hetu_tpu_torch.nn.moe import resident_experts
 from hetu_tpu_torch.obs import numerics as _numerics
 from hetu_tpu_torch.obs.health import (maybe_numerics_health_monitor,
                                        maybe_serving_health_monitor)
 from hetu_tpu_torch.obs.metrics import MetricsRegistry
 from hetu_tpu_torch.obs.runlog import RunLog, default_runlog_path
 from hetu_tpu_torch.serving.costs import CostLedger
+from hetu_tpu_torch.serving.experts import (expert_bytes, layer_loaders,
+                                            quantize_expert_tree)
 from hetu_tpu_torch.serving.kv_pool import PagePool
 from hetu_tpu_torch.serving.prefix_cache import RadixPrefixCache
 from hetu_tpu_torch.serving.request import (Request, RequestResult,
@@ -112,9 +124,11 @@ _TELEMETRY = ("the cluster telemetry slice (ROADMAP Queue A item 6: the "
 
 #: ServeConfig fields beyond this slice: name -> (default, later slice)
 _LATER_FIELDS = {
-    "moe_dispatch": ("gspmd", _MULTI_GPU),
     "kv_repage": (False, _MULTI_GPU),
 }
+#: ServeConfig.moe_dispatch values: "gspmd" and "fp32" serve the experts
+#: in the model's dtype, "int8" and "int4" resident-quantized
+MOE_DISPATCH = ("gspmd", "fp32", "int8", "int4")
 
 #: ServingEngine keyword arguments beyond this slice
 _LATER_ENGINE_ARGS = {"telemetry": _TELEMETRY, "reshard": _MULTI_GPU}
@@ -159,9 +173,12 @@ class ServeConfig:
     `fail_over` may requeue one request; `deadline` enforces
     `SLOClass.deadline_s`; `brownout` sheds the lowest-priority queued
     band after `brownout_streak` steps at `brownout_page_high` page
-    utilization with `brownout_queue_min` queued.  `moe_dispatch` and
-    `kv_repage` keep their names and defaults; setting one raises
-    NotImplementedError naming the slice that brings it."""
+    utilization with `brownout_queue_min` queued.  `moe_dispatch`
+    "int8" or "int4" keeps an MoE model's experts resident-quantized
+    (`serving/experts.py`; "gspmd" and "fp32" leave them as they are,
+    and a dense model ignores it).  `kv_repage` keeps its name and
+    default; setting it raises NotImplementedError naming the slice
+    that brings it."""
     num_slots: int = 8
     page_size: int = 16
     max_len: int = 256
@@ -206,6 +223,9 @@ class ServeConfig:
         if self.kv_quant not in ("none", "int8", "int4"):
             raise ValueError(f"kv_quant {self.kv_quant!r} invalid; "
                              "choices: ('none', 'int8', 'int4')")
+        if self.moe_dispatch not in MOE_DISPATCH:
+            raise ValueError(f"moe_dispatch {self.moe_dispatch!r} invalid; "
+                             f"choices: {MOE_DISPATCH}")
         if self.spec_decode not in ("none", "ngram", "model"):
             raise ValueError(
                 f"spec_decode {self.spec_decode!r} invalid; choices: "
@@ -239,9 +259,9 @@ class ServeConfig:
     @staticmethod
     def from_flags(**overrides) -> "ServeConfig":
         """Defaults from the serving flags (`utils/flags.py`, the
-        HETU_TORCH_SERVE_* surface, HETU_TORCH_KV_QUANT, the spec-decode
-        pair and HETU_TORCH_RUNLOG_SERVE_SAMPLE); explicit keywords
-        win."""
+        HETU_TORCH_SERVE_* surface, HETU_TORCH_KV_QUANT,
+        HETU_TORCH_MOE_DISPATCH, the spec-decode pair and
+        HETU_TORCH_RUNLOG_SERVE_SAMPLE); explicit keywords win."""
         vals = dict(
             num_slots=flags.int_flag("HETU_TORCH_SERVE_SLOTS"),
             page_size=flags.int_flag("HETU_TORCH_SERVE_PAGE"),
@@ -249,6 +269,7 @@ class ServeConfig:
             prefill_chunk=flags.int_flag("HETU_TORCH_SERVE_PREFILL_CHUNK"),
             num_pages=flags.int_flag("HETU_TORCH_SERVE_PAGES"),
             kv_quant=flags.str_flag("HETU_TORCH_KV_QUANT"),
+            moe_dispatch=flags.str_flag("HETU_TORCH_MOE_DISPATCH"),
             sampling=flags.bool_flag("HETU_TORCH_SERVE_SAMPLE"),
             spec_decode=flags.str_flag("HETU_TORCH_SPEC_DECODE"),
             spec_k=flags.int_flag("HETU_TORCH_SPEC_K"),
@@ -264,6 +285,12 @@ class ServeConfig:
         )
         vals.update(overrides)
         return ServeConfig(**vals)
+
+
+def _resident_quantized(model, config: ServeConfig) -> bool:
+    """Does this engine keep the model's experts resident-quantized?"""
+    return (getattr(model.config, "num_experts", 0) > 0
+            and config.moe_dispatch in ("int8", "int4"))
 
 
 def _kv_heads(config) -> int:
@@ -308,6 +335,12 @@ class ServingEngine:
             if name not in _LATER_ENGINE_ARGS:
                 raise TypeError(f"ServingEngine got an unexpected keyword "
                                 f"argument {name!r}")
+            if name == "reshard" and _resident_quantized(
+                    model, config or ServeConfig.from_flags()):
+                raise ValueError(
+                    "resident-quantized MoE experts (moe_dispatch int8/"
+                    "int4) do not compose with the reshard hook: use "
+                    "gspmd/fp32 dispatch or drop the hook")
             raise NotImplementedError(
                 f"ServingEngine({name}=...) is not in the port yet; it "
                 f"arrives with {_LATER_ENGINE_ARGS[name]}")
@@ -420,6 +453,22 @@ class ServingEngine:
         self._num_health = (maybe_numerics_health_monitor(
             runlog=self.run_log, registry=self.registry)
             if self._numerics else None)
+        # MoE: resident quantized experts (serving/experts.py), made
+        # once here; each MoE layer dequantizes its own working copy
+        # when a forward of the engine runs it
+        self.moe_store = self.moe_spec = None
+        self._resident = {}
+        if _resident_quantized(model, self.config):
+            bits = 8 if self.config.moe_dispatch == "int8" else 4
+            self.moe_store, self.moe_spec = quantize_expert_tree(model,
+                                                                 bits=bits)
+            self._resident = layer_loaders(model, self.moe_store,
+                                           self.moe_spec)
+            eb = expert_bytes(self.moe_spec)
+            self.registry.set_gauge("serve.moe_expert_bytes",
+                                    eb["quantized_bytes"])
+            self.registry.set_gauge("serve.moe_expert_bytes_fp",
+                                    eb["fp_bytes"])
 
     # ------------------------------------------------------- device work
     def _new_scratch(self):
@@ -465,10 +514,11 @@ class ServingEngine:
         (its input token sits at positions[s])."""
         dev = self.device
         # positions stay on the host: the forward checks them there
-        logits = decode_step_paged(
-            self.model, torch.as_tensor(tokens, device=dev), self.pool.k,
-            self.pool.v, torch.as_tensor(table, device=dev), positions,
-            **self._pools())[0]
+        with self._experts():
+            logits = decode_step_paged(
+                self.model, torch.as_tensor(tokens, device=dev),
+                self.pool.k, self.pool.v, torch.as_tensor(table, device=dev),
+                positions, **self._pools())[0]
         if not self.config.sampling:
             return torch.argmax(logits, dim=-1).cpu().numpy()
         seeds, temps, top_ks, top_ps = self._sample_args(active)
@@ -486,10 +536,11 @@ class ServingEngine:
         distributions) by the p/q rejection rule over the logits."""
         dev = self.device
         tok = torch.as_tensor(tokens, device=dev)
-        out = verify_step_paged(
-            self.model, tok, self.pool.k, self.pool.v,
-            torch.as_tensor(table, device=dev), positions,
-            return_hidden=q_probs is None, **self._pools())[0]
+        with self._experts():
+            out = verify_step_paged(
+                self.model, tok, self.pool.k, self.pool.v,
+                torch.as_tensor(table, device=dev), positions,
+                return_hidden=q_probs is None, **self._pools())[0]
         # the token picked at grid position i sits at positions + i + 1
         pos_grid = positions.astype(np.int64)[:, None] + np.arange(
             1, tokens.shape[1] + 1)
@@ -504,6 +555,13 @@ class ServingEngine:
             hidden, self.model.lm_head_weight(), seeds, pos_grid, temps,
             top_ks, top_ps, device=dev).cpu().numpy()
         return targets, accept_counts(targets, tokens[:, 1:])
+
+    def _experts(self):
+        """The model's forwards run within it: under resident-quantized
+        experts each MoE layer dequantizes its own working copy."""
+        if not self._resident:
+            return contextlib.nullcontext()
+        return resident_experts(self._resident)
 
     @contextlib.contextmanager
     def _collect(self):
@@ -563,9 +621,10 @@ class ServingEngine:
             with self._collect():
                 self._decode(table, zeros, zeros, [])
         scratch = self._new_scratch()
-        logits, _ = extend_cache(self.model,
-                                 torch.zeros((1, C), dtype=torch.long,
-                                             device=self.device), scratch, 0)
+        with self._experts():
+            logits, _ = extend_cache(
+                self.model, torch.zeros((1, C), dtype=torch.long,
+                                        device=self.device), scratch, 0)
         null_row = np.zeros(self.scheduler.max_pages, np.int32)
         self._write_pages(null_row, scratch[0][:, 0], scratch[1][:, 0])
         if self.prefix_cache is not None:
@@ -1155,9 +1214,10 @@ class ServingEngine:
         ids = np.zeros(min(C, self.config.max_len - s), np.int64)
         seg = req.prompt[s: min(s + C, plen)]
         ids[: len(seg)] = seg
-        logits, _ = extend_cache(
-            self.model, torch.as_tensor(ids[None], device=self.device),
-            st.prefill_cache, s)
+        with self._experts():
+            logits, _ = extend_cache(
+                self.model, torch.as_tensor(ids[None], device=self.device),
+                st.prefill_cache, s)
         st.chunks_done += 1
         st.stats.prefill_chunks += 1
         self.registry.inc("serve.prefill_chunks")

@@ -58,6 +58,16 @@ REGISTRY: Dict[str, Flag] = {f.name: f for f in [
          "two values a byte under the same scale; none (default) stores "
          "exact pages in the model's compute dtype",
          choices=("none", "int8", "int4")),
+    Flag("HETU_TORCH_MOE_DISPATCH", "str", "gspmd",
+         "MoE expert dispatch (nn/moe_dispatch.py) and the serving "
+         "engine's resident experts (ServeConfig.from_flags): gspmd "
+         "(default) and fp32 keep the experts in the model's dtype; int8 "
+         "and int4 serve them resident-quantized (serving/experts.py, "
+         "blockwise payloads + fp32 scales, one layer's working copy "
+         "dequantized a forward).  The explicit expert-parallel "
+         "transports need an ep axis: with one device every mode "
+         "dispatches as gspmd",
+         choices=("gspmd", "fp32", "int8", "int4")),
     Flag("HETU_TORCH_SERVE_SLOTS", "int", 8,
          "serving engine decode-slot count (the decode batch's rows)"),
     Flag("HETU_TORCH_SERVE_PAGE", "int", 16,

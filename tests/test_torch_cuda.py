@@ -2580,3 +2580,140 @@ def test_numerics_kv_pages_snr_on_the_card_matches_the_cpu(dev,
                            name, dict(rtol=2e-3, atol=1e-5))
                 np.testing.assert_allclose(t["scopes"][scope][name], v,
                                            err_msg=f"{scope}.{name}", **tol)
+
+
+# ------------------------------------------------- Mixture-of-Experts
+def _moe_config(**kw):
+    """A narrow MoE Llama, head dim 128 (the paged and flash kernels'),
+    fp32, capacity factor 0.5 (pairs drop)."""
+    d = dict(hidden_size=256, num_attention_heads=2, num_key_value_heads=1,
+             intermediate_size=384, num_experts=8, moe_top_k=2,
+             moe_capacity_factor=0.5, compute_dtype=torch.float32)
+    d.update(kw)
+    return LlamaConfig.tiny(**d)
+
+
+@pytest.mark.parametrize("dispatch", ["sort", "dense"])
+def test_moe_layer_on_the_card_matches_the_cpu(dev, dispatch):
+    """An MoE layer under capacity pressure, fp32: the output and aux
+    within 1e-5 of the CPU's plain path, the input's and every
+    parameter's gradient within 1e-5 relative (+1e-6); the SwiGLU
+    forward and backward kernels launched once each."""
+    from hetu_tpu_torch.nn.moe import MoEConfig, MoELayer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moe = MoEConfig(num_experts=8, top_k=2, capacity_factor=0.5,
+                    dispatch=dispatch)
+    layers = {d: MoELayer(64, 96, moe, device=d) for d in (dev, "cpu")}
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    layers["cpu"].reset_parameters(gen)
+    layers[dev].load_state_dict(layers["cpu"].state_dict())
+    x = _normal((2, 32, 64), 70, "cpu")
+    w = _normal((2, 32, 64), 71, "cpu")
+    outs = {}
+    f0, b0 = tswiglu.launches, tswiglu.bwd_launches
+    for d, layer in layers.items():
+        for p in layer.parameters():
+            p.requires_grad_(True)
+        xd = x.to(d).requires_grad_(True)
+        y, aux = layer(xd)
+        (torch.sum(y * w.to(d)) + aux).backward()
+        outs[d] = [y, aux, xd.grad] + [p.grad for p in layer.parameters()]
+    assert (tswiglu.launches - f0, tswiglu.bwd_launches - b0) == (1, 1)
+    for a, b in zip(outs[dev], outs["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_resident_expert_store_on_the_card_is_the_plain_quantize(dev, bits):
+    """The engine's resident experts quantized on the card (the quantize
+    kernel, from the bf16 leaves) equal the CPU's plain quantize of the
+    same leaves bit for bit, payloads and scales, int4 in the
+    reference's nibble layout; their dequantized leaves too."""
+    from hetu_tpu_torch.serving import experts
+    cfg = _moe_config(param_dtype=torch.bfloat16)
+    cpu = LlamaLMHeadModel(cfg, device="cpu", seed=4)
+    card = LlamaLMHeadModel(cfg, device=dev, seed=4)
+    card.load_state_dict(cpu.state_dict())
+    q0 = tquant.launches
+    store, spec = experts.quantize_expert_tree(card, bits=bits)
+    assert tquant.launches - q0 == 2 * cfg.num_hidden_layers
+    ref, ref_spec = experts.quantize_expert_tree(cpu, bits=bits)
+    assert spec == ref_spec
+    for key, node in store.items():
+        for f in ("q", "s"):
+            assert torch.equal(node[f].cpu(), ref[key][f]), (key, f)
+        assert torch.equal(experts.dequantize_leaf(node, spec[key]).cpu(),
+                           experts.dequantize_leaf(ref[key], spec[key]))
+
+
+@pytest.mark.parametrize("bits", ["int8", "int4"])
+def test_resident_experts_dequantize_two_launches_a_layer_a_forward(dev,
+                                                                   bits):
+    """Under resident int8/int4 experts the build launches the quantize
+    twice a layer; each forward of the engine (decode step or prefill
+    chunk) launches the dequantize twice a layer and SwiGLU once; the
+    tokens equal the CPU engine's on the same store."""
+    cfg = _moe_config()
+
+    def reqs():
+        return synthetic_requests(3, vocab_size=cfg.vocab_size,
+                                  prompt_lens=(10, 40), max_new=(5, 5),
+                                  seed=11)
+    serve = ServeConfig(num_slots=3, page_size=8, max_len=64,
+                        prefill_chunk=16, moe_dispatch=bits)
+    weights = LlamaLMHeadModel(cfg, device="cpu", seed=5).state_dict()
+    tokens = {}
+    for d in (dev, "cpu"):
+        model = LlamaLMHeadModel(cfg, device=d)
+        model.load_state_dict(weights)
+        q0 = tquant.launches
+        eng = ServingEngine(model, serve, device=d)
+        L = cfg.num_hidden_layers
+        if d == dev:
+            assert tquant.launches - q0 == 2 * L
+        d0, s0 = tquant.dequant_launches, tswiglu.launches
+        tokens[d] = [r.tokens for r in eng.run(reqs())]
+        if d == dev:
+            reg = eng.registry
+            fwd = int(reg.counter_value("serve.decode_steps")
+                      + reg.counter_value("serve.prefill_chunks"))
+            assert tquant.dequant_launches - d0 == 2 * L * fwd
+            assert tswiglu.launches - s0 == L * fwd
+    assert tokens[dev] == tokens["cpu"]
+
+
+def test_moe_paths_reach_no_plain_kernel_version_on_the_card(dev,
+                                                            monkeypatch):
+    """With every plain version of the kernel wrappers made to raise, an
+    MoE model serves on the card (resident int4 experts, n-gram
+    speculation on int8 pages, sampled requests) and trains a step with
+    flash and "dots_attn": the MoE paths launch kernels, never a plain
+    version."""
+    from hetu_tpu_torch.ops.cuda import (adam, flash_attention, fused_norm,
+                                         kv_write, paged_attention, quant,
+                                         rotary, sample, swiglu)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plain kernel version ran on the card")
+    for mod in (adam, flash_attention, fused_norm, kv_write, paged_attention,
+                quant, rotary, sample, swiglu):
+        for name in dir(mod):
+            if name.endswith("_plain") and callable(getattr(mod, name)):
+                monkeypatch.setattr(mod, name, refuse)
+    cfg = _moe_config(param_dtype=torch.bfloat16,
+                      compute_dtype=torch.bfloat16, remat_policy="dots_attn")
+    model = LlamaLMHeadModel(cfg, device=dev, seed=6)
+    eng = ServingEngine(model, ServeConfig(
+        num_slots=3, page_size=8, max_len=64, prefill_chunk=16,
+        moe_dispatch="int4", kv_quant="int8", sampling=True,
+        spec_decode="ngram"), device=dev)
+    res = eng.run(_host_trace(cfg, n=4))
+    assert len(res) == 4 and all(r.finished_reason == "length"
+                                 for r in res)
+    tr = Trainer(model, TrainingConfig(global_batch_size=2,
+                                       micro_batch_size=1, seq_len=32,
+                                       log_every=100), device=dev)
+    ids = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 32))
+    out = tr.train_step({"input_ids": ids.astype(np.int32),
+                         "labels": ids.astype(np.int32)})
+    assert np.isfinite(float(out["loss"]))

@@ -218,9 +218,8 @@ def test_write_pages_writes_real_pages_exactly():
 # ----------------------------------------------------- what waits
 @pytest.mark.parametrize("field", sorted(_LATER_FIELDS))
 def test_serve_config_refuses_options_of_later_slices(field):
-    value = {"moe_dispatch": "int8"}.get(field, True)
     with pytest.raises(NotImplementedError, match=field):
-        tserving.ServeConfig(**{field: value})
+        tserving.ServeConfig(**{field: True})
 
 
 @pytest.mark.parametrize("arg", sorted(_LATER_ENGINE_ARGS))
@@ -260,22 +259,21 @@ def test_model_drafter_waits_for_its_slice(tiny_pair, how):
         tserving.ServingEngine(tmodel, device="cpu", drafter=object())
 
 
-_SLICE_OF = {"moe_dispatch": "multi-GPU", "kv_repage": "multi-GPU",
-             "reshard": "multi-GPU", "telemetry": "item 6"}
+_SLICE_OF = {"kv_repage": "multi-GPU", "reshard": "multi-GPU",
+             "telemetry": "item 6"}
 
 
 @pytest.mark.parametrize("name", sorted(set(_LATER_FIELDS)
                                         | set(_LATER_ENGINE_ARGS)))
 def test_deferred_options_name_their_slice(tiny_pair, name):
     """Every option the port defers names the slice that brings it:
-    multi-GPU (MoE dispatch, KV re-paging, the reshard hook) or the
-    cluster telemetry push (ROADMAP Queue A item 6)."""
+    multi-GPU (KV re-paging, the reshard hook) or the cluster telemetry
+    push (ROADMAP Queue A item 6)."""
     _, _, tmodel = tiny_pair
     want = _SLICE_OF[name]
     with pytest.raises(NotImplementedError, match=want):
         if name in _LATER_FIELDS:
-            tserving.ServeConfig(**{name: {"moe_dispatch": "int8"}.get(
-                name, True)})
+            tserving.ServeConfig(**{name: True})
         else:
             tserving.ServingEngine(tmodel, device="cpu", **{name: object()})
     assert "prefix_cache" not in _LATER_FIELDS

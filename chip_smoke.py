@@ -75,7 +75,8 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     `draft_model=` (a narrow draft) and passed as `drafter=` (a copy of
     the target at temperature 0, drafts accepted), greedy, card tokens
     equal to the CPU's and to the run without speculation;
- 5. serving: Llama-3-8B at full width and depth (bf16 weights drawn on
+ 5. serving: Llama-3-8B at full width, depth cut to 8 layers (bf16
+    weights drawn on
     the card from --seed) behind `ServingEngine(ServeConfig(num_slots=8,
     page_size=16, max_len=2048, prefill_chunk=256))`: warmup, then 8
     Poisson-arriving requests with 64-1024-token prompts and 32 new
@@ -87,8 +88,8 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     kernels it saw on the card): the card's idle share, its heaviest
     kernels and the paged kernels' time and share of it; both again as
     they ran before RoPE read q and k in place from the fused projection
-    (q and k copied first), which must cost exactly 2 x 32 more device
-    operations, and the decode step again with the parent tree's page
+    (q and k copied first), which must cost exactly 2 x the layers more
+    device operations, and the decode step again with the parent tree's page
     writes (`parent_page_writes`: a scatter a tensor), at least one more
     device operation a layer; then the same
     model and trace with half the requests at
@@ -212,8 +213,8 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     and on the CPU to phase 7's tolerances, every dropout mask of the
     run equal on both; then a step at the largest fp32 scale on a batch
     of one token: AdamW's launch writes nothing (p, m, v byte for byte),
-    its step count stays, the scale halves; (b) GPT-2-large as published
-    (36 layers, dropout 0.1 / 0.1, bf16 parameters, the dynamic scale,
+    its step count stays, the scale halves; (b) GPT-2-large's widths
+    (12 of its 36 layers, dropout 0.1 / 0.1, bf16 parameters, the dynamic scale,
     policy "nothing", `TrainingConfig(16, 8, 1024, seed=1, ...)`,
     checkpoints every 3 steps, 1 kept): 6 steps, then a fresh model and
     trainer restored from the step-3 checkpoint (hard-linked aside as a
@@ -260,7 +261,7 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     collector on: phase 15's limits on losses, grad norms, moments and
     the adapters' AdamW-direction bound, the last step's numerics record
     key for key (`lora_reference_phase`); (b) Llama-3-8B at full width
-    cut to 16 layers (bf16 frozen base), `LoRAConfig(rank=16)`,
+    cut to 8 layers (bf16 frozen base), `LoRAConfig(rank=16)`,
     `TrainingConfig(8, 2, 2048)`, 4 steps on a chat batch through
     `build_sft_example`, every hook flag on: exact launch counts by arm,
     the loss falling, the base's fingerprint unchanged, peak memory at
@@ -275,7 +276,7 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     (`lora_identity_phase`).  Phase 3's SwiGLU backward rows (bf16 and
     fp16) are timed beside autograd's backward of `F.silu(g) * u`.
 17. the serving host layers ("serving4", `serving4_phase`), Llama-3-8B
-    at full width, 16 layers, in bf16, one model shared by every engine,
+    at full width, 8 layers, in bf16, one model shared by every engine,
     `ServeConfig(8, page_size=16, max_len=2048, prefill_chunk=256)`, 24
     requests in bursts of 8 at 20/s (prompts 64-1,024, 32 new; gold and
     bulk classes, tenants acme and free, half sampled): (a) the
@@ -321,11 +322,39 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     grid) and dequantize of a layer's expert leaves at block 256, each
     against its plain version and timed, the dequantize beside
     PyTorch's per-channel qint8 `dequantize`.
+19. fp16 serving ("serving_fp16", `serving_fp16_phase`): (a) every fp16
+    arm of the serving kernels at Llama-2-7B's shapes against its plain
+    version, timed beside its bound, its library call and its bf16 arm
+    on the same work in this call: paged decode q [8, 32, 128] and
+    verify [8, 5, 32, 128] over 32 kv heads at depths 40-1,100 in the
+    three page modes (o within one fp16 ulp + 1e-5, two runs the same
+    bits), `write_kv_tokens` [8, 1 | 5, 32, 128] and `write_kv_pages`
+    (32 layers x 1,024 positions) byte for byte, the product + draw at
+    hidden [40, 4096] x head [4096, 32000] (library `torch.mm` in fp16
+    with fp32 out) and GPT's tied [1280, 50257] (K-major), the draw over
+    fp16 logits [8 | 40, 32000], the quantize and the dequantize to fp16
+    at the TinyLlama draft's matrices, bit for bit; (b) a narrow fp16
+    Llama with Llama-2's geometry (MHA, 4 heads of 128, vocab 32000,
+    2 layers) card vs CPU: greedy on fp16 exact pages, sampled + n-gram
+    on int8 and on int4 pages, tokens equal but after a counted near-tie
+    of fp16 logits (`F16_NEAR_TIE`); (c) Llama-2-7B as published in fp16
+    (32 layers) behind phase 5's `ServeConfig` and trace: greedy on fp16
+    exact pages, sampled on int8 pages, with n-gram speculation, with
+    its own continuation as drafts (the same tokens, drafts accepted),
+    sampled on int4 pages, a TinyLlama-width fp16 draft resident in int8
+    with stochastic verify and the prefix cache over 16 requests sharing
+    a 512-token prompt; TTFT, gap, tokens/s, peak memory and the fp16
+    launches by kernel of each run (every serving kernel's fp16 arm must
+    launch), a decode step and a verify step profiled, and the greedy
+    run again with the weights cast to bf16, its decode step beside the
+    fp16 one.
 
-Prints the `kernels` JSON line, the nvidia-smi line, and last the
+Each phase's end prints `phase <name>: done at <s>` (where the run's
+time goes).  Prints the `kernels` JSON line, the nvidia-smi line, and last the
 `{"ok": true, "device": ...}` line; the `kernels` line gives AdamW's
 launches by arm ("f32", "bf16") over the training paths, and each fp16
-arm as an entry of its own (`flash_fwd_f16`, ..., `rotary_qk_bwd_f16`),
+arm as an entry of its own (`flash_fwd_f16`, ..., `rotary_qk_bwd_f16`,
+and since phase 19 `paged_attention_f16`, ..., `dequantize_blockwise_f16`),
 whose launches are also in its kernel's entry.
 """
 from __future__ import annotations
@@ -669,11 +698,12 @@ SPEC_DEPTHS = [1100, 1040, 900, 700, 520, 300, 128, 40]
 
 
 def serving_pages(seed, quant, C, copies, depths=SPEC_DEPTHS, *, nq=32,
-                  n_kv=8, hd=128, mp=128):
+                  n_kv=8, hd=128, mp=128, dtype=torch.bfloat16):
     """Pools at an attention shape (by default Llama-3-8B's: 32 q / 8 kv
     heads, head dim 128, 128 pages of 16 a slot) in a page mode,
     `copies` of them so timed launches find their pages cold in L2; q
-    [S, C, nq, hd] bf16, a slot for each of `depths`.  Every row no query reads (past positions[s] + C - 1,
+    [S, C, nq, hd] of `dtype` (exact pages too), a slot for each of
+    `depths`.  Every row no query reads (past positions[s] + C - 1,
     and the null page) holds NaN (exact pages) or a NaN scale
     (quantized pages): no kernel may load it.  Returns q, pools (k, v,
     k_scale, v_scale), table, positions, the bytes a launch must move
@@ -700,7 +730,7 @@ def serving_pages(seed, quant, C, copies, depths=SPEC_DEPTHS, *, nq=32,
         for _ in range(2):
             x = torch.randn((P, ps, n_kv, hd), generator=g, device="cuda")
             if quant == "none":
-                x = x.bfloat16()
+                x = x.to(dtype)
                 x.view(P * ps, n_kv, hd)[~live] = float("nan")
                 kv.append((x, None))
             else:
@@ -708,7 +738,7 @@ def serving_pages(seed, quant, C, copies, depths=SPEC_DEPTHS, *, nq=32,
                 sc.view(P * ps, n_kv)[~live] = float("nan")
                 kv.append((q, sc))
         pools.append((kv[0][0], kv[1][0], kv[0][1], kv[1][1]))
-    q = torch.randn((S, C, nq, hd), generator=g, device="cuda").bfloat16()
+    q = torch.randn((S, C, nq, hd), generator=g, device="cuda").to(dtype)
     rows = sum(d + C for d in depths)
     row_bytes = {"none": hd * 2, "int8": hd + 4, "int4": hd // 2 + 4}[quant]
     nbytes = (2 * q.numel() * 2 + 2 * rows * n_kv * row_bytes
@@ -719,25 +749,25 @@ def serving_pages(seed, quant, C, copies, depths=SPEC_DEPTHS, *, nq=32,
 
 
 # ------------------------------------------------------ the page write
-def served_kv(g, S, C, n_kv, hd, layout):
-    """K and V [S, C, n_kv, hd] bf16 as the serving forwards hand them to
-    the page write: LLaMA's K out of RoPE (contiguous) and V a view of
-    the fused projection [S, C, n_kv, group + 2, hd] (group 4); GPT's K
+def served_kv(g, S, C, n_kv, hd, layout, dtype=torch.bfloat16, group=4):
+    """K and V [S, C, n_kv, hd] of `dtype` as the serving forwards hand
+    them to the page write: LLaMA's K out of RoPE (contiguous) and V a
+    view of the fused projection [S, C, n_kv, group + 2, hd]; GPT's K
     and V views of [S, C, n_kv, 3, hd].  The projection's q columns then
     hold NaN, so a write that read them would carry NaN into a page."""
     from hetu_tpu_torch.ops.cuda import rotary as ro
     if layout == "llama":
-        qkv = torch.randn((S, C, n_kv, 6, hd), generator=g,
-                          device="cuda").bfloat16()
+        qkv = torch.randn((S, C, n_kv, group + 2, hd), generator=g,
+                          device="cuda").to(dtype)
         cos_t, sin_t = (torch.randn((S, C, hd // 2), generator=g,
                                     device="cuda") for _ in range(2))
-        _, k = ro.fused_rotary_qk(qkv[..., :4, :], qkv[..., 4, :], cos_t,
-                                  sin_t)
-        v = qkv[..., 5, :]
-        qkv[..., :4, :] = float("nan")
+        _, k = ro.fused_rotary_qk(qkv[..., :group, :], qkv[..., group, :],
+                                  cos_t, sin_t)
+        v = qkv[..., group + 1, :]
+        qkv[..., :group, :] = float("nan")
     else:
         qkv = torch.randn((S, C, n_kv, 3, hd), generator=g,
-                          device="cuda").bfloat16()
+                          device="cuda").to(dtype)
         k, v = qkv[..., 1, :], qkv[..., 2, :]
         qkv[..., 0, :] = float("nan")
     return k, v
@@ -828,9 +858,10 @@ def page_write_result(label, sets, written, nbytes, ops, ms, plain_ms,
 
 
 def kv_token_cases(seed, modes, depths=SPEC_DEPTHS, *, n_kv=8, hd=128,
-                   mp=128, ps=16, layout="llama"):
-    """`write_kv_tokens` at a serving step's shape, one layer, bf16 K and
-    V as `served_kv` hands them over, a slot for each of `depths` (page
+                   mp=128, ps=16, layout="llama", dtype=torch.bfloat16,
+                   group=4):
+    """`write_kv_tokens` at a serving step's shape, one layer, K and V
+    of `dtype` (exact pages too) as `served_kv` hands them over, a slot for each of `depths` (page
     rows of `mp` pages of `ps`), in each (page mode, C) of `modes`: held
     against its plain version (and the parent's path, `parent_token_write`)
     byte for byte over pools that start as NaN, and timed beside both and
@@ -843,7 +874,7 @@ def kv_token_cases(seed, modes, depths=SPEC_DEPTHS, *, n_kv=8, hd=128,
     positions = torch.tensor(depths, dtype=torch.int32, device="cuda")
     out = []
     for quant, C in modes:
-        k, v = served_kv(g, S, C, n_kv, hd, layout)
+        k, v = served_kv(g, S, C, n_kv, hd, layout, dtype, group)
         perm = torch.randperm(P - 1, generator=g, device="cuda") + 1
         table = torch.zeros((S, mp), dtype=torch.int32, device="cuda")
         written = torch.zeros((P, ps), dtype=torch.bool, device="cuda")
@@ -854,7 +885,7 @@ def kv_token_cases(seed, modes, depths=SPEC_DEPTHS, *, n_kv=8, hd=128,
             used += n
             at = torch.arange(d, d + C, device="cuda")
             written[table[s_, at // ps].long(), at % ps] = True
-        sets = {name: nan_pools(quant, (P, ps, n_kv, hd))
+        sets = {name: nan_pools(quant, (P, ps, n_kv, hd), dtype)
                 for name in ("kernel", "plain", "parent")}
         page, offset = kw.token_block_pages(table, positions, C, ps)
 
@@ -878,16 +909,17 @@ def kv_token_cases(seed, modes, depths=SPEC_DEPTHS, *, n_kv=8, hd=128,
         ops = 0 if quant == "none" else 4 * heads * hd
         out.append(page_write_result(
             f"kv_write_tokens {quant} pages [{S},{C},{n_kv},{hd}] "
-            f"{layout}'s K and V", sets, written, nbytes, ops,
+            f"{layout}'s K and V {_DTYPE_NAMES[dtype]}", sets, written,
+            nbytes, ops,
             device_ms(lambda: run(0)), device_ms(lambda: plain(0)),
             device_ms(lambda: parent(0))))
     return out
 
 
 def kv_pages_cases(seed, modes, *, layers, tokens, max_len, n_kv, hd,
-                   ps=16):
+                   ps=16, dtype=torch.bfloat16):
     """`write_kv_pages` for a prefill of `tokens` positions: the scratch
-    [layers, 1, max_len, n_kv, hd] bf16 (the engine's dense cache, read
+    [layers, 1, max_len, n_kv, hd] of `dtype` (the engine's dense cache, read
     as `cache[:, 0]`), a page row of max_len / ps entries whose first
     tokens / ps are real pages and the rest the null tail, in each page
     mode of `modes`: byte for byte against its plain version and the
@@ -899,7 +931,7 @@ def kv_pages_cases(seed, modes, *, layers, tokens, max_len, n_kv, hd,
     P = real + 1
     g = torch.Generator(device="cuda").manual_seed(seed)
     cache = [torch.randn((layers, 1, max_len, n_kv, hd), generator=g,
-                         device="cuda").bfloat16() for _ in range(2)]
+                         device="cuda").to(dtype) for _ in range(2)]
     ks, vs = cache[0][:, 0], cache[1][:, 0]
     row = torch.zeros(mp, dtype=torch.int32, device="cuda")
     row[:real] = torch.randperm(real, generator=g, device="cuda") + 1
@@ -910,7 +942,7 @@ def kv_pages_cases(seed, modes, *, layers, tokens, max_len, n_kv, hd,
     paged = (layers, mp, ps, n_kv, hd)
     out = []
     for quant in modes:
-        sets = {name: nan_pools(quant, (layers, P, ps, n_kv, hd))
+        sets = {name: nan_pools(quant, (layers, P, ps, n_kv, hd), dtype)
                 for name in ("kernel", "plain", "parent")}
 
         def run(p=sets["kernel"], quant=quant):
@@ -934,7 +966,8 @@ def kv_pages_cases(seed, modes, *, layers, tokens, max_len, n_kv, hd,
         # synchronize): timed between events, not in a graph
         out.append(page_write_result(
             f"kv_write_pages {quant} pages, {layers} layers x {tokens} of "
-            f"{max_len} positions x {n_kv} x {hd}", sets, written, nbytes,
+            f"{max_len} positions x {n_kv} x {hd} {_DTYPE_NAMES[dtype]}",
+            sets, written, nbytes,
             ops, device_ms(run), event_ms(plain), device_ms(parent, 4)))
         del sets
     return out
@@ -954,22 +987,23 @@ def _sampler_rows(seed, R, V):
     return temps, top_ks, top_ps, words
 
 
-def product_yardstick():
+def product_yardstick(dtype=torch.bfloat16):
     """One PyTorch call computing the sampler's product, a yardstick the
-    port never calls: `torch.mm` of the bf16 operands with fp32 output
-    where this PyTorch takes `out_dtype`, else a bf16 `torch.matmul`
-    (bf16 logits: half the output bytes).  Returns (fn, its label)."""
-    a = torch.ones((16, 16), device="cuda", dtype=torch.bfloat16)
+    port never calls: `torch.mm` of the 16-bit operands with fp32 output
+    where this PyTorch takes `out_dtype`, else a 16-bit `torch.matmul`
+    (16-bit logits: half the output bytes).  Returns (fn, its label)."""
+    a = torch.ones((16, 16), device="cuda", dtype=dtype)
     try:
         torch.mm(a, a, out_dtype=torch.float32)
     except (TypeError, RuntimeError):
-        return torch.matmul, "torch.matmul, bf16 out"
+        return torch.matmul, f"torch.matmul, {_DTYPE_NAMES[dtype]} out"
     return (lambda x, w: torch.mm(x, w, out_dtype=torch.float32),
             "torch.mm(out_dtype=fp32)")
 
 
 def sampler_cases(g, seed, head, head_text, R=40):
-    """The fused sampler over hidden [R, H] (bf16) and `head` [H, V]:
+    """The fused sampler over hidden [R, H] and `head` [H, V] (bf16 or
+    fp16, the head's type):
     the product alone (kernel (a)), timed beside the fp32 product and
     `product_yardstick`, held within 1e-5 of the largest logit; then
     product + draw, its tokens identical on every row whose plain
@@ -977,12 +1011,13 @@ def sampler_cases(g, seed, head, head_text, R=40):
     from hetu_tpu_torch.ops.cuda import sample as sa
     H, V = head.shape
     temps, top_ks, top_ps, words = _sampler_rows(seed, R, V)
-    hidden = torch.randn((R, H), generator=g, device="cuda").bfloat16()
+    dt = _DTYPE_NAMES[head.dtype]
+    hidden = torch.randn((R, H), generator=g, device="cuda").to(head.dtype)
     ref = hidden.float() @ head.float()
-    mm, mm_text = product_yardstick()
+    mm, mm_text = product_yardstick(head.dtype)
     route = sa.lm_head_route(hidden, head)
     product = case(
-        f"fused_sample product hidden [{R},{H}] x head {head_text} bf16 -> "
+        f"fused_sample product hidden [{R},{H}] x head {head_text} {dt} -> "
         f"fp32 logits, {route} arm (library: {mm_text})",
         rel(1e-5, of_max=True),
         lambda i: sa.lm_head_logits(hidden, head),
@@ -1004,7 +1039,7 @@ def sampler_cases(g, seed, head, head_text, R=40):
     del ref, noisy
     args = (words, temps, top_ks, top_ps)
     fused = case(
-        f"fused_sample hidden [{R},{H}] x head {head_text} bf16, greedy / "
+        f"fused_sample hidden [{R},{H}] x head {head_text} {dt}, greedy / "
         "temperature / top-k 50 / top-p 0.95 / both", same(),
         lambda i: sa.fused_sample(hidden, head, *args).index_select(0, sel),
         lambda i: sa.fused_sample_plain(hidden, head, *args).index_select(
@@ -2074,7 +2109,7 @@ def kernel_table():
     from hetu_tpu_torch.ops.cuda import swiglu as sw
     src, tpu = "hetu_tpu_torch/csrc/", "hetu_tpu/ops/pallas/"
     return {
-        "paged_attention": (pa, "launches", src + "paged_attention.cu",
+        "paged_attention": (pa, "launches", src + "paged_attention.cuh",
                             tpu + "paged_attention.py:285"),
         "fused_rotary_qk": (ro, "launches", src + "rotary.cu",
                             tpu + "rotary.py:82"),
@@ -2096,12 +2131,12 @@ def kernel_table():
         "flash_bwd_dkv": (fa, "dkv_launches", src + "flash_attention.cu",
                           tpu + "flash_attention.py:368"),
         "paged_attention_int8": (pa, "int8_launches",
-                                 src + "paged_attention.cu",
+                                 src + "paged_attention.cuh",
                                  tpu + "paged_attention.py:137"),
         "paged_attention_int4": (pa, "int4_launches",
-                                 src + "paged_attention.cu",
+                                 src + "paged_attention.cuh",
                                  tpu + "paged_attention.py:137"),
-        "paged_verify": (pa, "verify_launches", src + "paged_attention.cu",
+        "paged_verify": (pa, "verify_launches", src + "paged_attention.cuh",
                          tpu + "paged_attention.py:345"),
         "quantize_blockwise": (qu, "launches", src + "quant.cu",
                                tpu + "quant.py:78"),
@@ -2150,6 +2185,31 @@ def kernel_table():
                                 tpu + "rotary.py:82"),
         "rotary_qk_bwd_f16": (ro, ("bwd_launches", "f16"), src + "rotary.cu",
                               tpu + "rotary.py:112"),
+        # the serving kernels' fp16 arms (phase 19), the same way
+        "paged_attention_f16": (pa, ("launches", "f16"),
+                                src + "paged_attention_f16.cu",
+                                tpu + "paged_attention.py:285"),
+        "paged_attention_int8_f16": (pa, ("int8_launches", "f16"),
+                                     src + "paged_attention_f16.cu",
+                                     tpu + "paged_attention.py:137"),
+        "paged_attention_int4_f16": (pa, ("int4_launches", "f16"),
+                                     src + "paged_attention_f16.cu",
+                                     tpu + "paged_attention.py:137"),
+        "paged_verify_f16": (pa, ("verify_launches", "f16"),
+                             src + "paged_attention_f16.cu",
+                             tpu + "paged_attention.py:345"),
+        "quantize_blockwise_f16": (qu, ("launches", "f16"), src + "quant.cu",
+                                   tpu + "quant.py:78"),
+        "kv_write_tokens_f16": (kw, ("launches", "f16"), src + "kv_write.cu",
+                                tpu + "quant.py:78"),
+        "kv_write_pages_f16": (kw, ("pages_launches", "f16"),
+                               src + "kv_write.cu", tpu + "quant.py:78"),
+        "fused_sample_f16": (sa, ("launches", "f16"), src + "sample.cu",
+                             tpu + "sample.py:188"),
+        "sample_logits_f16": (sa, ("logits_launches", "f16"),
+                              src + "sample.cu", tpu + "sample.py:156"),
+        "dequantize_blockwise_f16": (qu, ("dequant_launches", "f16"),
+                                     src + "quant.cu", tpu + "quant.py:103"),
     }
 
 
@@ -2368,9 +2428,10 @@ def reference_spec_phase(seed: int, card, cpu, kernels):
     cfg = card.config
 
     def trace():
+        # two requests: one greedy, one sampled
         reqs = synthetic_requests(
-            3, vocab_size=cfg.vocab_size, prompt_lens=(20, 60),
-            max_new=(8, 8), arrivals=poisson_arrivals(3, 100.0, seed=seed),
+            2, vocab_size=cfg.vocab_size, prompt_lens=(20, 60),
+            max_new=(8, 8), arrivals=poisson_arrivals(2, 100.0, seed=seed),
             seed=seed + 1)
         for r in reqs[1::2]:
             r.sampling = SamplingParams(temperature=0.8, top_k=50,
@@ -2466,7 +2527,10 @@ def serving_phase(seed: int, kernels):
     from hetu_tpu_torch.serving import (ServeConfig, ServingEngine,
                                         poisson_arrivals, synthetic_requests)
 
-    cfg = LlamaConfig.llama3_8b(param_dtype=torch.bfloat16)
+    # depth cut to 8 for the smoke's time (phase 19 serves Llama-2-7B
+    # at its full 32 layers)
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=8,
+                                param_dtype=torch.bfloat16)
     t0 = time.perf_counter()
     model = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
     torch.cuda.synchronize()
@@ -2850,8 +2914,8 @@ def serving3_phase(model, seed: int, kernels):
     spec_decode="model", spec_k=4, prefix_cache=True)`, and
     `shared_prompt_trace`.  Every launch count is exact: each draft
     forward dequantizes its 65 matrices and runs 16 layers (flash, the
-    fused norm, RoPE, SwiGLU), each verify step 32 `paged_verify`
-    launches, 32 page writes and one draw (the bonus token), each prefix
+    fused norm, RoPE, SwiGLU), each verify step a `paged_verify` launch
+    and a page write a target layer and one draw (the bonus token), each prefix
     hit's prime 2 dequantize launches (K and V of all layers), each
     prefill one page write (the quantize launches only at the drafter's
     load, before the run).  Then one propose and one verify step are
@@ -3059,7 +3123,7 @@ def serving3_phase(model, seed: int, kernels):
 
 def reference_serving3_phase(seed: int, card, cpu):
     """The third serving slice against the CPU on the 2-layer fp32
-    models, the prefix cache on exact pages, greedy, three requests
+    models, the prefix cache on exact pages, greedy, two requests
     sharing a 32-token prompt, each way of drafting on the card and on
     the CPU: (a) the engine's own `draft_model=` wiring (its defaults:
     temperature 1, window 256, block 64) with a narrow draft model of
@@ -3079,7 +3143,7 @@ def reference_serving3_phase(seed: int, card, cpu):
         r = np.random.default_rng(seed + 8)
         return [Request(rid=i, prompt=np.concatenate(
                     [system, r.integers(0, cfg.vocab_size, 20 + 7 * i)]),
-                    max_new_tokens=6, arrival_t=30.0 * i) for i in range(3)]
+                    max_new_tokens=6, arrival_t=30.0 * i) for i in range(2)]
     serve = dict(num_slots=2, page_size=16, max_len=256, prefill_chunk=64)
     narrow = LlamaConfig(vocab_size=cfg.vocab_size, hidden_size=512,
                          intermediate_size=1024, num_hidden_layers=2,
@@ -3113,9 +3177,9 @@ def reference_serving3_phase(seed: int, card, cpu):
             res = eng.warmup().run(trace())
             eng.scheduler.check_invariants()
             runs[name] = res
-            check(eng.registry.counter_value("serve.prefix_hits") == 2,
+            check(eng.registry.counter_value("serve.prefix_hits") == 1,
                   f"reference serving3 {way} ({name}): prefix hits "
-                  f"{eng.registry.counter_value('serve.prefix_hits')} != 2")
+                  f"{eng.registry.counter_value('serve.prefix_hits')} != 1")
             check(eng.drafter.forwards > 0,
                   f"reference serving3 {way} ({name}): no draft forward")
         tokens = [r.tokens for r in runs["card"]]
@@ -3925,7 +3989,8 @@ def _t3_dropout_ms(cfg, mbs, seq, calls_per_layer):
 
 
 def training3_gpt_phase(seed: int, kernels, card: str):
-    """Phase 14 (b): GPT-2-large as published — 36 layers, attention and
+    """Phase 14 (b): GPT-2-large's widths, depth cut 36 -> 12 for the
+    smoke's time (phase 15 (e) trains all 36), attention and
     hidden dropout 0.1, bf16 parameters, the dynamic loss scale — policy
     "nothing", `TrainingConfig(16, 8, 1024, seed=1, ...)`, checkpoints
     every 3 steps, 1 kept.  Run A takes 6 steps; once its step-3
@@ -3949,8 +4014,8 @@ def training3_gpt_phase(seed: int, kernels, card: str):
     from hetu_tpu_torch.utils.checkpoint import manifest_path
 
     t_phase = time.perf_counter()
-    cfg = GPTConfig.gpt2_large(attention_dropout=0.1, hidden_dropout=0.1,
-                               param_dtype=torch.bfloat16)
+    cfg = GPTConfig.gpt2_large(num_hidden_layers=12, attention_dropout=0.1,
+                               hidden_dropout=0.1, param_dtype=torch.bfloat16)
     L, gbs, mbs, seq = cfg.num_hidden_layers, 16, 8, 1024
     root = tempfile.mkdtemp(prefix="training3-")
     run_dir, crash_dir = os.path.join(root, "a"), os.path.join(root, "b")
@@ -5004,14 +5069,14 @@ def sft_chat_batch(seed: int, vocab: int, rows: int, seq: int):
 
 def lora_llama_phase(seed: int, kernels, card: str):
     """Phase 16 (b): LoRA SFT of Llama-3-8B at full width, depth cut to
-    16 layers (the whole smoke's time limit; bf16 frozen base drawn from
+    8 layers (the whole smoke's time limit; bf16 frozen base drawn from
     `seed`, bf16 compute, flash,
     "dots_attn"), `LoRAConfig(rank=16)` on the reference's Llama
     targets, `SFTTrainer(..., TrainingConfig(global_batch_size=8,
     micro_batch_size=2, seq_len=2048), device="cuda").train(...)`, 4
     steps on one chat batch (`sft_chat_batch`), HETU_TORCH_RUNLOG,
     HETU_TORCH_HEALTH and HETU_TORCH_NUMERICS on: exact launch counts
-    each step (phase 8's counts at 16 layers; AdamW once on its fp32
+    each step (phase 8's counts at 8 layers; AdamW once on its fp32
     arm over the adapter leaves), the loss finite and falling, only the
     adapters changed (the base's fingerprint before and after, no
     gradient on it), peak memory at most 70 GiB (else the micro-batch
@@ -5027,7 +5092,7 @@ def lora_llama_phase(seed: int, kernels, card: str):
     from hetu_tpu_torch.peft import LoRAConfig
     from hetu_tpu_torch.peft.lora import target_parameters
     t_phase = time.perf_counter()
-    cfg = LlamaConfig.llama3_8b(num_hidden_layers=16,
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=8,
                                 param_dtype=torch.bfloat16,
                                 remat_policy="dots_attn")
     L, gbs, seq = cfg.num_hidden_layers, 8, 2048
@@ -5729,7 +5794,7 @@ def serving4_frontend_phase(model, seed, kernels, want):
 
 def serving4_phase(seed: int, kernels, card: str):
     """Phase 17 ("serving4"): the serving host layers on Llama-3-8B at
-    full width, depth cut to 16 layers (bf16 weights drawn from `seed`;
+    full width, depth cut to 8 layers (bf16 weights drawn from `seed`;
     the whole smoke's time limit), one model
     shared by every engine of the phase: (a) policies and failover, (b)
     disaggregated prefill/decode, (c) the replica frontend.  Prints its
@@ -5739,7 +5804,7 @@ def serving4_phase(seed: int, kernels, card: str):
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     model = LlamaLMHeadModel(LlamaConfig.llama3_8b(
-        num_hidden_layers=16, param_dtype=torch.bfloat16), device="cuda",
+        num_hidden_layers=8, param_dtype=torch.bfloat16), device="cuda",
         seed=seed)
     with tempfile.TemporaryDirectory() as tmp:
         by_path, base = serving4_policies_phase(model, seed, kernels, card,
@@ -6380,6 +6445,535 @@ def moe_phase(seed: int, kernels, card: str):
     return by_path, cases
 
 
+# ------------------------------------------------------- serving fp16
+#: the serving kernels whose fp16 arms phase 19 ("serving_fp16") checks
+#: at Llama-2-7B's shapes and drives on its paths
+F16_SERVING = ("paged_attention", "paged_attention_int8",
+               "paged_attention_int4", "paged_verify", "kv_write_tokens",
+               "kv_write_pages", "fused_sample", "sample_logits",
+               "quantize_blockwise", "dequantize_blockwise")
+
+
+def llama2_config(**kw):
+    """Meta's Llama-2-7B as published (meta-llama/Llama-2-7b-hf: hidden
+    4096, 32 layers, 32 q / 32 kv heads of 128, SwiGLU 11008, vocab
+    32000, rope theta 10000, `torch_dtype: float16`): fp16 parameters
+    and compute."""
+    from hetu_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig.llama2_7b(**{"param_dtype": torch.float16,
+                                    "compute_dtype": torch.float16, **kw})
+
+
+def tinyllama_config():
+    """The draft: TinyLlama-1.1B's published widths (TinyLlama/TinyLlama-
+    1.1B-intermediate-step-1431k-3T: hidden 2048, 22 layers, 32 q / 4 kv
+    heads of 64, SwiGLU 5632, vocab 32000, untied head), fp16."""
+    from hetu_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(vocab_size=32000, hidden_size=2048,
+                       intermediate_size=5632, num_hidden_layers=22,
+                       num_attention_heads=32, num_key_value_heads=4,
+                       max_position_embeddings=2048,
+                       param_dtype=torch.float16,
+                       compute_dtype=torch.float16)
+
+
+def _beside_bf16(res, bf16_ms):
+    """A fp16 case with its bf16 arm's time on the same work, this call."""
+    res["bf16_ms"] = bf16_ms
+    print(f"  {res['case'][:60]}: fp16 {res['ms']:.5f} ms, bf16 "
+          f"{bf16_ms:.5f} ms, ratio {res['ms'] / bf16_ms:.3f}")
+    return res
+
+
+def serving_fp16_kernel_phase(seed: int):
+    """Every fp16 arm of the serving kernels at Llama-2-7B's shapes, each
+    against its plain version on the card and timed beside it, its bound
+    and its library call, and beside its bf16 arm on the same work (16-bit
+    both: the same bytes): paged decode q [8, 32, 128] and verify
+    [8, 5, 32, 128] over 32 kv heads at depths 40-1,100 in the three page
+    modes (o within one fp16 ulp + 1e-5 of the plain version; two runs
+    the same bits); `write_kv_tokens` [8, 1 | 5, 32, 128] and
+    `write_kv_pages` (32 layers x 1,024 of 2,048 positions) bit for bit;
+    the product + draw at hidden [40, 4096] x head [4096, 32000] (N-major,
+    library `torch.mm` in fp16 with fp32 out) and GPT's tied [1280, 50257]
+    (K-major), the draw alone over fp16 logits [8 | 40, 32000]; the
+    quantize and dequantize (fp16 out) at the draft's matrices (TinyLlama's
+    embedding [32000 x 2048] and w_down [5632 x 2048] at block 128) bit
+    for bit."""
+    from hetu_tpu_torch.ops.cuda import paged_attention as pa
+    from hetu_tpu_torch.ops.cuda import quant as qu
+    from hetu_tpu_torch.ops.cuda import sample as sa
+    f16 = torch.float16
+    out = {f"{name}_f16": [] for name in F16_SERVING}
+    scale = 128 ** -0.5
+    for quant, C in (("none", 1), ("int8", 1), ("int4", 1), ("none", 5),
+                     ("int8", 5), ("int4", 5)):
+        q, pools, table, pos, nbytes, ops = serving_pages(
+            seed + 40 + C, quant, C, 4, nq=32, n_kv=32, dtype=f16)
+        name = ("paged_verify" if C > 1 else "paged_attention"
+                if quant == "none" else f"paged_attention_{quant}")
+        fn = pa.paged_verify if C > 1 else pa.paged_attention
+        plain_fn = pa.paged_verify_plain if C > 1 else \
+            pa.paged_attention_plain
+        qq = q if C > 1 else q[:, 0]
+        label = (f"{name} {quant} pages q=[8,{C},32,128] n_kv=32 ps=16 "
+                 f"mp=128 fp16 (Llama-2-7B)")
+
+        def run(i, qq=qq, pools=pools, quant=quant, fn=fn, table=table,
+                pos=pos):
+            k, v, ks, vs = pools[i % len(pools)]
+            return fn(qq, k, v, table, pos, softmax_scale=scale,
+                      k_scale=ks, v_scale=vs, quant=quant)
+
+        def plain(i, qq=qq, pools=pools, quant=quant, plain_fn=plain_fn,
+                  table=table, pos=pos):
+            k, v, ks, vs = pools[i % len(pools)]
+            return plain_fn(qq, k, v, table, pos, scale, ks, vs, quant)
+        same_bits(label, run)
+        res = case(label, ulps(1, 1e-5, f16), run, plain, nbytes, ops,
+                   op_dtype=f16)
+        bpools = [(k.bfloat16() if quant == "none" else k,
+                   v.bfloat16() if quant == "none" else v, ks, vs)
+                  for k, v, ks, vs in pools]
+        out[f"{name}_f16"].append(_beside_bf16(res, device_ms(
+            lambda it=iter(range(10 ** 6)), qb=qq.bfloat16(): run(
+                next(it), qb, bpools))))
+        del pools, bpools
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the page write: a decode and a verify step's layer, a prefill
+    modes = [(quant, C) for C in (1, 5) for quant in ("none", "int8",
+                                                      "int4")]
+    kw = dict(n_kv=32, hd=128, group=1)
+    out["kv_write_tokens_f16"] = [
+        _beside_bf16(a, b["ms"]) for a, b in zip(
+            kv_token_cases(seed + 50, modes, dtype=f16, **kw),
+            kv_token_cases(seed + 50, modes, **kw))]
+    kw = dict(layers=32, tokens=1024, max_len=2048, n_kv=32, hd=128)
+    out["kv_write_pages_f16"] = [
+        _beside_bf16(a, b["ms"]) for a, b in zip(
+            kv_pages_cases(seed + 51, ("none", "int8", "int4"), dtype=f16,
+                           **kw),
+            kv_pages_cases(seed + 51, ("none", "int8", "int4"), **kw))]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the sampler: Llama-2's [H, V] head and GPT's tied table's view
+    g = torch.Generator(device="cuda").manual_seed(seed + 52)
+    for head, text in (
+            ((0.02 * torch.randn((4096, 32000), generator=g,
+                                 device="cuda")).half(),
+             "[4096,32000] (Llama-2-7B)"),
+            ((0.02 * torch.randn((50257, 1280), generator=g,
+                                 device="cuda")).half().t(),
+             "[1280,50257] (GPT's tied wte.t())")):
+        fused, product = sampler_cases(g, seed, head, text)
+        R = 40
+        hb = torch.randn((R, head.shape[0]), generator=g,
+                         device="cuda").bfloat16()
+        wb = head.bfloat16() if head.is_contiguous() else \
+            head.t().bfloat16().t()
+        temps, top_ks, top_ps, words = _sampler_rows(seed, R, head.shape[1])
+        args = (words, temps, top_ks, top_ps)
+        out["fused_sample_f16"] += [
+            _beside_bf16(fused, device_ms(
+                lambda: sa.fused_sample(hb, wb, *args), 2)),
+            _beside_bf16(product, device_ms(
+                lambda: sa.lm_head_logits(hb, wb), 2))]
+        del head, hb, wb
+    V = 32000
+    for rows in (8, 40):
+        temps, top_ks, top_ps, words = _sampler_rows(seed, 40, V)
+        lg = (4.0 * torch.randn((rows, V), generator=g, device="cuda")).half()
+        args = tuple(t[:rows] for t in (words, temps, top_ks, top_ps))
+        label = f"sample_logits logits [{rows},{V}] fp16 (Llama-2-7B)"
+        same_bits(label, lambda i, lg=lg, args=args: sa.sample_logits(
+            lg, *args))
+        res = case(label, same(),
+                   lambda i, lg=lg, args=args: sa.sample_logits(lg, *args),
+                   lambda i, lg=lg, args=args: sa.sample_plain(lg, *args),
+                   rows * V * 2 + rows * 4 * 5, rows * V * 4)
+        out["sample_logits_f16"].append(_beside_bf16(res, device_ms(
+            lambda lb=lg.bfloat16(), args=args: sa.sample_logits(lb,
+                                                                 *args))))
+    # the draft's matrices: quantized once at load, dequantized to fp16
+    # every draft forward
+    for nb, what in ((32000 * 2048 // 128, "the draft's embedding"),
+                     (5632 * 2048 // 128, "the draft's w_down")):
+        x = (0.02 * torch.randn((nb, 128), generator=g,
+                                device="cuda")).half()
+        n = nb * 128
+        inner = 2 if nb > 100000 else 20
+        res = case(f"quantize_blockwise [{nb},128] fp16 -> int8 ({what})",
+                   (same(), same()),
+                   lambda i, x=x: qu.quantize_blockwise(x, 128),
+                   lambda i, x=x: qu.quantize_blockwise_plain(x, 128),
+                   n * 2 + n + nb * 4, 4 * n, inner=inner)
+        xb = x.bfloat16()
+        out["quantize_blockwise_f16"].append(_beside_bf16(res, device_ms(
+            lambda: qu.quantize_blockwise(xb, 128), inner)))
+        q, s = qu.quantize_blockwise(x, 128)
+        del x, xb
+        qt = torch._make_per_channel_quantized_tensor(
+            q, s.double(), torch.zeros(nb, dtype=torch.long,
+                                       device="cuda"), 0)
+        res = case(f"dequantize_blockwise q [{nb},128] int8 -> fp16 "
+                   f"({what})", same(),
+                   lambda i, q=q, s=s: qu.dequantize_blockwise(
+                       q, s, out_dtype=f16),
+                   lambda i, q=q, s=s: qu.dequantize_blockwise_plain(
+                       q, s).half(),
+                   n + 4 * nb + 2 * n, n, inner=inner,
+                   library_ms=event_ms(lambda qt=qt: qt.dequantize().half(),
+                                       reps=20))
+        out["dequantize_blockwise_f16"].append(_beside_bf16(res, device_ms(
+            lambda q=q, s=s: qu.dequantize_blockwise(
+                q, s, out_dtype=torch.bfloat16), inner)))
+        del q, s, qt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+#: a near-tie between fp16 logits: phase 4's 1e-3, plus two fp16 ulps of
+#: a logit below 8 (2 x 2^-8), which the card's and the CPU's fp16 logits
+#: may each round apart
+F16_NEAR_TIE = 1e-3 + 2 * 2.0 ** -8
+
+
+def serving_fp16_reference_phase(seed: int, kernels):
+    """(b) A narrow fp16 Llama with Llama-2's geometry (MHA, 4 heads of
+    128, vocab 32000, 2 layers, fp16 parameters) served on the card and
+    on the CPU (the plain versions) from the same weights: greedy on fp16
+    exact pages, then half the requests sampled with n-gram speculation
+    on int8 and on int4 pages.  Tokens equal, or equal up to the first
+    difference at a token whose CPU top-two gap after noise is a near-tie
+    of fp16 logits (under `F16_NEAR_TIE`, counted).  Returns the card's
+    launches of the three runs."""
+    import hetu_tpu_torch.serving.engine as engine_mod
+    from hetu_tpu_torch.models.llama import LlamaLMHeadModel
+    from hetu_tpu_torch.serving import (SamplingParams, ServeConfig,
+                                        ServingEngine, poisson_arrivals,
+                                        synthetic_requests)
+    cfg = llama2_config(hidden_size=512, intermediate_size=1376,
+                        num_hidden_layers=2, num_attention_heads=4,
+                        num_key_value_heads=4)
+    cpu = LlamaLMHeadModel(cfg, device="cpu", seed=seed + 60)
+    card = LlamaLMHeadModel(cfg, device="cuda", seed=seed + 60)
+    card.load_state_dict(cpu.state_dict())
+
+    def trace(sampled):
+        reqs = synthetic_requests(
+            3, vocab_size=cfg.vocab_size, prompt_lens=(20, 60),
+            max_new=(8, 8), arrivals=poisson_arrivals(3, 100.0, seed=seed),
+            seed=seed + 61)
+        if sampled:
+            for r in reqs[1::2]:
+                r.sampling = SamplingParams(temperature=0.8, top_k=50,
+                                            top_p=0.95, seed=seed + r.rid)
+        return reqs
+    launches = {}
+    t0 = time.perf_counter()
+    for label, sampled, opts in (
+            ("greedy, fp16 exact pages", False, {}),
+            ("sampled + ngram, int8 pages", True,
+             dict(sampling=True, spec_decode="ngram", spec_k=4,
+                  kv_quant="int8")),
+            ("sampled + ngram, int4 pages", True,
+             dict(sampling=True, spec_decode="ngram", spec_k=4,
+                  kv_quant="int4"))):
+        serve = ServeConfig(num_slots=2, page_size=16, max_len=256,
+                            prefill_chunk=64, **opts)
+        runs = []
+        for model in (card, cpu):
+            eng = ServingEngine(model, serve, device=model.device).warmup()
+            check(eng.pool.k.dtype == {"none": torch.float16,
+                                       "int8": torch.int8,
+                                       "int4": torch.uint8}[
+                                           serve.kv_quant],
+                  f"serving_fp16 (b) {label}: pool {eng.pool.k.dtype}")
+            zero_counts(kernels)
+            if model is cpu:
+                with GapProbe(engine_mod) as probe:
+                    probe.eng = eng
+                    res = eng.run(trace(sampled))
+            else:
+                res = eng.run(trace(sampled))
+                launches[label] = read_counts(kernels)
+            eng.scheduler.check_invariants()
+            runs.append(res)
+        firsts = []
+        for a, b in zip(*runs):
+            check(len(a.tokens) == len(b.tokens) == 8,
+                  f"serving_fp16 (b) {label}: request {a.rid} emitted "
+                  f"{len(a.tokens)} / {len(b.tokens)} tokens")
+            t = _first_divergence(a.tokens, b.tokens)
+            if t is None:
+                continue
+            plen = next(r.prompt_len for r in trace(sampled)
+                        if r.rid == a.rid)
+            gap = probe.gaps.get((a.rid, plen + t), float("inf"))
+            firsts.append((a.rid, t, gap))
+            check(gap < F16_NEAR_TIE, f"serving_fp16 (b) {label}: request "
+                                      f"{a.rid} diverges at token {t}, CPU "
+                                      f"gap {gap}")
+        print(f"serving_fp16 (b) {label}: card vs CPU tokens "
+              + ("identical" if not firsts else
+                 f"part after near-ties (request, token, CPU gap) {firsts}")
+              + f", spec accepted {sum(r.stats.spec_accepted for r in runs[0])}"
+              f" ({time.perf_counter() - t0:.1f}s)")
+    return launches
+
+
+def _f16_step(eng, reqs, spec_k=0):
+    """One greedy decode step (or, with `spec_k`, one verify step and
+    its fused sampler) over the engine's slots at the trace's depths:
+    host enqueue, wall, the card's busy time and idle share, the paged
+    kernels' share and the device operations a step."""
+    from hetu_tpu_torch.models.generation import (decode_step_paged,
+                                                  verify_step_paged)
+    from hetu_tpu_torch.serving.sampling import sample_hidden_grid
+    model, S = eng.model, eng.config.num_slots
+    mp = eng.scheduler.max_pages
+    C = spec_k + 1
+    depths = [r.prompt_len + 16 for r in reqs][:S]
+    table = torch.zeros((S, mp), dtype=torch.int32, device="cuda")
+    for s_, d in enumerate(depths):
+        n = (d + C - 1) // eng.config.page_size + 1
+        table[s_, :n] = torch.arange(1 + s_ * mp, 1 + s_ * mp + n)
+    pos = np.asarray(depths, np.int32)
+    if spec_k:
+        tok = torch.zeros((S, C), dtype=torch.int32, device="cuda")
+        seeds, temps, top_ks, top_ps = eng._sample_args([])
+        temps[1::2], top_ks[1::2], top_ps[1::2] = 0.8, 50, 0.95
+        grid = pos[:, None] + np.arange(1, C + 1)
+
+        def step():
+            hidden = verify_step_paged(model, tok, eng.pool.k, eng.pool.v,
+                                       table, pos, return_hidden=True,
+                                       **eng._pools())[0]
+            return sample_hidden_grid(hidden, model.lm_head_weight(), seeds,
+                                      grid, temps, top_ks, top_ps)
+    else:
+        tok = torch.zeros(S, dtype=torch.int32, device="cuda")
+
+        def step():
+            return decode_step_paged(model, tok, eng.pool.k, eng.pool.v,
+                                     table, pos, **eng._pools())[0]
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    enqueue = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    counts = {}
+    busy, _, by_name, top = _profile(step, 3, counts=counts)
+    paged = paged_ms(by_name)
+    return {"host_enqueue_ms": enqueue * 1e3, "wall_ms": wall * 1e3,
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / (wall * 1e3),
+            "paged_attention_ms": paged,
+            "paged_attention_share_of_busy": paged / busy,
+            "device_ops_per_step": round(sum(counts.values())),
+            "top_kernels_ms": top}
+
+
+def _f16_arms(kernels, launches):
+    """{kernel: fp16 launches} of the serving kernels in a run's counts."""
+    return {name: launches[f"{name}_f16"] for name in F16_SERVING}
+
+
+def _f16_run(label, eng, reqs, kernels, *, vocab, card, drafts=None):
+    """Run `reqs` through `eng`, check every request finished with its 32
+    tokens and no page leaked; print TTFT, the decode gap, tokens/s,
+    acceptance, peak memory and the fp16 launches by kernel.  Returns
+    (results, launches)."""
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    results = eng.run(reqs)
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(len(results) == len(reqs), f"{label}: {len(results)} done")
+    for r in results:
+        check(r.finished_reason == "length" and len(r.tokens) == 32,
+              f"{label}: request {r.rid}: {r.finished_reason}, "
+              f"{len(r.tokens)} tokens")
+        check(all(0 <= t < vocab for t in r.tokens),
+              f"{label}: request {r.rid}: token out of the vocabulary")
+    eng.scheduler.check_invariants()
+    cached = eng.prefix_cache.stats()["pages"] if eng.prefix_cache else 0
+    check(eng.pool.used_count == cached, f"{label}: pages leaked")
+    reg = eng.registry
+    ttft = sorted(r.stats.ttft_s for r in results)
+    gap = reg.histogram("serve.token_latency_s")
+    prop = int(reg.counter_value("serve.spec_proposed"))
+    acc = int(reg.counter_value("serve.spec_accepted"))
+    tokens_out = sum(len(r.tokens) for r in results)
+    print(f"serving_fp16 {label} " + json.dumps({
+        "ttft_s_p50": ttft[len(ttft) // 2], "ttft_s_max": ttft[-1],
+        "gap_s_p50": gap.percentile(50), "gap_s_max": gap.vmax,
+        "tokens_per_s": tokens_out / wall, "run_wall_s": wall,
+        "decode_steps": int(reg.counter_value("serve.decode_steps")),
+        "spec_proposed": prop, "spec_accepted": acc,
+        "prefix_hits": int(reg.counter_value("serve.prefix_hits")),
+        "peak_memory_gib": peak,
+        "f16_launches": _f16_arms(kernels, launches)}) + f"; {card}")
+    return results, launches
+
+
+def serving_fp16_llama_phase(seed: int, kernels, card: str):
+    """(c) Llama-2-7B as published in fp16 (`llama2_config`), 32 layers,
+    weights drawn on the card from the seed, behind phase 5's
+    `ServeConfig(8, 16, 2048, 256)` and trace: greedy on fp16 exact
+    pages; half the requests sampled on int8 pages, without speculation
+    (the int8 decode arm) and with n-gram speculation (spec_k 4, the
+    verify arm), then again with that run's own continuation
+    as its drafts (`oracle_drafter`: the same tokens, drafts accepted);
+    sampled on int4 pages; a TinyLlama-width fp16 draft resident in int8
+    (`ModelDrafter`, block 128) proposing 2 tokens a step with stochastic
+    verification and the prefix cache on int8 pages over
+    `shared_prompt_trace` (16 requests sharing a 512-token prompt).  Each run's fp16 launches by kernel; a
+    greedy decode step and an int8 verify step profiled; then the greedy
+    run again with the model in bf16 (the same weights cast), its decode
+    step profiled beside the fp16 one.  Every serving kernel's fp16 arm
+    must have launched on these paths."""
+    from hetu_tpu_torch.models.llama import LlamaLMHeadModel
+    from hetu_tpu_torch.serving import (ServeConfig, ServingEngine,
+                                        poisson_arrivals, synthetic_requests)
+    from hetu_tpu_torch.serving.spec_decode import ModelDrafter
+    cfg = llama2_config()
+    t0 = time.perf_counter()
+    model = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.num_params(), "Llama-2-7B parameter count")
+    check(all(p.dtype == torch.float16 for p in model.parameters()),
+          "Llama-2-7B parameters not fp16")
+    print(f"serving_fp16: Llama-2-7B {cfg.num_hidden_layers} layers, "
+          f"{n_params / 1e9:.3f}B params fp16 "
+          f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB), drawn in "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    def trace(sampled):
+        reqs = synthetic_requests(
+            8, vocab_size=cfg.vocab_size, prompt_lens=(64, 1024),
+            max_new=(32, 32), arrivals=poisson_arrivals(8, 10.0, seed=seed),
+            seed=seed)
+        if sampled:
+            from hetu_tpu_torch.serving import SamplingParams
+            for r in reqs[1::2]:
+                r.sampling = SamplingParams(temperature=0.8, top_k=50,
+                                            top_p=0.95, seed=seed + r.rid)
+        return reqs
+
+    def serve(**kw):
+        return ServeConfig(num_slots=8, page_size=16, max_len=2048,
+                           prefill_chunk=256, **kw)
+    by_path, steps = {}, {}
+    run = dict(vocab=cfg.vocab_size, card=card)
+    eng = ServingEngine(model, serve(), device="cuda").warmup()
+    check(eng.pool.k.dtype == torch.float16, "serving_fp16: pool not fp16")
+    _, by_path["serving_fp16_greedy"] = _f16_run(
+        "(c) greedy, fp16 exact pages", eng, trace(False), kernels, **run)
+    steps["decode_step_fp16"] = _f16_step(eng, trace(False))
+    del eng
+    eng = ServingEngine(model, serve(kv_quant="int8", sampling=True),
+                        device="cuda").warmup()
+    _, by_path["serving_fp16_int8"] = _f16_run(
+        "(c) sampled, int8 pages", eng, trace(True), kernels, **run)
+    del eng
+    sampled = dict(kv_quant="int8", sampling=True, spec_decode="ngram",
+                   spec_k=4)
+    eng = ServingEngine(model, serve(**sampled), device="cuda").warmup()
+    spec, by_path["serving_fp16_int8_ngram"] = _f16_run(
+        "(c) sampled + ngram, int8 pages", eng, trace(True), kernels, **run)
+    steps["verify_step_int8_fp16"] = _f16_step(eng, trace(True), spec_k=4)
+    del eng
+    eng = ServingEngine(model, serve(**sampled), device="cuda",
+                        drafter=oracle_drafter(trace(True), spec)).warmup()
+    oracle, by_path["serving_fp16_int8_oracle"] = _f16_run(
+        "(c) sampled + its own continuation as drafts, int8 pages", eng,
+        trace(True), kernels, **run)
+    check([r.tokens for r in oracle] == [r.tokens for r in spec],
+          "serving_fp16: drafting the run's own tokens changed them")
+    check(sum(r.stats.spec_accepted for r in oracle) > 0,
+          "serving_fp16: no draft accepted")
+    del eng
+    eng = ServingEngine(model, serve(kv_quant="int4", sampling=True),
+                        device="cuda").warmup()
+    _, by_path["serving_fp16_int4"] = _f16_run(
+        "(c) sampled, int4 pages", eng, trace(True), kernels, **run)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the model drafter with the prefix cache
+    dcfg = tinyllama_config()
+    draft = LlamaLMHeadModel(dcfg, device="cuda", seed=seed + 1)
+    zero_counts(kernels)
+    drafter = ModelDrafter(draft, quantize_bits=8, quantize_block=128)
+    load = read_counts(kernels)
+    check(load["quantize_blockwise_f16"] == len(drafter._spec) > 0,
+          f"serving_fp16: the draft's load quantized "
+          f"{load['quantize_blockwise_f16']} fp16 matrices of "
+          f"{len(drafter._spec)}")
+    del draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ServingEngine(model, serve(
+        kv_quant="int8", sampling=True, spec_decode="model", spec_k=2,
+        prefix_cache=True), device="cuda", drafter=drafter).warmup()
+    reqs = shared_prompt_trace(cfg.vocab_size, seed)
+    _, launches = _f16_run("(c) TinyLlama-width int8 draft + prefix cache, "
+                           "int8 pages", eng, reqs, kernels, **run)
+    check(eng.registry.counter_value("serve.prefix_hits") >= len(reqs) // 2,
+          "serving_fp16: too few prefix hits")
+    launches["quantize_blockwise_f16"] += load["quantize_blockwise_f16"]
+    launches["quantize_blockwise"] += load["quantize_blockwise"]
+    by_path["serving_fp16_drafter"] = launches
+    del eng, drafter
+    gc.collect()
+    torch.cuda.empty_cache()
+    used = {name for path in by_path.values()
+            for name, n in _f16_arms(kernels, path).items() if n}
+    check(used == set(F16_SERVING), f"serving_fp16: fp16 arms never "
+                                    f"launched: {set(F16_SERVING) - used}")
+    # the same greedy run with the model in bf16, its decode step beside
+    # the fp16 one's
+    for p in model.parameters():
+        p.data = p.data.bfloat16()
+    model.config.param_dtype = model.config.compute_dtype = torch.bfloat16
+    eng = ServingEngine(model, serve(), device="cuda").warmup()
+    check(eng.pool.k.dtype == torch.bfloat16, "bf16 pool")
+    _f16_run("(c) greedy, the same weights in bf16, bf16 exact pages", eng,
+             trace(False), kernels, **run)
+    steps["decode_step_bf16"] = _f16_step(eng, trace(False))
+    print("serving_fp16 steps " + json.dumps(steps) + f"; {card}")
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def serving_fp16_phase(seed: int, kernels, card: str):
+    """Phase 19 ("serving_fp16"): (a) the fp16 arms at Llama-2-7B's
+    shapes, (b) the narrow fp16 Llama card vs CPU, (c) Llama-2-7B in fp16
+    at full width and depth.  Returns (by_path, cases)."""
+    t0 = time.perf_counter()
+    cases = serving_fp16_kernel_phase(seed)
+    by_path = {f"serving_fp16_reference {k}": v for k, v in
+               serving_fp16_reference_phase(seed, kernels).items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path.update(serving_fp16_llama_phase(seed, kernels, card))
+    print(f"serving_fp16: {time.perf_counter() - t0:.1f}s; {card}")
+    return by_path, cases
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6389,6 +6983,11 @@ def main(argv=None) -> int:
         return 1
     t_start = time.perf_counter()
     smi = card_line()
+
+    def mark(what):
+        """The run's elapsed time at the end of a phase (where the
+        smoke's time goes)."""
+        print(f"phase {what}: done at {time.perf_counter() - t_start:.1f}s")
     kind = torch.cuda.get_device_name(0)
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
@@ -6410,14 +7009,17 @@ def main(argv=None) -> int:
     ptxas_check(reports["flash_attention"], "flash_bwd_dq_wgmma_kernel")
     for kernel in ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel"):
         ptxas_check(reports["flash_attention"], kernel)
-    ptxas_check(reports["paged_attention"], "paged_split_kernel")
-    ptxas_check(reports["paged_attention"], "paged_merge_kernel")
+    for lib in ("paged_attention_bf16", "paged_attention_f32",
+                "paged_attention_f16"):
+        ptxas_check(reports[lib], "paged_split_kernel")
+        ptxas_check(reports[lib], "paged_merge_kernel")
     ptxas_check(reports["swiglu"], "swiglu_fwd_kernel")
     ptxas_check(reports["rotary"], "rotary_qk_kernel")
     for kernel in ("rmsnorm_fwd_kernel", "rmsnorm_bwd_kernel",
                    "layernorm_fwd_kernel", "layernorm_bwd_kernel"):
         ptxas_check(reports["fused_norm"], kernel)
     ptxas_check(reports["quant"], "quantize_kernel")
+    mark('build')
     for kernel in ("write_kv_tokens_kernel", "write_kv_pages_kernel"):
         ptxas_check(reports["kv_write"], kernel)
 
@@ -6427,15 +7029,18 @@ def main(argv=None) -> int:
     cases = serving_kernel_phase(args.seed)
     cases.update(serving2_kernel_phase(args.seed))
     cases.update(serving3_kernel_phase(args.seed))
+    mark('serving kernels')
     gc.collect()
     torch.cuda.empty_cache()
     int4_path = reference_phase(args.seed, kernels)
+    mark('serving reference')
     gc.collect()
     torch.cuda.empty_cache()
     # the serving paths first: a kernel's `launches` is its count on the
     # first path that ran it
     by_path = serving_phase(args.seed, kernels)
     by_path["reference_int4"] = int4_path
+    mark('serving, serving2, serving3')
     gc.collect()
     torch.cuda.empty_cache()
     for name, more in training_kernel_phase(args.seed).items():
@@ -6447,6 +7052,7 @@ def main(argv=None) -> int:
         llama(num_hidden_layers=8, remat_policy="dots_attn"),
         name="Llama-3-8B widths", gbs=4, mbs=2, seq=2048, steps=6,
         time_it=True)
+    mark('training')
     gc.collect()
     torch.cuda.empty_cache()
     # the first training slice's path, cut to 2 layers and 2 steps
@@ -6455,6 +7061,7 @@ def main(argv=None) -> int:
         llama(num_hidden_layers=2, use_flash_attention=False),
         name="Llama-3-8B widths", gbs=4, mbs=2, seq=2048, steps=2,
         time_it=False)
+    mark('training_dense')
     gc.collect()
     torch.cuda.empty_cache()
     # the GPT family: its kernel (the LayerNorm arm) and the sampler at
@@ -6463,14 +7070,17 @@ def main(argv=None) -> int:
     for name, more in gpt_kernel_phase(args.seed).items():
         cases.setdefault(name, []).extend(more)
     gpt_reference_phase(args.seed)
+    mark('gpt kernels and reference')
     gc.collect()
     torch.cuda.empty_cache()
     by_path["gpt_training"] = training_phase(
         args.seed, kernels, smi, GPTConfig.gpt2_large(),
         name="GPT-2-large", gbs=16, mbs=8, seq=1024, steps=6, time_it=True)
+    mark('gpt training')
     gc.collect()
     torch.cuda.empty_cache()
     by_path.update(gpt_serving_phase(args.seed, kernels))
+    mark('gpt serving')
     # the draft forward's shapes, after each kernel's own paths' cases
     for name, more in draft_kernel_phase(args.seed).items():
         cases[name].extend(more)
@@ -6487,6 +7097,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     by_path.update(training3_llama_phase(args.seed, kernels, smi))
     print(f"training3: {time.perf_counter() - t0:.1f}s; {smi}")
+    mark('training3')
     gc.collect()
     torch.cuda.empty_cache()
     # the fourth training slice: the fp16 arms, fp16 compute with the
@@ -6504,6 +7115,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     by_path["training4_gpt"] = training4_gpt_phase(args.seed, kernels, smi)
     print(f"training4: {time.perf_counter() - t0:.1f}s; {smi}")
+    mark('training4')
     gc.collect()
     torch.cuda.empty_cache()
     # LoRA fine-tuning with the run-log, health and numerics hooks
@@ -6517,19 +7129,30 @@ def main(argv=None) -> int:
     lora_multitask_phase(args.seed, smi)
     lora_identity_phase(args.seed, kernels, smi)
     print(f"lora: {time.perf_counter() - t0:.1f}s; {smi}")
+    mark('lora')
     gc.collect()
     torch.cuda.empty_cache()
     # the serving host layers: policies and failover, disaggregated
     # prefill/decode, the replica frontend
     by_path.update(serving4_phase(args.seed, kernels, smi))
+    mark('serving4')
     gc.collect()
     torch.cuda.empty_cache()
     # Mixture-of-Experts: card vs CPU, serving and training at
     # Mixtral-8x7B widths, the kernels at the MoE shapes
     moe_paths, moe_cases = moe_phase(args.seed, kernels, smi)
     by_path.update(moe_paths)
+    mark('moe')
     for name, more in moe_cases.items():
         cases[name].extend(more)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # fp16 serving: the serving kernels' fp16 arms, a narrow fp16 Llama
+    # card vs CPU, Llama-2-7B as published in fp16
+    f16_paths, f16_cases = serving_fp16_phase(args.seed, kernels, smi)
+    by_path.update(f16_paths)
+    cases.update(f16_cases)
+    mark('serving_fp16')
 
     line = []
     for name, (mod, attr, source, replaces) in kernels.items():

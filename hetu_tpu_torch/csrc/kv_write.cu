@@ -11,8 +11,9 @@
 //   int8 / int4:  pool[page, offset, h], scale[page, offset, h] =
 //                 the head vector's absmax quantize (quant.cuh)
 //
-// Two entries, neither of which reads a host value (a CUDA graph can
-// capture them):
+// K and V are fp32, bf16 or fp16 (`in_dtype`: 0, 1, 2); exact pages are
+// of any of the three types (`mode`: KvMode).  Two entries, neither of
+// which reads a host value (a CUDA graph can capture them):
 //   * write_kv_tokens — one layer, a token block [S, C, n_kv, hd] of K and
 //     of V (C = 1 decode, k + 1 verify) in one launch.  Token i of slot s
 //     sits at positions[s] + i and goes to page table[s, (pos) / ps] at
@@ -41,8 +42,10 @@
 // the memory's rate, and a null entry's blocks read one entry of the
 // row and end.  Its index arithmetic is a division a thread: integer
 // division costs as much as a value's quantize.  Exact pages of the
-// input's type are a 16-byte copy; fp32 <-> bf16 casts round once
-// (round-to-nearest-even).  Writes into the null page from several rows
+// input's type are a 16-byte copy; a cast to another type rounds once
+// from the exact fp32 widening (round-to-nearest-even).  int8 / int4
+// pages of 16-bit K and V quantize that widening: bits and scales of
+// fp32 input of the same values.  Writes into the null page from several rows
 // (inactive rows, positions past a row) land in no defined order, as the
 // scatter they replace: page 0 is never read.
 #include <stdint.h>
@@ -67,13 +70,13 @@ __device__ __forceinline__ void store_exact(const HeadVec<T, LANES, CH>& hv,
   for (int c = 0; c < CH; ++c) {
     const int k = c * LANES + l;
     if (k >= chunks) continue;
-    if constexpr (sizeof(TO) == sizeof(T)) {
+    if constexpr (std::is_same<TO, T>::value) {
       reinterpret_cast<uint4*>(y)[k] = hv.raw[c];
     } else {
       Vec<TO, VPC> o;
 #pragma unroll
       for (int j = 0; j < VPC; ++j) o.v[j] = from_f32<TO>(hv.value(c, j));
-      if constexpr (sizeof(o) == 32) {  // bf16 -> fp32: two 16-byte stores
+      if constexpr (sizeof(o) == 32) {  // 16-bit -> fp32: two 16-byte stores
         uint4* d = reinterpret_cast<uint4*>(y + k * VPC);
         d[0] = reinterpret_cast<const uint4*>(&o)[0];
         d[1] = reinterpret_cast<const uint4*>(&o)[1];
@@ -84,10 +87,17 @@ __device__ __forceinline__ void store_exact(const HeadVec<T, LANES, CH>& hv,
   }
 }
 
-// What a page write stores: exact pages of fp32 or bf16, or int8 / int4
-// payloads with one fp32 scale a head vector.
-enum KvMode : int { KV_EXACT_F32 = 0, KV_EXACT_BF16 = 1, KV_INT8 = 8,
-                    KV_INT4 = 4 };
+// What a page write stores: exact pages of fp32, bf16 or fp16, or int8 /
+// int4 payloads with one fp32 scale a head vector.
+enum KvMode : int { KV_EXACT_F32 = 0, KV_EXACT_BF16 = 1, KV_EXACT_F16 = 2,
+                    KV_INT8 = 8, KV_INT4 = 4 };
+
+// The element type of a mode's exact pages.
+template <int MODE>
+using ExactType = typename std::conditional<
+    MODE == KV_EXACT_F32, float,
+    typename std::conditional<MODE == KV_EXACT_BF16, __nv_bfloat16,
+                              __half>::type>::type;
 
 // Store one head vector into row `row` of a page array (payload row
 // widths: hd values exact, hd bytes int8, hd / 2 bytes int4) and, for a
@@ -98,9 +108,9 @@ __device__ __forceinline__ void store_head(const HeadVec<T, LANES, CH>& hv,
                                            void* pool, float* scales,
                                            long long row, int hd, int l,
                                            int chunks, bool live) {
-  if constexpr (MODE == KV_EXACT_F32 || MODE == KV_EXACT_BF16) {
-    using TO = typename std::conditional<MODE == KV_EXACT_F32, float,
-                                         __nv_bfloat16>::type;
+  if constexpr (MODE == KV_EXACT_F32 || MODE == KV_EXACT_BF16 ||
+                MODE == KV_EXACT_F16) {
+    using TO = ExactType<MODE>;
     if (live) store_exact<TO>(hv, static_cast<TO*>(pool) + row * hd, l,
                               chunks);
   } else {
@@ -207,8 +217,10 @@ __global__ void __launch_bounds__(KV_THREADS)
   char* pool = static_cast<char*>(is_v ? w.v_pool : w.k_pool) +
                layer * rows_l * hd_p *
                    static_cast<long long>(MODE == KV_EXACT_F32 ? 4
-                                          : MODE == KV_EXACT_BF16 ? 2
-                                                                  : 1);
+                                          : MODE == KV_EXACT_BF16 ||
+                                                  MODE == KV_EXACT_F16
+                                              ? 2
+                                              : 1);
   float* scales = is_v ? w.v_scale : w.k_scale;
   if (scales != nullptr) scales += layer * rows_l;
   // this thread's vectors: v0, v0 + STEP, ...; (position, head) of each
@@ -255,21 +267,33 @@ static int by_mode(int mode, int chunks, Launch go) {
   switch (mode) {
     case KV_EXACT_F32: return by_lanes<T, KV_EXACT_F32>(chunks, go);
     case KV_EXACT_BF16: return by_lanes<T, KV_EXACT_BF16>(chunks, go);
+    case KV_EXACT_F16: return by_lanes<T, KV_EXACT_F16>(chunks, go);
     case KV_INT8: return by_lanes<T, KV_INT8>(chunks, go);
     case KV_INT4: return by_lanes<T, KV_INT4>(chunks, go);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// The input's type by its code (KvIn) and the head vector's 16-byte
+// chunks.
+enum KvIn : int { KV_IN_F32 = 0, KV_IN_BF16 = 1, KV_IN_F16 = 2 };
+
 template <typename Launch>
-static int dispatch(int in_bf16, int mode, int hd, Launch go) {
+static int dispatch(int in_dtype, int mode, int hd, Launch go) {
   if (hd < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (in_bf16) {
-    if (hd % 8) return static_cast<int>(cudaErrorInvalidValue);
-    return by_mode<__nv_bfloat16>(mode, hd / 8, go);
+  switch (in_dtype) {
+    case KV_IN_F32:
+      if (hd % 4) return static_cast<int>(cudaErrorInvalidValue);
+      return by_mode<float>(mode, hd / 4, go);
+    case KV_IN_BF16:
+      if (hd % 8) return static_cast<int>(cudaErrorInvalidValue);
+      return by_mode<__nv_bfloat16>(mode, hd / 8, go);
+    case KV_IN_F16:
+      if (hd % 8) return static_cast<int>(cudaErrorInvalidValue);
+      return by_mode<__half>(mode, hd / 8, go);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (hd % 4) return static_cast<int>(cudaErrorInvalidValue);
-  return by_mode<float>(mode, hd / 4, go);
 }
 
 struct TokenLaunch {
@@ -302,7 +326,7 @@ HETU_EXPORT int hetu_write_kv_tokens(
     void* v_scale, const void* table, const void* positions, int S, int C,
     int n_kv, int hd, int ps, int mp, long long k_ss, long long k_sc,
     long long k_sh, long long v_ss, long long v_sc, long long v_sh,
-    int in_bf16, int mode, void* stream) {
+    int in_dtype, int mode, void* stream) {
   if (S < 0 || C < 1 || n_kv < 1 || ps < 1 || mp < 1 ||
       2LL * S * C * n_kv >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -311,7 +335,7 @@ HETU_EXPORT int hetu_write_kv_tokens(
                static_cast<float*>(v_scale), static_cast<const int*>(table),
                static_cast<const int*>(positions), S, C, n_kv, hd, ps, mp,
                k_ss, k_sc, k_sh, v_ss, v_sc, v_sh};
-  return dispatch(in_bf16, mode, hd,
+  return dispatch(in_dtype, mode, hd,
                   TokenLaunch{w, static_cast<cudaStream_t>(stream)});
 }
 
@@ -319,7 +343,7 @@ HETU_EXPORT int hetu_write_kv_pages(
     const void* k, const void* v, void* k_pool, void* v_pool, void* k_scale,
     void* v_scale, const void* row, int L, int P, int mp, int ps, int n_kv,
     int hd, long long k_sl, long long k_sm, long long k_sh, long long v_sl,
-    long long v_sm, long long v_sh, int in_bf16, int mode, void* stream) {
+    long long v_sm, long long v_sh, int in_dtype, int mode, void* stream) {
   if (L < 0 || P < 1 || mp < 0 || ps < 1 || n_kv < 1 || mp > KV_MAX_ENTRIES ||
       2 * L > KV_MAX_ENTRIES)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -327,6 +351,6 @@ HETU_EXPORT int hetu_write_kv_pages(
   PageWrite w{k, v, k_pool, v_pool, static_cast<float*>(k_scale),
               static_cast<float*>(v_scale), static_cast<const int*>(row), L,
               P, mp, ps, n_kv, hd, k_sl, k_sm, k_sh, v_sl, v_sm, v_sh};
-  return dispatch(in_bf16, mode, hd,
+  return dispatch(in_dtype, mode, hd,
                   PageLaunch{w, static_cast<cudaStream_t>(stream)});
 }

@@ -7,7 +7,8 @@
 // `paged_attention` (decode) and `_verify_kernel` (:208) /
 // `paged_verify` (verify), with the quantized page modes of `_load_page`
 // (:137).
-//   q         [S, C, nq, hd]        C query tokens a slot (decode: C = 1)
+//   q         [S, C, nq, hd]        C query tokens a slot (decode: C = 1),
+//                                   fp32, bf16 or fp16
 //   k/v pool  [P, page_size, n_kv, hd_p], page 0 = the null page;
 //             exact: q's type, hd_p = hd; int8: int8, hd_p = hd;
 //             int4: uint8, hd_p = hd / 2, two nibbles a byte (even index
@@ -61,21 +62,25 @@
 //   tile t computes, and nothing in the key loop waits on another warp
 //   (__syncwarp only).  The block's page-table rows are resolved once at
 //   block start.  The warps merge once at the end, in warp order.
-// * Pages are staged as stored: bf16 as bf16, int8 / int4 payloads as
-//   bytes, their scales beside them; int8 / int4 values are widened in
-//   registers (k, nibble - 8, exact in bf16 and fp32) and the key's
-//   scale multiplies its score column, the V scale its probability.
-// * Products.  bf16 queries: S^T = K Q^T with mma.sync.m16n8k16 (bf16 in,
-//   fp32 accumulate; bf16 products are exact in fp32, and int8 values
-//   and nibbles - 8 are exact in bf16), a tile's 16 keys the M side, 8
+// * Pages are staged as stored: bf16 / fp16 as they are, int8 / int4
+//   payloads as bytes, their scales beside them; int8 / int4 values are
+//   widened in registers (k, nibble - 8, exact in bf16, fp16 and fp32)
+//   and the key's scale multiplies its score column, the V scale its
+//   probability.  The scales stay fp32.
+// * Products.  16-bit queries (bf16 or fp16, one kernel body for both:
+//   `mma16<T>`, `pack16<T>` of mma.cuh): S^T = K Q^T with
+//   mma.sync.m16n8k16 (16-bit in, fp32 accumulate; bf16 and fp16
+//   products are exact in fp32, and int8 values and nibbles - 8 are
+//   exact in both types), a tile's 16 keys the M side, 8
 //   query rows an n-block, a lane's k-slots mapped onto 8 contiguous
-//   head dims so K and Q are read with one 16-byte (bf16), 8-byte (int8)
+//   head dims so K and Q are read with one 16-byte (16-bit), 8-byte (int8)
 //   or 4-byte (int4) load a row.  fp32 queries (the 2-layer fp32 checks)
 //   take the same score layout on fp32 FMAs.  P.V stays on fp32 FMAs for
-//   both (P rounded to bf16 would break the tolerance): a lane owns hd /
+//   all (P rounded to 16 bits would break the tolerance), and o is
+//   rounded once to q's type at the end: a lane owns hd /
 //   32 head dims of every row of its block, P and the rows' corrections
 //   reach it through the warp's own shared buffer.
-// * Shared-memory layout: exact K (and bf16 Q) rows are dense with the
+// * Shared-memory layout: exact K (and 16-bit Q) rows are dense with the
 //   16-byte chunk c of row r at c ^ 4 (r & 1), int8 / int4 rows padded by
 //   32 / 16 bytes, fp32 Q rows by 16, so each load phase hits 32
 //   distinct banks.  Head dims are padded to 64, 128 or 256 (HDP) with
@@ -95,6 +100,14 @@
 // (RA 4) 64, the merge 48; no other spills on those paths.  Shared
 // memory is dynamic (PaLayout::bytes): 70 KB for the bf16 exact decode
 // block, 78 KB exact verify, 70 KB int8 verify.
+// The kernels and their launch live here; each query type's symbols are
+// exported by a source of their own (paged_attention_bf16.cu,
+// paged_attention_f32.cu, paged_attention_f16.cu: PA_EXPORTS below), so
+// the three build in parallel: one source holding all 147 entry functions took 188 s to
+// build (nvcc 12.8 on the H100 machine's CPUs), 160 s more than any
+// other source.
+#pragma once
+
 #include <math.h>
 #include <stdint.h>
 
@@ -133,7 +146,7 @@ struct Page<T, PA_INT4> {
 template <typename T, int MODE, int HDP, int RA>
 struct PaLayout {
   using P = typename Page<T, MODE>::P;
-  static constexpr bool MMA = sizeof(T) == 2;  // bf16 queries
+  static constexpr bool MMA = sizeof(T) == 2;  // bf16 or fp16 queries
   static constexpr int NB = (RA + 7) / 8;      // 8-row n-blocks of S
   static constexpr int RAP = NB * 8;           // rows the score tile holds
   static constexpr int DPL = HDP / 32;         // head dims a lane owns in P.V
@@ -185,10 +198,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 __device__ __forceinline__ float sx8(uint32_t w, int b) {  // signed byte b
   return static_cast<float>(static_cast<int>(w << (24 - 8 * b)) >> 24);
 }
@@ -201,10 +210,11 @@ __device__ __forceinline__ int swz(int r, int c, int rowb) {
   return r * rowb + ((c ^ ((r & 1) << 2)) << 4);
 }
 
-// Head dims 8 gi .. 8 gi + 7 of K row r of a stage, as four bf16 pairs
-// (the mma's A words).
+// Head dims 8 gi .. 8 gi + 7 of K row r of a stage, as four pairs of the
+// 16-bit query type T (the mma's A words; int8 values and nibbles - 8
+// are exact in bf16 and in fp16).
 template <typename T, int MODE, int HDP, int RA>
-__device__ __forceinline__ void k8_bf16(const unsigned char* ks, int r,
+__device__ __forceinline__ void k8_16(const unsigned char* ks, int r,
                                         int gi, uint32_t (&w)[4]) {
   using L = PaLayout<T, MODE, HDP, RA>;
   if constexpr (MODE == PA_EXACT) {
@@ -213,15 +223,15 @@ __device__ __forceinline__ void k8_bf16(const unsigned char* ks, int r,
   } else if constexpr (MODE == PA_INT8) {
     const uint2 x =
         *reinterpret_cast<const uint2*>(ks + r * L::KSTR + 8 * gi);
-    w[0] = pack_bf16(sx8(x.x, 0), sx8(x.x, 1));
-    w[1] = pack_bf16(sx8(x.x, 2), sx8(x.x, 3));
-    w[2] = pack_bf16(sx8(x.y, 0), sx8(x.y, 1));
-    w[3] = pack_bf16(sx8(x.y, 2), sx8(x.y, 3));
+    w[0] = pack16<T>(sx8(x.x, 0), sx8(x.x, 1));
+    w[1] = pack16<T>(sx8(x.x, 2), sx8(x.x, 3));
+    w[2] = pack16<T>(sx8(x.y, 0), sx8(x.y, 1));
+    w[3] = pack16<T>(sx8(x.y, 2), sx8(x.y, 3));
   } else {
     const uint32_t x =
         *reinterpret_cast<const uint32_t*>(ks + r * L::KSTR + 4 * gi);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = pack_bf16(nib(x, 2 * i), nib(x, 2 * i + 1));
+    for (int i = 0; i < 4; ++i) w[i] = pack16<T>(nib(x, 2 * i), nib(x, 2 * i + 1));
   }
 }
 
@@ -266,18 +276,14 @@ __device__ __forceinline__ void v_row(const unsigned char* vs, int j,
     const T* x = reinterpret_cast<const T*>(row) + lane * DPL;
     if constexpr (sizeof(T) == 2) {
       if constexpr (DPL == 2) {
-        const uint32_t u = *reinterpret_cast<const uint32_t*>(x);
-        const float2 f = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&u));
+        const float2 f = unpack16x2<T>(*reinterpret_cast<const uint32_t*>(x));
         v[0] = f.x; v[1] = f.y;
       } else {
 #pragma unroll
         for (int i = 0; i < DPL; i += 4) {
           const uint2 u = *reinterpret_cast<const uint2*>(x + i);
-          const float2 a = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-          const float2 b = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+          const float2 a = unpack16x2<T>(u.x);
+          const float2 b = unpack16x2<T>(u.y);
           v[i] = a.x; v[i + 1] = a.y; v[i + 2] = b.x; v[i + 3] = b.y;
         }
       }
@@ -373,8 +379,8 @@ __global__ void __launch_bounds__(PaLayout<T, MODE, HDP, RA>::THREADS)
               a.hd + d]);
     }
     if constexpr (L::MMA) {
-      *reinterpret_cast<__nv_bfloat16*>(q_s + swz(rr, d >> 3, L::QSTR) +
-                                        2 * (d & 7)) = __float2bfloat16(x);
+      *reinterpret_cast<T*>(q_s + swz(rr, d >> 3, L::QSTR) + 2 * (d & 7)) =
+          from_f32<T>(x);
     } else {
       reinterpret_cast<float*>(q_s + rr * L::QSTR)[d] = x;
     }
@@ -474,16 +480,16 @@ __global__ void __launch_bounds__(PaLayout<T, MODE, HDP, RA>::THREADS)
       for (int kq = 0; kq < HDP / 32; ++kq) {
         const int gi = 4 * kq + tig;  // this lane's 8 head dims
         uint32_t ka[4], kb[4];
-        k8_bf16<T, MODE, HDP, RA>(ks, g, gi, ka);
-        k8_bf16<T, MODE, HDP, RA>(ks, g + 8, gi, kb);
+        k8_16<T, MODE, HDP, RA>(ks, g, gi, ka);
+        k8_16<T, MODE, HDP, RA>(ks, g + 8, gi, kb);
         const unsigned a0[4] = {ka[0], kb[0], ka[1], kb[1]};
         const unsigned a1[4] = {ka[2], kb[2], ka[3], kb[3]};
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb) {
           const uint4 qw = *reinterpret_cast<const uint4*>(
               q_s + swz(8 * nb + g, gi, L::QSTR));
-          mma_bf16(sc[nb], a0, qw.x, qw.y);
-          mma_bf16(sc[nb], a1, qw.z, qw.w);
+          mma16<T>(sc[nb], a0, qw.x, qw.y);
+          mma16<T>(sc[nb], a1, qw.z, qw.w);
         }
       }
     } else {
@@ -809,65 +815,25 @@ static int launch(const void* q, const void* k_pool, const void* v_pool,
   return launch_rows<T, MODE, 256>(a, stream);
 }
 
-// One symbol a (q type, page mode); the decode step passes C = 1.
-// `part` is the wrapper's fp32 scratch for the splits' partials (null
-// when one split covers the table), `kps` the keys a split.
-HETU_EXPORT int hetu_paged_attention_f32(
-    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
-    const void* v_scale, const void* table, const void* positions, void* out,
-    int S, int C, int n_kv, int group, int hd, int ps, int mp, float scale,
-    void* part, int kps, void* stream) {
-  return launch<float, PA_EXACT>(q, k_pool, v_pool, k_scale, v_scale, table,
-                             positions, out, S, C, n_kv, group, hd, ps, mp,
-                             scale, part, kps, stream);
-}
+// One exported entry point: query type T over pages of MODE.  `part` is
+// the wrapper's fp32 scratch for the splits' partials (null when one
+// split covers the table), `kps` the keys a split; the decode step
+// passes C = 1.
+#define PA_EXPORT(T, MODE, name)                                            \
+  HETU_EXPORT int name(                                                     \
+      const void* q, const void* k_pool, const void* v_pool,                \
+      const void* k_scale, const void* v_scale, const void* table,          \
+      const void* positions, void* out, int S, int C, int n_kv, int group,  \
+      int hd, int ps, int mp, float scale, void* part, int kps,             \
+      void* stream) {                                                       \
+    return launch<T, MODE>(q, k_pool, v_pool, k_scale, v_scale, table,      \
+                           positions, out, S, C, n_kv, group, hd, ps, mp,   \
+                           scale, part, kps, stream);                       \
+  }
 
-HETU_EXPORT int hetu_paged_attention_bf16(
-    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
-    const void* v_scale, const void* table, const void* positions, void* out,
-    int S, int C, int n_kv, int group, int hd, int ps, int mp, float scale,
-    void* part, int kps, void* stream) {
-  return launch<__nv_bfloat16, PA_EXACT>(q, k_pool, v_pool, k_scale, v_scale, table,
-                             positions, out, S, C, n_kv, group, hd, ps, mp,
-                             scale, part, kps, stream);
-}
-
-HETU_EXPORT int hetu_paged_attention_int8_f32(
-    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
-    const void* v_scale, const void* table, const void* positions, void* out,
-    int S, int C, int n_kv, int group, int hd, int ps, int mp, float scale,
-    void* part, int kps, void* stream) {
-  return launch<float, PA_INT8>(q, k_pool, v_pool, k_scale, v_scale, table,
-                             positions, out, S, C, n_kv, group, hd, ps, mp,
-                             scale, part, kps, stream);
-}
-
-HETU_EXPORT int hetu_paged_attention_int8_bf16(
-    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
-    const void* v_scale, const void* table, const void* positions, void* out,
-    int S, int C, int n_kv, int group, int hd, int ps, int mp, float scale,
-    void* part, int kps, void* stream) {
-  return launch<__nv_bfloat16, PA_INT8>(q, k_pool, v_pool, k_scale, v_scale, table,
-                             positions, out, S, C, n_kv, group, hd, ps, mp,
-                             scale, part, kps, stream);
-}
-
-HETU_EXPORT int hetu_paged_attention_int4_f32(
-    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
-    const void* v_scale, const void* table, const void* positions, void* out,
-    int S, int C, int n_kv, int group, int hd, int ps, int mp, float scale,
-    void* part, int kps, void* stream) {
-  return launch<float, PA_INT4>(q, k_pool, v_pool, k_scale, v_scale, table,
-                             positions, out, S, C, n_kv, group, hd, ps, mp,
-                             scale, part, kps, stream);
-}
-
-HETU_EXPORT int hetu_paged_attention_int4_bf16(
-    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
-    const void* v_scale, const void* table, const void* positions, void* out,
-    int S, int C, int n_kv, int group, int hd, int ps, int mp, float scale,
-    void* part, int kps, void* stream) {
-  return launch<__nv_bfloat16, PA_INT4>(q, k_pool, v_pool, k_scale, v_scale, table,
-                             positions, out, S, C, n_kv, group, hd, ps, mp,
-                             scale, part, kps, stream);
-}
+// A query type's three symbols, one a page mode:
+// hetu_paged_attention{,_int8,_int4}<sfx>.
+#define PA_EXPORTS(T, sfx)                                  \
+  PA_EXPORT(T, PA_EXACT, hetu_paged_attention##sfx)         \
+  PA_EXPORT(T, PA_INT8, hetu_paged_attention_int8##sfx)     \
+  PA_EXPORT(T, PA_INT4, hetu_paged_attention_int4##sfx)

@@ -1,7 +1,7 @@
 // Blockwise absmax quantize and dequantize of a flat buffer.
 //
 // Quantize (deterministic rounding):
-//   x [nb * bs] fp32 or bf16 -> q int8 [nb, bs], scales fp32 [nb]
+//   x [nb * bs] fp32, bf16 or fp16 -> q int8 [nb, bs], scales fp32 [nb]
 //   scale = max(|x_block|) / qmax, floored at 1e-12
 //   q     = clip(round-half-to-even(x / scale), -qmax, qmax)
 // with qmax 127 (int8) or 7 (the int4 grid, still one value a byte).
@@ -11,10 +11,11 @@
 // `quantize_blockwise`).  Bound on an H100 by bytes: one read of x and
 // one write of the payload and scales, a max, a division and a rounding
 // an element.  Design: the head-vector body of quant.cuh, a block of bs
-// values held by a group of bs * sizeof(T) / 16 lanes (16 for bf16 at
-// block 128, 8 at 64), one 16-byte load a lane and chunk, the absmax by
-// xor shuffles inside the group, the payload stored packed (8 bytes a
-// lane from a bf16 chunk), one lane of the group storing the scale;
+// values held by a group of bs * sizeof(T) / 16 lanes (16 for bf16 or
+// fp16 at block 128, 8 at 64), one 16-byte load a lane and chunk, the
+// absmax by xor shuffles inside the group (16-bit values widened exactly
+// first), the payload stored packed (8 bytes a lane from a 16-bit
+// chunk), one lane of the group storing the scale;
 // over a grid that covers the buffer, a buffer of more than a wave of
 // blocks takes four a group at a time, their loads issued before any is
 // quantized (a smaller one one, so that a decode-sized buffer keeps its
@@ -27,13 +28,17 @@
 //
 // Dequantize:
 //   q int8 [nb, bs], scales fp32 [nb] -> y [nb * bs], y = float(q) * scale
-// in fp32, or rounded once to bf16 (round-to-nearest-even, the bits of
-// fp32-then-.to(torch.bfloat16)).
+// in fp32, or rounded once to bf16 or fp16 (round-to-nearest-even, the
+// bits of fp32-then-.to(torch.bfloat16 / torch.float16); past fp16's
+// largest finite value the rounding gives inf, as the cast does).
 //
 // Replaces hetu_tpu/ops/pallas/quant.py `_dequant_kernel` /
 // `dequantize_blockwise_pallas` (arithmetic: comm/compress.py
 // `dequantize_blockwise`).  Bound by bytes: 1 + 4 / bs bytes read and 4
-// (bf16: 2) written an element, one multiply.  Design: one thread per
+// (bf16, fp16: 2) written an element, one multiply.  The reference
+// writes fp32 and its callers cast; the 16-bit arms round the same fp32
+// product once, so a caller that wants bf16 or fp16 writes half the
+// bytes and makes no second pass.  Design: one thread per
 // 16 payload bytes, one 16-byte load, its row's scale read once (the
 // threads of a row share the address, one broadcast load), 16-byte
 // stores, staged through shared memory a warp at a time so that each
@@ -146,9 +151,17 @@ HETU_EXPORT int hetu_quantize_blockwise_bf16(const void* x, void* q,
   return launch<__nv_bfloat16>(x, q, scales, nb, bs, qmax, stream);
 }
 
+HETU_EXPORT int hetu_quantize_blockwise_f16(const void* x, void* q,
+                                            void* scales, long long nb,
+                                            int bs, float qmax,
+                                            void* stream) {
+  return launch<__half>(x, q, scales, nb, bs, qmax, stream);
+}
+
 // ----------------------------------------------------------- dequantize
 // 16 dequantized values packed for 16-byte stores: W = sizeof(T) words
-// (fp32: 4 words of 4 values; bf16: 2 words of 8, rounded once each).
+// (fp32: 4 words of 4 values; bf16 or fp16: 2 words of 8, rounded once
+// each).
 template <typename T>
 struct DqPack;
 
@@ -178,6 +191,26 @@ struct DqPack<__nv_bfloat16> {
             __bfloat16_as_ushort(__float2bfloat16(v[8 * i + 2 * j]));
         const uint32_t hi =
             __bfloat16_as_ushort(__float2bfloat16(v[8 * i + 2 * j + 1]));
+        w[j] = lo | (hi << 16);
+      }
+      o[i] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+};
+
+template <>
+struct DqPack<__half> {
+  static constexpr int W = 2;
+  static __device__ __forceinline__ void pack(const float* v, uint4* o) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t lo =
+            __half_as_ushort(__float2half_rn(v[8 * i + 2 * j]));
+        const uint32_t hi =
+            __half_as_ushort(__float2half_rn(v[8 * i + 2 * j + 1]));
         w[j] = lo | (hi << 16);
       }
       o[i] = make_uint4(w[0], w[1], w[2], w[3]);
@@ -279,4 +312,11 @@ HETU_EXPORT int hetu_dequantize_blockwise_bf16(const void* q,
                                                long long nb, int bs,
                                                void* stream) {
   return launch_dequant<__nv_bfloat16>(q, scales, y, nb, bs, stream);
+}
+
+HETU_EXPORT int hetu_dequantize_blockwise_f16(const void* q,
+                                              const void* scales, void* y,
+                                              long long nb, int bs,
+                                              void* stream) {
+  return launch_dequant<__half>(q, scales, y, nb, bs, stream);
 }

@@ -6,16 +6,17 @@
 // 16 bytes.  A group of LANES lanes of one warp holds it (LANES a power
 // of two, 32 / LANES groups a warp): lane l loads chunks l, l + LANES,
 // ... (CH of them, one 16-byte load each; lanes past `chunks` load
-// nothing and hold zeros).  bf16 at hd 128 is 16 chunks: 16 lanes, one
-// load a lane; hd 64 is 8; fp32 at hd 128 is 32.
+// nothing and hold zeros).  bf16 or fp16 at hd 128 is 16 chunks: 16
+// lanes, one load a lane; hd 64 is 8; fp32 at hd 128 is 32.
 //
 // The arithmetic keeps the plain PyTorch version's bits
 // (ops/cuda/quant.py `quantize_blockwise_plain`, the reference's
 // comm/compress.py `quantize_blockwise` with deterministic rounding):
 //   scale = max(__fdiv_rn(amax, qmax), 1e-12)
 //   q     = clip(rintf(__fdiv_rn(x, scale)), -qmax, qmax)
-// true IEEE divisions and round-half-to-even; bf16 input is widened
-// exactly.  `quantize_lane` gets q's bits from a multiply by the
+// true IEEE divisions and round-half-to-even; bf16 and fp16 input is
+// widened exactly, so a 16-bit vector's bits and scale are those of its
+// fp32 widening.  `quantize_lane` gets q's bits from a multiply by the
 // scale's reciprocal, falling back to the division where a product lies
 // near a rounding boundary (its note says why that is exact).  The
 // absmax is taken by xor shuffles inside the group, so every lane of the
@@ -29,6 +30,8 @@
 #pragma once
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -54,7 +57,11 @@ struct HeadVec {
     const uint32_t w[4] = {raw[c].x, raw[c].y, raw[c].z, raw[c].w};
     if constexpr (sizeof(T) == 4) {
       return __uint_as_float(w[j]);
-    } else {
+    } else if constexpr (std::is_same<T, __half>::value) {
+      const uint32_t word = w[j >> 1];
+      return __half2float(__ushort_as_half(
+          static_cast<unsigned short>((j & 1) ? word >> 16 : word)));
+    } else {  // bf16: the high half of an fp32
       const uint32_t word = w[j >> 1];
       return __uint_as_float((j & 1) ? (word & 0xffff0000u) : (word << 16));
     }

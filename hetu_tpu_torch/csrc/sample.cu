@@ -22,9 +22,11 @@
 //      device memory once, and streams it through a ring of 16-byte
 //      `cp.async` copies in shared memory (zero-filled past V and past
 //      H), so the next stages of the head are in flight while the tensor
-//      cores (mma.sync.m16n8k16, bf16 in, fp32 accumulators) work on the
-//      current one.  One kernel serves both layouts of a bf16 head
-//      (`lm_head_mma_kernel<MT, KMAJOR>`, tiles in `LmmTile`):
+//      cores (mma.sync.m16n8k16, 16-bit in, fp32 accumulators) work on the
+//      current one.  One kernel serves both layouts of a 16-bit head
+//      and both 16-bit types (bf16 and fp16 operands, fp32 logits, as the
+//      reference's `_sample_kernel` accumulates)
+//      (`lm_head_mma_kernel<T, MT, KMAJOR>`, tiles in `LmmTile`):
 //        * N-major, rows of [H, V] (an untied head): a stage is 128
 //          hidden rows of 256 columns, read by ldmatrix.trans;
 //        * K-major, the transposed view of a [V, H] table (a tied head,
@@ -131,25 +133,27 @@ constexpr int LM_BK = 32;   // hidden dims a step
 // The launch's route, as the wrapper names it (ops/cuda/sample.py).
 enum LmRoute { LM_N_MAJOR = 0, LM_K_MAJOR = 1, LM_FMA = 2 };
 
-// A 16-byte load's values as fp32, by shifts (a pointer to the loaded
-// vector would send it through local memory).
-__device__ __forceinline__ void unpack16(uint4 raw, float (&v)[4]) {
-  v[0] = __uint_as_float(raw.x);
-  v[1] = __uint_as_float(raw.y);
-  v[2] = __uint_as_float(raw.z);
-  v[3] = __uint_as_float(raw.w);
-}
-__device__ __forceinline__ void unpack16(uint4 raw, float (&v)[8]) {
+// A 16-byte load's values of T as fp32, exactly, from the loaded words
+// (a pointer to the loaded vector would send it through local memory).
+template <typename T>
+__device__ __forceinline__ void unpack16(uint4 raw,
+                                         float (&v)[16 / sizeof(T)]) {
   const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  if constexpr (sizeof(T) == 4) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {  // bf16: the high half of an fp32
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    for (int i = 0; i < 4; ++i) v[i] = __uint_as_float(w[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = unpack16x2<T>(w[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
   }
 }
 
-// fp32 FMAs: fp32 operands, and bf16 heads whose strides neither layout
-// of the tensor-core kernel covers.
+// fp32 FMAs: fp32 operands, and 16-bit heads whose strides neither
+// layout of the tensor-core kernel covers.
 template <typename T>
 __global__ void __launch_bounds__(LM_THREADS)
     lm_head_kernel(const T* __restrict__ hidden, const T* __restrict__ w,
@@ -182,7 +186,7 @@ __global__ void __launch_bounds__(LM_THREADS)
 #pragma unroll
         for (int i = 0; i < E; ++i) v[i] = 0.0f;
       } else if (vec && k0 + kk + E <= H) {
-        unpack16(__ldg(reinterpret_cast<const uint4*>(src)), v);
+        unpack16<T>(__ldg(reinterpret_cast<const uint4*>(src)), v);
       } else {
 #pragma unroll
         for (int i = 0; i < E; ++i) v[i] = k0 + kk + i < H ? to_f32(src[i]) : 0.0f;
@@ -197,8 +201,8 @@ __global__ void __launch_bounds__(LM_THREADS)
 #pragma unroll
         for (int i = 0; i < E; ++i) v[i] = 0.0f;
       } else if (vec && n0 + n + E <= V) {
-        unpack16(__ldg(reinterpret_cast<const uint4*>(
-                     w + (k0 + kk) * w_sk + n0 + n)), v);
+        unpack16<T>(__ldg(reinterpret_cast<const uint4*>(
+                        w + (k0 + kk) * w_sk + n0 + n)), v);
       } else {
 #pragma unroll
         for (int i = 0; i < E; ++i)
@@ -238,7 +242,8 @@ __global__ void __launch_bounds__(LM_THREADS)
   }
 }
 
-// The bf16 product on the tensor cores: a block owns a strip of BN
+// The 16-bit product (bf16 or fp16 operands of type T, one body for
+// both: `mma16<T>`) on the tensor cores: a block owns a strip of BN
 // columns for up to 16 MT rows, a warp 32 of the columns for all of
 // them.  Stages of BK hidden dims stream through a ring of STAGES slots
 // in shared memory by 16-byte cp.async copies (each thread's copies a
@@ -264,7 +269,7 @@ struct LmmTile {
 };
 
 template <int MT, bool KMAJOR>
-struct LmmSmem {  // in bf16 elements
+struct LmmSmem {  // in 16-bit elements
   using Tl = LmmTile<KMAJOR>;
   static constexpr int A = 16 * MT * Tl::LDA;
   static constexpr int B = KMAJOR ? Tl::BN * Tl::LDB : Tl::BK * Tl::LDB;
@@ -290,10 +295,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-template <int MT, bool KMAJOR>
+template <typename T, int MT, bool KMAJOR>
 __global__ void __launch_bounds__(LmmTile<KMAJOR>::THREADS)
-    lm_head_mma_kernel(const bf16* __restrict__ hidden,
-                       const bf16* __restrict__ w,
+    lm_head_mma_kernel(const T* __restrict__ hidden,
+                       const T* __restrict__ w,
                        float* __restrict__ logits, int R, int H, int V,
                        long long w_ld) {
   using L = LmmSmem<MT, KMAJOR>;
@@ -302,7 +307,7 @@ __global__ void __launch_bounds__(LmmTile<KMAJOR>::THREADS)
   constexpr int LMM_THREADS = Tl::THREADS, LMM_LDA = Tl::LDA;
   constexpr int LMM_LDK = Tl::LDB, LMM_LDN = Tl::LDB;
   extern __shared__ __align__(16) unsigned char lmm_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(lmm_raw);
+  T* smem = reinterpret_cast<T*>(lmm_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // blockIdx.x walks the row blocks of one strip, so the blocks that
   // read a strip of the head run together and share it through L2
@@ -312,8 +317,8 @@ __global__ void __launch_bounds__(LmmTile<KMAJOR>::THREADS)
 
   // stage kt into ring slot `slot`: zeros past R, H and V
   auto load = [&](int slot, int kt) {
-    bf16* As = smem + slot * L::STAGE;
-    bf16* Bs = As + L::A;
+    T* As = smem + slot * L::STAGE;
+    T* Bs = As + L::A;
     const int k0 = kt * LMM_BK;
     constexpr int KC = LMM_BK / 8, NC = LMM_BN / 8;  // chunks a row
 #pragma unroll
@@ -374,8 +379,8 @@ __global__ void __launch_bounds__(LmmTile<KMAJOR>::THREADS)
     if (kt + LMM_STAGES - 1 < KT)
       load((kt + LMM_STAGES - 1) % LMM_STAGES, kt + LMM_STAGES - 1);
     cp_async_commit();
-    const bf16* As = smem + (kt % LMM_STAGES) * L::STAGE;
-    const bf16* Bs = As + L::A;
+    const T* As = smem + (kt % LMM_STAGES) * L::STAGE;
+    const T* Bs = As + L::A;
 #pragma unroll
     for (int ks = 0; ks < LMM_BK / 16; ++ks) {
       unsigned b[2][4];
@@ -390,10 +395,10 @@ __global__ void __launch_bounds__(LmmTile<KMAJOR>::THREADS)
       for (int m = 0; m < MT; ++m) {
         unsigned a[4];
         ldmatrix_x4(a, As + a_off + 16 * m * LMM_LDA + 16 * ks);
-        mma_bf16(acc[m][0], a, b[0][0], b[0][1]);
-        mma_bf16(acc[m][1], a, b[0][2], b[0][3]);
-        mma_bf16(acc[m][2], a, b[1][0], b[1][1]);
-        mma_bf16(acc[m][3], a, b[1][2], b[1][3]);
+        mma16<T>(acc[m][0], a, b[0][0], b[0][1]);
+        mma16<T>(acc[m][1], a, b[0][2], b[0][3]);
+        mma16<T>(acc[m][2], a, b[1][0], b[1][1]);
+        mma16<T>(acc[m][3], a, b[1][2], b[1][3]);
       }
     }
   }
@@ -861,7 +866,7 @@ __device__ __forceinline__ void for_each_value(const T* lg, int n, F f) {
   const uint4* vec = reinterpret_cast<const uint4*>(lg + head);
   for (int i = tid; i < nv; i += SB_THREADS) {
     float x[E];
-    unpack16(__ldg(vec + i), x);
+    unpack16<T>(__ldg(vec + i), x);
 #pragma unroll
     for (int e = 0; e < E; ++e) f(head + i * E + e, x[e]);
   }
@@ -1189,32 +1194,32 @@ static int launch_sample(const void* logits, long long row_stride, int R,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MT, bool KMAJOR>
-static cudaError_t launch_lm_head_mma(const bf16* hidden, const bf16* w,
+template <typename T, int MT, bool KMAJOR>
+static cudaError_t launch_lm_head_mma(const T* hidden, const T* w,
                                       float* logits, int R, int H, int V,
                                       long long w_ld, cudaStream_t stream) {
   using L = LmmSmem<MT, KMAJOR>;
   static int cache[64];
-  const int limit = dyn_smem_limit(lm_head_mma_kernel<MT, KMAJOR>, cache);
+  const int limit = dyn_smem_limit(lm_head_mma_kernel<T, MT, KMAJOR>, cache);
   if (limit < L::BYTES) return cudaErrorInvalidValue;
   using Tl = LmmTile<KMAJOR>;
   const dim3 grid((R + 16 * MT - 1) / (16 * MT), (V + Tl::BN - 1) / Tl::BN);
-  lm_head_mma_kernel<MT, KMAJOR><<<grid, Tl::THREADS, L::BYTES, stream>>>(
+  lm_head_mma_kernel<T, MT, KMAJOR><<<grid, Tl::THREADS, L::BYTES, stream>>>(
       hidden, w, logits, R, H, V, w_ld);
   return cudaGetLastError();
 }
 
-template <bool KMAJOR>
-static cudaError_t launch_lm_head_tc(const bf16* hidden, const bf16* w,
+template <typename T, bool KMAJOR>
+static cudaError_t launch_lm_head_tc(const T* hidden, const T* w,
                                      float* logits, int R, int H, int V,
                                      long long w_ld, cudaStream_t stream) {
   // up to 64 rows a block: the fewest 16-row tiles that hold them
   const int mt = R >= 64 ? 4 : (R + 15) / 16;
   switch (mt) {
-    case 1: return launch_lm_head_mma<1, KMAJOR>(hidden, w, logits, R, H, V, w_ld, stream);
-    case 2: return launch_lm_head_mma<2, KMAJOR>(hidden, w, logits, R, H, V, w_ld, stream);
-    case 3: return launch_lm_head_mma<3, KMAJOR>(hidden, w, logits, R, H, V, w_ld, stream);
-    default: return launch_lm_head_mma<4, KMAJOR>(hidden, w, logits, R, H, V, w_ld, stream);
+    case 1: return launch_lm_head_mma<T, 1, KMAJOR>(hidden, w, logits, R, H, V, w_ld, stream);
+    case 2: return launch_lm_head_mma<T, 2, KMAJOR>(hidden, w, logits, R, H, V, w_ld, stream);
+    case 3: return launch_lm_head_mma<T, 3, KMAJOR>(hidden, w, logits, R, H, V, w_ld, stream);
+    default: return launch_lm_head_mma<T, 4, KMAJOR>(hidden, w, logits, R, H, V, w_ld, stream);
   }
 }
 
@@ -1230,15 +1235,19 @@ static int launch_lm_head(const void* hidden, const void* w, void* logits,
     // refused, never run on another arm
     const bool kmajor = route == LM_K_MAJOR;
     const long long ld = kmajor ? w_sn : w_sk;
-    if (sizeof(T) != 2 || H % 8 || ld % 8 || (kmajor ? w_sk : w_sn) != 1 ||
-        !aligned16({hidden, w}) || (V + 127) / 128 > 65535)
+    if constexpr (sizeof(T) != 2) {
       return static_cast<int>(cudaErrorInvalidValue);
-    const bf16* h = static_cast<const bf16*>(hidden);
-    const bf16* wb = static_cast<const bf16*>(w);
-    float* o = static_cast<float*>(logits);
-    return static_cast<int>(
-        kmajor ? launch_lm_head_tc<true>(h, wb, o, R, H, V, ld, st)
-               : launch_lm_head_tc<false>(h, wb, o, R, H, V, ld, st));
+    } else {
+      if (H % 8 || ld % 8 || (kmajor ? w_sk : w_sn) != 1 ||
+          !aligned16({hidden, w}) || (V + 127) / 128 > 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+      const T* h = static_cast<const T*>(hidden);
+      const T* wb = static_cast<const T*>(w);
+      float* o = static_cast<float*>(logits);
+      return static_cast<int>(
+          kmajor ? launch_lm_head_tc<T, true>(h, wb, o, R, H, V, ld, st)
+                 : launch_lm_head_tc<T, false>(h, wb, o, R, H, V, ld, st));
+    }
   }
   if (route != LM_FMA) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((V + LM_BN - 1) / LM_BN, (R + LM_RT - 1) / LM_RT);
@@ -1280,6 +1289,19 @@ HETU_EXPORT int hetu_sample_clusters_bf16(int R, int V) {
   return one < 0 || R <= one ? one : active_clusters<__nv_bfloat16, 2>(V);
 }
 
+HETU_EXPORT int hetu_sample_f16(const void* logits, long long row_stride,
+                                int R, int V, const void* words,
+                                const void* temps, const void* top_ks,
+                                const void* top_ps, void* out, void* stream) {
+  return launch_sample<__half>(logits, row_stride, R, V, words, temps, top_ks,
+                               top_ps, out, stream);
+}
+
+HETU_EXPORT int hetu_sample_clusters_f16(int R, int V) {
+  const int one = one_wave<__half>();
+  return one < 0 || R <= one ? one : active_clusters<__half, 2>(V);
+}
+
 HETU_EXPORT int hetu_lm_head_f32(const void* hidden, const void* w,
                                  void* logits, int R, int H, int V,
                                  long long w_sk, long long w_sn, int route,
@@ -1294,4 +1316,12 @@ HETU_EXPORT int hetu_lm_head_bf16(const void* hidden, const void* w,
                                   void* stream) {
   return launch_lm_head<__nv_bfloat16>(hidden, w, logits, R, H, V, w_sk, w_sn,
                                        route, stream);
+}
+
+HETU_EXPORT int hetu_lm_head_f16(const void* hidden, const void* w,
+                                 void* logits, int R, int H, int V,
+                                 long long w_sk, long long w_sn, int route,
+                                 void* stream) {
+  return launch_lm_head<__half>(hidden, w, logits, R, H, V, w_sk, w_sn, route,
+                                stream);
 }

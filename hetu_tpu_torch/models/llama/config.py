@@ -100,6 +100,22 @@ class LlamaConfig:
         return LlamaConfig(**d)
 
     @staticmethod
+    def llama2_7b(**kw) -> "LlamaConfig":
+        d = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                 num_hidden_layers=32, num_attention_heads=32,
+                 num_key_value_heads=32, max_position_embeddings=4096)
+        d.update(kw)
+        return LlamaConfig(**d)
+
+    @staticmethod
+    def llama2_13b(**kw) -> "LlamaConfig":
+        d = dict(vocab_size=32000, hidden_size=5120, intermediate_size=13824,
+                 num_hidden_layers=40, num_attention_heads=40,
+                 num_key_value_heads=40, max_position_embeddings=4096)
+        d.update(kw)
+        return LlamaConfig(**d)
+
+    @staticmethod
     def llama3_8b(**kw) -> "LlamaConfig":
         d = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
                  num_hidden_layers=32, num_attention_heads=32,

@@ -28,7 +28,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("adam", "flash_attention", "fused_norm", "kv_write",
-           "paged_attention", "quant", "rotary", "sample", "swiglu")
+           "paged_attention_bf16", "paged_attention_f16", "paged_attention_f32",
+           "quant", "rotary", "sample", "swiglu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _BUILD_TIMEOUT_S = 600

@@ -10,9 +10,10 @@ H100 (see its header), on the head-vector quantize of `csrc/quant.cuh`
 that the flat `quantize_blockwise` shares.
 
   * `write_kv_tokens` — one layer of a paged serving step: a token
-    block's K and V [S, C, n_kv, hd] into the layer's pages at
-    `token_block_pages`' slots, in one launch (exact pages cast to the
-    pool's type; int8 or int4 payloads with their fp32 scales).  K and
+    block's K and V [S, C, n_kv, hd] (fp32, bf16 or fp16) into the
+    layer's pages at `token_block_pages`' slots, in one launch (exact
+    pages cast to the pool's type; int8 or int4 payloads with their fp32
+    scales, of the values widened exactly to fp32).  K and
     V are read in place through their strides (views of the fused QKV
     projection need no copy); the table and positions stay on the
     device.
@@ -42,10 +43,16 @@ from hetu_tpu_torch.ops.quantization import quantize_heads
 launches = 0
 #: write_kv_pages kernel launches
 pages_launches = 0
+#: each counter's launches by the K and V arm (`build.arm_counts`)
+arm_launches = build.arm_counts("launches", "pages_launches")
 
 #: the kernel's page modes (csrc/kv_write.cu KvMode): exact by pool type
 _MODES = {("none", torch.float32): 0, ("none", torch.bfloat16): 1,
-          ("int8", torch.int8): 8, ("int4", torch.uint8): 4}
+          ("none", torch.float16): 2, ("int8", torch.int8): 8,
+          ("int4", torch.uint8): 4}
+#: the kernel's input types (csrc/kv_write.cu KvIn)
+_IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_FLOATS = tuple(_IN_DTYPES)
 _PAYLOAD = {"int8": torch.int8, "int4": torch.uint8}
 #: the largest head dim the kernel takes (a head vector in one warp)
 MAX_HEAD_DIM = 256
@@ -141,10 +148,9 @@ def _check_pools(name, k_pool, v_pool, k_scale, v_scale, quant, hd,
                          f"{tuple(v_pool.shape)} do not hold head vectors "
                          f"of {hd} in page mode {quant!r}")
     if quant == "none":
-        if k_pool.dtype not in (torch.float32, torch.bfloat16) or \
-                v_pool.dtype != k_pool.dtype:
-            raise ValueError(f"{name}: exact pages are fp32 or bf16, got "
-                             f"{k_pool.dtype} / {v_pool.dtype}")
+        if k_pool.dtype not in _FLOATS or v_pool.dtype != k_pool.dtype:
+            raise ValueError(f"{name}: exact pages are fp32, bf16 or fp16, "
+                             f"got {k_pool.dtype} / {v_pool.dtype}")
         return
     if k_pool.dtype != _PAYLOAD[quant] or v_pool.dtype != _PAYLOAD[quant]:
         raise ValueError(f"{name}: {quant} pages hold {_PAYLOAD[quant]}, "
@@ -157,14 +163,13 @@ def _check_pools(name, k_pool, v_pool, k_scale, v_scale, quant, hd,
 
 
 def _check_kernel_inputs(name, hd, tensors, pools):
-    """What the kernel takes: fp32 or bf16 head vectors of 16-byte
+    """What the kernel takes: fp32, bf16 or fp16 head vectors of 16-byte
     chunks, at most MAX_HEAD_DIM, unit-stride head dims and 16-byte
     aligned bases and strides; contiguous pools on 16-byte boundaries."""
     dtype = tensors[0].dtype
-    if dtype not in (torch.float32, torch.bfloat16) or \
-            any(t.dtype != dtype for t in tensors):
-        raise ValueError(f"{name}: the CUDA kernel takes fp32 or bf16 K "
-                         f"and V of one type, got "
+    if dtype not in _FLOATS or any(t.dtype != dtype for t in tensors):
+        raise ValueError(f"{name}: the CUDA kernel takes fp32, bf16 or "
+                         f"fp16 K and V of one type, got "
                          f"{[str(t.dtype) for t in tensors]}")
     esize = tensors[0].element_size()
     if (hd * esize) % 16 or hd > MAX_HEAD_DIM:
@@ -191,7 +196,8 @@ def _strides(t):
 
 
 def _launch_args(quant, pool, k):
-    return int(k.dtype == torch.bfloat16), _MODES[(quant, pool.dtype)]
+    """(K and V's type code, the page mode) as the kernel numbers them."""
+    return _IN_DTYPES[k.dtype], _MODES[(quant, pool.dtype)]
 
 
 def _ptr(t):
@@ -206,7 +212,7 @@ def write_kv_tokens(k_pool, v_pool, table, positions, k, v, *,
     positions[s] + i goes to page table[s, (positions[s] + i) // ps]
     (the null page 0 past the row) at offset (positions[s] + i) % ps.
     table [S, mp] int32, positions [S] int32, both on the device.
-    `device` "cuda" launches the kernel (fp32 or bf16 K and V read
+    `device` "cuda" launches the kernel (fp32, bf16 or fp16 K and V read
     through their strides), "cpu" runs the plain version; the tensors
     must lie there."""
     quant = resolve_quant(quant, k_scale, v_scale)
@@ -240,18 +246,17 @@ def write_kv_tokens(k_pool, v_pool, table, positions, k, v, *,
                          "exceed the kernel's grid")
     _check_kernel_inputs("write_kv_tokens", hd, (k, v),
                          (k_pool, v_pool, k_scale, v_scale))
-    in_bf16, mode = _launch_args(quant, k_pool, k)
+    in_dtype, mode = _launch_args(quant, k_pool, k)
     with torch.cuda.device(k.device):
         err = build.bind("kv_write", "hetu_write_kv_tokens",
                          _TOKENS_ARGTYPES)(
             k.data_ptr(), v.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             _ptr(k_scale), _ptr(v_scale), table.data_ptr(),
             positions.data_ptr(), S, C, n_kv, hd, ps, table.shape[1],
-            *_strides(k), *_strides(v), in_bf16, mode,
+            *_strides(k), *_strides(v), in_dtype, mode,
             torch.cuda.current_stream(k.device).cuda_stream)
     build.check_launch(err, "write_kv_tokens")
-    global launches
-    launches += 1
+    build.count(globals(), "launches", k.dtype)
 
 
 def write_kv_pages(k_pool, v_pool, pages_row, ks, vs, *, k_scale=None,
@@ -294,14 +299,13 @@ def write_kv_pages(k_pool, v_pool, pages_row, ks, vs, *, k_scale=None,
                          "(the kernel's grid)")
     _check_kernel_inputs("write_kv_pages", hd, (ks, vs),
                          (k_pool, v_pool, k_scale, v_scale))
-    in_bf16, mode = _launch_args(quant, k_pool, ks)
+    in_dtype, mode = _launch_args(quant, k_pool, ks)
     with torch.cuda.device(ks.device):
         err = build.bind("kv_write", "hetu_write_kv_pages", _PAGES_ARGTYPES)(
             ks.data_ptr(), vs.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
             pages_row.data_ptr(), L, P, mp, ps, n_kv, hd, *_strides(ks),
-            *_strides(vs), in_bf16, mode,
+            *_strides(vs), in_dtype, mode,
             torch.cuda.current_stream(ks.device).cuda_stream)
     build.check_launch(err, "write_kv_pages")
-    global pages_launches
-    pages_launches += 1
+    build.count(globals(), "pages_launches", ks.dtype)

@@ -4,7 +4,9 @@ versions and launch counters.
 Replaces `hetu_tpu/ops/pallas/paged_attention.py` `paged_attention`
 (decode, one query token a slot) and `paged_verify` (C = k + 1 query
 tokens a slot), each over exact, int8 or int4 pages (`_load_page`).
-Kernel: `csrc/paged_attention.cu`, one kernel for both, bound by the
+Kernel: `csrc/paged_attention.cuh` (its symbols exported a query type a
+source: `paged_attention_bf16.cu`, `paged_attention_f32.cu`,
+`paged_attention_f16.cu`), one kernel for both, bound by the
 bytes of the live K/V pages on the H100 (see its header): each slot's
 keys are split across blocks by `split_plan` (from the table's width
 and the row count alone, so a launch never reads `positions` on the
@@ -12,7 +14,9 @@ host and can be captured in a CUDA graph), each block streams its pages
 through a cp.async ring and never loads a key past the slot's last
 query position, and a second kernel merges the splits in a fixed
 order.  `paged_verify_split_plain` is that split-then-merge arithmetic
-in PyTorch, for the tests.
+in PyTorch, for the tests.  fp32, bf16 and fp16 queries each have their
+arm (16-bit products on the tensor cores, fp32 scores and P.V, o rounded
+once to q's type); launches are counted by arm in `arm_launches`.
 """
 from __future__ import annotations
 
@@ -31,15 +35,18 @@ int8_launches = 0
 int4_launches = 0
 #: verify launches, every page mode
 verify_launches = 0
+#: each counter's launches by the query's arm (`build.arm_counts`)
+arm_launches = build.arm_counts("launches", "int8_launches", "int4_launches",
+                                "verify_launches")
 
-#: the kernel's limits (csrc/paged_attention.cu PA_MAX_ROWS,
+#: the kernel's limits (csrc/paged_attention.cuh PA_MAX_ROWS,
 #: PA_MAX_HD, PA_MAX_SPLIT): C * group query rows a kv head, the head
 #: dim, the keys a split
 MAX_ROWS = 32
 MAX_HEAD_DIM = 256
 MAX_SPLIT = 1024
 # keys a split where a kv head holds few query rows (decode) and many
-# (verify), timed on the card (csrc/paged_attention.cu's header)
+# (verify), timed on the card (csrc/paged_attention.cuh's header)
 _SPLIT_KEYS_FEW_ROWS = 256
 _SPLIT_KEYS_MANY_ROWS = 128
 
@@ -53,7 +60,15 @@ _SYMBOLS = {
     (torch.bfloat16, "int8"): "hetu_paged_attention_int8_bf16",
     (torch.float32, "int4"): "hetu_paged_attention_int4_f32",
     (torch.bfloat16, "int4"): "hetu_paged_attention_int4_bf16",
+    (torch.float16, "none"): "hetu_paged_attention_f16",
+    (torch.float16, "int8"): "hetu_paged_attention_int8_f16",
+    (torch.float16, "int4"): "hetu_paged_attention_int4_f16",
 }
+#: the library (csrc/<name>.cu) that exports each query type's symbols:
+#: one source a type, so the three build in parallel
+_LIBRARY = {torch.float32: "paged_attention_f32",
+            torch.bfloat16: "paged_attention_bf16",
+            torch.float16: "paged_attention_f16"}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_void_p])
@@ -211,8 +226,8 @@ def _check(q, k_pool, v_pool, table, positions, k_scale, v_scale,
                          f"{want_hd} ({quant} pages), got {hd_p}")
     if nq % n_kv:
         raise ValueError(f"q heads {nq} must divide by kv heads {n_kv}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"q must be fp32/bf16, got {q.dtype}")
+    if q.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"q must be fp32/bf16/fp16, got {q.dtype}")
     want = q.dtype if quant == "none" else _PAYLOAD[quant]
     if k_pool.dtype != want:
         raise ValueError(f"{quant} pages need {want} pools, got "
@@ -269,7 +284,7 @@ def _launch(q, k_pool, v_pool, table, positions, k_scale, v_scale,
     sc = (k_scale.data_ptr(), v_scale.data_ptr()) if quant != "none" \
         else (None, None)
     with torch.cuda.device(q.device):
-        err = build.bind("paged_attention", _SYMBOLS[(q.dtype, quant)],
+        err = build.bind(_LIBRARY[q.dtype], _SYMBOLS[(q.dtype, quant)],
                          _ARGTYPES)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *sc,
             table.data_ptr(), positions.data_ptr(), out.data_ptr(), S, C,
@@ -294,7 +309,8 @@ def paged_attention(q, k_pool, v_pool, table, positions, *,
                     device="cuda"):
     """Decode attention over paged KV.  q: [S, nq, hd] (one token per
     slot); k_pool/v_pool: [P, page_size, n_kv, hd] (page 0 = the null
-    page) in q's type, or int8 payloads, or (`quant="int4"`) uint8
+    page) in q's type (fp32, bf16 or fp16), or int8 payloads, or
+    (`quant="int4"`) uint8
     nibble payloads [P, page_size, n_kv, hd / 2], with fp32 scales
     k_scale/v_scale [P, page_size, n_kv]; table: [S, max_pages] int32
     page ids; positions: [S] int32 — slot s attends over global
@@ -314,13 +330,9 @@ def paged_attention(q, k_pool, v_pool, table, positions, *,
                                      scale, k_scale, v_scale, quant)
     out = _launch(q[:, None], k_pool, v_pool, table, positions, k_scale,
                   v_scale, quant, scale)
-    global launches, int8_launches, int4_launches
-    if quant == "none":
-        launches += 1
-    elif quant == "int8":
-        int8_launches += 1
-    else:
-        int4_launches += 1
+    counter = {"none": "launches", "int8": "int8_launches",
+               "int4": "int4_launches"}[quant]
+    build.count(globals(), counter, q.dtype)
     return out[:, 0]
 
 
@@ -342,6 +354,5 @@ def paged_verify(q, k_pool, v_pool, table, positions, *,
                                   scale, k_scale, v_scale, quant)
     out = _launch(q, k_pool, v_pool, table, positions, k_scale, v_scale,
                   quant, scale)
-    global verify_launches
-    verify_launches += 1
+    build.count(globals(), "verify_launches", q.dtype)
     return out

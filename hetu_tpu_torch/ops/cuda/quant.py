@@ -7,13 +7,15 @@ Replaces `hetu_tpu/ops/pallas/quant.py` `quantize_blockwise_pallas` and
 rounding, and `dequantize_blockwise`).  Kernels: `csrc/quant.cu`, bound
 by bytes on the H100 (see its header).  The quantize runs the
 head-vector body of `csrc/quant.cuh` (a block held by bs * 2 / 16 lanes
-for bf16, bs * 4 / 16 for fp32, one 16-byte load a lane, the absmax by
-shuffles inside the group, the payload stored packed): one read of the
-input (bf16 widened in registers), one write of the int8 payload and
-fp32 scales; the payload is bit-identical to the plain version.  The dequantize runs a thread per 16 payload bytes and
-writes fp32, or bf16 rounded once (the bits of fp32-then-cast), so a
-caller that wants bf16 weights writes half the bytes; it is bit-identical
-to its plain version.  The serving engine writes its KV pages through
+for bf16 or fp16, bs * 4 / 16 for fp32, one 16-byte load a lane, the
+absmax by shuffles inside the group, the payload stored packed): one
+read of the input (16-bit values widened exactly in registers), one
+write of the int8 payload and fp32 scales; the payload is bit-identical
+to the plain version.  The dequantize runs a thread per 16 payload
+bytes and writes fp32, or bf16 or fp16 rounded once (the bits of
+fp32-then-cast), so a caller that wants 16-bit weights writes half the
+bytes; it is bit-identical to its plain version.  Launches are counted
+by arm in `arm_launches`.  The serving engine writes its KV pages through
 the fused page write on the same body (`ops/cuda/kv_write.py`), reads
 int8 pages back densely for the prefix cache's prime through the
 dequantize (`ops/quantization.dequantize_heads`), and the model drafter
@@ -35,17 +37,24 @@ from hetu_tpu_torch.ops.cuda import build
 launches = 0
 #: dequantize kernel launches
 dequant_launches = 0
+#: each counter's launches by arm: the quantize's input type, the
+#: dequantize's output type (`build.arm_counts`)
+arm_launches = build.arm_counts("launches", "dequant_launches")
 
 _BLOCK_SIZES = (32, 64, 128, 256)
 _MULTI_GPU = "the multi-GPU slice (ROADMAP Queue A item 5)"
 _SYMBOLS = {torch.float32: "hetu_quantize_blockwise_f32",
-            torch.bfloat16: "hetu_quantize_blockwise_bf16"}
+            torch.bfloat16: "hetu_quantize_blockwise_bf16",
+            torch.float16: "hetu_quantize_blockwise_f16"}
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_float, ctypes.c_void_p]
 _DQ_SYMBOLS = {torch.float32: "hetu_dequantize_blockwise_f32",
-               torch.bfloat16: "hetu_dequantize_blockwise_bf16"}
+               torch.bfloat16: "hetu_dequantize_blockwise_bf16",
+               torch.float16: "hetu_dequantize_blockwise_f16"}
 _DQ_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                         ctypes.c_void_p]
+#: the types the kernels read (quantize) and write (dequantize) directly
+KERNEL_DTYPES = tuple(_SYMBOLS)
 #: every exported symbol -> its ctypes argtypes
 _SIGNATURES = {**dict.fromkeys(_SYMBOLS.values(), _ARGTYPES),
                **dict.fromkeys(_DQ_SYMBOLS.values(), _DQ_ARGTYPES)}
@@ -81,7 +90,7 @@ def quantize_blockwise(x: torch.Tensor, block_size: int, *, bits: int = 8,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flat buffer (any shape, numel % block_size == 0) -> (q int8
     [n // bs, bs], scales fp32 [n // bs]).  `device` "cuda" launches
-    the kernel (fp32 or bf16 input on a 16-byte boundary, block sizes
+    the kernel (fp32, bf16 or fp16 input on a 16-byte boundary, block sizes
     32, 64, 128 or 256), "cpu" runs the plain version; the tensor must
     lie there."""
     if stochastic:
@@ -97,7 +106,8 @@ def quantize_blockwise(x: torch.Tensor, block_size: int, *, bits: int = 8,
     if dev.type == "cpu":
         return quantize_blockwise_plain(x, block_size, bits)
     if x.dtype not in _SYMBOLS:
-        raise ValueError(f"the CUDA kernel takes fp32/bf16, got {x.dtype}")
+        raise ValueError(f"the CUDA kernel takes fp32/bf16/fp16, got "
+                         f"{x.dtype}")
     if block_size not in _BLOCK_SIZES:
         raise ValueError(f"the CUDA kernel takes block sizes {_BLOCK_SIZES}"
                          f" (a block in one warp's registers), got "
@@ -113,8 +123,7 @@ def quantize_blockwise(x: torch.Tensor, block_size: int, *, bits: int = 8,
             x.data_ptr(), q.data_ptr(), scales.data_ptr(), nb, block_size,
             qmax(bits), torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(err, "quantize_blockwise")
-    global launches
-    launches += 1
+    build.count(globals(), "launches", x.dtype)
     return q, scales
 
 
@@ -129,7 +138,8 @@ def dequantize_blockwise(q: torch.Tensor, scale: torch.Tensor, *,
                          out_dtype=torch.float32,
                          device="cuda") -> torch.Tensor:
     """(q int8 [nb, bs], scales fp32 [nb]) -> flat [nb * bs] of
-    `out_dtype`: fp32, or bf16 rounded once from the fp32 product.
+    `out_dtype`: fp32, or bf16 or fp16 rounded once from the fp32
+    product (the bits of the reference's fp32 output cast).
     `device` "cuda" launches the kernel (rows of q contiguous, any
     bs >= 1, any base alignment), "cpu" runs the plain version and
     casts; the tensors must lie there."""
@@ -142,7 +152,8 @@ def dequantize_blockwise(q: torch.Tensor, scale: torch.Tensor, *,
         raise ValueError(f"dequantize_blockwise takes fp32 scales [{nb}], "
                          f"got {scale.dtype} {tuple(scale.shape)}")
     if out_dtype not in _DQ_SYMBOLS:
-        raise ValueError(f"out_dtype must be fp32 or bf16, got {out_dtype}")
+        raise ValueError(f"out_dtype must be fp32, bf16 or fp16, got "
+                         f"{out_dtype}")
     if dev.type == "cpu":
         return dequantize_blockwise_plain(q, scale).to(out_dtype)
     if nb and bs and (q.stride(1) != 1 or (nb > 1 and q.stride(0) != bs)):
@@ -155,6 +166,5 @@ def dequantize_blockwise(q: torch.Tensor, scale: torch.Tensor, *,
             q.data_ptr(), scale.data_ptr(), y.data_ptr(), nb, bs,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(err, "dequantize_blockwise")
-    global dequant_launches
-    dequant_launches += 1
+    build.count(globals(), "dequant_launches", out_dtype)
     return y

@@ -4,15 +4,17 @@ counter-based noise they share.
 Replaces `hetu_tpu/ops/pallas/sample.py` `fused_sample` (`_sample_kernel`
 with `hash_uniform`, `gumbel`, `_kth_largest_key`, `_nucleus_key`).
 Kernels: `csrc/sample.cu` — (a) the LM-head product into an fp32 logits
-scratch buffer, one read of the head through a `cp.async` ring (bf16 on
-the tensor cores in either layout of the head, `lm_head_route`); (b)
+scratch buffer, one read of the head through a `cp.async` ring (bf16 or
+fp16 on the tensor cores in either layout of the head, `lm_head_route`,
+fp32 accumulators as the reference's); (b)
 filter and draw, a cluster of 8 blocks a row, the row held in their
 shared memory, the nucleus found by a radix select over mass and
 confirmed by the bisection's own predicate.  `fused_sample` launches
 both (B9, counted in `launches`, the product's arm in
 `lm_head_routes`); `sample_logits` launches (b) alone where the logits
 already exist (the decode step and the first token, counted in
-`logits_launches`), so no plain sampler runs on the card.
+`logits_launches`), so no plain sampler runs on the card.  Both
+counters are also kept by arm in `arm_launches`.
 
 The plain versions are the reference's XLA path: `sample_plain` sorts
 each row once (`filtered_logits`, HF semantics: top-k first, the
@@ -38,6 +40,9 @@ logits_launches = 0
 #: [H, V] head ("n_major") or the transposed view of a [V, H] table
 #: ("k_major"), or fp32 FMAs ("fma")
 lm_head_routes = {"n_major": 0, "k_major": 0, "fma": 0}
+#: each counter's launches by arm: the hidden rows' and head's type
+#: (`fused_sample`), the logits' (`sample_logits`) (`build.arm_counts`)
+arm_launches = build.arm_counts("launches", "logits_launches")
 
 #: the longest row the draw kernel holds: a cluster of 8 blocks, each
 #: its share of the row in shared memory (csrc/sample.cu SB_CLUSTER x
@@ -49,11 +54,16 @@ _NEG = -1e30
 _M32 = 0xFFFFFFFF
 
 _SAMPLE = {torch.float32: "hetu_sample_f32",
-           torch.bfloat16: "hetu_sample_bf16"}
+           torch.bfloat16: "hetu_sample_bf16",
+           torch.float16: "hetu_sample_f16"}
 _LM_HEAD = {torch.float32: "hetu_lm_head_f32",
-            torch.bfloat16: "hetu_lm_head_bf16"}
+            torch.bfloat16: "hetu_lm_head_bf16",
+            torch.float16: "hetu_lm_head_f16"}
 _CLUSTERS = {torch.float32: "hetu_sample_clusters_f32",
-             torch.bfloat16: "hetu_sample_clusters_bf16"}
+             torch.bfloat16: "hetu_sample_clusters_bf16",
+             torch.float16: "hetu_sample_clusters_f16"}
+#: the types the tensor cores take the product in
+_TENSOR_CORE = (torch.bfloat16, torch.float16)
 _SAMPLE_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                 ctypes.c_int] + [ctypes.c_void_p] * 6
 _LM_HEAD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
@@ -182,7 +192,7 @@ def _launch_sample(logits, key_words, temps, top_ks, top_ps):
 
 def sample_logits(logits, key_words, temps, top_ks, top_ps, *,
                   device="cuda") -> torch.Tensor:
-    """Filter and draw over existing logits [R, V] (fp32 or bf16): one
+    """Filter and draw over existing logits [R, V] (fp32, bf16 or fp16): one
     token a row, [R] int32.  key_words [R, 2] (uint32 values in int64,
     or their bits in int32),
     temps / top_ps [R] fp32, top_ks [R] int.  `device` "cuda" launches
@@ -198,13 +208,12 @@ def sample_logits(logits, key_words, temps, top_ks, top_ps, *,
     if dev.type == "cpu":
         return sample_plain(logits, key_words, temps, top_ks, top_ps)
     if logits.dtype not in _SAMPLE:
-        raise ValueError(f"the CUDA kernel takes fp32/bf16 logits, got "
-                         f"{logits.dtype}")
+        raise ValueError(f"the CUDA kernel takes fp32/bf16/fp16 logits, "
+                         f"got {logits.dtype}")
     if logits.stride(1) != 1:
         logits = logits.contiguous()
     out = _launch_sample(logits, key_words, temps, top_ks, top_ps)
-    global logits_launches
-    logits_launches += 1
+    build.count(globals(), "logits_launches", logits.dtype)
     return out
 
 
@@ -213,9 +222,9 @@ def lm_head_route(hidden, w) -> str:
     "n_major" (rows of an [H, V] head: unit column stride, a row stride
     of whole 16-byte runs) or "k_major" (the transposed view of a [V, H]
     table, `wte.t()`: unit row stride, table rows of whole 16-byte runs)
-    on the tensor cores where both are bf16, H is a multiple of 8 and
-    both start on 16-byte boundaries; else "fma"."""
-    if (hidden.dtype != torch.bfloat16 or w.dtype != torch.bfloat16
+    on the tensor cores where both are bf16 or both fp16, H is a multiple
+    of 8 and both start on 16-byte boundaries; else "fma"."""
+    if (hidden.dtype not in _TENSOR_CORE or w.dtype != hidden.dtype
             or hidden.shape[1] % 8 or hidden.data_ptr() % 16
             or w.data_ptr() % 16):
         return "fma"
@@ -229,7 +238,7 @@ def lm_head_route(hidden, w) -> str:
 
 def lm_head_logits(hidden, w) -> torch.Tensor:
     """Kernel (a) alone: fp32 logits [R, V] of hidden [R, H] x w [H, V]
-    (fp32 or bf16, one type), on the card, on the arm `lm_head_route`
+    (fp32, bf16 or fp16, one type), on the card, on the arm `lm_head_route`
     picks (counted in `lm_head_routes`).  Counts no launch in
     `launches`: `fused_sample` counts its pair."""
     R, H = hidden.shape
@@ -277,10 +286,9 @@ def fused_sample(hidden, w, key_words, temps, top_ks, top_ps, *,
         return fused_sample_plain(hidden, w, key_words, temps, top_ks,
                                   top_ps)
     if hidden.dtype not in _LM_HEAD or w.dtype != hidden.dtype:
-        raise ValueError(f"the CUDA kernels take fp32/bf16 hidden and head "
-                         f"of one type, got {hidden.dtype} / {w.dtype}")
+        raise ValueError(f"the CUDA kernels take fp32/bf16/fp16 hidden and "
+                         f"head of one type, got {hidden.dtype} / {w.dtype}")
     logits = lm_head_logits(hidden, w)
     out = _launch_sample(logits, key_words, temps, top_ks, top_ps)
-    global launches
-    launches += 1
+    build.count(globals(), "launches", hidden.dtype)
     return out

@@ -21,7 +21,8 @@ from typing import Tuple
 
 import torch
 
-from hetu_tpu_torch.ops.cuda.quant import (dequantize_blockwise,
+from hetu_tpu_torch.ops.cuda.quant import (KERNEL_DTYPES,
+                                          dequantize_blockwise,
                                           quantize_blockwise)
 
 
@@ -95,13 +96,13 @@ def dequantize_heads(q: torch.Tensor, s: torch.Tensor, bits: int = 8, *,
                      out_dtype=torch.float32):
     """Inverse of `quantize_heads`: fp32 values (or `out_dtype`, cast
     once from them).  int8 through the blockwise dequantize kernel on
-    q's device (its plain version on the CPU; bf16 out of the kernel
-    directly), int4 in plain PyTorch."""
+    q's device (its plain version on the CPU; bf16 or fp16 out of the
+    kernel directly), int4 in plain PyTorch."""
     if bits == 4:
         hd = 2 * q.shape[-1]
         return dequantize_int4(q.reshape(-1, q.shape[-1]), s.reshape(-1),
                                (*q.shape[:-1], hd)).to(out_dtype)
-    y_dtype = out_dtype if out_dtype == torch.bfloat16 else torch.float32
+    y_dtype = out_dtype if out_dtype in KERNEL_DTYPES else torch.float32
     y = dequantize_blockwise(q.reshape(-1, q.shape[-1]), s.reshape(-1),
                              out_dtype=y_dtype, device=q.device)
     return y.reshape(q.shape).to(out_dtype)

@@ -114,10 +114,7 @@ from hetu_tpu_torch.serving.tracing import maybe_tracer
 from hetu_tpu_torch.utils import flags
 from hetu_tpu_torch.utils.device import resolve_device
 
-#: the later slices of the port (ROADMAP.md, Queue A and B1)
-_FP16_SERVING = ("the fp16 serving slice (ROADMAP Queue B1 item 5: fp16 "
-                 "arms of the paged attention, page write, sampler and "
-                 "dequantize kernels)")
+#: the later slices of the port (ROADMAP.md, Queue A)
 _MULTI_GPU = "the multi-GPU slice (ROADMAP Queue A item 5)"
 _TELEMETRY = ("the cluster telemetry slice (ROADMAP Queue A item 6: the "
               "push over rpc/)")
@@ -344,12 +341,6 @@ class ServingEngine:
             raise NotImplementedError(
                 f"ServingEngine({name}=...) is not in the port yet; it "
                 f"arrives with {_LATER_ENGINE_ARGS[name]}")
-        for m in (model, draft_model):
-            policy = getattr(getattr(m, "config", None), "policy", None)
-            if policy is not None and policy.compute_dtype == torch.float16:
-                raise NotImplementedError(
-                    f"serving a model that computes in float16 is not in the "
-                    f"port yet; it arrives with {_FP16_SERVING}")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device}, the "

@@ -10,7 +10,7 @@ arithmetic, int4 packed two values a byte by `ops/quantization.
 pack_nibbles` in the reference's wire layout (the even index in the high
 nibble, values offset by 8).  A leaf is quantized from its own values on
 the card by the quantize kernel (`ops/cuda/quant.quantize_blockwise`,
-which widens bf16 in registers: no fp32 copy), zero-padded to a block
+which widens bf16 and fp16 in registers: no fp32 copy), zero-padded to a block
 multiple as the reference pads it.
 
 Where the reference dequantizes the whole tree on entry to each
@@ -33,7 +33,8 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 
 from hetu_tpu_torch.nn.moe import MoELayer
-from hetu_tpu_torch.ops.cuda.quant import (dequantize_blockwise,
+from hetu_tpu_torch.ops.cuda.quant import (KERNEL_DTYPES,
+                                          dequantize_blockwise,
                                           quantize_blockwise)
 from hetu_tpu_torch.ops.quantization import pack_nibbles, unpack_nibbles
 
@@ -41,8 +42,6 @@ from hetu_tpu_torch.ops.quantization import pack_nibbles, unpack_nibbles
 EXPERT_KEYS = ("w_gate_up", "w_down")
 #: the reference's quantized-path block (`comm/wire.py` DEFAULT_BLOCK)
 DEFAULT_BLOCK = 256
-#: dtypes the kernels read and write directly
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def expert_layers(model) -> List[Tuple[str, MoELayer]]:
@@ -56,7 +55,7 @@ def _q_leaf(leaf: torch.Tensor, block: int, bits: int) -> Dict[str, Any]:
     leaf's device (one fp32 scale per `block` values; the zero pad
     quantizes to zero and is sliced off on dequant)."""
     flat = leaf.detach().reshape(-1)
-    if flat.dtype not in _KERNEL_DTYPES:
+    if flat.dtype not in KERNEL_DTYPES:
         flat = flat.float()
     pad = (-flat.numel()) % block
     if pad:
@@ -96,12 +95,12 @@ def dequantize_leaf(node: Dict[str, Any], meta: Dict[str, Any]
     """The leaf of `meta`'s shape and dtype from its {"q", "s"}: int4
     unpacked to int8 (plain PyTorch, as the reference's), then the
     dequantize kernel on the payload's device, written in the leaf's
-    dtype (fp32, or bf16 rounded once from the fp32 product)."""
+    dtype (fp32, or bf16 or fp16 rounded once from the fp32 product)."""
     q = node["q"]
     if meta["bits"] == 4:
         q = unpack_nibbles(q, even_high=True).to(torch.int8) - 8
     dtype = meta["dtype"]
-    out = dtype if dtype in _KERNEL_DTYPES else torch.float32
+    out = dtype if dtype in KERNEL_DTYPES else torch.float32
     flat = dequantize_blockwise(q, node["s"], out_dtype=out, device=q.device)
     n = math.prod(meta["shape"])
     return flat[:n].view(meta["shape"]).to(dtype)

@@ -42,7 +42,8 @@ import numpy as np
 import torch
 
 from hetu_tpu_torch.models.generation import last_logits
-from hetu_tpu_torch.ops.cuda.quant import (dequantize_blockwise,
+from hetu_tpu_torch.ops.cuda.quant import (KERNEL_DTYPES,
+                                           dequantize_blockwise,
                                            quantize_blockwise)
 from hetu_tpu_torch.ops.cuda.sample import (filtered_logits, gumbel,
                                             hash_uniform)
@@ -118,8 +119,10 @@ def _quantize_resident(params: Mapping[str, torch.Tensor], *, bits: int,
                        block: int):
     """Blockwise-quantize every floating leaf of two or more dimensions of
     a flat {name: tensor} map (a module's `named_parameters()`) for
-    resident storage: each leaf flattened in fp32, zero-padded to a
-    block multiple, quantized on its own device (the kernel on the card).
+    resident storage: each leaf flattened (in its own type where the
+    kernel reads it, which widens it exactly; else in fp32), zero-padded
+    to a block multiple, quantized on its own device (the kernel on the
+    card).
     1-D leaves (norm gains) stay as they are.  Returns (tree_q, spec):
     tree_q maps a quantized name to {"q": int8 [nb, block], "s": fp32
     [nb]} and every other name to its tensor; spec maps a quantized name
@@ -129,7 +132,9 @@ def _quantize_resident(params: Mapping[str, torch.Tensor], *, bits: int,
         if leaf.dim() < 2 or not leaf.is_floating_point():
             tree[name] = leaf
             continue
-        flat = leaf.detach().reshape(-1).float()
+        flat = leaf.detach().reshape(-1)
+        if flat.dtype not in KERNEL_DTYPES:
+            flat = flat.float()
         pad = (-flat.numel()) % block
         if pad:
             flat = torch.cat([flat, flat.new_zeros(pad)])
@@ -142,9 +147,9 @@ def _quantize_resident(params: Mapping[str, torch.Tensor], *, bits: int,
 
 def _dequantize_resident(params_q, spec) -> Dict[str, torch.Tensor]:
     """The inverse of `_quantize_resident`: {name: tensor} with every
-    quantized leaf dequantized (the kernel on the card; a bf16 leaf comes
-    out of it in bf16, the bits of fp32-then-cast) and the rest as
-    stored."""
+    quantized leaf dequantized (the kernel on the card; a bf16 or fp16
+    leaf comes out of it in its own type, the bits of fp32-then-cast)
+    and the rest as stored."""
     out = {}
     for name, node in params_q.items():
         meta = spec.get(name)
@@ -152,7 +157,7 @@ def _dequantize_resident(params_q, spec) -> Dict[str, torch.Tensor]:
             out[name] = node
             continue
         dtype = meta["dtype"]
-        y_dtype = dtype if dtype == torch.bfloat16 else torch.float32
+        y_dtype = dtype if dtype in KERNEL_DTYPES else torch.float32
         flat = dequantize_blockwise(node["q"], node["s"], out_dtype=y_dtype,
                                     device=node["q"].device)
         n = math.prod(meta["shape"])

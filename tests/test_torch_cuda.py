@@ -1379,12 +1379,12 @@ def test_write_kv_pages_matches_plain(dev, quant, dtype, hd):
 
 
 def test_write_kv_refuses_what_the_kernel_does_not_take(dev):
-    """fp16, head dims off the 16-byte grid or past 256, and K or V off a
-    16-byte boundary raise before a launch."""
+    """fp64, head dims off the 16-byte grid or past 256, and K or V off a
+    16-byte boundary raise before a launch (fp16 has its arm)."""
     table = torch.tensor(_KV_TABLE, dtype=torch.int32, device=dev)
     pos = torch.tensor(_KV_POSITIONS, dtype=torch.int32, device=dev)
     before = tkv_write.launches
-    for dtype, hd, off in ((torch.float16, 64, 0), (torch.bfloat16, 36, 0),
+    for dtype, hd, off in ((torch.float64, 64, 0), (torch.bfloat16, 36, 0),
                            (torch.float32, 512, 0), (torch.float32, 64, 1)):
         pools = _nan_pools(dev, "int8", torch.float32, (9, 16, 2, hd))
         flat = torch.zeros(4 * 2 * hd + off, dtype=dtype, device=dev)
@@ -1838,8 +1838,8 @@ def test_dequantize_blockwise_refuses_wrong_devices_and_types(dev):
         tquant.dequantize_blockwise(q.to(torch.uint8), s)
     with pytest.raises(ValueError):
         tquant.dequantize_blockwise(q, s.double())
-    with pytest.raises(ValueError):
-        tquant.dequantize_blockwise(q, s, out_dtype=torch.float16)
+    with pytest.raises(ValueError):             # fp16 has its arm
+        tquant.dequantize_blockwise(q, s, out_dtype=torch.float64)
     with pytest.raises(ValueError):                  # strided rows
         tquant.dequantize_blockwise(q[:, ::2], s)
 
@@ -2717,3 +2717,246 @@ def test_moe_paths_reach_no_plain_kernel_version_on_the_card(dev,
     out = tr.train_step({"input_ids": ids.astype(np.int32),
                          "labels": ids.astype(np.int32)})
     assert np.isfinite(float(out["loss"]))
+
+
+# ------------------------------------------------- fp16 serving kernels
+# The fp16 arms of the serving kernels (the fp16 serving slice): each
+# against its plain version at the limits of its bf16 arm, one fp16 ulp
+# where a kernel rounds once to fp16, bits where it quantizes, writes or
+# dequantizes, tokens wherever the top-two gap after noise exceeds 1e-3;
+# every launch counted on its fp16 arm.
+def _f16_arm(mod, counter):
+    return mod.arm_launches[counter]["f16"]
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+@pytest.mark.parametrize("C", [1, 5])
+@pytest.mark.parametrize("group", [1, 4])
+def test_paged_f16_matches_plain_and_skips_nan(dev, quant, C, group):
+    """fp16 queries over fp16 exact pages (or int8 / int4 pages), decode
+    and verify, Llama-2's group of 1 and Llama-3's of 4: o within half an
+    fp16 ulp + 1e-5 of the plain version on the same values in fp32; NaN
+    planted past each slot's last query position (stale rows of freed
+    pages) never reaches it; two runs give the same bits."""
+    _, kp, vp, table, _ = _paged_case(dev, torch.float32)
+    q = _normal((4, C, 2 * group, 128), 30 + C, dev, torch.float16)
+    positions = torch.tensor([20, 9, 28, 0], dtype=torch.int32, device=dev)
+    kp, vp = kp[..., :2, :].contiguous(), vp[..., :2, :].contiguous()
+    if quant == "none":
+        kp, vp, ks, vs = kp.half(), vp.half(), None, None
+    else:
+        (kp, ks), (vp, vs) = _quant_pool(kp, quant), _quant_pool(vp, quant)
+    ref = tpaged.paged_verify_plain(
+        q.float(), kp.float() if quant == "none" else kp,
+        vp.float() if quant == "none" else vp, table, positions,
+        128 ** -0.5, ks, vs, quant)
+    stale = torch.full_like(kp[0, 0], 255 if quant == "int4" else 0)
+    if quant == "none":
+        stale = torch.full_like(kp[0, 0], float("nan"))
+    ps = kp.shape[1]
+    for s_ in range(4):
+        for j in range(table.shape[1] * ps):
+            page = int(table[s_, j // ps])
+            if page and j > int(positions[s_]) + C - 1:
+                kp[page, j % ps] = stale
+                vp[page, j % ps] = stale
+                if ks is not None:
+                    ks[page, j % ps] = float("nan")
+                    vs[page, j % ps] = float("nan")
+    kw = dict(k_scale=ks, v_scale=vs, quant=quant)
+    counter = "verify_launches" if C > 1 else (
+        "launches" if quant == "none" else f"{quant}_launches")
+    before = _f16_arm(tpaged, counter)
+    if C == 1:
+        out = tpaged.paged_attention(q[:, 0], kp, vp, table, positions, **kw)
+        again = tpaged.paged_attention(q[:, 0], kp, vp, table, positions,
+                                       **kw)
+        ref = ref[:, 0]
+    else:
+        out = tpaged.paged_verify(q, kp, vp, table, positions, **kw)
+        again = tpaged.paged_verify(q, kp, vp, table, positions, **kw)
+    torch.cuda.synchronize()
+    assert _f16_arm(tpaged, counter) == before + 2
+    assert out.dtype == torch.float16 and torch.equal(out, again)
+    assert bool(torch.isfinite(out).all())
+    _rounded_once_to_f16(out, ref)
+
+
+@pytest.mark.parametrize("bs,bits", [(128, 8), (64, 8), (256, 8), (128, 4)])
+def test_quantize_blockwise_f16_matches_plain(dev, bs, bits):
+    """fp16 input: payload and scales bit for bit, and those of its exact
+    fp32 widening."""
+    x = (_normal((3000, bs), 5, dev) *
+         _normal((3000, 1), 6, dev).exp()).half()
+    x[7] = 0.0
+    before = _f16_arm(tquant, "launches")
+    q, s = tquant.quantize_blockwise(x, bs, bits=bits)
+    torch.cuda.synchronize()
+    assert _f16_arm(tquant, "launches") == before + 1
+    rq, rs = tquant.quantize_blockwise_plain(x, bs, bits)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    wq, ws = tquant.quantize_blockwise(x.float(), bs, bits=bits)
+    assert torch.equal(q, wq) and torch.equal(s, ws)
+
+
+@pytest.mark.parametrize("bs", [128, 64, 256, 24, 200])
+def test_dequantize_blockwise_f16_matches_plain(dev, bs):
+    """The fp16 arm: the fp32 product cast once, bit for bit (a scale
+    large enough to pass fp16's range gives inf, as the cast does)."""
+    q, s = _dequant_payload(dev, 1000 + bs % 7, bs)
+    s[3] = 1000.0
+    before = _f16_arm(tquant, "dequant_launches")
+    out = tquant.dequantize_blockwise(q, s, out_dtype=torch.float16)
+    torch.cuda.synchronize()
+    assert _f16_arm(tquant, "dequant_launches") == before + 1
+    ref = tquant.dequantize_blockwise_plain(q, s).half()
+    assert out.dtype == torch.float16
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+@pytest.mark.parametrize("C", [1, 5])
+@pytest.mark.parametrize("layout", ["llama", "gpt"])
+def test_write_kv_tokens_f16_matches_plain(dev, quant, C, layout):
+    """fp16 K and V as the serving forwards hand them over, into fp16
+    exact pages (GPT's here into fp32 pages: the cast) or int8 / int4
+    pages: every real page byte for byte as the plain version writes it,
+    each token in its slot and the overflow in the null page."""
+    S, n_kv, ps, P, hd = 4, 2, 16, 9, 128
+    table = torch.tensor(_KV_TABLE, dtype=torch.int32, device=dev)
+    pos = torch.tensor(_KV_POSITIONS, dtype=torch.int32, device=dev)
+    k, v = _served_kv(dev, torch.float16, S, C, n_kv, hd, layout, 60 + C)
+    exact = torch.float16 if layout == "llama" else torch.float32
+    out = _nan_pools(dev, quant, exact, (P, ps, n_kv, hd))
+    ref = [None if t is None else t.clone() for t in out]
+    before = _f16_arm(tkv_write, "launches")
+    tkv_write.write_kv_tokens(out[0], out[1], table, pos, k, v,
+                              k_scale=out[2], v_scale=out[3], quant=quant)
+    torch.cuda.synchronize()
+    assert _f16_arm(tkv_write, "launches") == before + 1
+    tkv_write.write_kv_tokens_plain(ref[0], ref[1], table, pos, k, v,
+                                    ref[2], ref[3], quant)
+    for a, b in zip(out, ref):
+        if a is not None:
+            assert _same_bytes(a[1:], b[1:])
+    probe = out[2] if quant != "none" else out[0]
+    done = torch.isfinite(probe.float().reshape(P, ps, -1)).all(-1)
+    assert int(done[1:].sum()) == 2 * C + min(C, 2)
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+def test_write_kv_pages_f16_matches_plain(dev, quant):
+    """A prefill's fp16 scratch into fp16 exact or int8 / int4 pages:
+    the real pages bit for bit, every other page still NaN."""
+    row, ks, vs, out = _kv_pages_case(dev, quant, torch.float16, 128)
+    ref = [None if t is None else t.clone() for t in out]
+    before = _f16_arm(tkv_write, "pages_launches")
+    tkv_write.write_kv_pages(out[0], out[1], row, ks, vs, k_scale=out[2],
+                             v_scale=out[3], quant=quant)
+    torch.cuda.synchronize()
+    assert _f16_arm(tkv_write, "pages_launches") == before + 1
+    tkv_write.write_kv_pages_plain(ref[0], ref[1], row, ks, vs, ref[2],
+                                   ref[3], quant)
+    for a, b in zip(out, ref):
+        if a is not None:
+            assert _same_bytes(a, b)
+    untouched = [p for p in range(out[0].shape[1]) if p not in (7, 2, 9)]
+    probe = out[2] if quant != "none" else out[0]
+    assert bool(torch.isnan(probe[:, untouched].float()).all())
+
+
+@pytest.mark.parametrize("V", [32000, 4000, 13])
+def test_sample_logits_f16_matches_plain(dev, V):
+    """Filter and draw over fp16 logits: tokens identical to the plain
+    version's (a tie at the top takes the first index)."""
+    R = 16
+    logits = (3.0 * _normal((R, V), 15, dev)).half()
+    logits[0, min(100, V - 1)] = logits[0, 7] = logits[0].max() + 1
+    args = _sampling_rows(dev, R, V, 16)
+    before = _f16_arm(tsample, "logits_launches")
+    out = tsample.sample_logits(logits, *args)
+    torch.cuda.synchronize()
+    assert _f16_arm(tsample, "logits_launches") == before + 1
+    assert int(out[0]) == 7
+    assert torch.equal(out, tsample.sample_plain(logits, *args))
+
+
+@pytest.mark.parametrize("layout,arm,R,H,V", [
+    ("dense", "n_major", 40, 4096, 32000),     # Llama-2's [H, V] head
+    ("table_t", "k_major", 40, 1280, 50257),   # GPT's tied wte.t()
+    ("table_t", "k_major", 70, 1024, 32001),   # ragged V, two row blocks
+    ("dense", "fma", 24, 1024, 32001)])        # rows off 16-byte runs
+def test_fused_sample_f16_matches_plain(dev, layout, arm, R, H, V):
+    """fp16 hidden rows and head, each layout on its arm (the tensor
+    cores' N-major and K-major, the FMAs where rows are off 16-byte
+    runs): logits within 1e-5 of the largest against the fp32 product,
+    tokens identical wherever the plain top-two gap after noise exceeds
+    1e-3."""
+    hidden = _normal((R, H), 17, dev, torch.float16)
+    if layout == "dense":
+        w = (0.05 * _normal((H, V), 18, dev)).half()
+    else:
+        w = (0.05 * _normal((V, H), 18, dev)).half().t()
+    layout = arm
+    assert tsample.lm_head_route(hidden, w) == arm
+    args = _sampling_rows(dev, R, V, 19)
+    routes = dict(tsample.lm_head_routes)
+    logits = tsample.lm_head_logits(hidden, w)
+    assert tsample.lm_head_routes[layout] == routes[layout] + 1
+    ref = hidden.float() @ w.float()
+    assert (logits - ref).abs().max() <= 1e-5 * ref.abs().max()
+    before = _f16_arm(tsample, "launches")
+    out = tsample.fused_sample(hidden, w, *args)
+    torch.cuda.synchronize()
+    assert _f16_arm(tsample, "launches") == before + 1
+    plain = tsample.fused_sample_plain(hidden, w, *args)
+    clear = _noisy_gap(ref, *args) > 1e-3
+    assert clear.sum() >= R - max(2, R // 12)
+    assert torch.equal(out[clear], plain[clear])
+
+
+def test_fp16_engine_on_the_card_matches_the_cpu(dev):
+    """A narrow fp16 Llama (fp16 parameters, 2 q heads over 2 kv heads of
+    128, 2 layers) served on the card and on the CPU from the same
+    weights: greedy on fp16 exact pages, then sampled with n-gram
+    speculation on int8 pages; tokens equal, every serving kernel's
+    fp16 arm launched."""
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=2,
+                           num_key_value_heads=2, intermediate_size=512,
+                           vocab_size=4096, param_dtype=torch.float16,
+                           compute_dtype=torch.float16)
+    cpu = LlamaLMHeadModel(cfg, device="cpu", seed=0)
+    card = LlamaLMHeadModel(cfg, device=dev, seed=0)
+    card.load_state_dict(cpu.state_dict())
+
+    def reqs(sampled):
+        rng = np.random.default_rng(3)
+        out = []
+        for i in range(4):
+            base = rng.integers(0, cfg.vocab_size, 6)
+            prompt = np.concatenate([base, base, base[:3]]).astype(np.int32)
+            sp = SamplingParams(temperature=0.8, top_k=40, top_p=0.9,
+                                seed=5 + i) if sampled and i % 2 else None
+            out.append(Request(rid=i, prompt=prompt, max_new_tokens=8,
+                               **({"sampling": sp} if sp else {})))
+        return out
+    engine = dict(num_slots=3, page_size=8, max_len=64, prefill_chunk=8)
+    for cfg_kw, sampled in (({}, False),
+                            (dict(sampling=True, spec_decode="ngram",
+                                  spec_k=3, kv_quant="int8"), True)):
+        before = {m.__name__: {c: a["f16"] for c, a in m.arm_launches.items()}
+                  for m in (tpaged, tkv_write, tsample)}
+        got = [ServingEngine(m, ServeConfig(**engine, **cfg_kw),
+                             device=d).run(reqs(sampled))
+               for m, d in ((card, dev), (cpu, "cpu"))]
+        for a, b in zip(*got):
+            assert a.tokens == b.tokens, a.rid
+        after = {m.__name__: {c: a["f16"] for c, a in m.arm_launches.items()}
+                 for m in (tpaged, tkv_write, tsample)}
+        used = {(m, c) for m in after for c in after[m]
+                if after[m][c] > before[m][c]}
+        need = {("hetu_tpu_torch.ops.cuda.kv_write", "launches"),
+                ("hetu_tpu_torch.ops.cuda.kv_write", "pages_launches")}
+        need.add(("hetu_tpu_torch.ops.cuda.paged_attention",
+                  "verify_launches" if sampled else "launches"))
+        assert need <= used, (need, used)

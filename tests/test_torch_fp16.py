@@ -522,11 +522,12 @@ def test_packed_sequences_score_as_alone(family, compute):
 @pytest.mark.parametrize("what", ["trainer_params", "engine_model",
                                   "engine_draft"])
 def test_fp16_parameters_and_fp16_serving_are_refused_by_name(what):
-    """fp16 parameters (AdamW has no fp16 arm) and serving a model that
-    computes in fp16 (the serving kernels have no fp16 arm) raise
-    NotImplementedError naming the slice that brings them, before any
-    kernel could refuse mid-run."""
-    from hetu_tpu_torch.serving import ServeConfig, ServingEngine
+    """fp16 parameters (AdamW has no fp16 arm) raise NotImplementedError
+    naming the slice that brings them, before any kernel could refuse
+    mid-run.  Serving in fp16 is no longer refused: the engine takes a
+    model and a draft that compute in fp16 and builds fp16 pools and
+    scratch (the serving kernels' fp16 arms)."""
+    from hetu_tpu_torch.serving import Request, ServeConfig, ServingEngine
     f16 = LlamaLMHeadModel(LlamaConfig.tiny(compute_dtype=torch.float16),
                            device="cpu")
     if what == "trainer_params":
@@ -542,7 +543,11 @@ def test_fp16_parameters_and_fp16_serving_are_refused_by_name(what):
     if what == "engine_draft":
         config = ServeConfig(num_slots=2, max_len=32, prefill_chunk=8,
                              spec_decode="model")
-        kw["draft_model"], f16 = f16, LlamaLMHeadModel(LlamaConfig.tiny(),
-                                                       device="cpu")
-    with pytest.raises(NotImplementedError, match="fp16 serving slice"):
-        ServingEngine(f16, config, device="cpu", **kw)
+        kw["draft_model"], f16 = f16, LlamaLMHeadModel(LlamaConfig.tiny(
+            compute_dtype=torch.float16), device="cpu")
+    eng = ServingEngine(f16, config, device="cpu", **kw)
+    assert eng.pool.k.dtype == eng.pool.v.dtype == torch.float16
+    assert all(t.dtype == torch.float16 for t in eng._new_scratch())
+    res = eng.run([Request(rid=0, prompt=np.arange(5, dtype=np.int32),
+                           max_new_tokens=3)])
+    assert len(res[0].tokens) == 3

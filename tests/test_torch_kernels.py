@@ -794,17 +794,36 @@ def test_wrappers_default_to_the_card(monkeypatch, call):
     assert getattr(mod, counter) == before
 
 
+def _exported_text(lib):
+    """`csrc/<lib>.cu`, with each `PA_EXPORTS(T, sfx)` line written out as
+    the three entry points `paged_attention.cuh`'s macros emit."""
+    text = (build.CSRC / f"{lib}.cu").read_text()
+    cuh = (build.CSRC / "paged_attention.cuh").read_text()
+    one = re.search(r"#define PA_EXPORT\(T, MODE, name\)(.*?\})\n", cuh,
+                    re.S).group(1)
+    names = re.findall(r"PA_EXPORT\(T, \w+, (\w+)##sfx\)", cuh)
+    for sfx in re.findall(r"^PA_EXPORTS\(\w+, (\w+)\)", text, re.M):
+        text += "".join(one.replace("name", base + sfx) for base in names)
+    return text
+
+
 def test_exported_symbols_match_the_wrappers():
-    """Each wrapper's C symbols are exported by its source, with as many
+    """Each wrapper's C symbols are exported by its source (for paged
+    attention, the query type's source), with as many
     parameters as the wrapper's argtypes declare — checked here, where
     no compiler runs."""
-    for mod, src in ((tpaged, "paged_attention"), (trotary, "rotary"),
+    for mod, src in ((tpaged, None), (trotary, "rotary"),
                      (tswiglu, "swiglu"), (tfused_norm, "fused_norm"),
                      (tadam, "adam"), (tquant, "quant"),
                      (tsample, "sample"), (tkv_write, "kv_write")):
-        text = (build.CSRC / f"{src}.cu").read_text()
+        # paged attention exports each query type's symbols from a
+        # source of its own (`_LIBRARY`)
+        source_of = {sym: tpaged._LIBRARY[dtype] for (dtype, _), sym in
+                     tpaged._SYMBOLS.items()} if mod is tpaged else {}
         for sym, argtypes in mod._SIGNATURES.items():
+            lib = source_of.get(sym, src)
+            text = _exported_text(lib)
             m = re.search(rf"HETU_EXPORT int {sym}\(([^)]*)\)", text)
-            assert m, f"{sym} not exported by {src}.cu"
+            assert m, f"{sym} not exported by {lib}.cu"
             assert len(m.group(1).split(",")) == len(argtypes), sym
     assert set(build.SOURCES) == {p.stem for p in build.CSRC.glob("*.cu")}

@@ -1,7 +1,7 @@
 """The paged kernel's split plan and its split-then-merge arithmetic, on
 the CPU.
 
-The CUDA kernel (`hetu_tpu_torch/csrc/paged_attention.cu`) splits each
+The CUDA kernel (`hetu_tpu_torch/csrc/paged_attention.cuh`) splits each
 slot's keys across blocks by `split_plan` and merges the splits' fp32
 partials in split order; `paged_verify_split_plain` is that arithmetic
 in PyTorch.  Here the plan is held to depend on shapes alone, and the

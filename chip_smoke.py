@@ -338,7 +338,8 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     2 layers) card vs CPU: greedy on fp16 exact pages, sampled + n-gram
     on int8 and on int4 pages, tokens equal but after a counted near-tie
     of fp16 logits (`F16_NEAR_TIE`); (c) Llama-2-7B as published in fp16
-    (32 layers) behind phase 5's `ServeConfig` and trace: greedy on fp16
+    (depth cut to 16 layers: phase 20 (d) serves Llama-2-13B at full
+    depth) behind phase 5's `ServeConfig` and trace: greedy on fp16
     exact pages, sampled on int8 pages, with n-gram speculation, with
     its own continuation as drafts (the same tokens, drafts accepted),
     sampled on int4 pages, a TinyLlama-width fp16 draft resident in int8
@@ -348,23 +349,59 @@ Phases, in order; any failure exits non-zero and nothing carries on:
     launch), a decode step and a verify step profiled, and the greedy
     run again with the weights cast to bf16, its decode step beside the
     fp16 one.
+20. fp16 parameters ("fp16_params", `fp16_params_phase`): (a) AdamW's
+    fp16 arm over Llama-2-7B's 8-layer leaf table (1.881 B elements)
+    and over a mixed fp32 / bf16 / fp16 list of odd sizes, tails and
+    views off 16 bytes, bit for bit against its plain version with the
+    skip flag absent, set (nothing written) and clear, timed beside its
+    bound, the bf16 arm on the same count and `torch._fused_adamw_`
+    (null where it refuses fp16 p with fp32 g, m, v, with its words);
+    every kernel of (c) and (d) at Llama-2-13B's widths in fp16 (flash
+    [2, 2048, 40, 128], the RMS norm [4096, 5120], SwiGLU [4096, 13824],
+    RoPE from the fused projection at group 1, paged decode and the
+    page writes at 40 kv heads, the product [40, 5120] x [5120, 32000]);
+    (b) a narrow Llama with fp16 parameters and compute card vs CPU: a
+    forced overflow (one token everywhere) then 3 steps, the scale's
+    course equal, phase 15's limits, the parameters within the AdamW-
+    direction bound plus one fp16 ulp a step, a bit-exact resume from
+    step 2, LoRA SFT of 2 steps on the fp16 base, the merges within one
+    fp16 ulp a rounding; (c) Llama-2-7B as published, 8 layers, fp16
+    parameters (`TrainingConfig(4, 2, 2048)`, flash, "dots_attn"), 6
+    steps, the third overflowing (skipped, scale halved): exact launch
+    counts with AdamW on its fp16 arm, step p50, tokens/s, mfu, peak,
+    AdamW's ms a step, bf16 parameters' step p50 beside; (d) Llama-2-13B
+    as published at full depth: LoRA rank 16 on its fp16 base,
+    `TrainingConfig(8, 2, 2048)`, 3 steps (peak at most 70 GiB), the
+    adapters merged, the trainer freed, the merged weights loaded into
+    a fresh fp16 model and served with phase 5's config and trace,
+    greedy on exact pages and sampled on int8 pages; TTFT, tokens/s,
+    peak, a decode step's device busy and host enqueue; then the greedy
+    run again under a probe of the engine's logits, and models of the
+    same widths at 1 and 10 layers: at each depth the fp16 rounding
+    measured against an fp32 forward of the same weights (nu, the
+    uncached fp16 forward's largest distance from it), the engine's
+    logits within 2 nu of it, and its tokens the uncached forward's
+    argmax but at near ties of that forward's logits (a gap under 2 nu).
 
 Each phase's end prints `phase <name>: done at <s>` (where the run's
 time goes).  Prints the `kernels` JSON line, the nvidia-smi line, and last the
 `{"ok": true, "device": ...}` line; the `kernels` line gives AdamW's
-launches by arm ("f32", "bf16") over the training paths, and each fp16
-arm as an entry of its own (`flash_fwd_f16`, ..., `rotary_qk_bwd_f16`,
-and since phase 19 `paged_attention_f16`, ..., `dequantize_blockwise_f16`),
-whose launches are also in its kernel's entry.
+launches by arm ("f32", "bf16", "f16") over the training paths, and
+each fp16 arm as an entry of its own (`flash_fwd_f16`, ...,
+`rotary_qk_bwd_f16`, since phase 19 `paged_attention_f16`, ...,
+`dequantize_blockwise_f16`, and since phase 20 `adam_update_f16`), whose
+launches are also in its kernel's entry.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1691,20 +1728,24 @@ def adam_case(label, numels, dtype, g, *, views=(), inner=20, skip=None):
 GPT_DEPTHS = [790, 768, 700, 520, 300, 128, 64, 40]
 
 
-def gpt_leaf_numels():
-    """The element counts of GPT-2-large's parameter leaves, in the
-    model's order: a one-layer model's, its block repeated 36 times."""
-    from hetu_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
-    cfg = GPTConfig.gpt2_large()
-    one = GPTLMHeadModel(GPTConfig.gpt2_large(num_hidden_layers=1),
-                         device="cuda", seed=0)
+def leaf_numels(cls, cfg, block: str):
+    """The element counts of a `cls` model's parameter leaves, in the
+    model's order: a one-layer model's, its layer (names holding
+    `block`) repeated `cfg.num_hidden_layers` times."""
+    one = cls(dataclasses.replace(cfg, num_hidden_layers=1), device="cuda",
+              seed=0)
     leaves = [(name, p.numel()) for name, p in one.named_parameters()]
     del one
-    block = [n for name, n in leaves if ".blocks." in name]
-    head = [n for name, n in leaves if ".blocks." not in name]
-    first = next(i for i, (name, _) in enumerate(leaves)
-                 if ".blocks." in name)
-    return (head[:first] + block * cfg.num_hidden_layers + head[first:])
+    layer = [n for name, n in leaves if block in name]
+    rest = [n for name, n in leaves if block not in name]
+    first = next(i for i, (name, _) in enumerate(leaves) if block in name)
+    return rest[:first] + layer * cfg.num_hidden_layers + rest[first:]
+
+
+def gpt_leaf_numels():
+    """GPT-2-large's leaves (`leaf_numels`): its block 36 times."""
+    from hetu_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+    return leaf_numels(GPTLMHeadModel, GPTConfig.gpt2_large(), ".blocks.")
 
 
 def gpt_kernel_phase(seed: int):
@@ -2124,6 +2165,9 @@ def kernel_table():
         "rotary_qk_bwd": (ro, "bwd_launches", src + "rotary.cu",
                           tpu + "rotary.py:112"),
         "adam_update": (ad, "launches", src + "adam.cu", tpu + "adam.py:87"),
+        # AdamW's fp16 parameter arm (phase 20)
+        "adam_update_f16": (ad, ("launches", "f16"), src + "adam.cu",
+                            tpu + "adam.py:87"),
         "flash_fwd": (fa, "launches", src + "flash_attention.cu",
                       tpu + "flash_attention.py:246"),
         "flash_bwd_dq": (fa, "dq_launches", src + "flash_attention.cu",
@@ -2315,16 +2359,39 @@ def reference_phase(seed: int, kernels):
     return launches
 
 
-class GapProbe:
+class EngineProbe:
+    """Replaces the engine module's functions named in `names` by those
+    of `wrappers(saved)` for a `with` block and puts the saved ones back
+    on exit; `eng` is the engine the probe reads slots from."""
+    names = ()
+
+    def __init__(self, engine_mod):
+        self.mod, self.eng = engine_mod, None
+        self.saved = {n: getattr(engine_mod, n) for n in self.names}
+
+    def wrappers(self, saved):
+        raise NotImplementedError
+
+    def __enter__(self):
+        for name, fn in self.wrappers(self.saved).items():
+            setattr(self.mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+class GapProbe(EngineProbe):
     """On the CPU engine, the gap between the two best entries of what
     each token's argmax ran over — the raw logits for a greedy token,
     filtered logits + Gumbel noise for a sampled one — keyed by (request,
     position): the engine module's samplers are wrapped for the run."""
+    names = ("sample_tokens", "sample_hidden_grid", "first_token_from_logits")
 
     def __init__(self, engine_mod):
-        self.mod, self.eng, self.gaps = engine_mod, None, {}
-        self.saved = {n: getattr(engine_mod, n) for n in (
-            "sample_tokens", "sample_hidden_grid", "first_token_from_logits")}
+        super().__init__(engine_mod)
+        self.gaps = {}
 
     @staticmethod
     def _gap(logits, seeds, positions, temps, top_ks, top_ps):
@@ -2346,9 +2413,7 @@ class GapProbe:
             if st is not None:
                 self.gaps[(st.request.rid, int(p))] = g
 
-    def __enter__(self):
-        saved = self.saved
-
+    def wrappers(self, saved):
         def sample_tokens(logits, seeds, positions, *rest, device):
             if logits.shape[0] == self.eng.config.num_slots:
                 self._note(range(logits.shape[0]), positions,
@@ -2375,16 +2440,9 @@ class GapProbe:
                 [sp.top_p])[0]
             return saved["first_token_from_logits"](req, row, position,
                                                     sampling=sampling)
-        for name, fn in (("sample_tokens", sample_tokens),
-                         ("sample_hidden_grid", sample_hidden_grid),
-                         ("first_token_from_logits",
-                          first_token_from_logits)):
-            setattr(self.mod, name, fn)
-        return self
-
-    def __exit__(self, *exc):
-        for name, fn in self.saved.items():
-            setattr(self.mod, name, fn)
+        return {"sample_tokens": sample_tokens,
+                "sample_hidden_grid": sample_hidden_grid,
+                "first_token_from_logits": first_token_from_logits}
 
 
 def oracle_drafter(reqs, results):
@@ -4237,6 +4295,95 @@ def packed_rows(dataset, rows: int, seq: int, start: int = 0, fill=0.95):
     return batch, i
 
 
+def f16_rms_cases(randn, rows, hidden, note=""):
+    """The fused RMS norm's fp16 arm at [rows, hidden] (x, h fp16; w
+    fp32), forward and backward, against the plain versions (one fp16
+    ulp + 1e-6; dw 1e-5 of its largest entry) and timed beside the
+    composition `x + h`, `F.rms_norm` (the backward's: forward +
+    backward less forward, one CUDA graph each).  `randn(*shape, std=,
+    dtype=)` draws the inputs."""
+    import torch.nn.functional as F
+    from hetu_tpu_torch.ops.cuda import fused_norm as fn
+    f16, eps = torch.float16, 1e-5
+    tol, sums = ulps(1, 1e-6, f16), rel(1e-5, of_max=True)
+    x, h, dy, dr = (randn(rows, hidden) for _ in range(4))
+    w = 1.0 + randn(hidden, std=0.1, dtype=torch.float32)
+    wh = w.to(f16)
+    n = rows * hidden
+    out = {"residual_rmsnorm_fwd_f16": [case(
+        f"residual_rmsnorm_fwd [{rows},{hidden}] fp16, w fp32{note}", tol,
+        lambda i: fn.residual_rmsnorm_fwd(x, h, w, eps),
+        lambda i: fn.residual_rmsnorm_plain(x, h, w, eps),
+        4 * n * 2 + hidden * 4, 6 * n,
+        composition=lambda i: _add_then(F.rms_norm, x, h, (hidden,), wh,
+                                        eps))]}
+    _, s = fn.residual_rmsnorm_fwd(x, h, w, eps)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (s, wh)]
+
+    def rms_fwd_bwd():
+        ds_, dw_ = torch.autograd.grad(
+            F.rms_norm(leaves[0], (hidden,), leaves[1], eps), leaves, dy)
+        return ds_ + dr, dw_
+    with torch.no_grad():
+        rms_f = device_ms(lambda: F.rms_norm(s, (hidden,), wh, eps))
+    rms_fb = device_ms(rms_fwd_bwd)
+    del leaves
+    out["residual_rmsnorm_bwd_f16"] = [case(
+        f"residual_rmsnorm_bwd [{rows},{hidden}] fp16, dw fp32{note}",
+        (tol, sums), lambda i: fn.residual_rmsnorm_bwd(s, w, dy, dr, eps),
+        lambda i: fn.residual_rmsnorm_bwd_plain(s, w, dy, dr, eps),
+        4 * n * 2 + 2 * hidden * 4, 11 * n, composition_ms=rms_fb - rms_f)]
+    return out
+
+
+def f16_swiglu_cases(randn, tokens, inter, note=""):
+    """SwiGLU's fp16 arm at [tokens, inter], forward from the strided
+    halves of the fused projection and backward, one fp16 ulp from the
+    plain versions, timed beside the compositions."""
+    from hetu_tpu_torch.ops.cuda import swiglu as sw
+    f16 = torch.float16
+    gu, dy = randn(tokens, 2, inter), randn(tokens, inter)
+    n = tokens * inter
+    return {"fused_swiglu_f16": [case(
+        f"fused_swiglu [{tokens},{inter}] fp16{note}", ulps(1, dtype=f16),
+        lambda i: sw.fused_swiglu(gu),
+        lambda i: sw.swiglu_plain(gu[:, 0], gu[:, 1]), 3 * n * 2, 5 * n,
+        composition=swiglu_composition(gu))],
+        "swiglu_bwd_f16": [case(
+            f"swiglu_bwd [{tokens},{inter}] fp16{note}", ulps(1, dtype=f16),
+            lambda i: sw.swiglu_bwd(gu, dy),
+            lambda i: torch.stack(sw.swiglu_bwd_plain(gu[:, 0], gu[:, 1],
+                                                      dy), dim=-2),
+            5 * n * 2, 12 * n,
+            composition_ms=swiglu_bwd_composition_ms(gu, dy))]}
+
+
+def f16_rope_cases(randn, b, s, n_kv, group, theta, note=""):
+    """RoPE's fp16 arm read in place from the fused projection [b, s,
+    n_kv, group+2, 128] and its backward over q [b, s, n_kv x group,
+    128], k [b, s, n_kv, 128], one fp16 ulp from the plain versions,
+    timed beside the compositions (tables of base `theta`)."""
+    from hetu_tpu_torch.ops.cuda import rotary as ro
+    from hetu_tpu_torch.ops.rotary import build_rope_cache, rope_tables
+    f16 = torch.float16
+    cos, sin = build_rope_cache(max(s, 4096) * 2, 128, theta, device="cuda")
+    cos_t, sin_t = rope_tables(cos, sin, b, s)
+    out = {"fused_rotary_qk_f16": [rope_qkv_case(
+        f"fused_rotary_qk q,k views of qkv [{b},{s},{n_kv},{group}+2,128] "
+        f"fp16{note}", randn(b, s, n_kv, group + 2, 128), group, cos_t,
+        sin_t, tol=ulps(1, dtype=f16))]}
+    dq, dk = randn(b, s, n_kv * group, 128), randn(b, s, n_kv, 128)
+    pairs = (dq.numel() + dk.numel()) // 2
+    out["rotary_qk_bwd_f16"] = [case(
+        f"rotary_qk_bwd q=[{b},{s},{n_kv * group},128] k=[{b},{s},{n_kv},"
+        f"128] fp16{note}", ulps(1, dtype=f16),
+        lambda i: ro.rotary_qk_bwd(dq, dk, cos_t, sin_t),
+        lambda i: ro.rotary_qk_plain(dq, dk, cos_t, -sin_t),
+        2 * (dq.numel() + dk.numel()) * 2 + 2 * cos_t.numel() * 4,
+        6 * pairs, composition=rope_composition(dq, dk, cos_t, sin_t, -1.0))]
+    return out
+
+
 def training4_kernel_phase(seed: int):
     """Phase 15 (a): every fp16 arm against its plain version at the
     training shapes of the bf16 rows, timed beside its bound, its plain
@@ -4258,9 +4405,6 @@ def training4_kernel_phase(seed: int):
     import torch.nn.functional as F
     from hetu_tpu_torch.data import TokenizedDataset
     from hetu_tpu_torch.ops.cuda import fused_norm as fn
-    from hetu_tpu_torch.ops.cuda import rotary as ro
-    from hetu_tpu_torch.ops.cuda import swiglu as sw
-    from hetu_tpu_torch.ops.rotary import build_rope_cache, rope_tables
 
     g = torch.Generator(device="cuda").manual_seed(seed + 40)
     f16, eps = torch.float16, 1e-5
@@ -4283,36 +4427,7 @@ def training4_kernel_phase(seed: int):
         out[f"{name}_f16"] += more
     for name, more in flash_timed(g, 8, 1024, 20, 20, 64, f16).items():
         out[f"{name}_f16"] += more
-    # the fused RMS norm [4096, 4096]
-    rows, hidden = 4096, 4096
-    x, h, dy, dr = (randn(rows, hidden) for _ in range(4))
-    w = 1.0 + randn(hidden, std=0.1, dtype=torch.float32)
-    wh = w.to(f16)
-    n = rows * hidden
-    out["residual_rmsnorm_fwd_f16"] = [case(
-        f"residual_rmsnorm_fwd [{rows},{hidden}] fp16, w fp32", tol,
-        lambda i: fn.residual_rmsnorm_fwd(x, h, w, eps),
-        lambda i: fn.residual_rmsnorm_plain(x, h, w, eps),
-        4 * n * 2 + hidden * 4, 6 * n,
-        composition=lambda i: _add_then(F.rms_norm, x, h, (hidden,), wh,
-                                        eps))]
-    _, s = fn.residual_rmsnorm_fwd(x, h, w, eps)
-    leaves = [t.detach().clone().requires_grad_(True) for t in (s, wh)]
-
-    def rms_fwd_bwd():
-        ds_, dw_ = torch.autograd.grad(
-            F.rms_norm(leaves[0], (hidden,), leaves[1], eps), leaves, dy)
-        return ds_ + dr, dw_
-    with torch.no_grad():
-        rms_f = device_ms(lambda: F.rms_norm(s, (hidden,), wh, eps))
-    rms_fb = device_ms(rms_fwd_bwd)
-    del leaves
-    out["residual_rmsnorm_bwd_f16"] = [case(
-        f"residual_rmsnorm_bwd [{rows},{hidden}] fp16, dw fp32",
-        (tol, sums), lambda i: fn.residual_rmsnorm_bwd(s, w, dy, dr, eps),
-        lambda i: fn.residual_rmsnorm_bwd_plain(s, w, dy, dr, eps),
-        4 * n * 2 + 2 * hidden * 4, 11 * n, composition_ms=rms_fb - rms_f)]
-    del x, h, dy, dr, s
+    out.update(f16_rms_cases(randn, 4096, 4096))
     # the fused LayerNorm with a bias [8192, 1280]
     rows, hidden = 8192, 1280
     x, h, dy, dr = (randn(rows, hidden) for _ in range(4))
@@ -4342,37 +4457,8 @@ def training4_kernel_phase(seed: int):
         lambda i: fn.residual_layernorm_bwd_plain(s, w, dy, dr, eps),
         4 * n * 2 + 3 * hidden * 4, 18 * n, composition=ln_bwd_composition)]
     del x, h, dy, dr, s, mean, rstd
-    # SwiGLU [4096, 14336]: forward from the strided halves, backward
-    tokens, inter = 4096, 14336
-    gu, dy = randn(tokens, 2, inter), randn(tokens, inter)
-    n = tokens * inter
-    out["fused_swiglu_f16"] = [case(
-        f"fused_swiglu [{tokens},{inter}] fp16", ulps(1, dtype=f16),
-        lambda i: sw.fused_swiglu(gu),
-        lambda i: sw.swiglu_plain(gu[:, 0], gu[:, 1]), 3 * n * 2, 5 * n,
-        composition=swiglu_composition(gu))]
-    out["swiglu_bwd_f16"] = [case(
-        f"swiglu_bwd [{tokens},{inter}] fp16", ulps(1, dtype=f16),
-        lambda i: sw.swiglu_bwd(gu, dy),
-        lambda i: torch.stack(sw.swiglu_bwd_plain(gu[:, 0], gu[:, 1], dy),
-                              dim=-2), 5 * n * 2, 12 * n,
-        composition_ms=swiglu_bwd_composition_ms(gu, dy))]
-    del gu, dy
-    # RoPE read in place from the fused projection, and its backward
-    cos, sin = build_rope_cache(8192, 128, 500000.0, device="cuda")
-    cos_t, sin_t = rope_tables(cos, sin, 2, 2048)
-    out["fused_rotary_qk_f16"] = [rope_qkv_case(
-        "fused_rotary_qk q,k views of qkv [2,2048,8,4+2,128] fp16",
-        randn(2, 2048, 8, 6, 128), 4, cos_t, sin_t, tol=ulps(1, dtype=f16))]
-    dq, dk = randn(2, 2048, 32, 128), randn(2, 2048, 8, 128)
-    pairs = (dq.numel() + dk.numel()) // 2
-    out["rotary_qk_bwd_f16"] = [case(
-        "rotary_qk_bwd q=[2,2048,32,128] k=[2,2048,8,128] fp16",
-        ulps(1, dtype=f16), lambda i: ro.rotary_qk_bwd(dq, dk, cos_t, sin_t),
-        lambda i: ro.rotary_qk_plain(dq, dk, cos_t, -sin_t),
-        2 * (dq.numel() + dk.numel()) * 2 + 2 * cos_t.numel() * 4,
-        6 * pairs, composition=rope_composition(dq, dk, cos_t, sin_t, -1.0))]
-    del dq, dk
+    out.update(f16_swiglu_cases(randn, 4096, 14336))
+    out.update(f16_rope_cases(randn, 2, 2048, 8, 4, 500000.0))
     return out
 
 
@@ -6827,8 +6913,8 @@ def _f16_run(label, eng, reqs, kernels, *, vocab, card, drafts=None):
 
 
 def serving_fp16_llama_phase(seed: int, kernels, card: str):
-    """(c) Llama-2-7B as published in fp16 (`llama2_config`), 32 layers,
-    weights drawn on the card from the seed, behind phase 5's
+    """(c) Llama-2-7B as published in fp16 (`llama2_config`), depth cut
+    to 16 layers, weights drawn on the card from the seed, behind phase 5's
     `ServeConfig(8, 16, 2048, 256)` and trace: greedy on fp16 exact
     pages; half the requests sampled on int8 pages, without speculation
     (the int8 decode arm) and with n-gram speculation (spec_k 4, the
@@ -6846,7 +6932,9 @@ def serving_fp16_llama_phase(seed: int, kernels, card: str):
     from hetu_tpu_torch.serving import (ServeConfig, ServingEngine,
                                         poisson_arrivals, synthetic_requests)
     from hetu_tpu_torch.serving.spec_decode import ModelDrafter
-    cfg = llama2_config()
+    # depth 32 -> 16 for the smoke's time: phase 20 (d) serves
+    # Llama-2-13B in fp16 at its full depth
+    cfg = llama2_config(num_hidden_layers=16)
     t0 = time.perf_counter()
     model = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
     torch.cuda.synchronize()
@@ -6971,6 +7059,922 @@ def serving_fp16_phase(seed: int, kernels, card: str):
     torch.cuda.empty_cache()
     by_path.update(serving_fp16_llama_phase(seed, kernels, card))
     print(f"serving_fp16: {time.perf_counter() - t0:.1f}s; {card}")
+    return by_path, cases
+
+
+# ----------------------------------------------- fp16 parameters (20)
+def llama2_13b_config(**kw):
+    """Meta's Llama-2-13B as published (meta-llama/Llama-2-13b-hf: hidden
+    5120, 40 layers, 40 q / 40 kv heads of 128, SwiGLU 13824, vocab
+    32000, rope theta 10000, `torch_dtype: float16`): fp16 parameters
+    and compute."""
+    from hetu_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig.llama2_13b(**{"param_dtype": torch.float16,
+                                     "compute_dtype": torch.float16, **kw})
+
+
+def _adam_leaves(g, numels, dtype, offsets=None):
+    """p (`dtype`), g, m, v of AdamW's cases (adam_case's scales), each
+    leaf `offsets[i]` elements into its buffer (off 16 bytes)."""
+    offsets = offsets or [0] * len(numels)
+
+    def randn(n, dt, std, off):
+        buf = torch.empty(n + off, dtype=dt, device="cuda")[off:]
+        return buf.copy_(std * torch.randn(n, generator=g, device="cuda"))
+    p = [randn(n, dt, 0.02, o) for n, dt, o in zip(
+        numels, dtype if isinstance(dtype, list) else [dtype] * len(numels),
+        offsets)]
+    grad = [randn(n, torch.float32, 1e-3, o) for n, o in zip(numels, offsets)]
+    m = [randn(n, torch.float32, 1e-4, o) for n, o in zip(numels, offsets)]
+    v = [randn(n, torch.float32, 1e-6, o).abs_()
+         for n, o in zip(numels, offsets)]
+    return p, grad, m, v
+
+
+ADAM_KW = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def _adam_scalars(step=10):
+    c1 = float(np.float32(1) - np.float32(0.9) ** np.float32(step))
+    c2 = float(np.float32(1) - np.float32(0.95) ** np.float32(step))
+    return 3e-4, c1, c2
+
+
+def _bits_equal(xs, ys):
+    return all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(xs, ys))
+
+
+def _adam_bits(label, p, grad, m, v, skip_values=(None, 1, 0)):
+    """The kernel (`adam_update_multi`) on (p, m, v) and the plain version
+    on copies, one step for each skip flag of `skip_values` (None: no
+    flag): every p, m and v bit for bit after each, and a set flag leaves
+    them as they were.  Returns the largest |kernel - plain|."""
+    from hetu_tpu_torch.ops.cuda import adam as ad
+    lr, c1, c2 = _adam_scalars()
+    ref = [[t.clone() for t in ts] for ts in (p, m, v)]
+    for flag in skip_values:
+        skip = None if flag is None else torch.full(
+            (), flag, dtype=torch.int32, device="cuda")
+        was = param_digest(p + m + v) if flag else None
+        ad.adam_update_multi(p, grad, m, v, lr, c1, c2, skip=skip, **ADAM_KW)
+        for leaf in zip(ref[0], grad, ref[1], ref[2]):
+            ad.adam_plain(*leaf, lr, c1, c2, skip=skip, **ADAM_KW)
+        torch.cuda.synchronize()
+        check(all(_bits_equal(a, b) for a, b in zip((p, m, v), ref)),
+              f"{label}: kernel and plain version differ (skip {flag})")
+        if flag:
+            check(param_digest(p + m + v) == was,
+                  f"{label}: the skip flag set, p, m or v changed")
+    print(f"kernel {label}: p, m and v bit for bit the plain version's "
+          f"over {len(p)} leaves, skip flag none / set / clear; set: "
+          f"nothing written")
+    del ref
+    return 0.0
+
+
+def adam_f16_phase(seed: int):
+    """Phase 20 (a), AdamW's fp16 arm: (i) over the leaf table of (c)
+    (Llama-2-7B at 8 layers, 1.881 B elements, fp16 p, fp32 g, m, v):
+    bit for bit against the plain version with no flag, the skip flag
+    set (nothing written) and clear; timed (one launch, CUDA events)
+    beside the plain version, the bf16 arm on the same element count in
+    this call, its bound (24 bytes an element over 3.35 TB/s) and
+    `torch._fused_adamw_` where it takes fp16 p with fp32 g, m, v (else
+    null, with its words); (ii) a mixed fp32 / bf16 / fp16 list of odd
+    sizes, tails and views off a 16-byte boundary, bit for bit the same
+    way.  Returns {kernel: [cases]}."""
+    from hetu_tpu_torch.ops.cuda import adam as ad
+    g = torch.Generator(device="cuda").manual_seed(seed + 90)
+    from hetu_tpu_torch.models.llama import LlamaLMHeadModel
+    numels = leaf_numels(LlamaLMHeadModel, llama2_config(num_hidden_layers=8),
+                         ".layers.")
+    n = sum(numels)
+    check(abs(n - 1.881e9) < 1e6, f"the (c) table holds {n} elements")
+    label = (f"adam_update fp16 arm, the Llama-2-7B 8-layer table: "
+             f"{len(numels)} leaves, {n} elements, fp16 p, fp32 g/m/v")
+    p, grad, m, v = _adam_leaves(g, numels, torch.float16)
+    err = _adam_bits(label, p, grad, m, v)
+    lr, c1, c2 = _adam_scalars()
+    ms = event_ms(lambda: ad.adam_update_multi(p, grad, m, v, lr, c1, c2,
+                                               **ADAM_KW))
+    plain_ms = event_ms(lambda: [ad.adam_plain(*leaf, lr, c1, c2, **ADAM_KW)
+                                 for leaf in zip(p, grad, m, v)], reps=2)
+    library_ms, library_words = None, None
+    steps = [torch.full((), 10.0, device="cuda") for _ in numels]
+
+    def library():
+        torch._fused_adamw_(p, grad, m, v, [], steps, lr=lr, beta1=0.9,
+                            beta2=0.95, weight_decay=0.1, eps=1e-8,
+                            amsgrad=False, maximize=False)
+    try:
+        torch._fused_adamw_(p[-2:], grad[-2:], m[-2:], v[-2:], [],
+                            steps[-2:], lr=lr, beta1=0.9, beta2=0.95,
+                            weight_decay=0.1, eps=1e-8, amsgrad=False,
+                            maximize=False)
+        library_ms = event_ms(library)
+    except RuntimeError as e:   # a yardstick only: the port never calls it
+        library_words = str(e).splitlines()[0]
+        print(f"{label}: torch._fused_adamw_ refuses an fp16 p with fp32 "
+              f"g, m, v ({library_words}); library_ms stays null")
+    for i, t in enumerate(p):                 # the same count in bf16
+        p[i] = t.bfloat16()
+        del t
+    bf16_ms = event_ms(lambda: ad.adam_update_multi(p, grad, m, v, lr, c1,
+                                                    c2, **ADAM_KW))
+    b_ms, b_by = bound(24 * n, 15 * n)
+    res = {"case": label, "max_abs_err": err, "tolerance": "bits equal",
+           "excess": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": library_ms,
+           "library_refusal": library_words, "composition_ms": None,
+           "bf16_ms": bf16_ms}
+    print(f"kernel {label}: ms={ms:.5f} plain_ms={plain_ms:.5f} "
+          f"bound_ms={b_ms:.5f} ({b_by}) bf16 arm {bf16_ms:.5f} ms "
+          f"(fp16 / bf16 {ms / bf16_ms:.3f}) library_ms={library_ms}")
+    del p, grad, m, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a mixed list: fp16 aligned and off 16 bytes, tails, several chunks
+    C, f16, bf16, f32 = ad.CHUNK, torch.float16, torch.bfloat16, torch.float32
+    spec = [(3 * C + 5, f16, 0), (1001, f16, 1), (C, f16, 2), (4097, f16, 3),
+            (12, f16, 0), (4096, f32, 1), (2 * C + 3, bf16, 0), (5, f16, 1)]
+    mixed = _adam_leaves(g, [s[0] for s in spec], [s[1] for s in spec],
+                         [s[2] for s in spec])
+    mixed_label = ("adam_update mixed fp32 / bf16 / fp16 list, odd sizes, "
+                   "tails, views off 16 bytes")
+    _adam_bits(mixed_label, *mixed)
+    return {"adam_update_f16": [res, {
+        "case": mixed_label, "max_abs_err": 0.0, "tolerance": "bits equal",
+        "excess": 0.0, "ms": None, "plain_ms": None, "bound_ms": None,
+        "bound_by": None, "library_ms": None, "composition_ms": None}]}
+
+
+def llama2_13b_kernel_phase(seed: int):
+    """Phase 20 (a), the kernels of (c) and (d) at Llama-2-13B's widths
+    in fp16, each against its plain version at its phase's tolerance and
+    timed beside its bound: flash q/kv [2, 2048, 40, 128] causal; the
+    fused RMS norm at [4096, 5120] (640 16-byte chunks a row); SwiGLU at
+    [4096, 13824]; RoPE from the fused projection [2, 2048, 40, 1+2,
+    128] (group 1) and its backward; paged decode q [8, 40, 128] over 40
+    kv heads on exact and int8 pages; `write_kv_tokens` at 40 kv heads
+    and `write_kv_pages` at 40 layers x 40 heads (1,024 of 2,048
+    positions), exact and int8; the sampler's product hidden [40, 5120]
+    x head [5120, 32000].  Returns {kernel: [cases]}."""
+    from hetu_tpu_torch.ops.cuda import paged_attention as pa
+    g = torch.Generator(device="cuda").manual_seed(seed + 91)
+    f16, note = torch.float16, " (Llama-2-13B)"
+    out = {}
+
+    def randn(*shape, std=1.0, dtype=f16):
+        return (std * torch.randn(shape, generator=g, device="cuda")).to(
+            dtype)
+    for name, more in flash_timed(g, 2, 2048, 40, 40, 128, f16,
+                                  layout=note).items():
+        out[f"{name}_f16"] = more
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(f16_rms_cases(randn, 4096, 5120, note))
+    out.update(f16_swiglu_cases(randn, 4096, 13824, note))
+    out.update(f16_rope_cases(randn, 2, 2048, 40, 1, 10000.0, note))
+    gc.collect()
+    torch.cuda.empty_cache()
+    scale = 128 ** -0.5
+    for quant in ("none", "int8"):
+        q, pools, table, pos, nbytes, ops = serving_pages(
+            seed + 92, quant, 1, 4, nq=40, n_kv=40, dtype=f16)
+        name = "paged_attention" if quant == "none" else \
+            f"paged_attention_{quant}"
+        label = (f"{name} {quant} pages q=[8,40,128] n_kv=40 ps=16 mp=128 "
+                 f"fp16{note}")
+
+        def run(i, pools=pools, quant=quant, q=q[:, 0], table=table,
+                pos=pos):
+            k, v, ks, vs = pools[i % len(pools)]
+            return pa.paged_attention(q, k, v, table, pos,
+                                      softmax_scale=scale, k_scale=ks,
+                                      v_scale=vs, quant=quant)
+
+        def plain(i, pools=pools, quant=quant, q=q[:, 0], table=table,
+                  pos=pos):
+            k, v, ks, vs = pools[i % len(pools)]
+            return pa.paged_attention_plain(q, k, v, table, pos, scale, ks,
+                                            vs, quant)
+        same_bits(label, run)
+        out[f"{name}_f16"] = [case(label, ulps(1, 1e-5, f16), run, plain,
+                                   nbytes, ops, op_dtype=f16)]
+        del pools
+    modes = [("none", 1), ("int8", 1)]
+    out["kv_write_tokens_f16"] = kv_token_cases(
+        seed + 93, modes, dtype=f16, n_kv=40, hd=128, group=1)
+    out["kv_write_pages_f16"] = kv_pages_cases(
+        seed + 94, ("none", "int8"), layers=40, tokens=1024, max_len=2048,
+        n_kv=40, hd=128, dtype=f16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    head = (0.02 * torch.randn((5120, 32000), generator=g,
+                               device="cuda")).half()
+    out["fused_sample_f16"] = sampler_cases(g, seed, head,
+                                            "[5120,32000]" + note)
+    del head
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _f16_param_bound(bound, trainers, step, opt):
+    """Add an applied step's share to each fp16 parameter's card-vs-CPU
+    bound: lr x what the two sides' AdamW directions differ by (each
+    recomputed in fp32, 2^-21 |u| for its own rounding) + one fp16 ulp
+    at the larger of the two values (each side's store rounds once)."""
+    card_t, cpu_t = trainers
+    for i, (pg, pc, mg, vg, mc, vc) in enumerate(zip(
+            card_t.params, cpu_t.params, card_t.opt_state["m"],
+            card_t.opt_state["v"], cpu_t.opt_state["m"],
+            cpu_t.opt_state["v"])):
+        u = _adam_direction(mg, vg, step, opt)
+        u_ref = _adam_direction(mc.to("cuda"), vc.to("cuda"), step, opt)
+        bound[i] += opt._lr(step) * ((u - u_ref).abs() + 2.0 ** -21 * (
+            u.abs() + u_ref.abs())) + _f16_ulp(torch.maximum(
+                pg.detach().float().abs(), pc.detach().to("cuda").abs()))
+
+
+def _f16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One fp16 ulp at each element of x (11 significant bits; 2^-24 in
+    the subnormal range)."""
+    _, exp = torch.frexp(x.float())
+    return torch.maximum(torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                                     exp - 11),
+                         torch.full_like(x, 2.0 ** -24, dtype=torch.float32))
+
+
+def _one_token_batch(rows: int, seq: int, token: int = 7):
+    """One token everywhere: every position adds the same outer product
+    to the head's row of that token, a coherent sum that passes fp16's
+    65,504 in the fp16 weight gradient under the scale (the activations'
+    cotangents stay far below it)."""
+    ids = np.full((rows, seq), token, np.int32)
+    return {"input_ids": ids, "labels": ids.copy()}
+
+
+def _narrow_f16_config():
+    """Llama-2's geometry, narrow: hidden 256, 2 q / 2 kv heads of 128,
+    SwiGLU 688, vocab 2048, 2 layers, fp16 parameters and compute, flash,
+    "dots_attn" (the CPU side's fp16 products are slow on the card's
+    host: phase 15 (b)'s hidden 512 took 54 s there)."""
+    from hetu_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig.tiny(hidden_size=256, num_attention_heads=2,
+                            num_key_value_heads=2, intermediate_size=688,
+                            vocab_size=2048, num_hidden_layers=2,
+                            max_position_embeddings=2048,
+                            param_dtype=torch.float16,
+                            compute_dtype=torch.float16,
+                            use_flash_attention=True,
+                            remat_policy="dots_attn")
+
+
+def _merge_gap(card_merged, cpu_merged, adapters, cfg):
+    """The largest |card - CPU| of two merges, over each element's one
+    fp16 ulp at each of the merge's roundings (the delta's and the
+    sum's): <= 1 holds."""
+    worst = 0.0
+    for name, w in card_merged.items():
+        c = cpu_merged[name].to("cuda")
+        if name not in adapters:
+            check(torch.equal(w, c), f"merge: {name} passed through changed")
+            continue
+        a, b = adapters[name]["A"], adapters[name]["B"]
+        delta = (a @ b).reshape(w.shape) * cfg.scale
+        err = (w.float() - c.float()).abs()
+        ulp = _f16_ulp(delta.abs()) + _f16_ulp(torch.maximum(
+            w.float().abs(), c.float().abs()))
+        worst = max(worst, float((err / ulp).max()))
+    return worst
+
+
+def fp16_params_reference_phase(seed: int, card: str):
+    """Phase 20 (b): a narrow Llama with fp16 parameters and compute
+    (`_narrow_f16_config`, `loss_scale="auto"`: the scale on) on the card
+    and on the CPU from one set of weights, `TrainingConfig(4, 2, 64)`:
+    4 steps, the first of one token everywhere (its fp16 weight gradient
+    overflows at 2^16: skipped, p, m and v as before on both, the scale
+    halves), the (skipped, scale) course equal; on the applied steps the
+    loss within T4_LOSS_TOL and the grad norm within T4_GRAD_NORM_TOL
+    relative, every leaf's m and v within T4_MOMENT_TOL of its largest
+    entry, every fp16 parameter within the AdamW-direction bound plus one
+    fp16 ulp a step (`_f16_param_bound`); a save after step 2 and a new
+    trainer resumed from it, steps 3 and 4 again: bit for bit; LoRA SFT
+    (rank 4, every target) of 2 steps on the same fp16 base, card vs
+    CPU within phase 16's limits; the card's adapters merged on the card
+    and on the CPU, within one fp16 ulp at each of the merge's roundings
+    (`_merge_gap`)."""
+    import tempfile
+    from hetu_tpu_torch.engine import SFTTrainer, Trainer, TrainingConfig
+    from hetu_tpu_torch.models.llama import LlamaLMHeadModel
+    from hetu_tpu_torch.peft import LoRAConfig, merge_lora_params
+    t0 = time.perf_counter()
+    cfg = _narrow_f16_config()
+    cpu = LlamaLMHeadModel(cfg, device="cpu", seed=seed + 95)
+    start = {k: v.clone() for k, v in cpu.state_dict().items()}
+
+    def card_model():
+        gpu = LlamaLMHeadModel(cfg, device="cuda", seed=seed + 95)
+        gpu.load_state_dict(start)
+        return gpu
+    gpu = card_model()
+    for layer in cpu.model.layers:
+        layer.attn.use_pallas = True
+    tmp = tempfile.mkdtemp(prefix="fp16_params_")
+    tc = TrainingConfig(global_batch_size=4, micro_batch_size=2, seq_len=64,
+                        warmup_steps=1, total_steps=10, log_every=100)
+    trainers = [Trainer(gpu, dataclasses.replace(tc, ckpt_dir=tmp),
+                        device="cuda").build(),
+                Trainer(cpu, tc, device="cpu").build()]
+    rng = np.random.default_rng(seed + 96)
+    batches = [_one_token_batch(4, 64)] + [
+        _train_batch(cfg.vocab_size, 4, 64, int(s))
+        for s in rng.integers(0, 2 ** 31, 3)]
+    opt = trainers[1].optimizer
+    bound = [torch.zeros(p.shape, device="cuda") for p in gpu.parameters()]
+    runs = ([], [])
+    for step, batch in enumerate(batches, 1):
+        before = [param_digest(tr.params + tr.opt_state["m"]
+                               + tr.opt_state["v"]) for tr in trainers]
+        for tr, out in zip(trainers, runs):
+            out.append({k: float(v) for k, v in tr.train_step(batch).items()})
+            tr.settle()
+        if runs[0][-1]["amp_skipped"]:
+            check(all(param_digest(tr.params + tr.opt_state["m"]
+                                   + tr.opt_state["v"]) == b
+                      for tr, b in zip(trainers, before)),
+                  "fp16 params (b): a skipped step wrote p, m or v")
+        else:
+            _f16_param_bound(bound, trainers, trainers[0].opt_state["step"],
+                             opt)
+        if step == 2:
+            trainers[0].save(wait=True)
+    t_train = time.perf_counter() - t0
+    on_card, on_cpu = runs
+    course = [(x["amp_skipped"], x["loss_scale"]) for x in on_card]
+    check(course == [(x["amp_skipped"], x["loss_scale"]) for x in on_cpu]
+          == [(1.0, 2.0 ** 15)] + [(0.0, 2.0 ** 15)] * 3,
+          f"fp16 params (b): the scale's course {course} vs "
+          f"{[(x['amp_skipped'], x['loss_scale']) for x in on_cpu]}")
+    worst = {k: max(abs(a[k] - b[k]) / abs(b[k])
+                    for a, b in zip(on_card[1:], on_cpu[1:]))
+             for k in ("loss", "grad_norm")}
+    check(worst["loss"] <= T4_LOSS_TOL
+          and worst["grad_norm"] <= T4_GRAD_NORM_TOL,
+          f"fp16 params (b): card vs CPU differs: {worst}")
+    moments = {}
+    for key in ("m", "v"):
+        moments[key] = max(
+            ((a - b.to("cuda")).abs().max().item()
+             / (b.abs().max().item() or 1.0), name)
+            for name, a, b in zip(trainers[1].names,
+                                  trainers[0].opt_state[key],
+                                  trainers[1].opt_state[key]))
+        check(moments[key][0] <= T4_MOMENT_TOL,
+              f"fp16 params (b): {key} of {moments[key][1]}: "
+              f"{moments[key][0]:.3g} of its largest entry")
+    over = max(((a.detach().float() - b.detach().to("cuda").float()).abs()
+                / bnd).max().item()
+               for a, b, bnd in zip(trainers[0].params, trainers[1].params,
+                                    bound))
+    check(over <= 1.0, f"fp16 params (b): parameters past their bound {over}")
+    check(all(p.dtype == torch.float16 for p in trainers[0].params),
+          "fp16 params (b): parameters left fp16")
+    # the resume, on the card, from the step-2 checkpoint
+    resumed = Trainer(card_model(), dataclasses.replace(tc, ckpt_dir=tmp),
+                      device="cuda").build()
+    resumed.restore()
+    again = [{k: float(v) for k, v in resumed.train_step(b).items()}
+             for b in batches[2:]]
+    resumed.settle()
+    a, b = trainers[0].state(), resumed.state()
+    exact = (again == on_card[2:] and all(
+        torch.equal(a["params"][n], b["params"][n])
+        and torch.equal(a["opt_state"]["m"][n], b["opt_state"]["m"][n])
+        and torch.equal(a["opt_state"]["v"][n], b["opt_state"]["v"][n])
+        for n in trainers[0].names) and all(
+        torch.equal(a["scaler"][k], b["scaler"][k]) for k in a["scaler"]))
+    check(exact, "fp16 params (b): the resume is not bit for bit")
+    t_resume = time.perf_counter() - t0 - t_train
+    del trainers, resumed, gpu, a, b
+    shutil.rmtree(tmp, ignore_errors=True)
+    # LoRA SFT on the same fp16 base, card vs CPU
+    gpu = card_model()
+    cpu.load_state_dict(start)
+    lora = LoRAConfig(rank=4)
+    sft = [SFTTrainer(gpu, tc, lora=lora, device="cuda"),
+           SFTTrainer(cpu, tc, lora=lora, device="cpu")]
+    with torch.no_grad():
+        for x, y in zip(sft[0].model.lora.values(),
+                        sft[1].model.lora.values()):
+            x.copy_(y)
+    for tr in sft:
+        tr.build()
+    sft_rows = [_sft_rows(rng, cfg.vocab_size, 4, 64) for _ in range(2)]
+    lbound = [torch.zeros(p.shape, device="cuda") for p in sft[0].params]
+    lruns = ([], [])
+    for step, batch in enumerate(sft_rows, 1):
+        for tr, out in zip(sft, lruns):
+            out.append({k: float(v) for k, v in tr.train_step(batch).items()})
+        _t4_bound(lbound, sft, step, sft[1].optimizer)
+    lworst = {k: max(abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(*lruns))
+              for k in ("loss", "grad_norm")}
+    check(all(x["amp_skipped"] == 0.0 and x["loss_scale"] == y["loss_scale"]
+              for x, y in zip(*lruns)), f"fp16 LoRA (b): scales {lruns}")
+    check(lworst["loss"] <= T4_LOSS_TOL
+          and lworst["grad_norm"] <= T4_GRAD_NORM_TOL,
+          f"fp16 LoRA (b): card vs CPU differs: {lworst}")
+    lover = max(((x.detach() - y.detach().to("cuda")).abs() / bnd).max().item()
+                for x, y, bnd in zip(sft[0].params, sft[1].params, lbound))
+    check(lover <= 1.0, f"fp16 LoRA (b): adapters past their bound {lover}")
+    # the card's adapters merged on the card and on the CPU
+    adapters = {n: {f: t.detach() for f, t in ab.items()}
+                for n, ab in sft[0].model.lora_params.items()}
+    merged = merge_lora_params(gpu, adapters, lora)
+    on_cpu_merge = merge_lora_params(cpu, {
+        n: {f: t.cpu() for f, t in ab.items()} for n, ab in adapters.items()},
+        lora)
+    gap = _merge_gap(merged, on_cpu_merge, adapters, lora)
+    check(gap <= 1.0, f"fp16 LoRA (b): card and CPU merges {gap} ulps apart")
+    check(all(w.dtype == torch.float16 for w in merged.values()),
+          "fp16 LoRA (b): a merged weight is not fp16")
+    print(f"fp16 params reference: narrow Llama (MHA, 2 layers), fp16 "
+          f"params and compute, flash + dots_attn, scale auto, 4 steps: "
+          f"(skipped, scale) {course} on both; applied steps card vs CPU "
+          f"worst relative diff {worst} (tol {T4_LOSS_TOL}, "
+          f"{T4_GRAD_NORM_TOL}); moments {moments} of their largest entry "
+          f"(tol {T4_MOMENT_TOL}); parameters at most {over:.4f} of their "
+          f"bound (fp16 ulps + AdamW directions; tol 1); losses "
+          f"{[x['loss'] for x in on_card]}; resume from step 2 bit for bit; "
+          f"LoRA SFT 2 steps on the fp16 base: {lworst}, adapters "
+          f"{lover:.4f} of their bound; merges card vs CPU at most "
+          f"{gap:.3f} of one fp16 ulp a rounding "
+          f"({time.perf_counter() - t0:.1f}s: steps {t_train:.1f}, resume "
+          f"{t_resume:.1f}); {card}")
+    del sft, gpu, cpu, merged, on_cpu_merge
+
+
+def _adam_kernel_ms(by_name):
+    """The AdamW kernel's device ms in a profile's {name: ms}."""
+    return sum(t for n, t in by_name.items() if "adam_multi_kernel" in n)
+
+
+def fp16_params_llama2_7b_phase(seed: int, kernels, card: str):
+    """Phase 20 (c): Llama-2-7B as published (`llama2_config`: fp16
+    parameters and compute), depth 32 -> 8, flash, "dots_attn",
+    `TrainingConfig(4, 2, 2048)` (phase 8's), 6 steps, the third of one
+    token everywhere (`_one_token_batch`): exact launch counts each step
+    (phase 8's fp16 arms; AdamW once on its fp16 arm, the skipped step's
+    launch included); step 3 skipped (p, m, v as before) and the scale
+    halved 2^16 -> 2^15, the other steps applied, the losses finite and
+    falling over them; step p50, tokens/s, mfu (989 TFLOP/s), peak
+    memory (<= 70 GiB), one step profiled (the AdamW kernel's ms, idle
+    share); then the same widths with bf16 parameters and compute, 3
+    steps (the first allocates), their p50.  Returns the fp16 run's
+    launches."""
+    from hetu_tpu_torch.engine import Trainer, TrainingConfig
+    from hetu_tpu_torch.models.llama import LlamaLMHeadModel
+    t_phase = time.perf_counter()
+    cfg = llama2_config(num_hidden_layers=8, use_flash_attention=True,
+                        remat_policy="dots_attn")
+    gbs, mbs, seq = 4, 2, 2048
+    per_step = _t4_per_step(kernels, cfg, gbs // mbs, "dots_attn")
+    per_step["adam_update_f16"] = 1
+    batches = [_train_batch(cfg.vocab_size, gbs, seq, seed)] * 6
+    batches[2] = _one_token_batch(gbs, seq)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
+    tc = TrainingConfig(global_batch_size=gbs, micro_batch_size=mbs,
+                        seq_len=seq, lr=1e-3, warmup_steps=2,
+                        total_steps=1000, log_every=1)
+    tr = Trainer(model, tc, device="cuda").build()
+    check(tr._scaler is not None, "fp16 compute without the scaler")
+    check(all(p.dtype == torch.float16 for p in tr.params)
+          and all(a.dtype == torch.float32 for a in tr._accum),
+          "(c) fp16 parameters with fp32 accumulators")
+
+    def state():
+        return param_digest(tr.params + tr.opt_state["m"]
+                            + tr.opt_state["v"])
+    zero_counts(kernels)
+    launches = {name: 0 for name in kernels}
+    rows, times = [], []
+    for i, batch in enumerate(batches):
+        before = state() if i == 2 else None
+        t0 = time.perf_counter()
+        metrics = tr.train([batch], num_steps=1)
+        times.append(time.perf_counter() - t0)
+        rows.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                     float(metrics["loss_scale"]),
+                     float(metrics["amp_skipped"])))
+        counts = read_counts(kernels)
+        check(counts == per_step, f"fp16 params (c) step {i + 1} launches "
+              f"{counts}, expected {per_step}")
+        check_adam_arm(f"fp16 params (c) step {i + 1}", 1, "f16")
+        for k, n in counts.items():
+            launches[k] += n
+        zero_counts(kernels)
+        if before is not None:
+            check(state() == before,
+                  "(c) the skipped step wrote p, m or v")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    skips = [x[3] for x in rows]
+    check(skips == [0.0, 0.0, 1.0, 0.0, 0.0, 0.0]
+          and [x[2] for x in rows] == [2.0 ** 16] * 2 + [2.0 ** 15] * 4,
+          f"(c) the forced overflow: (loss, norm, scale, skipped) {rows}")
+    applied = [x[0] for x in rows if x[3] == 0.0]
+    check(all(math.isfinite(x) for x in applied) and applied[-1] < applied[0],
+          f"(c) losses over the applied steps {applied}")
+    check(peak <= TRAIN_PEAK_GIB, f"(c) peak {peak:.2f} GiB")
+    check(tr.opt_state["step"] == 5, f"(c) AdamW's count "
+          f"{tr.opt_state['step']} after 5 applied steps")
+    busy, wall, by_name, top = _profile(lambda: tr.train_step(batches[0]),
+                                        1, top=8)
+    tr.settle()
+    zero_counts(kernels)
+    adam_ms = _adam_kernel_ms(by_name)
+    del tr, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same widths with bf16 parameters and compute, 3 steps
+    bcfg = dataclasses.replace(cfg, param_dtype=torch.bfloat16,
+                               compute_dtype=torch.bfloat16)
+    model = LlamaLMHeadModel(bcfg, device="cuda", seed=seed)
+    tr = Trainer(model, tc, device="cuda").build()
+    bf16_times = []
+    for batch in batches[:3]:
+        t0 = time.perf_counter()
+        tr.train([batch], num_steps=1)
+        bf16_times.append(time.perf_counter() - t0)
+    zero_counts(kernels)
+    del tr, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    p50 = float(np.median(times))
+    slots = gbs * seq
+    flops = cfg.flops_per_token(seq)
+    n_params = cfg.num_params()
+    print("fp16 params llama2-7b " + json.dumps({
+        "model": "Llama-2-7B", "layers": cfg.num_hidden_layers,
+        "params": n_params, "param_dtype": "fp16", "compute_dtype": "fp16",
+        "remat_policy": "dots_attn", "micro_batch": mbs, "seq_len": seq,
+        "loss_grad_norm_scale_skipped": rows, "step_s": times,
+        "step_s_p50": p50, "tokens_per_s": slots / p50,
+        "mfu": flops * slots / p50 / PEAK_OPS_PER_S[torch.float16],
+        "peak_memory_gib": peak, "adam_f16_ms_per_step": adam_ms,
+        "launches_per_step": {k: v for k, v in per_step.items() if v},
+        "profiled_step": {"device_busy_ms": busy, "wall_ms": wall,
+                          "device_idle_share": 1.0 - busy / (p50 * 1e3),
+                          "top_kernels_ms": top},
+        "bf16_params_step_s": bf16_times,
+        "bf16_params_step_s_p50": float(np.median(bf16_times)),
+        "phase_s": time.perf_counter() - t_phase, "card": card}))
+    return launches
+
+
+class LogitProbe(EngineProbe):
+    """On a greedy engine, the logits row each emitted token's argmax ran
+    over, keyed by (request, the token's position): the engine module's
+    `decode_step_paged` and `first_token_from_logits` are wrapped for the
+    run."""
+    names = ("decode_step_paged", "first_token_from_logits")
+
+    def __init__(self, engine_mod):
+        super().__init__(engine_mod)
+        self.rows = {}
+
+    def wrappers(self, saved):
+        def decode_step_paged(model, tokens, *args, **kw):
+            out = saved["decode_step_paged"](model, tokens, *args, **kw)
+            positions = args[3]
+            for s, st in enumerate(self.eng.scheduler.slots):
+                if st is not None:
+                    self.rows[(st.request.rid, int(positions[s]) + 1)] = \
+                        out[0][s].float()
+            return out
+
+        def first_token_from_logits(req, row, position, *, sampling):
+            self.rows[(req.rid, position)] = row.float()
+            return saved["first_token_from_logits"](req, row, position,
+                                                    sampling=sampling)
+        return {"decode_step_paged": decode_step_paged,
+                "first_token_from_logits": first_token_from_logits}
+
+
+#: the engine's logits may lie this many times as far from the fp32
+#: forward's as the model's own fp16 forward does at the same depth
+F16_ENGINE_NU = 2.0
+
+
+def _forward_logits(model, ids, start, dtype):
+    """Logits [n, vocab] (fp32) at positions start.. of ids [s] through
+    the model's blocks without a cache and with the dense attention (the
+    plain composition, scores and softmax in fp32, as the engine's
+    chunked prefill attends), in `dtype`: fp16, a second fp16 forward
+    beside the model's flash one; fp32, the fp16 weights widened exactly
+    and every product, norm and attention in fp32 (TF32 off) — the
+    forward without rounding that the fp16 paths are measured against."""
+    layers = model.layers
+    routes = [layer.attn.use_pallas for layer in layers]
+    x = model.embed_at(ids[None]).to(dtype)
+    cos_t, sin_t = model.rope_at(1, ids.numel())
+    try:
+        for layer in layers:
+            layer.attn.use_pallas = False
+            x = layer(x, cos_t, sin_t)
+    finally:
+        for layer, route in zip(layers, routes):
+            layer.attn.use_pallas = route
+    return model.logits(model.final_norm(x[:, start:]))[0].float()
+
+
+def _greedy_against_uncached(model, reqs, results, rows, label, nu=None):
+    """Each greedy request's tokens against the merged model's uncached
+    forward on the card (`model(ids)`, U) over its prompt and its own
+    tokens.  With the engine's rows (`LogitProbe`, E), the depth's fp16
+    rounding is measured first: nu, the largest |U - T| over the emitted
+    tokens' rows, T the fp32 forward (`_forward_logits`), beside the
+    dense fp16 forward's (D); each token must be its engine row's argmax
+    and the engine's rows within F16_ENGINE_NU * nu of T (the first
+    token's, from the chunked prefill, and the paged decode's apart).
+    Without rows, nu is given (the probed run's).  Where a token is not
+    U's argmax, U's gap between the two must be under 2 nu: a near tie
+    at this depth, two entries whose order U cannot tell from T's (each
+    may lie nu from T); the argmax and the bound on E alone would allow
+    6 nu.  Returns the readings (absolute logits; `largest_logit`, T's
+    largest)."""
+    prompts = {r.rid: np.asarray(r.prompt) for r in reqs}
+    err = {}
+
+    def note(name, a, b):
+        err[name] = max(err.get(name, 0.0), float((a - b).abs().max()))
+    off, n, largest, seqs = [], 0, 0.0, []
+    with torch.no_grad():
+        for res in results:
+            p = prompts[res.rid]
+            ids = torch.from_numpy(np.concatenate([p, np.asarray(
+                res.tokens[:-1])]).astype(np.int32)).to(model.device)
+            u = model(ids[None])[0, len(p) - 1:].float()
+            seqs.append((res, u))
+            n += len(res.tokens)
+            if rows is None:
+                continue
+            t32 = _forward_logits(model, ids, len(p) - 1, torch.float32)
+            d16 = _forward_logits(model, ids, len(p) - 1, torch.float16)
+            e = torch.stack([rows[(res.rid, len(p) + t)]
+                             for t in range(len(res.tokens))])
+            check(e.argmax(-1).cpu().tolist() == list(res.tokens),
+                  f"{label}: request {res.rid}: a token is not its engine "
+                  "row's argmax")
+            largest = max(largest, float(t32.abs().max()))
+            note("fp16_forward_vs_fp32", u, t32)
+            note("dense_fp16_forward_vs_fp32", d16, t32)
+            note("engine_prefill_vs_fp32", e[:1], t32[:1])
+            note("engine_decode_vs_fp32", e[1:], t32[1:])
+            note("engine_prefill_vs_fp16_forward", e[:1], u[:1])
+            note("engine_decode_vs_fp16_forward", e[1:], u[1:])
+            note("engine_prefill_vs_dense_fp16_forward", e[:1], d16[:1])
+        if rows is not None:
+            nu = err["fp16_forward_vs_fp32"]
+        for res, u in seqs:
+            top = u.argmax(-1).cpu().tolist()
+            off += [(res.rid, t, float(u[t, top[t]] - u[t, tok]))
+                    for t, tok in enumerate(res.tokens) if top[t] != tok]
+    out = {"tokens": n, "largest_logit": largest, **err,
+           "tie_limit": 2 * nu, "off_argmax_request_token_gap": off}
+    print(f"{label}: " + json.dumps(out))
+    for rid, t, gap in off:
+        check(gap < 2 * nu, f"{label}: request {rid} token {t} off the "
+              f"uncached forward's argmax at a gap {gap}, not under the "
+              f"tie limit 2 nu = {2 * nu}")
+    for name in ("engine_prefill_vs_fp32", "engine_decode_vs_fp32"):
+        check(err.get(name, 0.0) <= F16_ENGINE_NU * nu, f"{label}: {name} "
+              f"{err.get(name)}, past {F16_ENGINE_NU} x the fp16 forward's "
+              f"{nu}")
+    return out
+
+
+def fp16_params_llama2_13b_phase(seed: int, kernels, card: str):
+    """Phase 20 (d): Llama-2-13B as published (`llama2_13b_config`), an
+    fp16 frozen base drawn from the seed at full depth (40 layers), LoRA
+    rank 16 on the default targets, `SFTTrainer` on phase 16's chat
+    batch (`sft_chat_batch`), `TrainingConfig(8, 2, 2048)`, flash,
+    "dots_attn", the scale on ("auto"), 3 steps: exact launch counts
+    (the fp16 arms; AdamW once on its fp32 arm, over the adapters), the
+    base unchanged, peak <= 70 GiB (else the micro-batch halves, and the
+    run says so); step p50, tokens/s over slots and loss tokens, mfu.
+    Then the adapters merged into the fp16 base (`merge_lora_params`),
+    the trainer and base freed, a fresh fp16 model loaded with the
+    merged weights (`load_state_dict`) and served by the engine with
+    phase 5's `ServeConfig` and trace: greedy on exact pages and half
+    the requests sampled on int8 pages; TTFT, tokens/s, peak, and a
+    greedy decode step profiled (device busy against its 7.8 ms weight
+    bound, host enqueue).  The greedy run's logits and tokens are
+    checked in runs of their own under `LogitProbe`, untimed, at 40
+    layers and on models of the same widths at 1 and 10 layers drawn
+    from the seed (`_greedy_against_uncached`); the timed run's tokens
+    too where they differ from the probed run's.  Returns {path:
+    launches}."""
+    import hetu_tpu_torch.serving.engine as engine_mod
+    from hetu_tpu_torch.engine import SFTTrainer, TrainingConfig
+    from hetu_tpu_torch.models.llama import LlamaLMHeadModel
+    from hetu_tpu_torch.peft import LoRAConfig, merge_lora_params
+    from hetu_tpu_torch.peft.lora import target_parameters
+    from hetu_tpu_torch.serving import (SamplingParams, ServeConfig,
+                                        ServingEngine, poisson_arrivals,
+                                        synthetic_requests)
+    t_phase = time.perf_counter()
+    cfg = llama2_13b_config(use_flash_attention=True,
+                            remat_policy="dots_attn")
+    L, gbs, seq = cfg.num_hidden_layers, 8, 2048
+    lora = LoRAConfig(rank=16)
+    batch, loss_tokens = sft_chat_batch(seed, cfg.vocab_size, gbs, seq)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = LlamaLMHeadModel(cfg, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    n_base = sum(p.numel() for p in model.parameters())
+    check(n_base == cfg.num_params(), "Llama-2-13B parameter count")
+    check(all(p.dtype == torch.float16 for p in model.parameters()),
+          "Llama-2-13B base not fp16")
+    print(f"fp16 params (d): Llama-2-13B {L} layers, {n_base / 1e9:.3f}B "
+          f"params fp16 ({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB), "
+          f"drawn in {time.perf_counter() - t0:.1f}s")
+    targets = [n for n, _ in target_parameters(model, lora)]
+    before = param_digest(model.parameters())
+    by_path = {}
+    for mbs in (2, 1):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = SFTTrainer(model, TrainingConfig(
+            global_batch_size=gbs, micro_batch_size=mbs, seq_len=seq,
+            lr=1e-3, warmup_steps=1, total_steps=100, log_every=1),
+            lora=lora, device="cuda").build()
+        check(tr._scaler is not None, "(d) fp16 compute without the scaler")
+        per_step = _t4_per_step(kernels, cfg, gbs // mbs, "dots_attn")
+        zero_counts(kernels)
+        losses, times, launches, cut = [], [], {k: 0 for k in kernels}, False
+        for i in range(3):
+            t0 = time.perf_counter()
+            metrics = tr.train([batch], num_steps=1)
+            times.append(time.perf_counter() - t0)
+            losses.append((float(metrics["loss"]),
+                           float(metrics["amp_skipped"])))
+            counts = read_counts(kernels)
+            check(counts == per_step, f"(d) LoRA step {i + 1} launches "
+                  f"{counts}, expected {per_step}")
+            check_adam_arm(f"(d) LoRA step {i + 1}", 1, "f32")
+            for k, n in counts.items():
+                launches[k] += n
+            zero_counts(kernels)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if i == 0 and peak > TRAIN_PEAK_GIB and mbs > 1:
+                print(f"fp16 params (d): CUT micro-batch {mbs} -> "
+                      f"{mbs // 2}: peak {peak:.1f} GiB > {TRAIN_PEAK_GIB}")
+                cut = True
+                break
+        if not cut:
+            break
+        del tr
+    peak_train = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(peak_train <= TRAIN_PEAK_GIB, f"(d) LoRA peak {peak_train:.2f} GiB")
+    check(all(math.isfinite(x) and s == 0.0 for x, s in losses)
+          and losses[-1][0] < losses[0][0], f"(d) LoRA losses {losses}")
+    by_path["fp16_params_lora_13b"] = launches
+    p50 = float(np.median(times))
+    slots = gbs * seq
+    n_adapters = sum(p.numel() for p in tr.params)
+    print("fp16 params llama2-13b lora " + json.dumps({
+        "model": "Llama-2-13B", "layers": L, "base_params": n_base,
+        "base_dtype": "fp16", "compute_dtype": "fp16",
+        "remat_policy": "dots_attn", "attention": "flash",
+        "lora_rank": lora.rank, "lora_targets": len(targets),
+        "adapter_params": n_adapters, "micro_batch": mbs,
+        "seq_len": seq, "slots_per_step": slots,
+        "loss_tokens_per_step": loss_tokens, "loss_skipped": losses,
+        "step_s": times, "step_s_p50": p50,
+        "tokens_per_s_slots": slots / p50,
+        "tokens_per_s_loss_tokens": loss_tokens / p50,
+        "mfu": cfg.flops_per_token(seq) * slots / p50
+        / PEAK_OPS_PER_S[torch.float16],
+        "peak_memory_gib": peak_train, "card": card}))
+    # merge into the fp16 base, free the trainer, serve the merged model
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        merged = merge_lora_params(model, tr.model.lora_params, lora)
+    check(param_digest(model.parameters()) == before,
+          "(d) the frozen base changed")
+    del tr, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = LlamaLMHeadModel(cfg, device="cuda", seed=seed + 1)
+    served.load_state_dict(merged)
+    del merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"fp16 params (d): merged, freed and loaded in "
+          f"{time.perf_counter() - t0:.1f}s "
+          f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB)")
+
+    def trace(sampled):
+        reqs = synthetic_requests(
+            8, vocab_size=cfg.vocab_size, prompt_lens=(64, 1024),
+            max_new=(32, 32), arrivals=poisson_arrivals(8, 10.0, seed=seed),
+            seed=seed)
+        if sampled:
+            for r in reqs[1::2]:
+                r.sampling = SamplingParams(temperature=0.8, top_k=50,
+                                            top_p=0.95, seed=seed + r.rid)
+        return reqs
+
+    def serve(**kw):
+        return ServeConfig(num_slots=8, page_size=16, max_len=2048,
+                           prefill_chunk=256, **kw)
+
+    def probed(model):
+        """A greedy run of the trace on exact pages under `LogitProbe`
+        (untimed: the probe copies every emitted token's row), checked
+        against the uncached forwards.  Returns (results, readings)."""
+        eng = ServingEngine(model, serve(), device="cuda").warmup()
+        with LogitProbe(engine_mod) as probe:
+            probe.eng = eng
+            results = eng.run(trace(False))
+        del eng
+        return results, _greedy_against_uncached(
+            model, trace(False), results, probe.rows,
+            f"(d) greedy at {model.config.num_hidden_layers} layers, "
+            "probed")
+    run = dict(vocab=cfg.vocab_size, card=card)
+    eng = ServingEngine(served, serve(), device="cuda").warmup()
+    check(eng.pool.k.dtype == torch.float16, "(d) pool not fp16")
+    greedy, by_path["fp16_params_13b_greedy"] = _f16_run(
+        "(d) merged Llama-2-13B greedy, fp16 exact pages", eng,
+        trace(False), kernels, **run)
+    step = _f16_step(eng, trace(False))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the fp16 rounding by depth: the merged model, and models of its
+    # widths at 1 and 10 layers drawn from the seed
+    readings = {}
+    for depth in (1, 10):
+        shallow = LlamaLMHeadModel(dataclasses.replace(
+            cfg, num_hidden_layers=depth), device="cuda", seed=seed + 2)
+        _, readings[depth] = probed(shallow)
+        del shallow
+    again, readings[L] = probed(served)
+    if [r.tokens for r in again] != [r.tokens for r in greedy]:
+        _greedy_against_uncached(served, trace(False), greedy, None,
+                                 f"(d) greedy at {L} layers, timed",
+                                 nu=readings[L]["fp16_forward_vs_fp32"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ServingEngine(served, serve(kv_quant="int8", sampling=True),
+                        device="cuda").warmup()
+    _, by_path["fp16_params_13b_int8"] = _f16_run(
+        "(d) merged Llama-2-13B sampled, int8 pages", eng, trace(True),
+        kernels, **run)
+    del eng
+    weight_bytes = sum(p.numel() * 2 for p in served.parameters())
+    print("fp16 params llama2-13b served " + json.dumps({
+        "greedy_by_depth": readings,
+        "timed_greedy_tokens_as_probed": [r.tokens for r in again]
+        == [r.tokens for r in greedy],
+        "decode_step": step, "decode_weight_bound_ms":
+        weight_bytes / PEAK_BYTES_PER_S * 1e3,
+        "phase_s": time.perf_counter() - t_phase, "card": card}))
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def fp16_params_phase(seed: int, kernels, card: str):
+    """Phase 20 ("fp16_params"): (a) AdamW's fp16 arm and the kernels at
+    Llama-2-13B's widths, (b) a narrow fp16-parameter Llama card vs CPU,
+    (c) Llama-2-7B trained with fp16 parameters, (d) Llama-2-13B
+    LoRA-tuned on its fp16 base at full depth, merged and served.
+    Returns (by_path, cases)."""
+    t0 = time.perf_counter()
+    cases = adam_f16_phase(seed)
+    for name, more in llama2_13b_kernel_phase(seed).items():
+        cases.setdefault(name, []).extend(more)
+    fp16_params_reference_phase(seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path = {"fp16_params_llama2_7b": fp16_params_llama2_7b_phase(
+        seed, kernels, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path.update(fp16_params_llama2_13b_phase(seed, kernels, card))
+    print(f"fp16_params: {time.perf_counter() - t0:.1f}s; {card}")
     return by_path, cases
 
 
@@ -7153,6 +8157,15 @@ def main(argv=None) -> int:
     by_path.update(f16_paths)
     cases.update(f16_cases)
     mark('serving_fp16')
+    gc.collect()
+    torch.cuda.empty_cache()
+    # fp16 parameters: AdamW's fp16 arm, the kernels at Llama-2-13B's
+    # widths, Llama-2-7B trained and Llama-2-13B LoRA-tuned, merged, served
+    f16p_paths, f16p_cases = fp16_params_phase(args.seed, kernels, smi)
+    by_path.update(f16p_paths)
+    for name, more in f16p_cases.items():
+        cases.setdefault(name, []).extend(more)
+    mark('fp16_params')
 
     line = []
     for name, (mod, attr, source, replaces) in kernels.items():

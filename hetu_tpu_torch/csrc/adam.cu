@@ -5,8 +5,9 @@
 //   m' = b1 * m + (1 - b1) * g
 //   v' = b2 * v + (1 - b2) * g^2
 //   p' = p - lr * ((m' / c1) / (sqrt(v' / c2) + eps) + wd * p)
-// in fp32 (p fp32 or bf16, rounded once; g, m, v fp32).  lr and the
-// bias corrections c1 = 1 - b1^step, c2 = 1 - b2^step arrive by value,
+// in fp32 (p fp32, bf16 or fp16, rounded once to nearest even, an fp16
+// p past 65,504 to inf as astype(float16) does; g, m, v fp32).  lr and
+// the bias corrections c1 = 1 - b1^step, c2 = 1 - b2^step arrive by value,
 // computed on the host in fp32 as the JAX optimizer computes them in
 // its graph; the decay sits inside the bracket on every leaf, as in
 // the reference (not torch's decoupled p *= 1 - lr * wd).
@@ -23,10 +24,10 @@
 //     it; the grid holds as many blocks as the SMs keep resident at once,
 //     and each block strides over the chunks;
 //   * g, m and v (and an fp32 p) move as 16-byte float4 accesses, a bf16
-//     p as 4 x bf16 (8 bytes), ADAM_UNROLL vectors in flight a thread; a
-//     leaf whose pointers are not 16-byte aligned (a view) and the tail
-//     of a leaf whose length is not a multiple of 4 take a scalar path in
-//     the same kernel;
+//     or fp16 p as 4 x 16 bits (8 bytes), ADAM_UNROLL vectors in flight
+//     a thread; a leaf whose pointers are not 16-byte aligned (a view)
+//     and the tail of a leaf whose length is not a multiple of 4 take a
+//     scalar path in the same kernel;
 //   * it reads p, g, m and v once and writes p, m and v IN PLACE: where
 //     the JAX package donates its old buffers to the jitted step, the
 //     port updates the tensors it owns, so no second copy of the
@@ -47,8 +48,9 @@ constexpr int ADAM_CHUNK = 16384;
 constexpr int ADAM_THREADS = 256;
 constexpr int ADAM_UNROLL = 4;
 
-// One leaf: p (fp32 or bf16), g, m, v of n elements each.  `aligned`: p,
-// g, m and v all start on a 16-byte boundary (the vector path).
+// One leaf: p (fp32, bf16 or fp16), g, m, v of n elements each.
+// `aligned`: p, g, m and v all start on a 16-byte boundary (the vector
+// path).
 struct AdamLeaf {
   void* p;
   const float* g;
@@ -101,6 +103,12 @@ __device__ __forceinline__ void load4(const bf16* p, float (&x)[4]) {
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
   x[0] = lo.x; x[1] = lo.y; x[2] = hi.x; x[3] = hi.y;
 }
+__device__ __forceinline__ void load4(const __half* p, float (&x)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&v.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&v.y));
+  x[0] = lo.x; x[1] = lo.y; x[2] = hi.x; x[3] = hi.y;
+}
 __device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
 }
@@ -108,6 +116,16 @@ __device__ __forceinline__ void store4(bf16* p, const float (&x)[4]) {
   // round to nearest even, as __float2bfloat16 and torch's .to() do
   const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
   const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+  uint2 v;
+  v.x = *reinterpret_cast<const unsigned*>(&lo);
+  v.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = v;
+}
+__device__ __forceinline__ void store4(__half* p, const float (&x)[4]) {
+  // round to nearest even (inf past 65,504), as __float2half_rn, torch's
+  // .to() and astype(float16) do
+  const __half2 lo = __floats2half2_rn(x[0], x[1]);
+  const __half2 hi = __floats2half2_rn(x[2], x[3]);
   uint2 v;
   v.x = *reinterpret_cast<const unsigned*>(&lo);
   v.y = *reinterpret_cast<const unsigned*>(&hi);
@@ -206,4 +224,8 @@ HETU_EXPORT int hetu_adam_multi_f32(const AdamTable* t, void* stream) {
 
 HETU_EXPORT int hetu_adam_multi_bf16(const AdamTable* t, void* stream) {
   return launch<bf16>(t, stream);
+}
+
+HETU_EXPORT int hetu_adam_multi_f16(const AdamTable* t, void* stream) {
+  return launch<__half>(t, stream);
 }

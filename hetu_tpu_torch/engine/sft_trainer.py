@@ -9,12 +9,17 @@ base plus trainable adapters.
 With `lora`, the model is wrapped in a `peft.LoRAWrappedModel` whose
 adapters are drawn from `TrainingConfig.seed`, as the reference's
 `Trainer.build` draws them; only the adapters take gradients, fp32
-gradient accumulators (none: they are fp32), AdamW moments, the clip
-and the `params` / `grads` numerics taps; the base's parameters get
-requires_grad False and never a `.grad`.  Checkpoints hold the
-adapters (names `lora.<the reference's leaf path>/A|B`), their moments
-and the step.  A port model holds its own weights, so the reference's
-`base_params=` has no counterpart and is refused with TypeError.
+gradient accumulators (none: they are fp32), AdamW moments (AdamW's
+fp32 arm), the clip and the `params` / `grads` numerics taps; the
+base's parameters get requires_grad False and never a `.grad`.  The
+base may be fp32, bf16 or fp16 (Llama-2 as published): the adapters
+stay fp32, each merge rounds its delta to the base's dtype, and with
+fp16 compute the loss scale is on under "auto" (the reference's
+decides from its LoRA wrapper, which has no config, and leaves it off:
+ROADMAP Queue C).  Checkpoints hold the adapters (names `lora.<the
+reference's leaf path>/A|B`), their moments and the step.  A port
+model holds its own weights, so the reference's `base_params=` has no
+counterpart and is refused with TypeError.
 """
 from __future__ import annotations
 

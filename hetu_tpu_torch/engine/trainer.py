@@ -18,12 +18,17 @@ A step, as the reference's `_train_step_impl`:
   * gradients accumulate in fp32: in the parameters' .grad when they
     are fp32, else in fp32 accumulators beside them, each micro-batch's
     gradient added in (the reference's `jnp.add` on an fp32 zero tree);
-    the whole batch weighs every token alike, not a mean of means;
+    the whole batch weighs every token alike, not a mean of means.  A
+    bf16 or fp16 parameter's own .grad is in its dtype, as the
+    reference's gradient is: under a large scale an fp16 .grad can
+    overflow before it is added, and the inf it carries into the
+    accumulator is what the finite check below sees;
   * the sums are divided by the token count (times the scale: the
     unscale folded in), clipped by their global norm
     (`optim.clip_by_global_norm`) and applied by AdamW with the cosine
     schedule (`optim.AdamW`, one launch of the fused kernel over every
-    leaf, the bf16 arm for bf16 parameters), all in place;
+    leaf, the bf16 and fp16 arms for bf16 and fp16 parameters), all in
+    place;
   * under the scale, the global norm's finiteness — the one
     reduction that already runs over every gradient — decides the step:
     the AdamW launch reads it on the device and writes nothing when it
@@ -85,11 +90,14 @@ operation).  The trainable parameters are the model's
 base frozen, with no `.grad`); the taps, the clip and the checkpoints
 cover them alone.
 
-The reference's options that need a later slice raise
-NotImplementedError: those of `TrainingConfig`, `LlamaConfig` and
-`GPTConfig` where they are made; here a strategy or mesh, and fp16
-parameters.  The reference's `Trainer` has no `run_log`, `health` or
-`numerics` keywords, and the port's none either.
+Parameters may be fp32, bf16 or fp16 (`LlamaConfig(param_dtype=)`);
+bf16 and fp16 ones take the fp32 accumulators and the kernel's arm of
+their dtype, and a checkpoint of another parameter dtype restores cast
+to this one, as the reference's orbax restore casts.  The reference's
+options that need a later slice raise NotImplementedError: those of
+`TrainingConfig`, `LlamaConfig` and `GPTConfig` where they are made;
+here a strategy or mesh.  The reference's `Trainer` has no `run_log`,
+`health` or `numerics` keywords, and the port's none either.
 """
 from __future__ import annotations
 
@@ -116,7 +124,6 @@ from hetu_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("hetu_tpu_torch.trainer")
 
-_FP16_PARAMS = "AdamW's fp16 parameter arm (ROADMAP Queue B1)"
 _MULTI_GPU = "the multi-GPU slice (ROADMAP Queue A item 5)"
 
 #: Trainer keyword arguments beyond this slice
@@ -146,11 +153,6 @@ class Trainer:
             raise ValueError(f"the model lives on {model.device}, the "
                              f"trainer was asked for {self.device}")
         policy = model.config.policy
-        if policy.param_dtype == torch.float16:
-            raise NotImplementedError(
-                "param_dtype=torch.float16 is not in the port yet (the AdamW "
-                f"kernel has fp32 and bf16 arms); it arrives with "
-                f"{_FP16_PARAMS}")
         self.model = model
         self.config = c = config
         self.n_micro = c.num_micro_batches(1)
@@ -520,9 +522,11 @@ class Trainer:
 
     def restore(self, step: Optional[int] = None):
         """Resume from checkpoint `step` (the latest by default), into
-        the live tensors.  When the scaler's presence differs between
-        the checkpoint and this trainer, retry with it toggled: a
-        missing scaler keeps its fresh state."""
+        the live tensors, a saved tensor of another float dtype cast to
+        the live one's (a bf16-parameter checkpoint into an fp16 run).
+        When the scaler's presence differs between the checkpoint and
+        this trainer, retry with it toggled: a missing scaler keeps its
+        fresh state."""
         mgr = self._manager()
         target = self.state()
         try:

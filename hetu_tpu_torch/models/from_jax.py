@@ -103,8 +103,8 @@ def load_jax_params(model: torch.nn.Module, tree: Mapping) -> None:
     """Fill `model` (a port `LlamaLMHeadModel` or `GPTLMHeadModel`) from
     the reference's param pytree (numpy leaves, stacked or per-layer).
     Values are cast to each parameter's dtype (through fp32, which holds
-    the reference's fp32 and bf16 leaves exactly) and copied to its
-    device."""
+    the reference's fp32, bf16 and fp16 leaves exactly: an fp16 leaf
+    reaches an fp16 parameter bit for bit) and copied to its device."""
     flat = _flatten(tree)
     n_layers = model.config.num_hidden_layers
     port, stacked_prefix, per_layer = model.jax_layers

@@ -3,8 +3,9 @@ host table builder, plain version and launch counter.
 
 Replaces `hetu_tpu/ops/pallas/adam.py` `adam_update`.  Kernel:
 `csrc/adam.cu`, bound by bytes on the H100 (28 bytes per fp32
-element; see its header): one pass reads p, g, m and v and writes p, m
-and v in place, over every leaf of a list in one launch.  Every leaf
+element, 24 per bf16 or fp16 one; see its header): one pass reads p, g,
+m and v and writes p, m and v in place, over every leaf of a list in
+one launch.  Every leaf
 goes through it: the Pallas `% 128` gate is a TPU lane rule, and the
 CUDA kernel takes any element count (a scalar path takes the tail and
 views off a 16-byte boundary).  lr, c1 and c2 arrive as host floats (the
@@ -27,7 +28,7 @@ from hetu_tpu_torch.ops.cuda import build
 #: kernel launches (the plain version never counts)
 launches = 0
 #: the same launches by the parameters' arm (`build.arm_counts`; the
-#: kernel has f32 and bf16 arms)
+#: kernel has f32, bf16 and f16 arms)
 arm_launches = build.arm_counts("launches")
 
 #: leaves a launch's table holds (`ADAM_MAX_LEAVES` in csrc/adam.cu)
@@ -36,7 +37,8 @@ MAX_LEAVES = 512
 CHUNK = 16384
 
 _SYMBOLS = {torch.float32: "hetu_adam_multi_f32",
-            torch.bfloat16: "hetu_adam_multi_bf16"}
+            torch.bfloat16: "hetu_adam_multi_bf16",
+            torch.float16: "hetu_adam_multi_f16"}
 
 
 class _Leaf(ctypes.Structure):
@@ -78,8 +80,9 @@ def _scalars(lr, c1, c2, b1, b2, eps, weight_decay):
 def adam_plain(p, g, m, v, lr, c1, c2, *, b1, b2, eps, weight_decay,
                skip=None):
     """The kernel's arithmetic in PyTorch ops, updating p, m and v in
-    place (fp32 math; p rounded once to its dtype); with a nonzero
-    `skip` (a 0-d tensor on p's device) each keeps its bits."""
+    place (fp32 math; p rounded once to its dtype, to nearest even: an
+    fp16 p past 65,504 becomes inf, as the reference's astype); with a
+    nonzero `skip` (a 0-d tensor on p's device) each keeps its bits."""
     b1, omb1, b2, omb2, lr, c1, c2, eps, wd = _scalars(
         lr, c1, c2, b1, b2, eps, weight_decay)
     # the divisors as tensors: PyTorch's CUDA division by a Python
@@ -155,8 +158,9 @@ def _check_leaf(p, g, m, v):
                          f"{tuple(v.shape)}")
     if p.dtype not in _SYMBOLS or (g.dtype, m.dtype, v.dtype) != (
             torch.float32,) * 3:
-        raise ValueError(f"adam_update takes an fp32/bf16 p and fp32 g/m/v, "
-                         f"got {p.dtype} {g.dtype} {m.dtype} {v.dtype}")
+        raise ValueError(f"adam_update takes an fp32/bf16/fp16 p and fp32 "
+                         f"g/m/v, got {p.dtype} {g.dtype} {m.dtype} "
+                         f"{v.dtype}")
 
 
 def _check_skip(skip):
@@ -169,10 +173,11 @@ def adam_update_multi(params, grads, ms, vs, lr, c1, c2, *, b1: float,
                       b2: float, eps: float, weight_decay: float,
                       skip: Optional[torch.Tensor] = None,
                       device="cuda") -> None:
-    """One AdamW step over lists of leaves, IN PLACE on each p (fp32 or
-    bf16), m and v (fp32), from the fp32 gradients.  lr, c1 = 1 - b1^step
-    and c2 = 1 - b2^step are host numbers; `skip`, a 0-d int32 tensor
-    beside the leaves, nonzero leaves every p, m and v as it was.
+    """One AdamW step over lists of leaves, IN PLACE on each p (fp32,
+    bf16 or fp16), m and v (fp32), from the fp32 gradients.  lr, c1 =
+    1 - b1^step and c2 = 1 - b2^step are host numbers; `skip`, a 0-d
+    int32 tensor beside the leaves, nonzero leaves every p, m and v as
+    it was.
     `device` "cuda" launches the kernel once for each p dtype (or once
     for each `MAX_LEAVES` leaves of it), "cpu" runs the plain version
     leaf by leaf; the tensors must lie there."""
@@ -214,8 +219,8 @@ def adam_update_multi(params, grads, ms, vs, lr, c1, c2, *, b1: float,
 def adam_update(p, g, m, v, lr, c1, c2, *, b1: float, b2: float,
                 eps: float, weight_decay: float, skip=None,
                 device="cuda") -> None:
-    """One leaf's AdamW step, IN PLACE on p (fp32 or bf16), m and v
-    (fp32), from the fp32 gradient g: `adam_update_multi` over a list of
+    """One leaf's AdamW step, IN PLACE on p (fp32, bf16 or fp16), m and
+    v (fp32), from the fp32 gradient g: `adam_update_multi` over a list of
     one leaf."""
     adam_update_multi([p], [g], [m], [v], lr, c1, c2, b1=b1, b2=b2, eps=eps,
                       weight_decay=weight_decay, skip=skip, device=device)

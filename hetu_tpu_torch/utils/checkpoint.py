@@ -21,8 +21,11 @@ What the reference guarantees is kept:
     update);
   * `verify_step`, and `restore(step, target)` into the target's
     tensors in place (`copy_`), after the whole structure is checked: a
-    different set of entries, shape or dtype raises ValueError and
-    writes nothing;
+    different set of entries, shape or kind of dtype raises ValueError
+    and writes nothing; a floating tensor saved in another floating
+    dtype is rounded to the target's on the copy, as the reference's
+    orbax restore casts to its target's dtypes (a bf16-parameter run
+    resumed into an fp16 one);
   * `restore_latest_valid` walks back past torn or corrupt steps,
     counting `ckpt.fallbacks` and quarantining checksum failures into
     `<directory>.quarantine/`; a torn manifest is dropped and its step
@@ -220,9 +223,16 @@ def _rebuild(tree, by_path, prefix=()):
     return by_path[prefix]
 
 
+def _castable(loaded, target) -> bool:
+    """The same dtype, or floating both: the copy rounds to the
+    target's."""
+    return loaded.dtype == target.dtype or (
+        loaded.is_floating_point() and target.is_floating_point())
+
+
 def _check_like(loaded, target, where="state"):
     """ValueError unless `loaded` has `target`'s entries, shapes and
-    dtypes."""
+    dtypes (any floating dtype for a floating target)."""
     if isinstance(target, dict):
         if not isinstance(loaded, dict) or set(loaded) != set(target):
             got = sorted(loaded) if isinstance(loaded, dict) else loaded
@@ -232,7 +242,8 @@ def _check_like(loaded, target, where="state"):
             _check_like(loaded[k], target[k], f"{where}.{k}")
     elif isinstance(target, torch.Tensor):
         if not isinstance(loaded, torch.Tensor) or \
-                loaded.shape != target.shape or loaded.dtype != target.dtype:
+                loaded.shape != target.shape or \
+                not _castable(loaded, target):
             raise ValueError(f"checkpoint {where}: {_describe(loaded)} vs "
                              f"{_describe(target)}")
 
@@ -359,8 +370,9 @@ class CheckpointManager:
                 target: Optional[Dict[str, Any]] = None):
         """The state saved as `step` (the latest by default).  With a
         `target` of the same structure, its tensors are overwritten in
-        place and returned (numbers come from the checkpoint); without,
-        the loaded host tensors."""
+        place and returned (numbers come from the checkpoint; a floating
+        tensor rounded to the target's dtype); without, the loaded host
+        tensors."""
         self._finalize_pending()
         if step is None:
             step = self.latest_step()

@@ -195,8 +195,8 @@ def test_restore_refuses_another_structure_and_writes_nothing(tmp_path,
         target["scaler"] = {"scale": torch.zeros(())}
     elif fault == "shape":
         target["opt"]["m"] = torch.zeros(3, 2)
-    else:
-        target["opt"]["m"] = torch.zeros(2, 3, dtype=torch.bfloat16)
+    else:       # another kind: a floating leaf restores cast
+        target["opt"]["m"] = torch.zeros(2, 3, dtype=torch.int32)
     with pytest.raises(ValueError):
         mgr.restore(1, target=target)
     assert torch.equal(target["v"], torch.zeros(6))

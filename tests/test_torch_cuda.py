@@ -125,6 +125,7 @@ from hetu_tpu_torch.serving import (Request, SamplingParams, ServeConfig,
                                     synthetic_requests)
 from hetu_tpu_torch.serving import sampling as tsampling
 from hetu_tpu_torch.serving.spec_decode import ModelDrafter
+from torch_adam import adam_direction
 
 pytestmark = pytest.mark.cuda
 
@@ -785,6 +786,130 @@ def test_adam_skip_flag_writes_nothing(dev, dtype):
         if flag:
             for a, b in zip(plain, expect):
                 assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("skip", [None, 0, 1])
+def test_adam_f16_arm_matches_plain_bit_for_bit(dev, skip):
+    """AdamW's fp16 arm in a mixed fp32 / bf16 / fp16 list, one call a
+    step (one launch a dtype): fp16 leaves aligned and off a 16-byte
+    boundary (the scalar path), lengths no multiple of 4 (the scalar
+    tail), several chunks; two steps, every p, m and v bit for bit the
+    plain version's.  With the skip flag set, nothing is written (p, m
+    and v as before, fp16 ones too); clear, the bits of a launch without
+    the flag."""
+    C = tadam.CHUNK
+    f16, bf16, f32 = torch.float16, torch.bfloat16, torch.float32
+    spec = [(3 * C + 5, f16, 0), (1001, f16, 1), (C, f16, 2), (4097, f16, 3),
+            (12, f16, 0), (4096, f32, 1), (2 * C + 3, bf16, 0),
+            (0, f16, 0)]
+    p = [_adam_leaf(n, 50 + i, dev, dt, off) for i, (n, dt, off) in
+         enumerate(spec)]
+    g = [_adam_leaf(n, 60 + i, dev, torch.float32, off).mul_(0.1)
+         for i, (n, _, off) in enumerate(spec)]
+    m = [0.01 * _normal((n,), 70 + i, dev) for i, (n, _, _) in
+         enumerate(spec)]
+    v = [_normal((n,), 80 + i, dev).abs() for i, (n, _, _) in
+         enumerate(spec)]
+    flag = None if skip is None else torch.full((), skip, dtype=torch.int32,
+                                                device=dev)
+    start = [[t.clone() for t in ts] for ts in (p, m, v)]
+    ref = [[t.clone() for t in ts] for ts in (p, m, v)]
+    arms = dict(tadam.arm_launches["launches"])
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    for step in (1, 2):
+        c1 = np.float32(1) - np.float32(0.9) ** np.float32(step)
+        c2 = np.float32(1) - np.float32(0.95) ** np.float32(step)
+        tadam.adam_update_multi(p, g, m, v, 1e-3, c1, c2, skip=flag, **kw)
+        for leaf in zip(ref[0], g, ref[1], ref[2]):
+            tadam.adam_plain(*leaf, 1e-3, c1, c2, skip=flag, **kw)
+    torch.cuda.synchronize()
+    got = {a: tadam.arm_launches["launches"][a] - arms[a] for a in arms}
+    assert got == {"f32": 2, "bf16": 2, "f16": 2}
+    expect = start if skip else ref
+    for mine, theirs in zip((p, m, v), expect):
+        for a, b in zip(mine, theirs):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    if skip == 0:
+        plain = [[t.clone() for t in ts] for ts in start]
+        for step in (1, 2):
+            c1 = np.float32(1) - np.float32(0.9) ** np.float32(step)
+            c2 = np.float32(1) - np.float32(0.95) ** np.float32(step)
+            tadam.adam_update_multi(*plain[:1], g, *plain[1:], 1e-3, c1, c2,
+                                    **kw)
+        for mine, theirs in zip((p, m, v), plain):
+            assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+
+
+def test_f16_parameter_training_on_the_card_matches_the_cpu(dev):
+    """A narrow Llama with Llama-2's geometry (MHA, heads of 128) whose
+    parameters and compute are fp16 (flash, "dots_attn", the scale on
+    "auto"), card against CPU from the same weights: a first step of one
+    token everywhere, whose fp16 weight gradients overflow at 2^16 on
+    both (skipped: p, m and v as before, the scale halves), then three
+    steps: the scales and skips equal, losses and grad norms within
+    2e-3 relative (as the fp16-compute test), every fp16 parameter
+    within the AdamW-direction bound plus one fp16 ulp a step; AdamW
+    once a step on its fp16 arm."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig.tiny(hidden_size=512, num_attention_heads=4,
+                           num_key_value_heads=4, intermediate_size=1376,
+                           vocab_size=4096, param_dtype=torch.float16,
+                           compute_dtype=torch.float16,
+                           use_flash_attention=True,
+                           remat_policy="dots_attn")
+    tc = TrainingConfig(global_batch_size=4, micro_batch_size=2, seq_len=64,
+                        warmup_steps=1, total_steps=10, log_every=100)
+    cpu_model = LlamaLMHeadModel(cfg, device="cpu", seed=0)
+    gpu_model = LlamaLMHeadModel(cfg, device=dev, seed=0)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    for layer in cpu_model.model.layers:
+        layer.attn.use_pallas = True
+    rng = np.random.default_rng(4)
+    batches = [{"input_ids": np.full((4, 64), 7, np.int32),
+                "labels": np.full((4, 64), 7, np.int32)}]
+    for _ in range(3):
+        ids = rng.integers(1, 4096, (4, 64)).astype(np.int32)
+        batches.append({"input_ids": ids, "labels": ids.copy()})
+    trainers = [Trainer(gpu_model, tc, device=dev).build(),
+                Trainer(cpu_model, tc, device="cpu").build()]
+    opt = trainers[1].optimizer
+    bound = [torch.zeros(p.shape, device=dev) for p in trainers[0].params]
+    before = [p.detach().clone() for p in trainers[0].params]
+    arms = dict(tadam.arm_launches["launches"])
+    runs = ([], [])
+    for step, batch in enumerate(batches):
+        for tr, out in zip(trainers, runs):
+            out.append({k: float(v) for k, v in tr.train_step(batch).items()})
+            tr.settle()
+        if step == 0:
+            assert all(torch.equal(a, b.detach()) for a, b in zip(
+                before, trainers[0].params))
+            continue
+        n = trainers[0].opt_state["step"]
+        for i, (pg, pc) in enumerate(zip(trainers[0].params,
+                                         trainers[1].params)):
+            u = adam_direction(trainers[0].opt_state["m"][i],
+                               trainers[0].opt_state["v"][i], n, opt)
+            u_ref = adam_direction(trainers[1].opt_state["m"][i].to(dev),
+                                   trainers[1].opt_state["v"][i].to(dev), n,
+                                   opt)
+            bound[i] += opt._lr(n) * ((u - u_ref).abs() + 2.0 ** -21 * (
+                u.abs() + u_ref.abs())) + _f16_ulp(torch.maximum(
+                    pg.detach().float().abs(),
+                    pc.detach().to(dev).float().abs()))
+    got = {a: tadam.arm_launches["launches"][a] - arms[a] for a in arms}
+    assert got == {"f32": 0, "bf16": 0, "f16": 4}
+    on_card, on_cpu = runs
+    assert [(g["amp_skipped"], g["loss_scale"]) for g in on_card] == \
+        [(c["amp_skipped"], c["loss_scale"]) for c in on_cpu] == \
+        [(1.0, 2.0 ** 15)] + [(0.0, 2.0 ** 15)] * 3
+    for g, c in zip(on_card[1:], on_cpu[1:]):
+        for k in ("loss", "grad_norm"):
+            assert abs(g[k] - c[k]) <= 2e-3 * abs(c[k]), (k, g, c)
+    for pg, pc, bnd in zip(trainers[0].params, trainers[1].params, bound):
+        assert pg.dtype == torch.float16
+        d = (pg.detach().float() - pc.detach().to(dev).float()).abs()
+        assert bool((d <= bnd).all()), float((d / bnd).max())
 
 
 def test_dropout_bits_equal_on_the_card_and_the_cpu(dev):

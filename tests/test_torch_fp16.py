@@ -66,7 +66,8 @@ from hetu_tpu_torch.ops.cuda import rotary as trotary
 from hetu_tpu_torch.ops.cuda import swiglu as tswiglu
 from hetu_tpu_torch.optim.grad_scaler import GradScaler
 from test_torch_parity import HD128
-from test_torch_train3 import HD64, _adam_direction, _by_name, _np
+from test_torch_train3 import HD64, _by_name, _np
+from torch_adam import adam_direction
 
 FAMILIES = ("llama", "gpt")
 _TRAIN = dict(global_batch_size=4, micro_batch_size=2, seq_len=32,
@@ -350,8 +351,8 @@ def test_fp16_steps_match_the_reference(family):
         ref_p = _by_name(jtr.params, tr.model)
         for name, p, m, v in zip(tr.names, tr.params, tr.opt_state["m"],
                                  tr.opt_state["v"]):
-            u = _adam_direction(m, v, step, opt)
-            u_ref = _adam_direction(ref_m[name], ref_v[name], step, opt)
+            u = adam_direction(m, v, step, opt)
+            u_ref = adam_direction(ref_m[name], ref_v[name], step, opt)
             slack = 2.0 ** -21 * (u.abs() + u_ref.abs())
             bound[name] += opt._lr(step) * ((u - u_ref).abs() + slack) \
                 + 2.0 ** -21 * torch.maximum(p.detach().abs(),
@@ -522,11 +523,12 @@ def test_packed_sequences_score_as_alone(family, compute):
 @pytest.mark.parametrize("what", ["trainer_params", "engine_model",
                                   "engine_draft"])
 def test_fp16_parameters_and_fp16_serving_are_refused_by_name(what):
-    """fp16 parameters (AdamW has no fp16 arm) raise NotImplementedError
-    naming the slice that brings them, before any kernel could refuse
-    mid-run.  Serving in fp16 is no longer refused: the engine takes a
-    model and a draft that compute in fp16 and builds fp16 pools and
-    scratch (the serving kernels' fp16 arms)."""
+    """Neither is refused any more (the name is kept): the Trainer takes
+    fp16 parameters (AdamW's fp16 arm), with fp32 accumulators and the
+    scale on, and steps them in place in fp16; the engine takes a model
+    and a draft that compute in fp16 and builds fp16 pools and scratch
+    (the serving kernels' fp16 arms).  tests/test_torch_fp16_params.py
+    holds the fp16-parameter Trainer against the reference."""
     from hetu_tpu_torch.serving import Request, ServeConfig, ServingEngine
     f16 = LlamaLMHeadModel(LlamaConfig.tiny(compute_dtype=torch.float16),
                            device="cpu")
@@ -534,9 +536,20 @@ def test_fp16_parameters_and_fp16_serving_are_refused_by_name(what):
         model = LlamaLMHeadModel(LlamaConfig.tiny(
             compute_dtype=torch.float16, param_dtype=torch.float16),
             device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match="fp16 parameter arm .*Queue B1"):
-            Trainer(model, TrainingConfig(), device="cpu")
+        tr = Trainer(model, TrainingConfig(global_batch_size=4,
+                                           micro_batch_size=2, seq_len=32),
+                     device="cpu").build()
+        assert tr._scaler is not None
+        assert all(p.dtype == torch.float16 for p in tr.params)
+        assert all(a.dtype == torch.float32 for a in tr._accum)
+        before = [p.detach().clone() for p in tr.params]
+        rng = np.random.default_rng(2)
+        m = tr.train_step(pad_batch([rng.integers(1, 250, size=28)
+                                     for _ in range(4)], 32))
+        assert float(m["amp_skipped"]) == 0.0
+        assert all(p.dtype == torch.float16 for p in tr.params)
+        assert not all(torch.equal(a, b.detach())
+                       for a, b in zip(before, tr.params))
         return
     config = ServeConfig(num_slots=2, max_len=32, prefill_chunk=8)
     kw = {}

@@ -588,8 +588,8 @@ def test_trainer_refuses_arguments_of_later_slices(arg, exc):
 def test_trainer_refuses_fp16_compute_without_the_grad_scaler():
     """fp16 compute trains (since the fp16 slice) and never without the
     dynamic GradScaler under `loss_scale="auto"`, as the reference turns
-    it on; "none" is the caller's explicit choice; fp16 parameters are
-    refused by name (AdamW has no fp16 arm)."""
+    it on; "none" is the caller's explicit choice; fp16 parameters
+    (AdamW's fp16 arm) take the same rule and are no longer refused."""
     model = LlamaLMHeadModel(LlamaConfig.tiny(compute_dtype=torch.float16),
                              device="cpu")
     assert Trainer(model, TrainingConfig(), device="cpu")._scaler is not None
@@ -598,8 +598,10 @@ def test_trainer_refuses_fp16_compute_without_the_grad_scaler():
     fp16_params = LlamaLMHeadModel(LlamaConfig.tiny(
         compute_dtype=torch.float16, param_dtype=torch.float16),
         device="cpu")
-    with pytest.raises(NotImplementedError, match="fp16 parameter arm"):
-        Trainer(fp16_params, TrainingConfig(), device="cpu")
+    assert Trainer(fp16_params, TrainingConfig(),
+                   device="cpu")._scaler is not None
+    assert Trainer(fp16_params, TrainingConfig(loss_scale="none"),
+                   device="cpu")._scaler is None
 
 
 def test_trainer_trains_parameters_stored_in_bf16():

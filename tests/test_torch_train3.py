@@ -57,6 +57,7 @@ from hetu_tpu_torch.nn import remat as tremat
 from hetu_tpu_torch.ops import activations as tact
 from hetu_tpu_torch.optim.grad_scaler import GradScaler
 from test_torch_parity import HD128, MODEL_TOL
+from torch_adam import adam_direction
 
 #: GPT at head dim 64, as GPT-2's
 HD64 = dict(hidden_size=256, num_attention_heads=4)
@@ -130,13 +131,6 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(e - 7)
 
 
-def _adam_direction(m, v, step: int, opt) -> torch.Tensor:
-    """AdamW's direction m^ / (sqrt(v^) + eps) from the moments after
-    `step`."""
-    c1, c2 = 1.0 - opt.b1 ** step, 1.0 - opt.b2 ** step
-    return (m / c1) / (torch.sqrt(v / c2) + opt.eps)
-
-
 # ------------------------------------------------------ bf16 parameters
 @pytest.mark.parametrize("family", FAMILIES)
 def test_bf16_parameter_steps_match_the_reference(family):
@@ -177,8 +171,8 @@ def test_bf16_parameter_steps_match_the_reference(family):
         ref_m = _by_name(jtr.opt_state["m"], fp32)
         ref_v = _by_name(jtr.opt_state["v"], fp32)
         for name, m, v in zip(tr.names, tr.opt_state["m"], tr.opt_state["v"]):
-            gap = (_adam_direction(m, v, step, opt)
-                   - _adam_direction(ref_m[name], ref_v[name], step, opt))
+            gap = (adam_direction(m, v, step, opt)
+                   - adam_direction(ref_m[name], ref_v[name], step, opt))
             bound[name] += opt._lr(step) * gap.abs() + _bf16_ulp(
                 torch.maximum(params[name].detach().float().abs(),
                               ref_p[name].abs()))
